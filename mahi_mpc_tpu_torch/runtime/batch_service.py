@@ -1,0 +1,177 @@
+"""Batched scenario MPC service (port of
+``mahi_mpc_tpu/runtime/batch_service.py``, without the device mesh).
+
+One service owns B instances of one model — per-instance states,
+references and weights — and advances them together: each ``step()`` is
+one batched solve through the fused kernel, warm-started from the previous
+plan.  The first step seeds cold through the kernel's adaptive mode; warm
+steps run ``opts.fixed_warm_iters`` fixed iterations, or adaptive when
+that is 0.  Instances carry independent status: a failed instance
+(DIVERGED or non-finite) keeps its previous plan as its warm start,
+returns a zero control this step, and re-solves next step.
+``state_dict``/``load_state`` snapshot the (params, plan) pair in the JAX
+package's format, so either package loads the other's.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..convert import params_from_numpy, params_to_numpy
+from ..models.base import Dynamics, make_dynamics
+from ..params import ModelParameters, SolverOptions
+from ..solver.fused import solve_batch_fused
+from ..solver.select import resolve_warm_solver
+from ..solver.sqp import DIVERGED
+from ..transcribe.shooting import MPCParams, default_params, make_problem
+
+
+class BatchModelControl:
+    """Receding-horizon MPC for a batch of B instances of one model, on one
+    device."""
+
+    def __init__(self, params: ModelParameters, batch: int,
+                 dynamics: Optional[Dynamics] = None,
+                 opts: SolverOptions = SolverOptions(),
+                 device="cpu", Q=None, R=None, Rm=None):
+        if dynamics is None:
+            dynamics = make_dynamics(params.dynamics_name,
+                                     **params.dynamics_kwargs)
+        self.params = params
+        self.dynamics = dynamics
+        self.opts = opts
+        self.batch = batch
+        self.device = torch.device(device)
+        self.problem = make_problem(params, dynamics)
+        self.warm_solver = resolve_warm_solver(opts, self.problem,
+                                               self.device)
+        if self.warm_solver != "fused":
+            raise NotImplementedError(
+                f"warm solver {self.warm_solver!r} resolves to the JAX "
+                f"package's lanes SQP, which is not ported yet; use a CUDA "
+                f"device or warm_solver='fused' with a supported model")
+        nx, nu, N = params.num_x, params.num_u, params.num_shooting_nodes
+        self._dtype = getattr(torch, opts.dtype)
+
+        p = default_params(params, dtype=self._dtype, device=self.device)
+        if Q is not None:
+            p = p._replace(q=self._tensor(Q))
+        if R is not None:
+            p = p._replace(r=self._tensor(R))
+        if Rm is not None:
+            p = p._replace(rm=self._tensor(Rm))
+        expand = lambda a: a.expand((batch,) + a.shape).clone()
+        self._p = MPCParams(*[
+            type(f)(*[expand(a) for a in f]) if isinstance(f, tuple)
+            else expand(f) for f in p])
+        self._X = torch.zeros(batch, N + 1, nx, dtype=self._dtype,
+                              device=self.device)
+        self._U = torch.zeros(batch, N, nu, dtype=self._dtype,
+                              device=self.device)
+        self._mu_cold = float(opts.mu_init)
+        self._mu_warm = max(opts.warm_mu_factor * opts.tol, opts.mu_min)
+        self._warm = False
+        self.last = None          # last SolveResult
+        self.solve_time_s = 0.0
+
+    def _tensor(self, v) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                               dtype=self._dtype, device=self.device)
+
+    # -- per-instance mutation ------------------------------------------------
+
+    def set_states(self, x0, u_prev=None):
+        """Measured states for all instances: (B, nx)."""
+        self._p = self._p._replace(x0=self._tensor(x0))
+        if u_prev is not None:
+            self._p = self._p._replace(u_prev=self._tensor(u_prev))
+
+    def set_references(self, x_des):
+        """Per-instance reference trajectories: (B, N, nx)."""
+        self._p = self._p._replace(x_des=self._tensor(x_des))
+
+    def relinearize(self):
+        """LTV mode (C8) refreezes each instance's linearization; not ported
+        yet.  No-op for nonlinear models."""
+        if self.params.is_linear:
+            raise NotImplementedError("LTV relinearization is not ported yet")
+
+    def update_weights(self, Q=None, R=None, Rm=None):
+        """Per-instance (B, nx)/(B, nu) or broadcastable weight updates."""
+        p = self._p
+        B = self.batch
+        cast = lambda v, n: self._tensor(v).expand(B, n).clone()
+        if Q is not None:
+            p = p._replace(q=cast(Q, self.params.num_x))
+        if R is not None:
+            p = p._replace(r=cast(R, self.params.num_u))
+        if Rm is not None:
+            p = p._replace(rm=cast(Rm, self.params.num_u))
+        self._p = p
+
+    # -- the service step -----------------------------------------------------
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step(self) -> torch.Tensor:
+        """One batched warm-started solve; returns first controls (B, nu)
+        on the service's device."""
+        self.relinearize()
+        opts = self.opts
+        if self._warm and opts.fixed_warm_iters > 0:
+            kw = dict(mu0=self._mu_warm, n_iter=opts.fixed_warm_iters)
+        else:
+            kw = dict(mu0=self._mu_warm if self._warm else self._mu_cold,
+                      adaptive=True)
+        self._sync()
+        t0 = time.perf_counter()
+        res = solve_batch_fused(self.problem, self._p, self._X, self._U,
+                                opts, **kw)
+        self._sync()
+        self.solve_time_s = time.perf_counter() - t0
+
+        ok = ((res.status != DIVERGED)
+              & torch.isfinite(res.X).all(dim=(1, 2))
+              & torch.isfinite(res.U).all(dim=(1, 2)))
+        self._X = torch.where(ok[:, None, None], res.X, self._X)
+        self._U = torch.where(ok[:, None, None], res.U, self._U)
+        self._warm = True
+        self.last = res
+        return torch.where(ok[:, None], res.U[:, 0], 0.0)
+
+    def metrics(self) -> dict:
+        res = self.last
+        if res is None:
+            return {}
+        return {
+            "batch": self.batch,
+            "solve_s": self.solve_time_s,
+            "solves_per_s": self.batch / max(self.solve_time_s, 1e-12),
+            "mean_iters": float(res.iters.float().mean()),
+            "converged_frac": float((res.status == 0).float().mean()),
+            "max_feas": float(res.feas.max()),
+        }
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {
+            "params": params_to_numpy(self._p),
+            "X": self._X.cpu().numpy(),
+            "U": self._U.cpu().numpy(),
+            "warm": self._warm,
+        }
+
+    def load_state(self, st: dict) -> None:
+        """Load a ``state_dict`` of this package or of the JAX package's
+        ``BatchModelControl``."""
+        self._p = params_from_numpy(st["params"], self.device, self._dtype)
+        self._X = self._tensor(st["X"])
+        self._U = self._tensor(st["U"])
+        self._warm = bool(st["warm"])

@@ -1,0 +1,634 @@
+"""Fused SQP solve: the whole batched MPC solve in one kernel launch.
+
+Port of ``mahi_mpc_tpu/solver/fused.py``.  ``solve_batch_fused`` runs, per
+instance, the SQP of the JAX package's Pallas kernel (``_make_kernel``):
+each iteration linearizes the Euler step, builds the block-form stage QP
+with log-barrier box terms, solves it by a block Riccati recursion over
+(Pxx, Pxv, Pvv, px, pv), rolls the step forward with the
+fraction-to-boundary cap, and takes the largest Armijo-passing rung of a
+parallel fan on the l1 merit.  Two modes share it:
+
+- **fixed** (``adaptive=False``): exactly ``n_iter`` iterations at fixed
+  barrier and regularization — the warm receding-horizon shape;
+- **adaptive** (``adaptive=True``): barrier continuation, regularization
+  ladder and per-instance CONVERGED / DIVERGED / MAX_ITER status, with an
+  early exit once an instance is done — cold starts and adaptive warm
+  re-solves.
+
+Two implementations of the same function live here:
+
+- the CUDA kernel ``csrc/fused_sqp.cu`` (one thread per instance,
+  batch-innermost arrays), built with nvcc at first use (``_build.py``),
+  launched for CUDA tensors;
+- ``_solve_batch_fused_plain``, the plain PyTorch version in batch-leading
+  tensor form, used for CPU tensors and as the kernel's reference on the
+  card.
+
+There is no fallback from one to the other.  Served: serial arms
+(``models/arm.py``) with the forward-Euler step, u- and x-bounds and head
+pinning.  Not yet ported: LTV mode and the generic nx-row path (midpoint,
+rk4); they raise ``NotImplementedError``.
+
+Line-search deviations from the JAX lanes solver follow the JAX fused
+kernel (a fan of rungs, and an l1 weight from max|p|); the one deliberate
+difference from the JAX fused kernel is the status precedence when an
+instance converges and diverges in the same iteration: converged wins, as
+in the lanes solver.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import jvp, vmap
+
+from ..models.arm import arm_constants
+from ..ops.linalg import chol_lanes
+from ..params import SolverOptions
+from ..transcribe.shooting import MPCParams, ShootingProblem
+from . import loop_common as lc
+from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
+
+Tensor = torch.Tensor
+
+# Line-search fans, as in the JAX package: the fixed-mode fan includes the
+# 0.0625 rung; the adaptive fan reaches ~2.4e-4, the depth of the lanes
+# solver's 12-halving backtracking, for hard cold starts.
+LS_FAN_FIXED = (1.0, 0.5, 0.25, 0.0625)
+LS_FAN_ADAPTIVE = (1.0, 0.5, 0.25, 0.0625, 0.015625, 0.00390625,
+                   0.0009765625, 0.000244140625)
+MAX_FAN = 8               # csrc/fused_sqp.cuh kMaxFan
+KERNEL_NQ = (2, 4)        # arm sizes the kernel library is built for
+
+
+def fused_supported(prob: ShootingProblem) -> bool:
+    """Whether the fused solve serves this problem: a serial arm with the
+    forward-Euler step, nonlinear mode, and a joint count the kernel is
+    built for."""
+    dyn = prob.dynamics
+    return (not prob.is_linear and prob.integrator == "euler"
+            and getattr(dyn, "chain", None) is not None
+            and dyn.nq in KERNEL_NQ)
+
+
+def _check_supported(prob: ShootingProblem) -> None:
+    if prob.is_linear:
+        raise NotImplementedError(
+            "LTV mode of the fused solve is not ported yet")
+    if prob.integrator != "euler":
+        raise NotImplementedError(
+            f"the fused solve's generic path ({prob.integrator!r} "
+            f"integrator) is not ported yet; only 'euler' is served")
+    if not fused_supported(prob):
+        raise NotImplementedError(
+            f"dynamics {prob.dynamics.name!r} is not served by the fused "
+            f"solve (serial arms with nq in {KERNEL_NQ} only)")
+
+
+@contextlib.contextmanager
+def _strict_fp32():
+    """Full-precision float32 matmuls (no TF32) inside the block."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version (batch-leading tensors).
+# ---------------------------------------------------------------------------
+
+def _ssum(t: Tensor) -> Tensor:
+    """Sum over the last dim left to right, the kernel's order."""
+    acc = t[..., 0]
+    for i in range(1, t.shape[-1]):
+        acc = acc + t[..., i]
+    return acc
+
+
+def _bar_terms(v, lo, hi, mu):
+    """Barrier gradient / Hessian diagonal per component."""
+    lf, hf = torch.isfinite(lo), torch.isfinite(hi)
+    slo = torch.where(lf, v - lo, 1.0)
+    shi = torch.where(hf, hi - v, 1.0)
+    g = torch.where(lf, -mu / slo, 0.0) + torch.where(hf, mu / shi, 0.0)
+    h = (torch.where(lf, mu / (slo * slo), 0.0)
+         + torch.where(hf, mu / (shi * shi), 0.0))
+    return g, h
+
+
+def _bar_value(v, lo, hi, mu):
+    """-mu sum(log(v - lo) + log(hi - v)) over the last dim."""
+    lf, hf = torch.isfinite(lo), torch.isfinite(hi)
+    slo = torch.where(lf, torch.clamp(v - lo, min=1e-30), 1.0)
+    shi = torch.where(hf, torch.clamp(hi - v, min=1e-30), 1.0)
+    return _ssum(-mu * (torch.where(lf, torch.log(slo), 0.0)
+                        + torch.where(hf, torch.log(shi), 0.0)))
+
+
+def _ftb(v, dv, lo, hi, amax):
+    """Fraction-to-boundary cap folded into amax (NaN-propagating)."""
+    neg, pos = dv < 0, dv > 0
+    a_lo = torch.where(torch.isfinite(lo) & neg,
+                       (-lc.FTB_TAU * (v - lo)) / torch.where(neg, dv, -1.0),
+                       1.0)
+    a_hi = torch.where(torch.isfinite(hi) & pos,
+                       (lc.FTB_TAU * (hi - v)) / torch.where(pos, dv, 1.0),
+                       1.0)
+    return torch.minimum(amax, torch.amin(torch.minimum(a_lo, a_hi), dim=-1))
+
+
+def _cho_solve_rows(L: Tensor, Y: Tensor) -> Tensor:
+    """Solve (L L') X = Y, L (n, n, B) lower, Y (n, C, B), by reciprocal
+    multiplies (the order of ops/elem.py cho_solve_rows)."""
+    n = L.shape[0]
+    inv = [1.0 / L[i, i] for i in range(n)]
+    y: list = [None] * n
+    for i in range(n):
+        row = Y[i]
+        for k in range(i):
+            row = row - L[i, k] * y[k]
+        y[i] = row * inv[i]
+    x: list = [None] * n
+    for i in reversed(range(n)):
+        row = y[i]
+        for k in range(i + 1, n):
+            row = row - L[k, i] * x[k]
+        x[i] = row * inv[i]
+    return torch.stack(x, dim=0)
+
+
+def _acc_jacobian(dyn, x: Tensor, u: Tensor):
+    """f at M states and the Jacobian rows of its acceleration block:
+    x (M, nx), u (M, nu) -> fval (M, nx), J (M, nq, nx + nu).
+
+    One forward-mode pass per input direction (``jvp``, vmapped over the
+    basis) through the trailing-batch ``f``.  Keeping the batch inside f
+    also keeps every intermediate at least 1-D: forward-mode AD promotes a
+    0-d tangent times a python float to float64."""
+    nx, nq = dyn.nx, dyn.nq
+    xt, ut = x.T, u.T
+    M = x.shape[0]
+    basis = torch.eye(nx + u.shape[1], dtype=x.dtype, device=x.device)
+
+    def tangent(e):
+        return jvp(dyn.f, (xt, ut), (e[:nx, None].expand(-1, M),
+                                     e[nx:, None].expand(-1, M)))[1]
+
+    J = vmap(tangent)(basis)                      # (nz, nx, M)
+    return dyn.f(xt, ut).T, J[:, nq:].permute(2, 1, 0)
+
+
+def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
+                             X: Tensor, U: Tensor, p: MPCParams, mu: Tensor,
+                             n_iter: int, fan: Sequence[float],
+                             adaptive: bool):
+    """The fused solve in plain PyTorch: returns X, U and the (B, 8) stats
+    [stepn, feas, jref, alpha, mu, done, iters, 0] of the kernel."""
+    dyn = prob.dynamics
+    nx, nu, nq, N = prob.nx, prob.nu, dyn.nq, prob.N
+    nz = nx + nu
+    dt = float(prob.dt)
+    B = X.shape[0]
+    dtype, device = X.dtype, X.device
+    n_pin = int(opts.num_control_inputs_saved)
+    tol, floor, kappa = float(opts.tol), lc.mu_floor(opts), float(opts.kappa_mu)
+    fan_t = torch.as_tensor(fan, dtype=dtype, device=device)
+    full = lambda v: torch.full((B,), v, dtype=dtype, device=device)
+
+    q, r, rm, qf = p.q, p.r, p.rm, p.qf                     # (B, n)
+    q2, r2, rm2, qf2 = 2.0 * q, 2.0 * r, 2.0 * rm, 2.0 * qf
+    xlo, xhi = p.x_min[:, None], p.x_max[:, None]           # (B, 1, nx)
+    ulo, uhi = p.u_min[:, None], p.u_max[:, None]
+    xdes = p.x_des                                          # (B, N, nx)
+    xdes_prev = torch.cat([xdes[:, :1], xdes[:, :-1]], dim=1)
+    tk = torch.arange(N, device=device) >= 1                # (N,)
+    eye_nu = torch.eye(nu, dtype=dtype, device=device)
+
+    def stage_cost(x, u, du, e, tkm, mu_b, w):
+        """Stage cost + barriers and the rate/magnitude term; x (..., nx);
+        ``w`` reshapes a (B, n) weight to broadcast against x."""
+        c = _ssum(torch.where(tkm[..., None], w(q) * (e * e), 0.0))
+        rate = _ssum(torch.stack([w(r) * (du * du), w(rm) * (u * u)],
+                                 dim=-1).flatten(-2))
+        bx = _bar_value(x, w(p.x_min), w(p.x_max), mu_b[..., None])
+        c = c + torch.where(tkm, bx, 0.0)
+        c = c + _bar_value(u, w(p.u_min), w(p.u_max), mu_b[..., None])
+        return c + rate, rate
+
+    X, U = X.clone(), U.clone()
+    reg, nu_pen = full(lc.REG_MIN), full(1.0)
+    done, iters = full(0.0), full(0.0)
+    stepn = feas = jref = alpha = full(float("inf"))
+    for _ in range(n_iter):
+        live = done < 0.5 if adaptive else torch.ones_like(done, dtype=torch.bool)
+        if adaptive and not bool(live.any()):
+            break
+        mu_c = mu[:, None]
+
+        # ---- linearize every stage at once: value, defect, Jacobian rows
+        xs, us = X[:, :N], U
+        fval, Jac = _acc_jacobian(dyn, xs.reshape(-1, nx),
+                                  us.reshape(-1, nu))
+        val = xs + dt * fval.reshape(B, N, nx)
+        ck = val - X[:, 1:]
+        Jrows = dt * Jac.reshape(B, N, nq, nz)
+        A = torch.eye(nx, dtype=dtype, device=device).repeat(B, N, 1, 1)
+        A[:, :, :nq, nq:] += dt * torch.eye(nq, dtype=dtype, device=device)
+        A[:, :, nq:, :] += Jrows[..., :nx]
+        Bm = torch.zeros(B, N, nx, nu, dtype=dtype, device=device)
+        Bm[:, :, nq:, :] = Jrows[..., nx:]
+
+        # ---- stage gradients, diagonal, costs (all stages at once)
+        ukm1 = torch.cat([p.u_prev[:, None], U[:, :-1]], dim=1)
+        e = xs - xdes_prev
+        du = U - ukm1
+        gx_b, hx_b = _bar_terms(xs, xlo, xhi, mu_c[..., None])
+        gu_b, hu_b = _bar_terms(U, ulo, uhi, mu_c[..., None])
+        tk3 = tk[None, :, None]
+        gzx = torch.where(tk3, q2[:, None] * e + gx_b, 0.0)
+        gzv = -(r2[:, None] * du)
+        gu = (r2[:, None] * du + rm2[:, None] * U) + gu_b
+        Dx = torch.where(tk3, q2[:, None] + hx_b, 0.0)
+        Du = (r2 + rm2)[:, None] + (hu_b + reg[:, None, None])
+        w3 = lambda t: t[:, None]
+        sc, rate = stage_cost(xs, U, du, e, tk[None], mu_c, w3)
+        er = val - xdes
+        jr = _ssum(torch.cat([rate[..., None], q[:, None] * (er * er)], -1))
+
+        # ---- terminal cost-to-go
+        xN = X[:, N]
+        eN, eF = xN - xdes[:, N - 1], xN - p.xf_des
+        gN_b, hN_b = _bar_terms(xN, p.x_min, p.x_max, mu_c)
+        Pxx = torch.diag_embed((q2 + qf2) + hN_b)
+        Pxv = torch.zeros(B, nx, nu, dtype=dtype, device=device)
+        Pvv = torch.zeros(B, nu, nu, dtype=dtype, device=device)
+        px = (q2 * eN + qf2 * eF) + gN_b
+        pv = torch.zeros(B, nu, dtype=dtype, device=device)
+        G_N = px
+        cost0 = _ssum(torch.cat([
+            _bar_value(xN, p.x_min, p.x_max, mu_c)[:, None],
+            torch.stack([q * (eN * eN), qf * (eF * eF)], dim=-1).flatten(1)],
+            dim=1))
+        cost0 = cost0 + sc.sum(1)
+        jref_old = _ssum(qf * (eF * eF)) + jr.sum(1)
+        feas_i = torch.amax(ck.abs(), dim=(1, 2))
+        c_l1 = ck.abs().sum(dim=(1, 2))
+        pmax = torch.amax(px.abs(), dim=1)
+
+        # ---- backward Riccati sweep: Az = [[A,0],[0,0]], Bz = [[B],[I]],
+        # Hzz = diag[Dx, 2R], Hzu = [[0],[-2R]]
+        K_all = torch.empty(B, N, nu, nz, dtype=dtype, device=device)
+        kff_all = torch.empty(B, N, nu, dtype=dtype, device=device)
+        for k in reversed(range(N)):
+            Ak, Bk, ckk = A[:, k], Bm[:, k], ck[:, k, :, None]
+            Prp_x = px + (Pxx @ ckk)[..., 0]
+            Prp_v = pv + (Pxv.mT @ ckk)[..., 0]
+            PxxB = Pxx @ Bk
+            M1 = PxxB + Pxv
+            Qxx = Ak.mT @ (Pxx @ Ak)
+            Qxx = torch.triu(Qxx) + torch.triu(Qxx, 1).mT   # symmetric
+            Qxx = Qxx + torch.diag_embed(Dx[:, k])
+            Qxu = Ak.mT @ M1
+            BtPxv = Bk.mT @ Pxv
+            Quu = ((Bk.mT @ PxxB + (BtPxv + BtPxv.mT)) + Pvv
+                   + torch.diag_embed(Du[:, k]))
+            qz_x = gzx[:, k] + (Ak.mT @ Prp_x[..., None])[..., 0]
+            qu = gu[:, k] + ((Bk.mT @ Prp_x[..., None])[..., 0] + Prp_v)
+            L = chol_lanes(Quu.permute(1, 2, 0))
+            rhs = torch.cat([-Qxu.mT, r2[:, :, None] * eye_nu,
+                             -qu[..., None]], dim=2)          # (B, nu, nz+1)
+            Y = _cho_solve_rows(L, rhs.permute(1, 2, 0)).permute(2, 0, 1)
+            if k < n_pin:
+                # Pinned head controls: K = 0, kff = 0, P = [[Qxx,0],[0,2R]]
+                Y = torch.zeros_like(Y)
+                Pxx, px = Qxx, qz_x
+                Pxv = torch.zeros_like(Pxv)
+                Pvv = torch.diag_embed(r2)
+                pv = gzv[:, k]
+            else:
+                Kx, Kv, kff = Y[..., :nx], Y[..., nx:nz], Y[..., nz]
+                Pxx = Qxx + Qxu @ Kx
+                Pxx = 0.5 * (Pxx + Pxx.mT)
+                Pxv = 0.5 * (Qxu @ Kv - r2[:, None, :] * Kx.mT)
+                RK = r2[:, :, None] * Kv
+                Pvv = -0.5 * (RK + RK.mT) + torch.diag_embed(r2)
+                px = qz_x + (Qxu @ kff[..., None])[..., 0]
+                pv = gzv[:, k] - r2 * kff
+            K_all[:, k] = Y[..., :nz]
+            kff_all[:, k] = Y[..., nz]
+            pmax = torch.maximum(pmax, torch.maximum(
+                torch.amax(px.abs(), dim=1), torch.amax(pv.abs(), dim=1)))
+
+        nu_pen_new = torch.maximum(nu_pen, 2.0 * pmax + 1.0)
+        m0 = cost0 + nu_pen_new * c_l1
+
+        # ---- forward rollout from the stored rows (no dynamics evaluated)
+        dX = torch.zeros(B, N + 1, nx, dtype=dtype, device=device)
+        dU = torch.empty(B, N, nu, dtype=dtype, device=device)
+        dx = torch.zeros(B, nx, dtype=dtype, device=device)
+        dv = torch.zeros(B, nu, dtype=dtype, device=device)
+        amax, ddir, stepn_i = full(1.0), full(0.0), full(0.0)
+        for k in range(N):
+            dz = torch.cat([dx, dv], dim=1)
+            du_k = (K_all[:, k] @ dz[..., None])[..., 0] + kff_all[:, k]
+            Gk = torch.cat([gzx[:, k], gzv[:, k], gu[:, k]], dim=1)
+            terms = torch.cat([
+                Gk[:, :nx] * dx,
+                torch.stack([Gk[:, nx:nx + nu] * dv, Gk[:, nx + nu:] * du_k],
+                            dim=-1).flatten(1)], dim=1)
+            ddir = ddir + _ssum(terms)
+            dzin = torch.cat([dx, du_k], dim=1)
+            dxn = torch.cat([
+                (dx[:, :nq] + dt * dx[:, nq:]) + ck[:, k, :nq],
+                (dx[:, nq:] + (Jrows[:, k] @ dzin[..., None])[..., 0])
+                + ck[:, k, nq:]], dim=1)
+            amax = _ftb(U[:, k], du_k, p.u_min, p.u_max, amax)
+            amax = _ftb(X[:, k + 1], dxn, p.x_min, p.x_max, amax)
+            stepn_i = torch.maximum(stepn_i, torch.maximum(
+                torch.amax(du_k.abs(), dim=1), torch.amax(dxn.abs(), dim=1)))
+            dU[:, k] = du_k
+            dX[:, k + 1] = dxn
+            dx, dv = dxn, du_k
+        ddir = ddir + _ssum(G_N * dx)
+        ddir = ddir - nu_pen_new * c_l1
+
+        # ---- line search: all rungs and stages at once, (B, T, N, .)
+        al = amax[:, None] * fan_t                              # (B, T)
+        a4 = al[:, :, None, None]
+        dukm1 = torch.cat([torch.zeros_like(dU[:, :1]), dU[:, :-1]], dim=1)
+        xt = X[:, None, :N] + a4 * dX[:, None, :N]
+        ut = U[:, None] + a4 * dU[:, None]
+        dut = ut - (ukm1[:, None] + a4 * dukm1[:, None])
+        et = xt - xdes_prev[:, None]
+        w4 = lambda t: t[:, None, None]
+        sc_t, rate_t = stage_cost(xt, ut, dut, et, tk[None, None],
+                                  mu_c[..., None], w4)
+        fv = dyn.f(xt.reshape(-1, nx).T, ut.reshape(-1, nu).T).T
+        val_t = xt + fv.reshape(xt.shape) * dt                 # Euler step
+        xt1 = X[:, None, 1:] + a4 * dX[:, None, 1:]
+        cl1_t = _ssum((val_t - xt1).abs()).sum(-1)
+        er_t = val_t - xdes[:, None]
+        jref_t = _ssum(torch.cat([rate_t[..., None],
+                                  q[:, None, None] * (er_t * er_t)], -1)
+                       ).sum(-1)
+        cost_t = sc_t.sum(-1)
+        xtN = X[:, None, N] + al[..., None] * dX[:, None, N]   # (B, T, nx)
+        eNt = xtN - xdes[:, None, N - 1]
+        eFt = xtN - p.xf_des[:, None]
+        for i in range(nx):
+            cost_t = (cost_t + q[:, None, i] * eNt[..., i] * eNt[..., i]) \
+                + qf[:, None, i] * eFt[..., i] * eFt[..., i]
+            jref_t = jref_t + qf[:, None, i] * eFt[..., i] * eFt[..., i]
+        cost_t = cost_t + _bar_value(xtN, p.x_min[:, None], p.x_max[:, None],
+                                     mu_c[..., None])
+        m_t = cost_t + nu_pen_new[:, None] * cl1_t
+        eps_m = lc.armijo_eps(m0)
+        passed = lc.armijo_pass(m_t, m0[:, None], al, ddir[:, None],
+                                eps_m[:, None])
+        first = passed.to(torch.int32).argmax(dim=1, keepdim=True)
+        anyp = passed.any(dim=1)
+        alpha_new = torch.where(anyp, al.gather(1, first)[:, 0], 0.0)
+        jref_new = torch.where(anyp, jref_t.gather(1, first)[:, 0], jref_old)
+        alpha_new = torch.where(live, alpha_new, 0.0)
+
+        # 0*inf-guarded update: a rejected direction may hold inf/NaN.
+        step = (alpha_new > 0)[:, None, None]
+        X = torch.where(step, X + alpha_new[:, None, None] * dX, X)
+        U = torch.where(step, U + alpha_new[:, None, None] * dU, U)
+
+        if not adaptive:
+            nu_pen, stepn, feas, jref, alpha = (nu_pen_new, stepn_i, feas_i,
+                                                jref_new, alpha_new)
+            continue
+
+        # ---- adaptive bookkeeping (loop_common policies); a crawl step
+        # (only a deep rung passed) grows reg like a failed search.
+        no_move = (alpha_new == 0.0) | ~torch.isfinite(alpha_new)
+        crawl = no_move | (alpha_new < 0.01 * amax)
+        reg_new = lc.reg_update(reg, crawl)
+        mu_new = lc.mu_update(mu, stepn_i, feas_i, tol, floor, kappa)
+        conv, div = lc.convergence(stepn_i, feas_i, mu, reg_new, tol, floor)
+        # Converged wins over diverged in the same iteration (the lanes
+        # solver's rule; the JAX fused kernel lets diverged win).
+        done_new = torch.where(conv, 1.0, torch.where(div, 2.0, 0.0))
+        sel = lambda new, old: torch.where(live, new, old)
+        mu, reg, nu_pen = sel(mu_new, mu), sel(reg_new, reg), \
+            sel(nu_pen_new, nu_pen)
+        done = sel(done_new.to(dtype), done)
+        stepn, feas = sel(stepn_i, stepn), sel(feas_i, feas)
+        jref, alpha = sel(jref_new, jref), sel(alpha_new, alpha)
+        iters = iters + live.to(dtype)
+
+    stats = torch.stack([stepn, feas, jref, alpha, mu, done, iters,
+                         torch.zeros_like(mu)], dim=1)
+    return X, U, stats
+
+
+# ---------------------------------------------------------------------------
+# The kernel through its C interface.
+# ---------------------------------------------------------------------------
+
+def _arm_flat(dyn) -> list:
+    """Chain constants in the order of csrc/arm_dynamics.cuh load_arm."""
+    c = arm_constants(dyn)
+    out = []
+    for key in ("axes", "offsets", "coms", "masses", "inertias", "neg_g"):
+        out += np.asarray(c[key], dtype=np.float64).reshape(-1).tolist()
+    return out + [c["damping"]]
+
+
+def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
+                 X0: Tensor, U0: Tensor, p: MPCParams, mu: Tensor,
+                 n_iter: int, fan: Sequence[float], adaptive: bool):
+    """Call a build of the kernel body (``fn``: the CUDA launcher when
+    ``stream`` is given, else the CPU test build) on batch-innermost copies
+    of the inputs; returns X, U, stats in batch-leading layout."""
+    dyn = prob.dynamics
+    nx, nu, nq, N = prob.nx, prob.nu, dyn.nq, prob.N
+    nz = nx + nu
+    B = X0.shape[0]
+    dtype, device = X0.dtype, X0.device
+    if len(fan) > MAX_FAN:
+        raise ValueError(f"at most {MAX_FAN} line-search rungs, got {len(fan)}")
+    lanes = lambda t: t.to(dtype).movedim(0, -1).contiguous()
+    ins = [lanes(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
+                              p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
+                              p.xf_des, mu)]
+    new = lambda *shape: torch.empty(shape + (B,), dtype=dtype, device=device)
+    outs = [new(N + 1, nx), new(N, nu), new(8)]
+    scratch = [new(N, nu, nz),          # feedback gains K
+               new(N, nu),              # feedforward kff
+               new(N + 1, nx),          # step direction dX
+               new(N, nu),              # step direction dU
+               new(N + 1, nx + 2 * nu),  # stage gradients G
+               new(N, nq, nz),          # dt-scaled Jacobian rows J
+               new(N, nx)]              # stage defects ck
+    bufs = ins + outs + scratch
+    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    scal = (ctype * 4)(float(prob.dt), float(opts.tol), lc.mu_floor(opts),
+                       float(opts.kappa_mu))
+    ints = (ctypes.c_int * 4)(int(n_iter), int(opts.num_control_inputs_saved),
+                              int(adaptive), len(fan))
+    fan_c = (ctype * MAX_FAN)(*fan)
+    arm = _arm_flat(dyn)
+    arm_c = (ctypes.c_double * len(arm))(*arm)
+    args = [B, N, nq, ptrs, scal, ints, fan_c, arm_c]
+    if stream is not None:
+        args.append(stream)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
+    back = lambda t: t.movedim(-1, 0).contiguous()
+    return back(outs[0]), back(outs[1]), back(outs[2])
+
+
+def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive):
+    """Launch the CUDA kernel on the current stream of X0's device."""
+    if X0.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
+    from .._build import cuda_build
+    fn = cuda_build()[0].mpc_fused_launch_f32
+    with torch.cuda.device(X0.device):
+        stream = torch.cuda.current_stream(X0.device).cuda_stream
+        out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
+                           fan, adaptive)
+    solve_batch_fused.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The wrapper.
+# ---------------------------------------------------------------------------
+
+def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
+    """Host-side preparation (the JAX wrapper's fused.py:910-932), one call
+    of ``body`` (plain version or a kernel build), and the status rules."""
+    _check_supported(prob)
+    nx, nu, N = prob.nx, prob.nu, prob.N
+    B = p.x0.shape[0]
+    dtype, device = p.x0.dtype, p.x0.device
+    if n_iter is None:
+        n_iter = int(opts.max_iter) if adaptive else 3
+    fan = tuple(float(a) for a in (
+        ls_fan if ls_fan is not None
+        else (LS_FAN_ADAPTIVE if adaptive else LS_FAN_FIXED)))
+    if X0 is None:
+        X0 = torch.zeros(B, N + 1, nx, dtype=dtype, device=device)
+    if U0 is None:
+        U0 = torch.zeros(B, N, nu, dtype=dtype, device=device)
+    want = {"x_des": (B, N, nx), "q": (B, nx), "r": (B, nu), "rm": (B, nu),
+            "u_prev": (B, nu), "x0": (B, nx), "u_min": (B, nu),
+            "u_max": (B, nu), "x_min": (B, nx), "x_max": (B, nx),
+            "qf": (B, nx), "xf_des": (B, nx)}
+    got = dict(X0=X0, U0=U0, **{k: getattr(p, k) for k in want})
+    want.update(X0=(B, N + 1, nx), U0=(B, N, nu))
+    for k, shape in want.items():
+        t = got[k]
+        if tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"{k}: expected shape {shape} on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    X0 = torch.cat([p.x0[:, None],
+                    _strict_interior(X0[:, 1:].to(dtype), p.x_min[:, None],
+                                     p.x_max[:, None])], dim=1)
+    U0 = _strict_interior(U0.to(dtype), p.u_min[:, None], p.u_max[:, None])
+    fin = lambda t: torch.isfinite(t).any(dim=1)
+    has_bounds = fin(p.u_min) | fin(p.u_max) | fin(p.x_min) | fin(p.x_max)
+    floor = lc.mu_floor(opts)
+    if mu0 is None:
+        mu0 = opts.warm_mu_factor * opts.tol
+    mu0 = torch.as_tensor(mu0, dtype=dtype, device=device).expand(B)
+    mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
+
+    with _strict_fp32():
+        X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive)
+
+    stepn, feas, obj = st[:, 0], st[:, 1], st[:, 2]
+    finite = (torch.isfinite(stepn) & torch.isfinite(feas)
+              & torch.isfinite(X.reshape(B, -1)).all(dim=1))
+    code = lambda c: torch.full((B,), c, dtype=torch.int32, device=device)
+    if adaptive:
+        done = st[:, 5]
+        status = torch.where((done >= 1.5) | ~finite, code(DIVERGED),
+                             torch.where(done >= 0.5, code(CONVERGED),
+                                         code(MAX_ITER)))
+        iters = st[:, 6].to(torch.int32)
+    else:
+        converged = (stepn < opts.tol) & (feas < opts.tol) & (mu <= 2.0 * floor)
+        status = torch.where(~finite, code(DIVERGED),
+                             torch.where(converged, code(CONVERGED),
+                                         code(MAX_ITER)))
+        iters = code(n_iter)
+    return SolveResult(X=X, U=U, iters=iters, status=status, kkt=stepn,
+                       feas=feas, obj=obj)
+
+
+def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
+                      X0: Optional[Tensor] = None, U0: Optional[Tensor] = None,
+                      opts: SolverOptions = SolverOptions(),
+                      mu0=None, n_iter: Optional[int] = None,
+                      ls_fan: Optional[Sequence[float]] = None,
+                      adaptive: bool = False) -> SolveResult:
+    """Solve a batch of B instances in one fused solve.
+
+    ``p`` holds (B, ...) tensors, ``X0`` (B, N+1, nx) and ``U0`` (B, N, nu)
+    warm-start them (zeros when None).  ``adaptive=False``: exactly
+    ``n_iter`` (default 3) iterations at the warm barrier ``mu0`` (default
+    ``warm_mu_factor * tol``); status CONVERGED when the final step and
+    defects pass ``opts.tol``.  ``adaptive=True``: the full adaptive SQP,
+    ``n_iter`` the iteration cap (default ``opts.max_iter``); cold starts
+    pass ``mu0 = opts.mu_init``.
+
+    On CUDA tensors this launches the kernel (float32) and counts the launch
+    in ``solve_batch_fused.launches``; on CPU tensors it runs the plain
+    PyTorch version.  Any other device raises.
+    """
+    kind = p.x0.device.type
+    if kind == "cuda":
+        body = _launch_cuda
+    elif kind == "cpu":
+        body = _solve_batch_fused_plain
+    else:
+        raise ValueError(f"no fused solve for device type {kind!r}")
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body)
+
+
+solve_batch_fused.launches = 0
+
+
+def solve_batch_fused_plain(prob: ShootingProblem, p: MPCParams,
+                            X0: Optional[Tensor] = None,
+                            U0: Optional[Tensor] = None,
+                            opts: SolverOptions = SolverOptions(),
+                            mu0=None, n_iter: Optional[int] = None,
+                            ls_fan: Optional[Sequence[float]] = None,
+                            adaptive: bool = False) -> SolveResult:
+    """The plain PyTorch version on any device (the kernel's reference)."""
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
+                  _solve_batch_fused_plain)
+
+
+def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
+                                 X0: Optional[Tensor] = None,
+                                 U0: Optional[Tensor] = None,
+                                 opts: SolverOptions = SolverOptions(),
+                                 mu0=None, n_iter: Optional[int] = None,
+                                 ls_fan: Optional[Sequence[float]] = None,
+                                 adaptive: bool = False) -> SolveResult:
+    """The kernel body built for the CPU by g++ (float32 or float64 CPU
+    tensors): how the tests run the kernel's own arithmetic without a
+    card."""
+    from .._build import cpu_library
+    lib = cpu_library()
+    fn = (lib.mpc_fused_solve_cpu_f32 if p.x0.dtype == torch.float32
+          else lib.mpc_fused_solve_cpu_f64)
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
+                  functools.partial(_run_library, fn, None))
