@@ -2,13 +2,14 @@
 """Drive the PyTorch port's main path once on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-NVIDIA Hopper card (the kernel is built for sm_90a), the CUDA toolkit's
+NVIDIA Hopper card (the kernels are built for sm_90a), the CUDA toolkit's
 ``nvcc`` (``/usr/local/cuda`` or on PATH), and no network.  Phases, one JSON
 line each, with the seconds since start in ``t``:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build  — nvcc builds ``mahi_mpc_tpu_torch/csrc/fused_sqp.cu``; registers
-   and spill bytes from ``-Xptxas -v``;
+2. build  — nvcc builds ``mahi_mpc_tpu_torch/csrc/fused_sqp.cu`` and
+   ``csrc/riccati.cu``, one process each, started together; registers and
+   spill bytes of every kernel instantiation from ``-Xptxas -v``;
 3. parity — the fused kernel against its plain PyTorch version, both on the
    card, at B=1024 on the 4-DOF ``mahi_arm`` (N=25, dt=2 ms, |u| <= 20,
    float32) with bench-shaped data:
@@ -26,10 +27,35 @@ line each, with the seconds since start in ``t``:
    ``fixed_warm_iters=3``: one cold step, then 10 warm steps with 0.01 N(0,1)
    state noise and a phase-shifted sinusoid reference (converged_frac >= 0.9
    after the cold and the last warm step; the kernel's launch count rises by
-   11); then a service with adaptive warm steps (1 cold + 3 warm).
+   11); then a service with adaptive warm steps (1 cold + 3 warm);
+5. parity_riccati — the Riccati kernel against its plain PyTorch version on
+   the card, B=1000, N=25: random well-conditioned QPs at (nz, nu) = (12, 4)
+   (one instance with an indefinite Huu: NaN there in both, finite
+   elsewhere) and (6, 2), and a QP built by ``build_stage_qp`` at a
+   bench-shaped ``mahi_arm`` iterate; du, dz at rtol 2e-4 / atol 2e-5; lam
+   (computed outside the kernel) at rtol / atol 2e-4 on the stage QP and
+   within 1e-2 of max|lam| on the random QPs, whose adjoint recursion
+   amplifies float32 roundoff ~1e4-fold at N=25;
+6. timing_riccati — kernel and plain version at B=16384, (25, 12, 4);
+7. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
+   fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
+   iteration each, then the adaptive warm lanes solve against fused
+   fixed-3 (max|dX|, max|dU| <= 1e-4); and the lanes cold solve with the
+   kernel against the scan (statuses equal on >= 99 %; U at rtol 5e-3 /
+   atol 5e-4 on >= 99 % of the instances converged in both, for the float32
+   crawl of phase 3; both are also counted against a float64 scan solve);
+8. service_lanes — ``BatchModelControl(mahi_arm, warm_solver="adaptive")``
+   at B=16384, 1 cold + 3 warm steps (converged_frac >= 0.9, Riccati
+   launches = the sum over steps of max(iters), no fused launch), then one
+   more warm step under ``torch.profiler`` for the Riccati kernel's device
+   share, and the wall time of each stage of a lanes iteration;
+9. service_double_pendulum — the default ``warm_solver="auto"`` on the
+   card resolves to the lanes route for ``double_pendulum`` (dt=2 ms,
+   N=25, |u| <= 60, B=16384, closed loop on the model's RK4 step), with the
+   asserts of phase 8.
 
-Then one line ``{"kernels": [...]}`` with each kernel's launches in the
-service phase, its error against the plain version and both times, the
+Then one line ``{"kernels": [...]}`` with each kernel's launches on the
+main paths, its error against the plain version and both times, the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -49,6 +75,8 @@ SERVICE_BATCH = 16384
 WARM_STEPS = 10
 ADAPTIVE_WARM_STEPS = 3
 COLD_DU_BAND = 5e-3
+RICCATI_PARITY_BATCH = 1000       # not a multiple of the 128-thread block
+LANES_WARM_STEPS = 3
 
 
 def emit(**kw):
@@ -66,17 +94,362 @@ def ptxas_summary(report: str) -> list:
     out = []
     for block in report.split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        nq = re.search(r"ILi(\d+)E", name)
+        targs = re.search(r"I((?:Li\d+E)+)E", name)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", block)
         out.append({
-            "kernel": name, "nq": int(nq.group(1)) if nq else None,
+            "kernel": name,
+            "template_args": ([int(v) for v in re.findall(r"\d+",
+                                                          targs.group(1))]
+                              if targs else None),
             "registers": int(regs.group(1)) if regs else None,
             "stack_frame_bytes": int(spill.group(1)) if spill else None,
             "spill_store_bytes": int(spill.group(2)) if spill else None,
             "spill_load_bytes": int(spill.group(3)) if spill else None})
     return out
+
+
+def random_qp(B, N, nz, nu, seed, to):
+    """tests/test_pallas_riccati.py:23-44's well-conditioned QP batch, made
+    with numpy and handed to ``to`` field by field."""
+    import numpy as np
+
+    from mahi_mpc_tpu_torch.solver.stage_qp import StageQP
+    rng = np.random.default_rng(seed)
+
+    def spd(n):
+        M = rng.standard_normal((B, N, n, n)) * 0.3
+        return np.einsum("bnij,bnkj->bnik", M, M) + 2.0 * np.eye(n)
+
+    Az = 0.3 * rng.standard_normal((B, N, nz, nz)) + np.eye(nz)
+    Bz = 0.3 * rng.standard_normal((B, N, nz, nu))
+    r = 0.1 * rng.standard_normal((B, N, nz))
+    Hzz = spd(nz)
+    Hzu = 0.1 * rng.standard_normal((B, N, nz, nu))
+    Huu = spd(nu)
+    gz = rng.standard_normal((B, N, nz))
+    gu = rng.standard_normal((B, N, nu))
+    HfM = rng.standard_normal((B, nz, nz)) * 0.3
+    Hf = np.einsum("bij,bkj->bik", HfM, HfM) + 2.0 * np.eye(nz)
+    gf = rng.standard_normal((B, nz))
+    return StageQP(*[to(a) for a in (Az, Bz, r, Hzz, Hzu, Huu, gz, gu, Hf,
+                                     gf)])
+
+
+def profile_step(svc):
+    """One service step under torch.profiler: wall ms (profiler overhead
+    included), device ms summed over kernels, and the Riccati kernel's
+    device ms.  Device time 0 means the profiler saw no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    ric = sum(dev_us(e) for e in kernels if "riccati_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return dict(wall_ms=wall_ms, device_ms=total, riccati_device_ms=ric,
+                riccati_share_of_device=ric / total if total else None,
+                device_busy_share=total / wall_ms,
+                top_kernels=[[e.key[:70], dev_us(e) / 1e3, e.count]
+                             for e in top])
+
+
+def lanes_stage_ms(svc) -> dict:
+    """Wall ms (synchronised, mean of 3 after a warm-up call) of each stage
+    of one lanes SQP iteration at the service's current plan: the
+    linearization in both modes, the QP build, the KKT solve through the
+    kernel's batch entry (permutes and multipliers included), and one
+    line-search rung (a merit evaluation)."""
+    import torch
+
+    from mahi_mpc_tpu_torch.solver.batched import (_linearize_lanes,
+                                                   _merit_batch)
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
+    from mahi_mpc_tpu_torch.solver.stage_qp import build_stage_qp
+
+    prob, p, X, U = svc.problem, svc._p, svc._X, svc._U
+    ones = torch.ones(svc.batch, dtype=X.dtype, device=X.device)
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / reps
+
+    lin, fan_ms = wall(lambda: _linearize_lanes(prob, X, U, "fan"))
+    _, rev_ms = wall(lambda: _linearize_lanes(prob, X, U, "rev"))
+    qp, qp_ms = wall(lambda: build_stage_qp(prob, X, U, p, 1e-5 * ones,
+                                            1e-8 * ones, lin=lin))
+    _, kkt_ms = wall(lambda: solve_lqr_kernel_batch(qp))
+    _, rung_ms = wall(lambda: _merit_batch(prob, X, U, p, 1e-5 * ones, ones))
+    return dict(linearize_fan_ms=fan_ms, linearize_rev_ms=rev_ms,
+                build_qp_ms=qp_ms, kkt_batch_entry_ms=kkt_ms,
+                line_search_rung_ms=rung_ms)
+
+
+def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
+                 opts, opts_cold, mu_warm, Qw, Rw, Rmw) -> dict:
+    """Phases 5-9: the Riccati kernel and the lanes route.  Returns what the
+    kernels line reports of the Riccati kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
+    from mahi_mpc_tpu_torch.models import make_dynamics, rk4_step
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+    from mahi_mpc_tpu_torch.solver.batched import (_linearize_lanes,
+                                                   solve_batch_lanes)
+    from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import (
+        _solve_lqr_kernel_plain, _to_lanes, solve_lqr_kernel_batch,
+        solve_lqr_kernel_lanes)
+    from mahi_mpc_tpu_torch.solver.stage_qp import StageQP, build_stage_qp
+    from mahi_mpc_tpu_torch.transcribe.shooting import MPCParams
+
+    nx, nu, N = prob.nx, prob.nu, prob.N
+    sync = torch.cuda.synchronize
+
+    # ---- parity_riccati: kernel vs plain version, both on the card
+    Br = RICCATI_PARITY_BATCH
+    nan_i = 7
+    qp12 = random_qp(Br, N, 12, 4, seed=11, to=f32)
+    Huu = qp12.Huu.clone()
+    Huu[nan_i, N - 1] = -50.0 * torch.eye(4, device=dev)   # indefinite
+    pa = batch_params(Br)
+    X = f32(0.2 * rng.standard_normal((Br, N + 1, nx)))
+    X[:, 0] = pa.x0
+    U = f32(2.0 * rng.standard_normal((Br, N, nu)))
+    full = lambda v: torch.full((Br,), v, device=dev)
+    arm_qp = build_stage_qp(prob, X, U, pa, full(opts.mu_init), full(1e-8),
+                            lin=_linearize_lanes(prob, X, U))
+    cases = {"random_12x4": qp12._replace(Huu=Huu),
+             "random_6x2": random_qp(Br, N, 6, 2, seed=12, to=f32),
+             "stage_qp_mahi_arm": arm_qp}
+    max_err = 0.0
+    for name, qp in cases.items():
+        k, pl = solve_lqr_kernel_batch(qp), _solve_lqr_kernel_plain(qp)
+        sync()
+        fin = lambda s: (torch.isfinite(s.du).all(dim=(1, 2))
+                         & torch.isfinite(s.dz).all(dim=(1, 2)))
+        fk, fp = fin(k), fin(pl)
+        want = torch.ones(Br, dtype=torch.bool, device=dev)
+        if name == "random_12x4":
+            want[nan_i] = False
+        check(bool((fk == want).all()) and bool((fp == want).all()),
+              f"{name}: non-finite instances kernel "
+              f"{(~fk).nonzero().flatten().tolist()}, plain "
+              f"{(~fp).nonzero().flatten().tolist()}")
+        line = dict(phase="parity_riccati", case=name, batch=Br, N=N,
+                    nz=qp.Az.shape[-1], nu=qp.Bz.shape[-1],
+                    nan_instances=int((~fk).sum()))
+        for field, rtol, atol in (("du", 2e-4, 2e-5), ("dz", 2e-4, 2e-5),
+                                  ("lam", 2e-4, 2e-4)):
+            a, b = getattr(k, field)[want], getattr(pl, field)[want]
+            err = (a - b).abs()
+            line[f"max_abs_{field}"] = err.max().item()
+            line[f"band_excess_{field}"] = (err - (atol + rtol * b.abs())
+                                            ).max().item()
+            line[f"max_abs_{field}_ref"] = b.abs().max().item()
+        emit(**line)
+        for field in ("du", "dz"):
+            check(line[f"band_excess_{field}"] <= 0,
+                  f"{name}: {field} beyond rtol 2e-4 / atol 2e-5")
+        if name == "stage_qp_mahi_arm":
+            check(line["band_excess_lam"] <= 0,
+                  f"{name}: lam beyond rtol/atol 2e-4")
+        else:
+            # lam is computed outside the kernel from dz and du; the adjoint
+            # recursion through Az = I + 0.3 randn (spectral radius ~2)
+            # amplifies their float32 roundoff ~1e4-fold (PERF.md), so it
+            # is held normwise here.
+            check(line["max_abs_lam"] <= 1e-2 * line["max_abs_lam_ref"],
+                  f"{name}: lam beyond 1e-2 of max|lam|")
+        max_err = max(max_err, line["max_abs_du"], line["max_abs_dz"])
+
+    # ---- timing_riccati at the service's batch, (25, 12, 4)
+    idx = torch.arange(SERVICE_BATCH, device=dev) % Br
+    qpt = StageQP(*[a[idx] for a in arm_qp])
+    lanes_in = tuple(_to_lanes(a) for a in qpt)
+    _, kernel_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 20)
+    _, batch_ms = timed(lambda: solve_lqr_kernel_batch(qpt), 10)
+    _, plain_ms = timed(lambda: _solve_lqr_kernel_plain(qpt), 3)
+    emit(phase="timing_riccati", batch=SERVICE_BATCH, N=N, nz=12, nu=4,
+         kernel_ms=kernel_ms, batch_entry_ms=batch_ms, plain_ms=plain_ms,
+         qp_mbytes=sum(a.numel() for a in qpt) * 4 / 1e6)
+
+    # ---- parity_lanes_vs_fused (tests/test_fused_kernel.py:54-95 on card)
+    B = PARITY_BATCH
+    p = batch_params(B)
+    cold = lambda o: solve_batch_lanes(prob, p, None, None, o,
+                                       mu0=o.mu_init)
+    r0 = cold(opts_cold)
+    p2 = p._replace(x0=p.x0 + 0.01)
+    ra = solve_batch_lanes(prob, p2, r0.X, r0.U,
+                           SolverOptions(tol=1e-4, max_iter=1), mu0=mu_warm)
+    rb = solve_batch_fused(prob, p2, r0.X, r0.U, opts, mu0=mu_warm, n_iter=1)
+    rw = solve_batch_lanes(prob, p2, r0.X, r0.U, opts, mu0=mu_warm)
+    rf = solve_batch_fused(prob, p2, r0.X, r0.U, opts, mu0=mu_warm, n_iter=3)
+    scan = dataclasses.replace(opts_cold, kkt_backend="riccati")
+    rs = cold(scan)
+    # The float64 scan solve of the same batch: the exact answer against
+    # which the float32 crawl (PERF.md section 6) is judged.
+    p64 = MPCParams(*[type(f)(*[a.double() for a in f])
+                      if isinstance(f, tuple) else f.double() for f in p])
+    r64 = solve_batch_lanes(prob, p64, None, None, scan, mu0=scan.mu_init)
+    sync()
+    dmax = lambda a, b: max((a.X - b.X).abs().max().item(),
+                            (a.U - b.U).abs().max().item())
+    d1, d3 = dmax(ra, rb), dmax(rw, rf)
+    same = (r0.status == rs.status).float().mean().item()
+    both = (r0.status == 0) & (rs.status == 0)
+    all3 = both & (r64.status == 0)
+
+    def beyond(a, b, mask):
+        """Instances of ``mask`` whose U lies beyond rtol 5e-3 / atol 5e-4
+        of b's."""
+        ua, ub = a.U.double(), b.U.double()
+        ex = ((ua - ub).abs() - (5e-4 + 5e-3 * ub.abs()))[mask]
+        return int((ex.reshape(-1, N * nu) > 0).any(dim=1).sum())
+
+    n_far = beyond(r0, rs, both)
+    emit(phase="parity_lanes_vs_fused", batch=B,
+         cold_converged=(r0.status == 0).float().mean().item(),
+         cold_mean_iters=r0.iters.float().mean().item(),
+         one_iter_max_abs_dxu=d1, warm_max_abs_dxu=d3,
+         warm_lanes_iters=[int(rw.iters.min()), int(rw.iters.max())],
+         warm_converged_lanes=(rw.status == 0).float().mean().item(),
+         warm_converged_fused=(rf.status == 0).float().mean().item(),
+         kernel_vs_scan_status_agree=same,
+         kernel_vs_scan_n_both_converged=int(both.sum()),
+         kernel_vs_scan_max_abs_du=(r0.U - rs.U)[both].abs().max().item(),
+         kernel_vs_scan_n_beyond_band=n_far,
+         scan_f64_converged=(r64.status == 0).float().mean().item(),
+         scan_f64_mean_iters=r64.iters.float().mean().item(),
+         n_beyond_band_kernel_vs_scan_f64=beyond(r0, r64, all3),
+         n_beyond_band_scan_vs_scan_f64=beyond(rs, r64, all3))
+    check(d1 <= 1e-4, f"one lanes iteration vs fused: {d1} > 1e-4")
+    check(d3 <= 1e-4, f"warm lanes vs fused fixed-3: {d3} > 1e-4")
+    check(same >= 0.99, f"kernel vs scan statuses agree on only {same}")
+    # The band holds on >= 99 % of the instances converged in both: the
+    # float32 crawl moves ~1 % of cold solves by up to ~1e-2 in U, for the
+    # scan as for the kernel (both counts against float64 are printed).
+    check(n_far <= 0.01 * int(both.sum()),
+          f"kernel vs scan: {n_far} instances beyond rtol 5e-3 / atol 5e-4")
+
+    # ---- the lanes route through the service, counted
+    def lanes_service(phase, svc, x0, x_des, next_inputs):
+        check(svc.warm_solver in ("fixed", "adaptive"),
+              f"{phase}: resolved to {svc.warm_solver}")
+        check(svc.kkt_backend == "pallas",
+              f"{phase}: kkt_backend {svc.kkt_backend}")
+        Bs = svc.batch
+        svc.set_states(x0)
+        svc.set_references(x_des)
+        solve_batch_fused.launches = 0
+        solve_lqr_kernel_batch.launches = 0
+        u = svc.step()
+        m = svc.metrics()
+        loop_iters = int(svc.last.iters.max())
+        emit(phase=phase + "_cold", batch=Bs, warm_solver=svc.warm_solver,
+             kkt_backend=svc.kkt_backend, cold_s=m["solve_s"],
+             converged_frac=m["converged_frac"], mean_iters=m["mean_iters"],
+             max_iters=loop_iters)
+        check(m["converged_frac"] >= 0.9, f"{phase} cold {m}")
+        step_ms, iters = [], []
+        for i in range(LANES_WARM_STEPS):
+            x, ref = next_inputs(i, u)
+            svc.set_states(x, u_prev=u)
+            svc.set_references(ref)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            u = svc.step()
+            end.record()
+            sync()
+            step_ms.append(start.elapsed_time(end))
+            iters.append(svc.metrics()["mean_iters"])
+            loop_iters += int(svc.last.iters.max())
+        m = svc.metrics()
+        launches = solve_lqr_kernel_batch.launches
+        fused = solve_batch_fused.launches
+        check(tuple(u.shape) == (Bs, svc.params.num_u)
+              and bool(torch.isfinite(u).all()),
+              f"{phase}: non-finite or misshapen controls")
+        ms = float(np.mean(step_ms))
+        emit(phase=phase + "_warm", batch=Bs, warm_steps=LANES_WARM_STEPS,
+             ms_per_warm_step=ms, ms_per_warm_step_all=step_ms,
+             solves_per_s=Bs / (ms * 1e-3), mean_iters_each=iters,
+             converged_frac=m["converged_frac"], max_feas=m["max_feas"],
+             riccati_launches=launches, loop_iterations=loop_iters,
+             fused_launches=fused)
+        check(m["converged_frac"] >= 0.9, f"{phase} warm {m}")
+        check(launches == loop_iters,
+              f"{phase}: {launches} Riccati launches for {loop_iters} "
+              f"SQP iterations")
+        check(fused == 0, f"{phase}: the fused kernel launched {fused} times")
+        return launches, ms
+
+    Bs = SERVICE_BATCH
+    svc = BatchModelControl(
+        mp, batch=Bs, device=dev,
+        opts=SolverOptions(tol=1e-4, max_iter=30, warm_solver="adaptive"),
+        Q=Qw, R=Rw, Rm=Rmw)
+    x0 = f32(0.2 * rng.standard_normal((Bs, nx)))
+    perts, refs = warm_schedule(Bs, LANES_WARM_STEPS)
+    l_arm, ms_arm = lanes_service(
+        "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
+        lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
+    emit(phase="service_lanes_profile", batch=Bs, **profile_step(svc),
+         stage_ms=lanes_stage_ms(svc))
+
+    dpd = make_dynamics("double_pendulum")
+    dt = 0.002
+    mpd = ModelParameters("dp_svc", num_x=dpd.nx, num_u=dpd.nu,
+                          step_size=dt, num_shooting_nodes=N,
+                          u_min=[-60.0] * dpd.nu, u_max=[60.0] * dpd.nu,
+                          dynamics_name="double_pendulum")
+    svc = BatchModelControl(mpd, batch=Bs, device=dev,
+                            opts=SolverOptions(tol=1e-4, max_iter=30),
+                            Q=[10.0, 10.0, 1.0, 1.0], R=[0.1] * dpd.nu,
+                            Rm=[0.0] * dpd.nu)
+    q0 = rng.uniform(-0.5, 0.5, (Bs, 2))
+    goals = rng.uniform(-0.5, 0.5, (Bs, 2))
+    x_des = np.zeros((Bs, N, 4))
+    x_des[:, :, :2] = goals[:, None]
+    plant = rk4_step(dpd.f, dt)
+    state = {"x": f32(np.concatenate([q0, np.zeros((Bs, 2))], axis=1))}
+
+    def closed_loop(i, u):
+        state["x"] = plant(state["x"].T, u.T).T
+        return state["x"], f32(x_des)
+
+    l_dp, ms_dp = lanes_service("service_double_pendulum", svc, state["x"],
+                                f32(x_des), closed_loop)
+    err = (state["x"][:, :2] - f32(goals)).abs().max().item()
+    emit(phase="service_double_pendulum_state", max_abs_q_minus_goal=err,
+         start_max_abs_q_minus_goal=float(np.abs(q0 - goals).max()))
+    check(bool(torch.isfinite(state["x"]).all()), "double pendulum blew up")
+
+    return dict(launches=l_arm + l_dp, max_abs_err=max_err, ms=kernel_ms,
+                plain_ms=plain_ms, batch_entry_ms=batch_ms)
 
 
 def main() -> int:
@@ -87,11 +460,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
-    from mahi_mpc_tpu_torch._build import cuda_build
+    from mahi_mpc_tpu_torch._build import cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.fused import (solve_batch_fused,
                                                  solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
     from mahi_mpc_tpu_torch.transcribe.shooting import (MPCParams,
                                                         default_params,
                                                         make_problem)
@@ -105,9 +480,12 @@ def main() -> int:
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- build
-    _, report, build_s = cuda_build()
-    emit(phase="build", seconds=build_s, ptxas=ptxas_summary(report))
+    # ---- build: one nvcc per library, started together
+    t_build = time.perf_counter()
+    builds = cuda_build_all()
+    emit(phase="build", seconds=time.perf_counter() - t_build,
+         seconds_each={name: b[2] for name, b in builds.items()},
+         ptxas={name: ptxas_summary(b[1]) for name, b in builds.items()})
 
     # ---- problem and bench-shaped data (bench.py:75-99, 128-138)
     dyn = make_dynamics("mahi_arm")
@@ -270,10 +648,16 @@ def main() -> int:
         return launches
 
     solve_batch_fused.launches = 0
+    solve_lqr_kernel_batch.launches = 0
     service(3, WARM_STEPS)
     service(0, ADAPTIVE_WARM_STEPS)
     launches = solve_batch_fused.launches
     check(launches > 0, "the main path never launched the kernel")
+    check(solve_lqr_kernel_batch.launches == 0,
+          "the fused route launched the Riccati kernel")
+
+    ric = lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule,
+                       mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
 
     emit(phase="done")
     print(json.dumps({"kernels": [{
@@ -289,7 +673,18 @@ def main() -> int:
         "mode": "fixed-3 warm",
         "adaptive_cold_ms": cold_ms,
         "adaptive_cold_plain_ms": cold_plain_ms,
-        "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item()}]}),
+        "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item()}, {
+        "name": "riccati",
+        "route": "cuda",
+        "source": "mahi_mpc_tpu_torch/csrc/riccati.cu",
+        "replaces": "mahi_mpc_tpu/solver/pallas_riccati.py:128",
+        "launches": ric["launches"],
+        "max_abs_err": ric["max_abs_err"],
+        "ms": ric["ms"],
+        "plain_ms": ric["plain_ms"],
+        "batch": SERVICE_BATCH,
+        "mode": "N=25, nz=12, nu=4, lanes layout in and out",
+        "batch_entry_ms": ric["batch_entry_ms"]}]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,23 @@
 """Build the hand-written kernels in ``csrc/`` at first use and load them
 with ctypes.
 
-``cuda_build()`` compiles ``csrc/fused_sqp.cu`` with nvcc for ``sm_90a``
-into ``_build/`` (ignored by git) and returns the loaded library; the file
-name carries a hash of every source in ``csrc/``, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``cpu_library()`` builds
-the same kernel body for the CPU with g++ (tests only).  Nothing is built or
+``cuda_build(name)`` compiles one CUDA library with nvcc for ``sm_90a``
+into ``_build/`` (ignored by git) and returns it loaded; the file name
+carries a hash of every source in ``csrc/``, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  ``cuda_build_all()`` starts one
+nvcc for each library at once.  ``cpu_library(name)`` builds the same
+kernel bodies for the CPU with g++ (tests only).  Nothing is built or
 loaded at import.
+
+The libraries:
+
+- ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve;
+- ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -24,8 +31,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# No --use_fast_math: the kernel relies on IEEE sqrt and division, and on
-# the exact finiteness of +-inf bounds.
+# No --use_fast_math: the kernels rely on IEEE sqrt and division (a negative
+# Cholesky pivot must give NaN), and on the exact finiteness of +-inf
+# bounds.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC",
@@ -34,6 +42,40 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC",
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
+
+# name -> (CUDA source, {launcher: argtypes})
+CUDA_LIBRARIES = {
+    "fused_sqp": ("fused_sqp.cu", {
+        "mpc_fused_launch_f32": [_c_ll, _c_int, _c_int, _c_void_p, _c_void_p,
+                                 _c_void_p, _c_void_p, _c_void_p, _c_void_p],
+    }),
+    "riccati": ("riccati.cu", {
+        "mpc_riccati_launch_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p,
+                                   _c_void_p],
+    }),
+}
+
+# name -> (CPU source, {function: argtypes})
+CPU_LIBRARIES = {
+    "fused_sqp": ("fused_sqp_cpu.cpp", {
+        "mpc_fused_solve_cpu_f32": [_c_ll, _c_int, _c_int, _c_void_p,
+                                    _c_void_p, _c_void_p, _c_void_p,
+                                    _c_void_p],
+        "mpc_fused_solve_cpu_f64": [_c_ll, _c_int, _c_int, _c_void_p,
+                                    _c_void_p, _c_void_p, _c_void_p,
+                                    _c_void_p],
+        "mpc_arm_eval_cpu_f32": [_c_ll, _c_int, _c_void_p, _c_void_p,
+                                 ctypes.c_float, _c_void_p, _c_void_p,
+                                 _c_void_p],
+        "mpc_arm_eval_cpu_f64": [_c_ll, _c_int, _c_void_p, _c_void_p,
+                                 ctypes.c_double, _c_void_p, _c_void_p,
+                                 _c_void_p],
+    }),
+    "riccati": ("riccati_cpu.cpp", {
+        "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
+        "mpc_riccati_cpu_f64": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
+    }),
+}
 
 
 def _source_hash() -> str:
@@ -71,6 +113,15 @@ def _compile(cmd_prefix, source: Path, stem: str) -> tuple[Path, str, float]:
     return out, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
+def _load(path: Path, functions: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fname, argtypes in functions.items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = _c_int
+    return lib
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -83,39 +134,31 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def cuda_build() -> tuple[ctypes.CDLL, str, float]:
-    """(library, ptxas report, build seconds) of csrc/fused_sqp.cu; the
-    seconds are 0 when an earlier build of the same sources was loaded."""
-    path, report, secs = _compile([_nvcc()] + NVCC_FLAGS,
-                                  CSRC / "fused_sqp.cu", "fused_sqp_sm90a")
-    lib = ctypes.CDLL(str(path))
-    fn = lib.mpc_fused_launch_f32
-    fn.argtypes = [_c_ll, _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p,
-                   _c_void_p, _c_void_p, _c_void_p]
-    fn.restype = _c_int
-    return lib, report, secs
+def cuda_build(name: str) -> tuple[ctypes.CDLL, str, float]:
+    """(library, ptxas report, build seconds) of the CUDA library ``name``;
+    the seconds are 0 when an earlier build of the same sources was
+    loaded."""
+    source, functions = CUDA_LIBRARIES[name]
+    path, report, secs = _compile([_nvcc()] + NVCC_FLAGS, CSRC / source,
+                                  f"{name}_sm90a")
+    return _load(path, functions), report, secs
+
+
+def cuda_build_all() -> dict:
+    """Build every CUDA library, one nvcc each, all started together;
+    returns {name: (library, ptxas report, build seconds)}."""
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_LIBRARIES)) as ex:
+        futures = {name: ex.submit(cuda_build, name)
+                   for name in CUDA_LIBRARIES}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)
-def cpu_library() -> ctypes.CDLL:
-    """The kernel body built for the CPU (tests only)."""
+def cpu_library(name: str = "fused_sqp") -> ctypes.CDLL:
+    """A kernel body built for the CPU (tests only)."""
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         raise RuntimeError("no C++ compiler found for the CPU kernel build")
-    path, _, _ = _compile([gxx] + GXX_FLAGS, CSRC / "fused_sqp_cpu.cpp",
-                          "fused_sqp_cpu")
-    lib = ctypes.CDLL(str(path))
-    for name in ("mpc_fused_solve_cpu_f32", "mpc_fused_solve_cpu_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_c_ll, _c_int, _c_int, _c_void_p, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p]
-        fn.restype = _c_int
-    lib.mpc_arm_eval_cpu_f32.argtypes = [_c_ll, _c_int, _c_void_p, _c_void_p,
-                                         ctypes.c_float, _c_void_p,
-                                         _c_void_p, _c_void_p]
-    lib.mpc_arm_eval_cpu_f64.argtypes = [_c_ll, _c_int, _c_void_p, _c_void_p,
-                                         ctypes.c_double, _c_void_p,
-                                         _c_void_p, _c_void_p]
-    lib.mpc_arm_eval_cpu_f32.restype = _c_int
-    lib.mpc_arm_eval_cpu_f64.restype = _c_int
-    return lib
+    source, functions = CPU_LIBRARIES[name]
+    path, _, _ = _compile([gxx] + GXX_FLAGS, CSRC / source, f"{name}_cpu")
+    return _load(path, functions)

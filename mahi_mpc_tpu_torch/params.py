@@ -181,11 +181,16 @@ class SolverOptions:
     mu_init: float = 1e-1        # initial barrier parameter (bounded problems)
     mu_min: float = 1e-9
     kappa_mu: float = 0.2        # barrier decrease factor
-    # Which KKT backend the lanes solver uses.  Kept for JSON/option parity
-    # with the JAX package; the fused kernel (this package's only solver so
-    # far) does its own block Riccati recursion and ignores it.
+    # KKT backend of the lanes solver (solver.riccati.resolve_kkt_backend):
+    # "auto" = the Riccati kernel (solver/riccati_kernel.py) for batched
+    # solves on a CUDA device, the scan everywhere else.  Explicit values:
+    # "riccati" (scan) | "dense" | "pallas" (the kernel; its plain version
+    # on CPU tensors).  The fused kernel does its own block Riccati
+    # recursion and ignores it.
     kkt_backend: str = "auto"
-    # Stage-Jacobian formulation of the JAX lanes solver; no meaning here.
+    # Stage-Jacobian formulation of the lanes solver: "auto"/"fan" = one
+    # unit-tangent JVP per input direction; "rev" = nq VJP rows (Euler step,
+    # second-order models).
     linearize_mode: str = "auto"
     dtype: str = "float32"
     # Warm re-solves restart the barrier at factor*tol (clamped to the
@@ -199,9 +204,9 @@ class SolverOptions:
     fixed_warm_iters: int = 0
     # Which program serves (warm) solves (resolution: solver/select.py).
     # "auto" = the fused SQP kernel (solver/fused.py) on a CUDA device when
-    # the problem is supported; "fused" forces it on any device (the plain
-    # PyTorch version on CPU); "fixed"/"adaptive" name the JAX package's
-    # other solvers, which are not ported yet.
+    # the problem is supported, the lanes SQP (solver/batched.py) otherwise;
+    # "fused" forces the fused solve on any device (the plain PyTorch
+    # version on CPU); "fixed"/"adaptive" name the lanes SQP.
     warm_solver: str = "auto"
     # Pin the first k controls of each solve to their warm-start values
     # (reference ``m_num_control_inputs_saved``: intended at

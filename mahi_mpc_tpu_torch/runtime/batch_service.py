@@ -3,12 +3,20 @@
 
 One service owns B instances of one model — per-instance states,
 references and weights — and advances them together: each ``step()`` is
-one batched solve through the fused kernel, warm-started from the previous
-plan.  The first step seeds cold through the kernel's adaptive mode; warm
-steps run ``opts.fixed_warm_iters`` fixed iterations, or adaptive when
-that is 0.  Instances carry independent status: a failed instance
-(DIVERGED or non-finite) keeps its previous plan as its warm start,
-returns a zero control this step, and re-solves next step.
+one batched solve, warm-started from the previous plan.  Two routes, as
+``solver/select.py`` resolves ``opts.warm_solver``:
+
+- ``"fused"``: the fused kernel.  The first step seeds cold through its
+  adaptive mode; warm steps run ``opts.fixed_warm_iters`` fixed
+  iterations, or adaptive when that is 0.
+- ``"fixed"`` / ``"adaptive"``: the lanes SQP ``solve_batch_lanes`` (with
+  the Riccati kernel under it on a CUDA device), cold and warm, to
+  tolerance from the cold or warm barrier; ``fixed_warm_iters`` has no
+  effect there, as in the JAX package's service.
+
+Instances carry independent status: a failed instance (DIVERGED or
+non-finite) gets a zero warm start, returns a zero control this step, and
+re-solves from scratch next step, as in the JAX package.
 ``state_dict``/``load_state`` snapshot the (params, plan) pair in the JAX
 package's format, so either package loads the other's.
 """
@@ -24,7 +32,9 @@ import torch
 from ..convert import params_from_numpy, params_to_numpy
 from ..models.base import Dynamics, make_dynamics
 from ..params import ModelParameters, SolverOptions
+from ..solver.batched import solve_batch_lanes
 from ..solver.fused import solve_batch_fused
+from ..solver.riccati import resolve_kkt_backend
 from ..solver.select import resolve_warm_solver
 from ..solver.sqp import DIVERGED
 from ..transcribe.shooting import MPCParams, default_params, make_problem
@@ -49,12 +59,12 @@ class BatchModelControl:
         self.problem = make_problem(params, dynamics)
         self.warm_solver = resolve_warm_solver(opts, self.problem,
                                                self.device)
-        if self.warm_solver != "fused":
-            raise NotImplementedError(
-                f"warm solver {self.warm_solver!r} resolves to the JAX "
-                f"package's lanes SQP, which is not ported yet; use a CUDA "
-                f"device or warm_solver='fused' with a supported model")
         nx, nu, N = params.num_x, params.num_u, params.num_shooting_nodes
+        # The lanes route's KKT backend as the solver resolves it ("pallas"
+        # is the Riccati kernel); None on the fused route.
+        self.kkt_backend = None if self.warm_solver == "fused" else \
+            resolve_kkt_backend(opts.kkt_backend, batched=True,
+                                dims=(N, nx + nu, nu), device=self.device)
         self._dtype = getattr(torch, opts.dtype)
 
         p = default_params(params, dtype=self._dtype, device=self.device)
@@ -124,23 +134,25 @@ class BatchModelControl:
         on the service's device."""
         self.relinearize()
         opts = self.opts
-        if self._warm and opts.fixed_warm_iters > 0:
-            kw = dict(mu0=self._mu_warm, n_iter=opts.fixed_warm_iters)
+        if self.warm_solver != "fused":
+            solve, kw = solve_batch_lanes, {}
+        elif self._warm and opts.fixed_warm_iters > 0:
+            solve, kw = solve_batch_fused, dict(n_iter=opts.fixed_warm_iters)
         else:
-            kw = dict(mu0=self._mu_warm if self._warm else self._mu_cold,
-                      adaptive=True)
+            solve, kw = solve_batch_fused, dict(adaptive=True)
         self._sync()
         t0 = time.perf_counter()
-        res = solve_batch_fused(self.problem, self._p, self._X, self._U,
-                                opts, **kw)
+        res = solve(self.problem, self._p, self._X, self._U, opts,
+                    mu0=self._mu_warm if self._warm else self._mu_cold, **kw)
         self._sync()
         self.solve_time_s = time.perf_counter() - t0
 
+        # A failed instance re-solves from scratch: zero warm start.
         ok = ((res.status != DIVERGED)
               & torch.isfinite(res.X).all(dim=(1, 2))
               & torch.isfinite(res.U).all(dim=(1, 2)))
-        self._X = torch.where(ok[:, None, None], res.X, self._X)
-        self._U = torch.where(ok[:, None, None], res.U, self._U)
+        self._X = torch.where(ok[:, None, None], res.X, 0.0)
+        self._U = torch.where(ok[:, None, None], res.U, 0.0)
         self._warm = True
         self.last = res
         return torch.where(ok[:, None], res.U[:, 0], 0.0)

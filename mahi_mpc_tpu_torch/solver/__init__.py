@@ -1,8 +1,11 @@
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult
 from .fused import fused_supported, solve_batch_fused
+from .riccati import LQRSolution, resolve_kkt_backend, solve_lqr
+from .batched import solve_batch_lanes
 from .select import resolve_warm_solver
 
 __all__ = [
     "SolveResult", "CONVERGED", "MAX_ITER", "DIVERGED",
     "solve_batch_fused", "fused_supported", "resolve_warm_solver",
+    "solve_batch_lanes", "solve_lqr", "resolve_kkt_backend", "LQRSolution",
 ]

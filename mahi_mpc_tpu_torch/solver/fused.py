@@ -38,7 +38,6 @@ in the lanes solver.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence
@@ -49,10 +48,12 @@ from torch.func import jvp, vmap
 
 from ..models.arm import arm_constants
 from ..ops.linalg import chol_lanes
+from ..ops.precision import strict_fp32
 from ..params import SolverOptions
 from ..transcribe.shooting import MPCParams, ShootingProblem
 from . import loop_common as lc
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
+from .stage_qp import barrier_terms
 
 Tensor = torch.Tensor
 
@@ -90,17 +91,6 @@ def _check_supported(prob: ShootingProblem) -> None:
             f"solve (serial arms with nq in {KERNEL_NQ} only)")
 
 
-@contextlib.contextmanager
-def _strict_fp32():
-    """Full-precision float32 matmuls (no TF32) inside the block."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 # ---------------------------------------------------------------------------
 # The plain PyTorch version (batch-leading tensors).
 # ---------------------------------------------------------------------------
@@ -111,17 +101,6 @@ def _ssum(t: Tensor) -> Tensor:
     for i in range(1, t.shape[-1]):
         acc = acc + t[..., i]
     return acc
-
-
-def _bar_terms(v, lo, hi, mu):
-    """Barrier gradient / Hessian diagonal per component."""
-    lf, hf = torch.isfinite(lo), torch.isfinite(hi)
-    slo = torch.where(lf, v - lo, 1.0)
-    shi = torch.where(hf, hi - v, 1.0)
-    g = torch.where(lf, -mu / slo, 0.0) + torch.where(hf, mu / shi, 0.0)
-    h = (torch.where(lf, mu / (slo * slo), 0.0)
-         + torch.where(hf, mu / (shi * shi), 0.0))
-    return g, h
 
 
 def _bar_value(v, lo, hi, mu):
@@ -250,8 +229,8 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         ukm1 = torch.cat([p.u_prev[:, None], U[:, :-1]], dim=1)
         e = xs - xdes_prev
         du = U - ukm1
-        gx_b, hx_b = _bar_terms(xs, xlo, xhi, mu_c[..., None])
-        gu_b, hu_b = _bar_terms(U, ulo, uhi, mu_c[..., None])
+        gx_b, hx_b = barrier_terms(xs, xlo, xhi, mu_c[..., None])
+        gu_b, hu_b = barrier_terms(U, ulo, uhi, mu_c[..., None])
         tk3 = tk[None, :, None]
         gzx = torch.where(tk3, q2[:, None] * e + gx_b, 0.0)
         gzv = -(r2[:, None] * du)
@@ -266,7 +245,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         # ---- terminal cost-to-go
         xN = X[:, N]
         eN, eF = xN - xdes[:, N - 1], xN - p.xf_des
-        gN_b, hN_b = _bar_terms(xN, p.x_min, p.x_max, mu_c)
+        gN_b, hN_b = barrier_terms(xN, p.x_min, p.x_max, mu_c)
         Pxx = torch.diag_embed((q2 + qf2) + hN_b)
         Pxv = torch.zeros(B, nx, nu, dtype=dtype, device=device)
         Pvv = torch.zeros(B, nu, nu, dtype=dtype, device=device)
@@ -496,7 +475,7 @@ def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive):
     if X0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
     from .._build import cuda_build
-    fn = cuda_build()[0].mpc_fused_launch_f32
+    fn = cuda_build("fused_sqp")[0].mpc_fused_launch_f32
     with torch.cuda.device(X0.device):
         stream = torch.cuda.current_stream(X0.device).cuda_stream
         out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
@@ -548,7 +527,7 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
     mu0 = torch.as_tensor(mu0, dtype=dtype, device=device).expand(B)
     mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
 
-    with _strict_fp32():
+    with strict_fp32():
         X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive)
 
     stepn, feas, obj = st[:, 0], st[:, 1], st[:, 2]
@@ -627,7 +606,7 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     tensors): how the tests run the kernel's own arithmetic without a
     card."""
     from .._build import cpu_library
-    lib = cpu_library()
+    lib = cpu_library("fused_sqp")
     fn = (lib.mpc_fused_solve_cpu_f32 if p.x0.dtype == torch.float32
           else lib.mpc_fused_solve_cpu_f64)
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,

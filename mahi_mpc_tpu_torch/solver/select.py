@@ -9,8 +9,10 @@ which program serves (warm) re-solves.
 - ``"fused"`` — the fused solve on any device (its plain PyTorch version on
   the CPU, as the JAX package runs Pallas interpret mode there), with the
   same fallback when the problem is not supported;
-- ``"fixed"`` / ``"adaptive"`` — the JAX package's XLA solvers, not ported
-  yet (the batch service raises ``NotImplementedError`` for them).
+- ``"fixed"`` / ``"adaptive"`` — the lanes SQP (``solver/batched.py``
+  ``solve_batch_lanes``), with its Riccati kernel on a CUDA device.  As in
+  the JAX package's batch service, both run the lanes solve to tolerance;
+  ``fixed_warm_iters`` has no effect on that route.
 """
 
 from __future__ import annotations

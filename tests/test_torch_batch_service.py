@@ -1,6 +1,7 @@
-"""The port's batched MPC service on the CPU (plain PyTorch fused solve):
-closed loop, failure isolation, and checkpoints shared with the JAX
-package's ``BatchModelControl``."""
+"""The port's batched MPC service on the CPU: the fused route (plain
+PyTorch fused solve) and the lanes route (lanes SQP), closed loop, failure
+isolation, and checkpoints and steps against the JAX package's
+``BatchModelControl``."""
 
 import jax
 import jax.numpy as jnp
@@ -66,9 +67,8 @@ def test_closed_loop_converges(fixed_warm_iters):
 
 
 def test_failure_isolation_nan_instance():
-    """A poisoned instance (NaN state) does not corrupt the others, keeps
-    its previous plan as warm start, returns a zero control, and recovers
-    once its state is healthy."""
+    """A poisoned instance (NaN state) does not corrupt the others, returns
+    a zero control, and recovers once its state is healthy."""
     svc = _service()
     x = np.zeros((B, 8))
     x[3] = np.nan
@@ -82,7 +82,6 @@ def test_failure_isolation_nan_instance():
     status = svc.last.status.numpy()
     assert status[3] == 2
     assert (status[[0, 1, 2, 4, 5, 6, 7]] == 0).all(), status
-    assert bool((svc.state_dict()["X"][3] == 0).all())   # plan kept
     x[3] = 0.0
     svc.set_states(x)
     u = svc.step()
@@ -159,11 +158,188 @@ def test_port_state_loads_in_jax(jax_service):
 
 
 def test_other_devices_raise():
-    """No silent fallback: a device the solve has no path for raises, and
-    the service refuses solvers that are not ported."""
+    """No silent fallback: a device the solve has no path for raises; the
+    default options on the CPU resolve to the lanes route, and an LTV
+    model, not ported yet, raises."""
     svc = _service()
     p = svc._p._replace(x0=svc._p.x0.to("meta"))
     with pytest.raises(ValueError):
         solve_batch_fused(svc.problem, p)
+    lanes = BatchModelControl(_mp(ModelParameters), batch=B, device="cpu")
+    assert lanes.warm_solver == "adaptive" and lanes.kkt_backend == "riccati"
+    ltv = _mp(ModelParameters)
+    ltv.is_linear = True
     with pytest.raises(NotImplementedError):
-        BatchModelControl(_mp(ModelParameters), batch=B, device="cpu")
+        BatchModelControl(ltv, batch=B, device="cpu").step()
+
+
+# ---------------------------------------------------------------------------
+# The lanes route (solve_batch_lanes), on the JAX package's own service
+# config: the pendulum of tests/test_batch_service.py:15-22.
+# ---------------------------------------------------------------------------
+
+PB, PN = 8, 20
+
+
+def _pend_mp(cls):
+    return cls("bsvc", num_x=2, num_u=1, step_size=0.05,
+               num_shooting_nodes=PN, u_min=[-8.0], u_max=[8.0],
+               dynamics_name="pendulum")
+
+
+def _pend_service(batch=PB):
+    return BatchModelControl(_pend_mp(ModelParameters), batch=batch,
+                             device="cpu",
+                             opts=SolverOptions(tol=1e-4, max_iter=40),
+                             Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+
+
+def _jax_pend_service(batch=PB):
+    return JaxBatchModelControl(_pend_mp(JaxModelParameters), batch=batch,
+                                opts=JaxSolverOptions(tol=1e-4, max_iter=40),
+                                Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+
+
+def _pend_goals(batch, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.5, 0.5, (batch, 2))
+    goals = rng.uniform(-0.6, 0.6, batch)
+    x_des = np.zeros((batch, PN, 2))
+    x_des[:, :, 0] = goals[:, None]
+    return x, goals, x_des
+
+
+def test_lanes_service_closed_loop():
+    """tests/test_batch_service.py:25-44 through the port: 16 pendulums,
+    200 receding-horizon steps against an RK4 plant; converged_frac > 0.9
+    and every instance regulated to its own goal."""
+    Bp = 16
+    svc = _pend_service(Bp)
+    assert svc.warm_solver == "adaptive" and svc.kkt_backend == "riccati"
+    plant = rk4_step(make_dynamics("pendulum").f, 0.05)
+    x, goals, x_des = _pend_goals(Bp)
+    svc.set_references(x_des)
+    x = torch.tensor(x, dtype=torch.float32)
+    for _ in range(200):
+        svc.set_states(x)
+        u = svc.step()
+        x = plant(x.T, u.T).T
+    m = svc.metrics()
+    assert m["converged_frac"] > 0.9, m
+    err = np.abs(x[:, 0].numpy() - goals)
+    assert err.max() < 0.15, err
+
+
+def _repair_sequence(svc, x_des, to_u):
+    """Step 1 healthy, step 2 with instance 3 NaN, step 3 healthy again;
+    returns (state_dict, statuses, controls) after each step."""
+    x = np.full((PB, 2), 0.1)
+    x[:, 0] = np.linspace(-0.3, 0.3, PB)
+    svc.set_references(x_des)
+    out = []
+    for poison in (False, True, False):
+        xs = x.copy()
+        if poison:
+            xs[3] = np.nan
+        svc.set_states(xs)
+        u = to_u(svc.step())
+        out.append((svc.state_dict(), np.asarray(svc.last.status), u))
+    return out
+
+
+def _port_sequence(svc):
+    return _repair_sequence(svc, _pend_goals(PB)[2],
+                            lambda u: u.numpy())
+
+
+@pytest.fixture(scope="module")
+def jax_repair():
+    jsvc = _jax_pend_service()
+    return _repair_sequence(jsvc, _pend_goals(PB)[2], np.asarray)
+
+
+@pytest.mark.parametrize("route", ["fused", "lanes"])
+def test_failed_instance_restarts_from_zero(route):
+    """After a failure the instance's X and U warm start is zero (it
+    re-solves from scratch, as in the JAX package) and its control is
+    zero; the others keep their new plans; the next healthy step
+    recovers it."""
+    if route == "fused":
+        svc = _service()
+        x_des = np.zeros((B, N, 8))
+        x_des[:, :, 0] = 0.3
+        x = np.zeros((B, 8))
+        steps = []
+        svc.set_references(x_des)
+        for poison in (False, True, False):
+            xs = x.copy()
+            if poison:
+                xs[3] = np.nan
+            svc.set_states(xs)
+            u = svc.step().numpy()
+            steps.append((svc.state_dict(), svc.last.status.numpy(), u,
+                          svc.last))
+    else:
+        svc = _pend_service()
+        steps = [s + (None,) for s in _port_sequence(svc)]
+    st1, stat1, _, _ = steps[0]
+    assert (stat1 == 0).all()
+    assert np.abs(st1["X"][3]).max() > 0          # a real plan to lose
+    st2, stat2, u2, _ = steps[1]
+    assert stat2[3] == 2 and (np.delete(stat2, 3) == 0).all()
+    assert (st2["X"][3] == 0).all() and (st2["U"][3] == 0).all()
+    assert (u2[3] == 0).all() and np.isfinite(u2).all()
+    healthy = np.arange(len(stat2)) != 3
+    if route == "fused":
+        np.testing.assert_array_equal(st2["X"][healthy],
+                                      steps[1][3].X.numpy()[healthy])
+    _, stat3, u3, _ = steps[2]
+    assert (stat3 == 0).all() and np.isfinite(u3).all()
+
+
+def test_repair_sequence_matches_jax(jax_repair):
+    """The same three steps through the JAX service (lanes route on both
+    sides): statuses equal and state_dict X, U at the float32 lanes band
+    (atol 1e-3) after every step, the failed instance's zeros included."""
+    ours = _port_sequence(_pend_service())
+    for (st, stat, u), (jst, jstat, ju) in zip(ours, jax_repair):
+        np.testing.assert_array_equal(stat, jstat)
+        for k in ("X", "U"):
+            np.testing.assert_allclose(st[k], jst[k], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(u, ju, rtol=0, atol=1e-3)
+    assert (jax_repair[1][0]["X"][3] == 0).all()
+
+
+def test_lanes_service_steps_match_jax():
+    """The port's and the JAX service stepped side by side for 5 closed-loop
+    steps on identical states: controls at atol 1e-3, statuses equal."""
+    svc, jsvc = _pend_service(), _jax_pend_service()
+    x, _, x_des = _pend_goals(PB, seed=4)
+    for s in (svc, jsvc):
+        s.set_references(x_des)
+    plant = rk4_step(make_dynamics("pendulum").f, 0.05)
+    for _ in range(5):
+        svc.set_states(x)
+        jsvc.set_states(x)
+        u, ju = svc.step().numpy(), np.asarray(jsvc.step())
+        np.testing.assert_array_equal(svc.last.status.numpy(),
+                                      np.asarray(jsvc.last.status))
+        np.testing.assert_allclose(u, ju, rtol=0, atol=1e-3)
+        x = plant(torch.tensor(x).T, torch.tensor(ju).T).T.numpy()
+
+
+def test_jax_pendulum_state_loads(jax_repair):
+    """A JAX pendulum service's state_dict loads as it is (params, plan,
+    warm flag), and the port steps on from it."""
+    jst = jax_repair[-1][0]
+    svc = _pend_service()
+    svc.load_state(jst)
+    st = svc.state_dict()
+    for k in ("X", "U"):
+        np.testing.assert_array_equal(st[k], jst[k])
+    for a, b in zip(jax.tree.leaves(tuple(st["params"])),
+                    jax.tree.leaves(jst["params"])):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert st["warm"] is True
+    u = svc.step()
+    assert bool(torch.isfinite(u).all()) and (svc.last.status == 0).all()
