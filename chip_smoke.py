@@ -7,9 +7,11 @@ NVIDIA Hopper card (the kernels are built for sm_90a), the CUDA toolkit's
 line each, with the seconds since start in ``t``:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build  — nvcc builds ``mahi_mpc_tpu_torch/csrc/fused_sqp.cu`` and
-   ``csrc/riccati.cu``, one process each, started together; registers and
-   spill bytes of every kernel instantiation from ``-Xptxas -v``;
+2. build  — nvcc builds the five libraries of ``mahi_mpc_tpu_torch/csrc``
+   (``fused_sqp.cu``, ``fused_sqp_generic.cu``, ``fused_sqp_models.cu``,
+   ``fused_sqp_ltv.cu``: the fused kernel's instantiations; ``riccati.cu``),
+   one process each, started together; registers and spill bytes of every
+   kernel instantiation from ``-Xptxas -v``;
 3. parity — the fused kernel against its plain PyTorch version, both on the
    card, at B=1024 on the 4-DOF ``mahi_arm`` (N=25, dt=2 ms, |u| <= 20,
    float32) with bench-shaped data:
@@ -22,13 +24,39 @@ line each, with the seconds since start in ``t``:
      to the float64 solution there; the line prints both counts;
    - fixed-3 warm solve from the kernel's cold plan: max|dX|, max|dU|
      <= 1e-4;
-   then times of both at the service's batch (B=16384);
+   then both at the service's batch (B=16384): their times, and the
+   fixed-3 warm solves held to max|dX|, max|dU| <= 1e-4 and the adaptive
+   cold statuses to >= 99 % agreement there too;
 4. service — ``BatchModelControl`` on the card at B=16384 with
    ``fixed_warm_iters=3``: one cold step, then 10 warm steps with 0.01 N(0,1)
    state noise and a phase-shifted sinusoid reference (converged_frac >= 0.9
    after the cold and the last warm step; the kernel's launch count rises by
    11); then a service with adaptive warm steps (1 cold + 3 warm);
-5. parity_riccati — the Riccati kernel against its plain PyTorch version on
+5. parity_fused_ltv — the fused kernel in LTV mode (``mahi_arm``
+   frozen at each instance's x0, B=1024) against its plain version:
+   adaptive cold statuses agree on >= 99 % and the kernel converges on
+   >= 99 %.  LTV makes the float32 crawl of phase 3 common (~30 % of
+   instances stop beyond |dU| 5e-3 of float64, in the kernel, its g++
+   build and the plain version alike), so the kernel is held to the plain
+   float32 version on the same inputs: at most 5 % of the instances more
+   beyond 5e-3 of the plain float64 solution, and a largest |dU| at most
+   twice the plain version's.  Fixed-3 warm max|dX|, max|dU| <= 1e-4; one
+   LTV iteration of the fused kernel against one of the lanes SQP on the
+   Riccati kernel, <= 1e-4;
+6. parity_fused_generic — the kernel against its plain version at B=1024
+   for ``double_pendulum`` and ``mahi_arm`` under RK4 (the generic nx-row
+   path) and ``pendulum`` under Euler (the nq-row path of a closed-form
+   model), with phase 3's rules;
+7. timing_fused_modes — kernel and plain version at B=16384, the batch of
+   the services: fixed-3 warm solves in LTV (``mahi_arm``) and under RK4
+   (``double_pendulum``, ``mahi_arm``), timed and held to max|dX|,
+   max|dU| <= 1e-4; and the kernel's adaptive cold solves, timed;
+8. service_ltv — ``BatchModelControl(mahi_arm, is_linear=True,
+   fixed_warm_iters=3)`` at B=16384: a relinearization and a fused LTV
+   solve every step, 1 cold + 10 warm steps (converged_frac >= 0.9 after
+   the cold and the last warm step, 11 fused launches, all in LTV mode),
+   and ``relinearize`` timed alone;
+9. parity_riccati — the Riccati kernel against its plain PyTorch version on
    the card, B=1000, N=25: random well-conditioned QPs at (nz, nu) = (12, 4)
    (one instance with an indefinite Huu: NaN there in both, finite
    elsewhere) and (6, 2), and a QP built by ``build_stage_qp`` at a
@@ -36,26 +64,30 @@ line each, with the seconds since start in ``t``:
    (computed outside the kernel) at rtol / atol 2e-4 on the stage QP and
    within 1e-2 of max|lam| on the random QPs, whose adjoint recursion
    amplifies float32 roundoff ~1e4-fold at N=25;
-6. timing_riccati — kernel and plain version at B=16384, (25, 12, 4);
-7. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
-   fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
-   iteration each, then the adaptive warm lanes solve against fused
-   fixed-3 (max|dX|, max|dU| <= 1e-4); and the lanes cold solve with the
-   kernel against the scan (statuses equal on >= 99 %; U at rtol 5e-3 /
-   atol 5e-4 on >= 99 % of the instances converged in both, for the float32
-   crawl of phase 3; both are also counted against a float64 scan solve);
-8. service_lanes — ``BatchModelControl(mahi_arm, warm_solver="adaptive")``
-   at B=16384, 1 cold + 3 warm steps (converged_frac >= 0.9, Riccati
-   launches = the sum over steps of max(iters), no fused launch), then one
-   more warm step under ``torch.profiler`` for the Riccati kernel's device
-   share, and the wall time of each stage of a lanes iteration;
-9. service_double_pendulum — the default ``warm_solver="auto"`` on the
-   card resolves to the lanes route for ``double_pendulum`` (dt=2 ms,
-   N=25, |u| <= 60, B=16384, closed loop on the model's RK4 step), with the
-   asserts of phase 8.
+10. timing_riccati — kernel and plain version at B=16384, (25, 12, 4);
+11. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
+    fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
+    iteration each, then the adaptive warm lanes solve against fused
+    fixed-3 (max|dX|, max|dU| <= 1e-4); and the lanes cold solve with the
+    kernel against the scan (statuses equal on >= 99 %; U at rtol 5e-3 /
+    atol 5e-4 on >= 99 % of the instances converged in both, for the
+    float32 crawl of phase 3; both are also counted against a float64 scan
+    solve);
+12. service_lanes — ``BatchModelControl(mahi_arm, warm_solver="adaptive")``
+    at B=16384, 1 cold + 3 warm steps (converged_frac >= 0.9, Riccati
+    launches = the sum over steps of max(iters), no fused launch), then one
+    more warm step under ``torch.profiler`` for the Riccati kernel's device
+    share, and the wall time of each stage of a lanes iteration;
+13. service_double_pendulum — ``double_pendulum`` under RK4 (dt=2 ms,
+    N=25, |u| <= 60, B=16384, closed loop on its RK4 step): the default
+    ``warm_solver="auto"`` on the card resolves to the fused kernel's
+    generic path (launches = steps, no Riccati launch), and
+    ``warm_solver="adaptive"`` takes the lanes route (the Riccati kernel at
+    (6, 2)), each with the asserts of phase 12.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-main paths, its error against the plain version and both times, the
+main paths, its error against the plain version (for the fused kernel's
+modes, the fixed-3 warm solve at B=16384) and both times, the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -205,7 +237,7 @@ def lanes_stage_ms(svc) -> dict:
 
 def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
                  opts, opts_cold, mu_warm, Qw, Rw, Rmw) -> dict:
-    """Phases 5-9: the Riccati kernel and the lanes route.  Returns what the
+    """Phases 9-13: the Riccati kernel and the lanes route.  Returns what the
     kernels line reports of the Riccati kernel."""
     import dataclasses
 
@@ -354,16 +386,25 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     check(n_far <= 0.01 * int(both.sum()),
           f"kernel vs scan: {n_far} instances beyond rtol 5e-3 / atol 5e-4")
 
-    # ---- the lanes route through the service, counted
-    def lanes_service(phase, svc, x0, x_des, next_inputs):
-        check(svc.warm_solver in ("fixed", "adaptive"),
-              f"{phase}: resolved to {svc.warm_solver}")
-        check(svc.kkt_backend == "pallas",
-              f"{phase}: kkt_backend {svc.kkt_backend}")
+    # ---- the lanes and fused routes through the service, counted
+    def route_service(phase, svc, x0, x_des, next_inputs, route="lanes"):
+        """1 cold + LANES_WARM_STEPS warm steps with the counts set to 0
+        just before; the lanes route launches the Riccati kernel once an
+        SQP iteration and never the fused kernel, the fused route the
+        generic fused kernel once a step and never the Riccati kernel."""
+        if route == "lanes":
+            check(svc.warm_solver in ("fixed", "adaptive"),
+                  f"{phase}: resolved to {svc.warm_solver}")
+            check(svc.kkt_backend == "pallas",
+                  f"{phase}: kkt_backend {svc.kkt_backend}")
+        else:
+            check(svc.warm_solver == "fused",
+                  f"{phase}: resolved to {svc.warm_solver}")
         Bs = svc.batch
         svc.set_states(x0)
         svc.set_references(x_des)
         solve_batch_fused.launches = 0
+        solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
         solve_lqr_kernel_batch.launches = 0
         u = svc.step()
         m = svc.metrics()
@@ -390,6 +431,7 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
         m = svc.metrics()
         launches = solve_lqr_kernel_batch.launches
         fused = solve_batch_fused.launches
+        generic = solve_batch_fused.mode_launches["generic"]
         check(tuple(u.shape) == (Bs, svc.params.num_u)
               and bool(torch.isfinite(u).all()),
               f"{phase}: non-finite or misshapen controls")
@@ -399,13 +441,19 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
              solves_per_s=Bs / (ms * 1e-3), mean_iters_each=iters,
              converged_frac=m["converged_frac"], max_feas=m["max_feas"],
              riccati_launches=launches, loop_iterations=loop_iters,
-             fused_launches=fused)
+             fused_launches=fused, fused_generic_launches=generic)
         check(m["converged_frac"] >= 0.9, f"{phase} warm {m}")
-        check(launches == loop_iters,
-              f"{phase}: {launches} Riccati launches for {loop_iters} "
-              f"SQP iterations")
-        check(fused == 0, f"{phase}: the fused kernel launched {fused} times")
-        return launches, ms
+        if route == "lanes":
+            check(launches == loop_iters,
+                  f"{phase}: {launches} Riccati launches for {loop_iters} "
+                  f"SQP iterations")
+            check(fused == 0,
+                  f"{phase}: the fused kernel launched {fused} times")
+            return launches, ms
+        check(fused == generic == 1 + LANES_WARM_STEPS and launches == 0,
+              f"{phase}: {fused} fused ({generic} generic) and {launches} "
+              f"Riccati launches for {1 + LANES_WARM_STEPS} steps")
+        return fused, ms
 
     Bs = SERVICE_BATCH
     svc = BatchModelControl(
@@ -414,42 +462,317 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
         Q=Qw, R=Rw, Rm=Rmw)
     x0 = f32(0.2 * rng.standard_normal((Bs, nx)))
     perts, refs = warm_schedule(Bs, LANES_WARM_STEPS)
-    l_arm, ms_arm = lanes_service(
+    l_arm, ms_arm = route_service(
         "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
         lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
     emit(phase="service_lanes_profile", batch=Bs, **profile_step(svc),
          stage_ms=lanes_stage_ms(svc))
 
+    # ---- double_pendulum under RK4: "auto" (fused, generic path) and
+    # "adaptive" (lanes, Riccati kernel at (6, 2)) on the same closed loop
     dpd = make_dynamics("double_pendulum")
     dt = 0.002
     mpd = ModelParameters("dp_svc", num_x=dpd.nx, num_u=dpd.nu,
                           step_size=dt, num_shooting_nodes=N,
                           u_min=[-60.0] * dpd.nu, u_max=[60.0] * dpd.nu,
-                          dynamics_name="double_pendulum")
-    svc = BatchModelControl(mpd, batch=Bs, device=dev,
-                            opts=SolverOptions(tol=1e-4, max_iter=30),
-                            Q=[10.0, 10.0, 1.0, 1.0], R=[0.1] * dpd.nu,
-                            Rm=[0.0] * dpd.nu)
+                          dynamics_name="double_pendulum", integrator="rk4")
     q0 = rng.uniform(-0.5, 0.5, (Bs, 2))
     goals = rng.uniform(-0.5, 0.5, (Bs, 2))
     x_des = np.zeros((Bs, N, 4))
     x_des[:, :, :2] = goals[:, None]
     plant = rk4_step(dpd.f, dt)
-    state = {"x": f32(np.concatenate([q0, np.zeros((Bs, 2))], axis=1))}
+    dp = {}
+    for phase, warm_solver, route in (
+            ("service_double_pendulum", "auto", "fused"),
+            ("service_double_pendulum_lanes", "adaptive", "lanes")):
+        svc = BatchModelControl(mpd, batch=Bs, device=dev,
+                                opts=SolverOptions(tol=1e-4, max_iter=30,
+                                                   warm_solver=warm_solver),
+                                Q=[10.0, 10.0, 1.0, 1.0], R=[0.1] * dpd.nu,
+                                Rm=[0.0] * dpd.nu)
+        state = {"x": f32(np.concatenate([q0, np.zeros((Bs, 2))], axis=1))}
 
-    def closed_loop(i, u):
-        state["x"] = plant(state["x"].T, u.T).T
-        return state["x"], f32(x_des)
+        def closed_loop(i, u):
+            state["x"] = plant(state["x"].T, u.T).T
+            return state["x"], f32(x_des)
 
-    l_dp, ms_dp = lanes_service("service_double_pendulum", svc, state["x"],
-                                f32(x_des), closed_loop)
-    err = (state["x"][:, :2] - f32(goals)).abs().max().item()
-    emit(phase="service_double_pendulum_state", max_abs_q_minus_goal=err,
-         start_max_abs_q_minus_goal=float(np.abs(q0 - goals).max()))
-    check(bool(torch.isfinite(state["x"]).all()), "double pendulum blew up")
+        dp[route] = route_service(phase, svc, state["x"], f32(x_des),
+                                  closed_loop, route)
+        err = (state["x"][:, :2] - f32(goals)).abs().max().item()
+        emit(phase=phase + "_state", max_abs_q_minus_goal=err,
+             start_max_abs_q_minus_goal=float(np.abs(q0 - goals).max()))
+        check(bool(torch.isfinite(state["x"]).all()),
+              f"{phase}: double pendulum blew up")
+    l_dp = dp["lanes"][0]
+    emit(phase="double_pendulum_fused_vs_lanes", batch=Bs,
+         fused_ms_per_warm_step=dp["fused"][1],
+         lanes_ms_per_warm_step=dp["lanes"][1],
+         lanes_over_fused=dp["lanes"][1] / dp["fused"][1])
 
     return dict(launches=l_arm + l_dp, max_abs_err=max_err, ms=kernel_ms,
-                plain_ms=plain_ms, batch_entry_ms=batch_ms)
+                plain_ms=plain_ms, batch_entry_ms=batch_ms,
+                dp_fused_launches=dp["fused"][0])
+
+
+def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
+    """(ModelParameters, problem, params) of ``name`` at N=25, dt=2 ms with
+    bench-shaped data: |u| <= 20 for ``mahi_arm`` and 60 otherwise, Q =
+    [10]*nq + [1]*nq, R = 0.1, Rm = 0.01, x0 and x_des ~ 0.2 N(0, 1); LTV
+    problems frozen at each instance's (x0, u_prev)."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from mahi_mpc_tpu_torch import ModelParameters
+    from mahi_mpc_tpu_torch.models import make_dynamics
+    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+    from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
+                                                        default_params,
+                                                        make_problem)
+
+    dyn = make_dynamics(name)
+    nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
+    ulim = 20.0 if name == "mahi_arm" else 60.0
+    mp = ModelParameters(f"smoke_{name}", num_x=nx, num_u=nu,
+                         step_size=0.002, num_shooting_nodes=N_NODES,
+                         u_min=[-ulim] * nu, u_max=[ulim] * nu,
+                         dynamics_name=name, integrator=integrator,
+                         is_linear=is_linear)
+    prob = make_problem(mp, dyn)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    p = default_params(mp, device=dev)._replace(
+        q=f32([10.0] * nq + [1.0] * nq), r=f32([0.1] * nu),
+        rm=f32([0.01] * nu))
+    ex = lambda a: a.expand((B,) + a.shape).clone()
+    p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
+                    else ex(f) for f in p])
+    p = p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
+                   x_des=f32(0.2 * rng.standard_normal((B, N_NODES, nx))))
+    if is_linear:
+        with strict_fp32():
+            A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
+        p = p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
+    return mp, prob, p
+
+
+def to_f64(p):
+    """MPCParams in float64 (the plain version's exact reference)."""
+    return type(p)(*[type(f)(*[a.double() for a in f])
+                     if isinstance(f, tuple) else f.double() for f in p])
+
+
+def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
+    """Phases 5-8: the fused kernel's LTV, generic and closed-form paths.
+    Returns the kernels line's entries for those modes."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+    from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
+    from mahi_mpc_tpu_torch.solver.fused import (solve_batch_fused,
+                                                 solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
+
+    opts = SolverOptions(tol=1e-4, max_iter=12)
+    opts_cold = SolverOptions(tol=1e-4, max_iter=30)
+    mu_warm = opts.warm_mu_factor * opts.tol
+    sync = torch.cuda.synchronize
+    cold = lambda solve, prob, p: solve(prob, p, None, None, opts_cold,
+                                        mu0=opts_cold.mu_init, adaptive=True)
+    warm3 = lambda solve, prob, p, r: solve(
+        prob, p._replace(x0=p.x0 + 0.01), r.X, r.U, opts, mu0=mu_warm,
+        n_iter=3)
+    frac = lambda m: m.float().mean().item()
+
+    def parity(phase, name, integrator, is_linear, band_rule):
+        """Cold adaptive kernel vs plain (float32 and float64), then fixed-3
+        warm from the kernel's plan; returns the line and the results."""
+        _, prob, p = model_batch(dev, rng, name, PARITY_BATCH, integrator,
+                                 is_linear)
+        rk, rp = cold(solve_batch_fused, prob, p), \
+            cold(solve_batch_fused_plain, prob, p)
+        r64 = cold(solve_batch_fused_plain, prob, to_f64(p))
+        wk, wp = warm3(solve_batch_fused, prob, p, rk), \
+            warm3(solve_batch_fused_plain, prob, p, rk)
+        sync()
+        both = (rk.status == 0) & (rp.status == 0) & (r64.status == 0)
+        du = lambda a: (a.U.double() - r64.U).abs().amax(dim=(1, 2))[both]
+        dk, dp = du(rk), du(rp)
+        warm_err = max((wk.X - wp.X).abs().max().item(),
+                       (wk.U - wp.U).abs().max().item())
+        line = dict(
+            phase=phase, model=name, integrator=integrator,
+            is_linear=is_linear, batch=PARITY_BATCH,
+            status_agree=frac(rk.status == rp.status),
+            converged_kernel=frac(rk.status == 0),
+            converged_plain=frac(rp.status == 0),
+            converged_plain_f64=frac(r64.status == 0),
+            mean_iters_kernel=frac(rk.iters),
+            mean_iters_plain=frac(rp.iters),
+            mean_iters_plain_f64=frac(r64.iters),
+            n_all_converged=int(both.sum()),
+            max_abs_du_kernel_vs_plain_f64=dk.max().item(),
+            max_abs_du_plain_vs_plain_f64=dp.max().item(),
+            n_beyond_5e3_kernel_vs_plain_f64=int((dk > COLD_DU_BAND).sum()),
+            n_beyond_5e3_plain_vs_plain_f64=int((dp > COLD_DU_BAND).sum()),
+            warm_max_abs_dxu=warm_err,
+            warm_converged_kernel=frac(wk.status == 0))
+        emit(**line)
+        what = f"{phase} {name} {integrator}"
+        check(line["status_agree"] >= 0.99,
+              f"{what}: statuses agree on {line['status_agree']}")
+        check(line["converged_kernel"] >= 0.99,
+              f"{what}: kernel converged {line['converged_kernel']}")
+        far = line["n_beyond_5e3_kernel_vs_plain_f64"]
+        if band_rule == "plain":
+            # The crawl is common: held to the plain float32 version's.
+            far_p = line["n_beyond_5e3_plain_vs_plain_f64"]
+            check(far <= far_p + 0.05 * line["n_all_converged"],
+                  f"{what}: {far} instances beyond |dU| {COLD_DU_BAND} of "
+                  f"f64, the plain float32 version {far_p}")
+            worst, worst_p = dk.max().item(), dp.max().item()
+            check(worst <= 2.0 * worst_p,
+                  f"{what}: max|dU| vs f64 {worst}, plain float32 {worst_p}")
+        else:
+            check(far <= 0.01 * line["n_all_converged"],
+                  f"{what}: {far} instances beyond |dU| {COLD_DU_BAND} of "
+                  f"f64")
+        check(warm_err <= 1e-4, f"{what}: fixed-3 warm {warm_err} > 1e-4")
+        return line, prob, p, rk
+
+    # ---- parity_fused_ltv: the float32 crawl is common in LTV mode (the
+    # JAX kernel does the same, PERF.md), so the kernel's distance from
+    # float64 is held to the plain float32 version's.
+    _, prob, p, rk = parity("parity_fused_ltv", "mahi_arm", "euler",
+                            True, "plain")
+    p2 = p._replace(x0=p.x0 + 0.01)
+    ra = solve_batch_lanes(prob, p2, rk.X, rk.U,
+                           SolverOptions(tol=1e-4, max_iter=1), mu0=mu_warm)
+    rb = solve_batch_fused(prob, p2, rk.X, rk.U, opts, mu0=mu_warm, n_iter=1)
+    sync()
+    one = max((ra.X - rb.X).abs().max().item(),
+              (ra.U - rb.U).abs().max().item())
+    emit(phase="parity_fused_ltv_vs_lanes", batch=PARITY_BATCH,
+         one_iter_max_abs_dxu=one)
+    check(one <= 1e-4, f"one LTV iteration fused vs lanes: {one} > 1e-4")
+
+    # ---- parity_fused_generic
+    gen = {}
+    for name, integrator in (("double_pendulum", "rk4"), ("mahi_arm", "rk4"),
+                             ("pendulum", "euler")):
+        gen[name, integrator] = parity("parity_fused_generic", name,
+                                       integrator, False, "count")[0]
+
+    # ---- timing_fused_modes at the service's batch
+    Bt = SERVICE_BATCH
+    times = {}
+    for name, integrator, is_linear in (("mahi_arm", "euler", True),
+                                        ("double_pendulum", "rk4", False),
+                                        ("mahi_arm", "rk4", False)):
+        _, prob, p = model_batch(dev, rng, name, Bt, integrator, is_linear)
+        ct, cold_ms = timed(lambda: cold(solve_batch_fused, prob, p), 2)
+        wk, warm_ms = timed(lambda: warm3(solve_batch_fused, prob, p, ct),
+                            10)
+        wp, plain_ms = timed(lambda: warm3(solve_batch_fused_plain, prob, p,
+                                           ct), 1)
+        err = max((wk.X - wp.X).abs().max().item(),
+                  (wk.U - wp.U).abs().max().item())
+        times[name, integrator, is_linear] = line = dict(
+            phase="timing_fused_modes", model=name, integrator=integrator,
+            is_linear=is_linear, batch=Bt, fixed3_warm_kernel_ms=warm_ms,
+            fixed3_warm_plain_ms=plain_ms, fixed3_warm_max_abs_dxu=err,
+            fixed3_warm_status_agree=frac(wk.status == wp.status),
+            adaptive_cold_kernel_ms=cold_ms,
+            adaptive_cold_converged=frac(ct.status == 0),
+            adaptive_cold_mean_iters=frac(ct.iters))
+        emit(**line)
+        check(err <= 1e-4, f"B={Bt} {name} {integrator} is_linear="
+                           f"{is_linear}: fixed-3 warm {err} > 1e-4")
+
+    # ---- service_ltv: relinearize + fused LTV solve each step, counted
+    mp, _, _ = model_batch(dev, rng, "mahi_arm", 1, is_linear=True)
+    Bs = SERVICE_BATCH
+    svc = BatchModelControl(mp, batch=Bs, device=dev,
+                            opts=SolverOptions(tol=1e-4, max_iter=30,
+                                               fixed_warm_iters=3),
+                            Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4,
+                            Rm=[0.01] * 4)
+    check(svc.warm_solver == "fused", f"LTV service: {svc.warm_solver}")
+    x0 = 0.2 * rng.standard_normal((Bs, mp.num_x))
+    svc.set_states(x0)
+    svc.set_references(0.2 * rng.standard_normal((Bs, N_NODES, mp.num_x)))
+    perts, refs = warm_schedule(Bs, WARM_STEPS)
+    solve_batch_fused.launches = 0
+    solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+    solve_lqr_kernel_batch.launches = 0
+    u = svc.step()
+    m = svc.metrics()
+    emit(phase="service_ltv_cold", batch=Bs, cold_s=m["solve_s"],
+         converged_frac=m["converged_frac"], mean_iters=m["mean_iters"])
+    check(m["converged_frac"] >= 0.9, f"LTV cold {m}")
+    step_ms = []
+    for i in range(WARM_STEPS):
+        svc.set_states(x0 + perts[i], u_prev=u)
+        svc.set_references(refs[i])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u = svc.step()
+        end.record()
+        sync()
+        step_ms.append(start.elapsed_time(end))
+    m = svc.metrics()
+    ltv_launches = solve_batch_fused.mode_launches["ltv"]
+    launches = solve_batch_fused.launches
+    ric = solve_lqr_kernel_batch.launches
+    _, relin_ms = timed(svc.relinearize, 3)
+    ms = float(np.mean(step_ms))
+    emit(phase="service_ltv_warm", batch=Bs, warm_steps=WARM_STEPS,
+         ms_per_warm_step=ms, ms_per_warm_step_all=step_ms,
+         solves_per_s=Bs / (ms * 1e-3), relinearize_ms=relin_ms,
+         solve_ms_last_step=svc.solve_time_s * 1e3,
+         converged_frac=m["converged_frac"], mean_iters=m["mean_iters"],
+         max_feas=m["max_feas"], launches=launches, ltv_launches=ltv_launches,
+         riccati_launches=ric)
+    check(tuple(u.shape) == (Bs, mp.num_u) and bool(torch.isfinite(u).all()),
+          "LTV service: non-finite or misshapen controls")
+    check(m["converged_frac"] >= 0.9, f"LTV warm {m}")
+    check(launches == ltv_launches == 1 + WARM_STEPS and ric == 0,
+          f"LTV service: {launches} fused ({ltv_launches} LTV) and {ric} "
+          f"Riccati launches for {1 + WARM_STEPS} steps")
+
+    t_ltv = times["mahi_arm", "euler", True]
+    t_dp = times["double_pendulum", "rk4", False]
+    t_arm = times["mahi_arm", "rk4", False]
+    g_pend = gen["pendulum", "euler"]
+    return [
+        dict(mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
+             case="mahi_arm LTV, fixed-3 warm", launches=ltv_launches,
+             max_abs_err=t_ltv["fixed3_warm_max_abs_dxu"],
+             ms=t_ltv["fixed3_warm_kernel_ms"],
+             plain_ms=t_ltv["fixed3_warm_plain_ms"],
+             adaptive_cold_ms=t_ltv["adaptive_cold_kernel_ms"],
+             service_ms_per_warm_step=ms, relinearize_ms=relin_ms),
+        dict(mode="generic",
+             source="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
+             case="double_pendulum RK4, fixed-3 warm",
+             max_abs_err=t_dp["fixed3_warm_max_abs_dxu"],
+             ms=t_dp["fixed3_warm_kernel_ms"],
+             plain_ms=t_dp["fixed3_warm_plain_ms"],
+             adaptive_cold_ms=t_dp["adaptive_cold_kernel_ms"]),
+        dict(mode="generic",
+             source="mahi_mpc_tpu_torch/csrc/fused_sqp_generic.cu",
+             case="mahi_arm RK4, fixed-3 warm",
+             max_abs_err=t_arm["fixed3_warm_max_abs_dxu"],
+             ms=t_arm["fixed3_warm_kernel_ms"],
+             plain_ms=t_arm["fixed3_warm_plain_ms"],
+             adaptive_cold_ms=t_arm["adaptive_cold_kernel_ms"]),
+        dict(mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
+             case="pendulum Euler, fixed-3 warm at B=1024",
+             max_abs_err=g_pend["warm_max_abs_dxu"])]
 
 
 def main() -> int:
@@ -545,9 +868,7 @@ def main() -> int:
     rp = cold(solve_batch_fused_plain, p)
     # The plain version in float64 on the same inputs: the exact answer of
     # the algorithm, against which float32 roundoff is judged.
-    p64 = MPCParams(*[type(f)(*[a.double() for a in f])
-                      if isinstance(f, tuple) else f.double() for f in p])
-    r64 = cold(solve_batch_fused_plain, p64)
+    r64 = cold(solve_batch_fused_plain, to_f64(p))
     torch.cuda.synchronize()
     same = (rk.status == rp.status).float().mean().item()
     both = (rk.status == 0) & (rp.status == 0) & (r64.status == 0)
@@ -591,16 +912,23 @@ def main() -> int:
     Bt = SERVICE_BATCH
     pt = batch_params(Bt)
     ct, cold_ms = timed(lambda: cold(solve_batch_fused, pt), 3)
-    _, cold_plain_ms = timed(lambda: cold(solve_batch_fused_plain, pt), 1)
+    cp, cold_plain_ms = timed(lambda: cold(solve_batch_fused_plain, pt), 1)
     ptw = pt._replace(x0=pt.x0 + 0.01)
     warm_t = lambda solve: solve(prob, ptw, ct.X, ct.U, opts, mu0=mu_warm,
                                  n_iter=3)
-    _, warm_ms = timed(lambda: warm_t(solve_batch_fused), 20)
-    _, warm_plain_ms = timed(lambda: warm_t(solve_batch_fused_plain), 2)
+    wkt, warm_ms = timed(lambda: warm_t(solve_batch_fused), 20)
+    wpt, warm_plain_ms = timed(lambda: warm_t(solve_batch_fused_plain), 2)
+    warm_err_t = max((wkt.X - wpt.X).abs().max().item(),
+                     (wkt.U - wpt.U).abs().max().item())
+    same_t = (ct.status == cp.status).float().mean().item()
     emit(phase="timing", batch=Bt, fixed3_warm_kernel_ms=warm_ms,
          fixed3_warm_plain_ms=warm_plain_ms, adaptive_cold_kernel_ms=cold_ms,
          adaptive_cold_plain_ms=cold_plain_ms,
-         adaptive_cold_mean_iters=ct.iters.float().mean().item())
+         adaptive_cold_mean_iters=ct.iters.float().mean().item(),
+         adaptive_cold_status_agree=same_t, fixed3_warm_max_abs_dxu=warm_err_t)
+    check(warm_err_t <= 1e-4,
+          f"B={Bt} fixed-3 max|dX|,|dU| {warm_err_t} > 1e-4")
+    check(same_t >= 0.99, f"B={Bt} adaptive statuses agree on {same_t:.4f}")
 
     # ---- service: the main path, counted
     def service(fixed_warm_iters, n_warm):
@@ -648,32 +976,43 @@ def main() -> int:
         return launches
 
     solve_batch_fused.launches = 0
+    solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
     solve_lqr_kernel_batch.launches = 0
     service(3, WARM_STEPS)
     service(0, ADAPTIVE_WARM_STEPS)
     launches = solve_batch_fused.launches
-    check(launches > 0, "the main path never launched the kernel")
+    fast_launches = solve_batch_fused.mode_launches["fast"]
+    check(launches > 0 and fast_launches == launches,
+          f"the main path launched the kernel {launches} times "
+          f"({fast_launches} on the nq-row path)")
     check(solve_lqr_kernel_batch.launches == 0,
           "the fused route launched the Riccati kernel")
 
+    modes = fused_mode_phases(dev, rng, timed, warm_schedule)
     ric = lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule,
                        mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
+    modes[1]["launches"] = ric["dp_fused_launches"]
+    modes.insert(0, dict(
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp.cu",
+        case="mahi_arm Euler, fixed-3 warm", launches=fast_launches,
+        max_abs_err=warm_err_t, ms=warm_ms, plain_ms=warm_plain_ms,
+        adaptive_cold_ms=cold_ms, adaptive_cold_plain_ms=cold_plain_ms))
+    launches += sum(m.get("launches", 0) for m in modes[1:])
 
     emit(phase="done")
     print(json.dumps({"kernels": [{
         "name": "fused_sqp",
         "route": "cuda",
-        "source": "mahi_mpc_tpu_torch/csrc/fused_sqp.cu",
+        "source": "mahi_mpc_tpu_torch/csrc/fused_sqp.cuh",
         "replaces": "mahi_mpc_tpu/solver/fused.py:186",
         "launches": launches,
-        "max_abs_err": max(dx, du_w),
+        "max_abs_err": max(m["max_abs_err"] for m in modes),
         "ms": warm_ms,
         "plain_ms": warm_plain_ms,
         "batch": SERVICE_BATCH,
-        "mode": "fixed-3 warm",
-        "adaptive_cold_ms": cold_ms,
-        "adaptive_cold_plain_ms": cold_plain_ms,
-        "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item()}, {
+        "mode": "fixed-3 warm, mahi_arm Euler (nq-row path)",
+        "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item(),
+        "modes": modes}, {
         "name": "riccati",
         "route": "cuda",
         "source": "mahi_mpc_tpu_torch/csrc/riccati.cu",

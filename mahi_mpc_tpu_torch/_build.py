@@ -11,14 +11,25 @@ loaded at import.
 
 The libraries:
 
-- ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve;
+- ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve for the
+  serial arms under Euler;
+- ``fused_sqp_generic`` (``csrc/fused_sqp_generic.cu``): the same kernel
+  for the serial arms under midpoint and RK4 (the generic nx-row path);
+- ``fused_sqp_models`` (``csrc/fused_sqp_models.cu``): the same kernel for
+  the closed-form models, every integrator;
+- ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
+  mode;
 - ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve.
+
+The fused kernel's instantiations are split into four libraries only so
+that nvcc builds them in parallel; all four export the same launcher.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -43,12 +54,18 @@ _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 
+# The fused kernel's C interface: B, N, model, nx, nu, pointers, scalars,
+# ints, fan rungs, model constants (and the stream on the card).
+_FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
+               _c_void_p, _c_void_p, _c_void_p]
+_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p]}
+
 # name -> (CUDA source, {launcher: argtypes})
 CUDA_LIBRARIES = {
-    "fused_sqp": ("fused_sqp.cu", {
-        "mpc_fused_launch_f32": [_c_ll, _c_int, _c_int, _c_void_p, _c_void_p,
-                                 _c_void_p, _c_void_p, _c_void_p, _c_void_p],
-    }),
+    "fused_sqp": ("fused_sqp.cu", _FUSED_LAUNCH),
+    "fused_sqp_generic": ("fused_sqp_generic.cu", _FUSED_LAUNCH),
+    "fused_sqp_models": ("fused_sqp_models.cu", _FUSED_LAUNCH),
+    "fused_sqp_ltv": ("fused_sqp_ltv.cu", _FUSED_LAUNCH),
     "riccati": ("riccati.cu", {
         "mpc_riccati_launch_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p,
                                    _c_void_p],
@@ -58,18 +75,18 @@ CUDA_LIBRARIES = {
 # name -> (CPU source, {function: argtypes})
 CPU_LIBRARIES = {
     "fused_sqp": ("fused_sqp_cpu.cpp", {
-        "mpc_fused_solve_cpu_f32": [_c_ll, _c_int, _c_int, _c_void_p,
-                                    _c_void_p, _c_void_p, _c_void_p,
-                                    _c_void_p],
-        "mpc_fused_solve_cpu_f64": [_c_ll, _c_int, _c_int, _c_void_p,
-                                    _c_void_p, _c_void_p, _c_void_p,
-                                    _c_void_p],
+        "mpc_fused_solve_cpu_f32": _FUSED_ARGS,
+        "mpc_fused_solve_cpu_f64": _FUSED_ARGS,
         "mpc_arm_eval_cpu_f32": [_c_ll, _c_int, _c_void_p, _c_void_p,
                                  ctypes.c_float, _c_void_p, _c_void_p,
                                  _c_void_p],
         "mpc_arm_eval_cpu_f64": [_c_ll, _c_int, _c_void_p, _c_void_p,
                                  ctypes.c_double, _c_void_p, _c_void_p,
                                  _c_void_p],
+        "mpc_model_eval_cpu_f64": [_c_ll, _c_int, _c_int, _c_void_p,
+                                   _c_void_p, ctypes.c_double, _c_void_p,
+                                   _c_void_p, _c_void_p, _c_void_p,
+                                   _c_void_p],
     }),
     "riccati": ("riccati_cpu.cpp", {
         "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
@@ -92,10 +109,18 @@ def _compile(cmd_prefix, source: Path, stem: str) -> tuple[Path, str, float]:
     BUILD_DIR.mkdir(exist_ok=True)
     out = BUILD_DIR / f"{stem}-{_source_hash()}.so"
     log = out.with_suffix(".log")
-    if out.exists():
-        return out, log.read_text() if log.exists() else "", 0.0
-    # Build to a private name, then rename: concurrent builds (test
-    # workers) never load a half-written file.
+    # One build per library across processes (test workers): the others
+    # wait on the lock and load the result.
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out, log.read_text() if log.exists() else "", 0.0
+        return _compile_locked(cmd_prefix, source, out, log)
+
+
+def _compile_locked(cmd_prefix, source: Path, out: Path, log: Path):
+    # Build to a private name, then rename: a reader never loads a
+    # half-written file.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()

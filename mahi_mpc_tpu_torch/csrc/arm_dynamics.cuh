@@ -10,10 +10,10 @@
 //
 // CUDA has no automatic differentiation, so the stage Jacobian rows that
 // the Pallas kernel takes from an in-kernel `jax.vjp` come from forward-mode
-// dual numbers here: `Dual<S, K>` carries K tangent directions, and
-// `arm_linearize` runs 3 NQ / K passes over the inputs z = [q, qd, u].
-// Every function is a template on the scalar type T (float, double or a
-// Dual) with the chain constants in the plain scalar S.
+// dual numbers here: `Dual<S, K>` carries K tangent directions
+// (model_dynamics.cuh runs the passes).  Every function is a template on
+// the scalar type T (float, double or a Dual) with the chain constants in
+// the plain scalar S.
 #pragma once
 
 #include <math.h>
@@ -106,6 +106,7 @@ MPC_DUAL operator*(const Dual<S, K>& a, S b) {
 }
 MPC_DUAL operator*(S a, const Dual<S, K>& b) { return b * a; }
 MPC_DUAL operator/(S a, const Dual<S, K>& b) { return Dual<S, K>(a) / b; }
+MPC_DUAL operator/(const Dual<S, K>& a, S b) { return a / Dual<S, K>(b); }
 
 MPC_DUAL m_sin(const Dual<S, K>& a) {
   Dual<S, K> r(m_sin(a.v));
@@ -400,64 +401,6 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
 #pragma unroll
     for (int k = i + 1; k < NQ; ++k) s = s - L[k][i] * qdd[k];
     qdd[i] = s * (S(1) / L[i][i]);
-  }
-}
-
-// Tangent directions per dual pass: 3 NQ / kDualTangents passes of a Dual
-// with kDualTangents tangents.  One tangent a pass spills least on sm_90a
-// (PERF.md has the -Xptxas -v counts of 1, 2, 4 and 12).
-constexpr int kDualTangents = 1;
-
-// f(x, u) = [qd, qdd] and the dt-scaled Jacobian rows of the acceleration
-// block, Jrows[i] = dt * d qdd_i / d[x; u]  (NQ x 3 NQ), for one instance.
-// Each dual pass seeds K consecutive directions of z = [q, qd, u].
-template <typename S, int NQ>
-MPC_HD void arm_linearize(const ArmConsts<S, NQ>& c, const S* x, const S* u,
-                          S dt, S* fval, S (&Jrows)[NQ][3 * NQ]) {
-  constexpr int NZ = 3 * NQ;
-  constexpr int K = kDualTangents < NZ ? kDualTangents : NZ;
-  constexpr int PASSES = (NZ + K - 1) / K;
-  typedef Dual<S, K> D;
-#pragma unroll 1
-  for (int pass = 0; pass < PASSES; ++pass) {
-    D q[NQ], qd[NQ], uu[NQ], qdd[NQ];
-    // Seeds by comparison, so no array is indexed by the runtime `pass`.
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      q[i] = D(x[i]);
-      qd[i] = D(x[NQ + i]);
-      uu[i] = D(u[i]);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = pass * K + k;
-        q[i].d[k] = S(d == i ? 1 : 0);
-        qd[i].d[k] = S(d == NQ + i ? 1 : 0);
-        uu[i].d[k] = S(d == 2 * NQ + i ? 1 : 0);
-      }
-    }
-    arm_qdd<D, S, NQ>(c, q, qd, uu, qdd);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      if (pass == 0) {
-        fval[i] = x[NQ + i];
-        fval[NQ + i] = qdd[i].v;
-      }
-#pragma unroll
-      for (int col = 0; col < NZ; ++col)
-        if (col / K == pass) Jrows[i][col] = dt * qdd[i].d[col % K];
-    }
-  }
-}
-
-// Plain f(x, u) = [qd, qdd] for one instance (line-search trial points).
-template <typename S, int NQ>
-MPC_HD void arm_f(const ArmConsts<S, NQ>& c, const S* x, const S* u, S* fval) {
-  S qdd[NQ];
-  arm_qdd<S, S, NQ>(c, x, x + NQ, u, qdd);
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    fval[i] = x[NQ + i];
-    fval[NQ + i] = qdd[i];
   }
 }
 

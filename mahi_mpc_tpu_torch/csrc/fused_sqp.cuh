@@ -2,17 +2,28 @@
 // once for the device (csrc/fused_sqp.cu) and the host (fused_sqp_cpu.cpp,
 // built only by the tests, like Pallas' interpret mode).
 //
-// It computes what `_make_kernel` in mahi_mpc_tpu/solver/fused.py computes
-// for a serial arm with the forward-Euler step: per iteration a backward
-// sweep (linearize, stage gradients and barrier terms, block Riccati step
-// over (Pxx, Pxv, Pvv, px, pv) with an unrolled nu x nu Cholesky, cost /
-// l1 / max|p| accumulators), a forward rollout from the stored Jacobian
-// rows (fraction-to-boundary cap, directional derivative), and a parallel
-// fan line search on the l1 merit with a 0*inf-guarded update.  Fixed mode
-// runs n_iter iterations at fixed mu and reg; adaptive mode adds the
-// barrier continuation, the regularization ladder, per-instance status and
-// an early exit (exact: a finished instance's iterate and stats never
-// change again).
+// It computes what `_make_kernel` in mahi_mpc_tpu/solver/fused.py computes:
+// per iteration a backward sweep (linearize, stage gradients and barrier
+// terms, block Riccati step over (Pxx, Pxv, Pvv, px, pv) with an unrolled
+// nu x nu Cholesky, cost / l1 / max|p| accumulators), a forward rollout
+// from the stored linearization (fraction-to-boundary cap, directional
+// derivative), and a parallel fan line search on the l1 merit with a
+// 0*inf-guarded update.  Fixed mode runs n_iter iterations at fixed mu and
+// reg; adaptive mode adds the barrier continuation, the regularization
+// ladder, per-instance status and an early exit (exact: a finished
+// instance's iterate and stats never change again).
+//
+// The step policy `Step` is the only model-specific part: it linearizes a
+// stage (the step value, A, B, and the rows the rollout reuses), takes the
+// rollout's next state step, and evaluates a trial step.  The three modes
+// of the Pallas kernel (`fused.py:313-369`):
+//   FastNq<Model>   Euler step of a second-order model (the `_fast2` rule):
+//                   NQ dual-number acceleration rows, the rest analytic;
+//   Generic<Model>  midpoint or RK4 (any integrator): NX rows by dual
+//                   numbers through the whole step;
+//   Ltv<NX, NU>     the frozen affine step Ad x + Bd u + cd, streamed in
+//                   batch-innermost and read row by row where it is used:
+//                   no AD and no Jacobian scratch.
 //
 // Arrays are batch-innermost: element e of an instance's (..., B) array is
 // at p[e * B + b], so neighbouring threads read neighbouring addresses.
@@ -27,7 +38,9 @@
 //   * sums run in the order of the JAX kernel's element algebra.
 #pragma once
 
-#include "arm_dynamics.cuh"
+#include <type_traits>
+
+#include "model_dynamics.cuh"
 
 namespace mpc {
 
@@ -42,7 +55,7 @@ constexpr double kRegDiverged = 1e8;
 constexpr double kInnerMuMult = 10.0;
 constexpr double kFtbTau = 0.995;
 constexpr int kMaxFan = 8;
-constexpr int kNumPtrs = 23;
+constexpr int kNumPtrs = 27;
 
 template <typename S> struct Eps;
 template <> struct Eps<float> { static constexpr float value = 1.1920928955078125e-07f; };
@@ -59,23 +72,24 @@ template <typename S> MPC_HD S nmin(S a, S b) {
 template <typename S>
 struct FusedArgs {
   long long B;
-  int N, n_iter, n_pin, adaptive, n_fan;
+  int N, n_iter, n_pin, adaptive, n_fan, integ, ltv;
   S dt, tol, mu_floor, kappa;
   S fan[kMaxFan];
   // inputs, batch-innermost: X0 (N+1,nx,B) U0 (N,nu,B) xdes (N,nx,B),
-  // q r rm uprev umin umax xmin xmax qf xfdes (n,B), mu0 (B)
+  // q r rm uprev umin umax xmin xmax qf xfdes (n,B), mu0 (B); LTV only:
+  // Ad (nx,nx,B) Bd (nx,nu,B) cd (nx,B)
   const S *X0, *U0, *xdes, *q, *r, *rm, *uprev, *umin, *umax, *xmin, *xmax,
-      *qf, *xfdes, *mu0;
+      *qf, *xfdes, *mu0, *Ad, *Bd, *cd;
   // outputs X (N+1,nx,B) U (N,nu,B) stats (8,B)
   S *X, *U, *stats;
   // scratch K (N,nu,nz,B) kff (N,nu,B) dX (N+1,nx,B) dU (N,nu,B)
-  // G (N+1,nx+2nu,B) J (N,nq,nz,B) ck (N,nx,B)
+  // G (N+1,nx+2nu,B) J (N,NJ,nz,B) ck (N,nx,B), NJ the step policy's rows
   S *K, *kff, *dX, *dU, *G, *J, *ck;
 };
 
 // Arguments from the flat C interface: kNumPtrs pointers in the order of
 // the struct, scalars {dt, tol, mu_floor, kappa}, ints {n_iter, n_pin,
-// adaptive, n_fan}, and the fan rungs.
+// adaptive, n_fan, integrator, ltv}, and the fan rungs.
 template <typename S>
 inline FusedArgs<S> make_args(long long B, int N, void* const* ptrs,
                               const S* scal, const int* ints, const S* fan) {
@@ -86,6 +100,8 @@ inline FusedArgs<S> make_args(long long B, int N, void* const* ptrs,
   a.n_pin = ints[1];
   a.adaptive = ints[2];
   a.n_fan = ints[3] < kMaxFan ? ints[3] : kMaxFan;
+  a.integ = ints[4];
+  a.ltv = ints[5];
   a.dt = scal[0];
   a.tol = scal[1];
   a.mu_floor = scal[2];
@@ -93,7 +109,7 @@ inline FusedArgs<S> make_args(long long B, int N, void* const* ptrs,
   for (int j = 0; j < kMaxFan; ++j) a.fan[j] = j < a.n_fan ? fan[j] : S(0);
   const S** in[] = {&a.X0, &a.U0, &a.xdes, &a.q, &a.r, &a.rm, &a.uprev,
                     &a.umin, &a.umax, &a.xmin, &a.xmax, &a.qf, &a.xfdes,
-                    &a.mu0};
+                    &a.mu0, &a.Ad, &a.Bd, &a.cd};
   S** out[] = {&a.X, &a.U, &a.stats, &a.K, &a.kff, &a.dX, &a.dU, &a.G,
                &a.J, &a.ck};
   int t = 0;
@@ -145,10 +161,152 @@ MPC_HD S ftb(S v, S dv, S lo, S hi, S amax) {
   return nmin(amax, nmin(a_lo, a_hi));
 }
 
-template <typename S, int NQ>
-MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
+// ---- step policies.  Each has sizes NX, NU, the stored rows a stage NJ,
+// and `bind(args, b)`, one instance's view with:
+//   linearize(k, x, u, dt, val, A, Bm, Js): the step value F(x, u), its
+//     Jacobians A, Bm, and the rows the rollout reuses written to Js;
+//   next_dx(k, dt, dx, du, Js, cks, dxn): dxn = A dx + B du + c_k from what
+//     linearize stored;
+//   value(x, u, dt, val): F(x, u) at a line-search trial point.
+
+// Euler step of a second-order model: the position rows of A are
+// [I, dt I], B's are 0, and only the NQ acceleration rows need AD; their
+// dt-scaled rows are stored.
+template <typename S, typename Model>
+struct FastNq {
+  static constexpr int NQ = Model::NQ, NX = Model::NX, NU = Model::NU,
+                       NZ = NX + NU, NJ = NQ;
+  Model m;
+  MPC_HD const FastNq& bind(const FusedArgs<S>&, long long) const {
+    return *this;
+  }
+  MPC_HD void linearize(int k, const S* xl, const S* ul, S dt, S* val,
+                        S (&A)[NX][NX], S (&Bm)[NX][NU],
+                        const Lane<S>& Js) const {
+    S fval[NX], Jr[NQ][NZ];
+    acc_rows<S, Model>(m, xl, ul, dt, fval, Jr);
+    for (int i = 0; i < NX; ++i) val[i] = xl[i] + dt * fval[i];
+    for (int i = 0; i < NQ; ++i) {
+      for (int j = 0; j < NX; ++j) {
+        A[i][j] = S(j == i ? 1 : 0) + (j == i + NQ ? dt : S(0));
+        A[NQ + i][j] = S(j == NQ + i ? 1 : 0) + Jr[i][j];
+      }
+      for (int j = 0; j < NU; ++j) {
+        Bm[i][j] = S(0);
+        Bm[NQ + i][j] = Jr[i][NX + j];
+      }
+      for (int j = 0; j < NZ; ++j) Js[(k * NQ + i) * NZ + j] = Jr[i][j];
+    }
+  }
+  MPC_HD void next_dx(int k, S dt, const S* dx, const S* du,
+                      const Lane<S>& Js, const Lane<S>& cks, S* dxn) const {
+    for (int i = 0; i < NQ; ++i)
+      dxn[i] = (dx[i] + dt * dx[NQ + i]) + cks[k * NX + i];
+    for (int i = 0; i < NQ; ++i) {
+      const int base = (k * NQ + i) * NZ;
+      S acc = Js[base] * dx[0];
+      for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx[j];
+      for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du[j];
+      dxn[NQ + i] = (dx[NQ + i] + acc) + cks[k * NX + NQ + i];
+    }
+  }
+  MPC_HD void value(const S* xt, const S* ut, S dt, S* val) const {
+    S fv[NX];
+    model_f(m, xt, ut, fv);
+    for (int i = 0; i < NX; ++i) val[i] = xt[i] + fv[i] * dt;
+  }
+};
+
+// Any integrator: NX rows of the step Jacobian [A | B] by dual numbers
+// through the whole step, stored as they come, one column a pass.
+template <typename S, typename Model>
+struct Generic {
+  static constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU,
+                       NJ = NX;
+  Model m;
+  int integ;
+  MPC_HD const Generic& bind(const FusedArgs<S>&, long long) const {
+    return *this;
+  }
+  MPC_HD void linearize(int k, const S* xl, const S* ul, S dt, S* val,
+                        S (&A)[NX][NX], S (&Bm)[NX][NU],
+                        const Lane<S>& Js) const {
+    step_rows(m, integ, dt, xl, ul, val, [&](int d, int i, S v) {
+      Js[(k * NX + i) * NZ + d] = v;
+    });
+    for (int i = 0; i < NX; ++i) {
+      for (int j = 0; j < NX; ++j) A[i][j] = Js[(k * NX + i) * NZ + j];
+      for (int j = 0; j < NU; ++j) Bm[i][j] = Js[(k * NX + i) * NZ + NX + j];
+    }
+  }
+  MPC_HD void next_dx(int k, S, const S* dx, const S* du, const Lane<S>& Js,
+                      const Lane<S>& cks, S* dxn) const {
+    for (int i = 0; i < NX; ++i) {
+      const int base = (k * NX + i) * NZ;
+      S acc = Js[base] * dx[0];
+      for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx[j];
+      for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du[j];
+      dxn[i] = acc + cks[k * NX + i];
+    }
+  }
+  MPC_HD void value(const S* xt, const S* ut, S dt, S* val) const {
+    model_step(m, integ, dt, xt, ut, val);
+  }
+};
+
+// LTV (reference C8): the exact affine step F = Ad x + Bd u + cd of the
+// frozen linearization, computed once per solve on the host.  Its rows are
+// read from the batch-innermost inputs where they are used (coalesced, L2
+// resident) rather than held in registers for the whole solve.
+template <typename S, int NX_, int NU_>
+struct Ltv {
+  static constexpr int NX = NX_, NU = NU_, NJ = 0;
+  struct Bound {
+    Lane<const S> Ad, Bd, cd;
+    // ((Ad x) + (Bd u)) + c, each dot product left to right.
+    MPC_HD void affine(const S* x, const S* u, const S* c, S* out) const {
+      for (int i = 0; i < NX; ++i) {
+        S ax = Ad[i * NX] * x[0];
+        for (int j = 1; j < NX; ++j) ax = ax + Ad[i * NX + j] * x[j];
+        S bu = Bd[i * NU] * u[0];
+        for (int j = 1; j < NU; ++j) bu = bu + Bd[i * NU + j] * u[j];
+        out[i] = (ax + bu) + c[i];
+      }
+    }
+    MPC_HD void linearize(int, const S* xl, const S* ul, S, S* val,
+                          S (&A)[NX][NX], S (&Bm)[NX][NU],
+                          const Lane<S>&) const {
+      S c[NX];
+      for (int i = 0; i < NX; ++i) {
+        c[i] = cd[i];
+        for (int j = 0; j < NX; ++j) A[i][j] = Ad[i * NX + j];
+        for (int j = 0; j < NU; ++j) Bm[i][j] = Bd[i * NU + j];
+      }
+      affine(xl, ul, c, val);
+    }
+    MPC_HD void next_dx(int k, S, const S* dx, const S* du, const Lane<S>&,
+                        const Lane<S>& cks, S* dxn) const {
+      S c[NX];
+      for (int i = 0; i < NX; ++i) c[i] = cks[k * NX + i];
+      affine(dx, du, c, dxn);
+    }
+    MPC_HD void value(const S* xt, const S* ut, S, S* val) const {
+      S c[NX];
+      for (int i = 0; i < NX; ++i) c[i] = cd[i];
+      affine(xt, ut, c, val);
+    }
+  };
+  MPC_HD Bound bind(const FusedArgs<S>& a, long long b) const {
+    return Bound{{a.Ad + b, a.B}, {a.Bd + b, a.B}, {a.cd + b, a.B}};
+  }
+};
+
+template <typename S, typename Step>
+MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
                            long long b) {
-  constexpr int NX = 2 * NQ, NU = NQ, NZ = NX + NU, NG = NX + 2 * NU;
+  constexpr int NX = Step::NX, NU = Step::NU, NZ = NX + NU,
+                NG = NX + 2 * NU;
+  const auto& st = step.bind(a, b);
   const long long B = a.B;
   const int N = a.N;
   const S dt = a.dt;
@@ -241,25 +399,13 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
       else load(U, (k - 1) * NU, NU, ukm1);
       const int kp = k >= 1 ? k - 1 : 0;
 
-      // ---- linearize: value, defect, dt-scaled acceleration Jacobian rows
-      S fval[NX], Jr[NQ][NZ];
-      arm_linearize<S, NQ>(arm, xl, ul, dt, fval, Jr);
+      // ---- linearize: step value, Jacobians, defect (the policy stores
+      // what the rollout reuses)
       S val[NX], ck[NX], A[NX][NX], Bm[NX][NU];
+      st.linearize(k, xl, ul, dt, val, A, Bm, Js);
       for (int i = 0; i < NX; ++i) {
-        val[i] = xl[i] + dt * fval[i];
         ck[i] = val[i] - xn1[i];
         cks[k * NX + i] = ck[i];
-      }
-      for (int i = 0; i < NQ; ++i) {
-        for (int j = 0; j < NX; ++j) {
-          A[i][j] = S(j == i ? 1 : 0) + (j == i + NQ ? dt : S(0));
-          A[NQ + i][j] = S(j == NQ + i ? 1 : 0) + Jr[i][j];
-        }
-        for (int j = 0; j < NU; ++j) {
-          Bm[i][j] = S(0);
-          Bm[NQ + i][j] = Jr[i][NX + j];
-        }
-        for (int j = 0; j < NZ; ++j) Js[(k * NQ + i) * NZ + j] = Jr[i][j];
       }
 
       // ---- stage gradients and diagonal (stage_qp.build_stage_qp blocks)
@@ -486,15 +632,7 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
         ddir = ddir + Gs[k * NG + NX + l] * dv[l];
         ddir = ddir + Gs[k * NG + NX + NU + l] * du[l];
       }
-      for (int i = 0; i < NQ; ++i)
-        dxn[i] = (dx[i] + dt * dx[NQ + i]) + cks[k * NX + i];
-      for (int i = 0; i < NQ; ++i) {
-        const int base = (k * NQ + i) * NZ;
-        S acc = Js[base] * dx[0];
-        for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx[j];
-        for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du[j];
-        dxn[NQ + i] = (dx[NQ + i] + acc) + cks[k * NX + NQ + i];
-      }
+      st.next_dx(k, dt, dx, du, Js, cks, dxn);
       for (int l = 0; l < NU; ++l)
         amax = ftb(U[k * NU + l], du[l], umin[l], umax[l], amax);
       for (int i = 0; i < NX; ++i)
@@ -546,7 +684,7 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
       for (int j = 0; j < kMaxFan; ++j) {
         if (j >= a.n_fan) break;
         const S aj = al[j];
-        S xt[NX], ut[NU], dut[NU], et[NX], fv[NX];
+        S xt[NX], ut[NU], dut[NU], et[NX], vt[NX];
         for (int i = 0; i < NX; ++i) {
           xt[i] = xl[i] + aj * dxk[i];
           et[i] = xt[i] - xdes[kp * NX + i];
@@ -557,10 +695,10 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
         }
         S rmag;
         const S sc = stage_cost(xt, ut, dut, et, tk, mu, rmag);
-        arm_f<S, NQ>(arm, xt, ut, fv);
+        st.value(xt, ut, dt, vt);
         S cl1 = cl1_t[j], jr = rmag;
         for (int i = 0; i < NX; ++i) {
-          const S vi = xt[i] + fv[i] * dt;            // Euler step
+          const S vi = vt[i];
           cl1 = cl1 + m_abs(vi - (xn1[i] + aj * dxk1[i]));
           const S er = vi - xdes[k * NX + i];
           jr = jr + q[i] * (er * er);
@@ -647,6 +785,75 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const ArmConsts<S, NQ>& arm,
   stats[5] = done;
   stats[6] = iters;
   stats[7] = S(0);
+}
+
+// ---- instantiation: which step policy serves a problem.
+
+// Kernel-model ids (solver/fused.py ARM_IDS and CLOSED_FORM_IDS).
+enum ModelId {
+  kTwoLinkArm = 0, kMahiArm = 1, kPendulum = 2, kCartpole = 3,
+  kDoublePendulum = 4, kAcrobot = 5
+};
+
+// The instantiation families; a build holds the ones in its mask (one CUDA
+// library each, so nvcc builds them concurrently; the CPU test build holds
+// all of them).
+enum Family { kArmFast = 1, kArmGeneric = 2, kModels = 4, kLtvShapes = 8,
+              kAllFamilies = 15 };
+
+// Calls fn(step) with the policy that serves (model, nx, nu) under the
+// integrator and LTV flag of `a`, among the families of kFamilies; returns
+// fn's result, or -1 when no instantiation of this build serves it.
+template <typename S, int kFamilies, typename Fn>
+int dispatch(const FusedArgs<S>& a, int model, int nx, int nu,
+             const double* c, const Fn& fn) {
+  auto serve = [&](const auto& step) -> int {
+    typedef typename std::decay<decltype(step)>::type Step;
+    return (Step::NX == nx && Step::NU == nu) ? fn(step) : -1;
+  };
+  if (a.ltv) {
+    if constexpr ((kFamilies & kLtvShapes) != 0) {
+      if (nx == 8 && nu == 4) return serve(Ltv<S, 8, 4>{});
+      if (nx == 4 && nu == 2) return serve(Ltv<S, 4, 2>{});
+      if (nx == 4 && nu == 1) return serve(Ltv<S, 4, 1>{});
+      if (nx == 2 && nu == 1) return serve(Ltv<S, 2, 1>{});
+    }
+    return -1;
+  }
+  const bool euler = a.integ == kEuler;
+  // One model: the nq-row policy under Euler, the generic one otherwise.
+  auto either = [&](const auto& m) -> int {
+    typedef typename std::decay<decltype(m)>::type M;
+    return euler ? serve(FastNq<S, M>{m}) : serve(Generic<S, M>{m, a.integ});
+  };
+  if (model == kTwoLinkArm || model == kMahiArm) {
+    const bool two = model == kTwoLinkArm;
+    if constexpr ((kFamilies & kArmFast) != 0) {
+      if (euler && two)
+        return serve(FastNq<S, ArmModel<S, 2>>{{load_arm<S, double, 2>(c)}});
+      if (euler)
+        return serve(FastNq<S, ArmModel<S, 4>>{{load_arm<S, double, 4>(c)}});
+    }
+    if constexpr ((kFamilies & kArmGeneric) != 0) {
+      if (!euler && two)
+        return serve(Generic<S, ArmModel<S, 2>>{
+            {load_arm<S, double, 2>(c)}, a.integ});
+      if (!euler)
+        return serve(Generic<S, ArmModel<S, 4>>{
+            {load_arm<S, double, 4>(c)}, a.integ});
+    }
+    return -1;
+  }
+  if constexpr ((kFamilies & kModels) != 0) {
+    switch (model) {
+      case kPendulum: return either(Pendulum<S>::load(c));
+      case kCartpole: return either(Cartpole<S>::load(c));
+      case kDoublePendulum: return either(DoublePendulum<S>::load(c));
+      case kAcrobot: return either(Acrobot<S>::load(c));
+      default: break;
+    }
+  }
+  return -1;
 }
 
 }  // namespace mpc

@@ -1,54 +1,98 @@
 // The fused kernel's per-instance body built for the CPU, for the tests
-// only: the same fused_sqp.cuh that nvcc compiles for the card, looped over
-// instances and instantiated for float and double.  Built with
-// `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
-// package's main path never loads it.
+// only: the same fused_sqp.cuh that nvcc compiles for the card, with every
+// instantiation family, looped over instances and built for float and
+// double.  Built with `g++ -O2 -shared -fPIC` and loaded with ctypes
+// (solver/fused.py); the package's main path never loads it.
 #include "fused_sqp.cuh"
 
 namespace {
 
-template <typename S, int NQ>
-void solve_all(long long B, int N, void* const* ptrs, const S* scal,
-               const int* ints, const S* fan, const double* arm) {
+template <typename S>
+int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
+          const S* scal, const int* ints, const S* fan, const double* c) {
   const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
-  const mpc::ArmConsts<S, NQ> c = mpc::load_arm<S, double, NQ>(arm);
-  for (long long b = 0; b < B; ++b) mpc::solve_instance<S, NQ>(a, c, b);
+  return mpc::dispatch<S, mpc::kAllFamilies>(
+      a, model, nx, nu, c, [&](const auto& step) -> int {
+        for (long long b = 0; b < B; ++b) mpc::solve_instance<S>(a, step, b);
+        return 0;
+      });
+}
+
+// For M points (batch-innermost x (nx, M), u (nu, M)) of one model: f and
+// its Jacobian d f / d[x; u] (nx, nz, M), and the step F under `integ` and
+// its Jacobian (nx, nz, M), through the dual-number code the kernel runs
+// (the generic policy's `step_rows`).
+template <typename S, typename Model>
+void eval_model(const Model& m, long long M, int integ, const S* x,
+                const S* u, S dt, S* fval, S* fjac, S* sval, S* sjac) {
+  constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU;
+  typedef mpc::Dual<S, 1> D;
+  for (long long p = 0; p < M; ++p) {
+    S xl[NX], ul[NU], fv[NX], sv[NX];
+    for (int i = 0; i < NX; ++i) xl[i] = x[i * M + p];
+    for (int j = 0; j < NU; ++j) ul[j] = u[j * M + p];
+    mpc::model_f(m, xl, ul, fv);
+    for (int d = 0; d < NZ; ++d) {
+      D xd[NX], ud[NU], out[NX];
+      mpc::seed<S, 1, NX, NU>(xl, ul, d, xd, ud);
+      mpc::model_f(m, xd, ud, out);
+      for (int i = 0; i < NX; ++i) fjac[(i * NZ + d) * M + p] = out[i].d[0];
+    }
+    mpc::step_rows(m, integ, dt, xl, ul, sv, [&](int d, int i, S v) {
+      sjac[(i * NZ + d) * M + p] = v;
+    });
+    for (int i = 0; i < NX; ++i) {
+      fval[i * M + p] = fv[i];
+      sval[i * M + p] = sv[i];
+    }
+  }
 }
 
 template <typename S>
-int solve(long long B, int N, int nq, void* const* ptrs, const S* scal,
-          const int* ints, const S* fan, const double* arm) {
-  switch (nq) {
-    case 2: solve_all<S, 2>(B, N, ptrs, scal, ints, fan, arm); return 0;
-    case 4: solve_all<S, 4>(B, N, ptrs, scal, ints, fan, arm); return 0;
+int eval(long long M, int model, int integ, const S* x, const S* u, S dt,
+         const double* c, S* fval, S* fjac, S* sval, S* sjac) {
+  auto run = [&](const auto& m) {
+    eval_model<S>(m, M, integ, x, u, dt, fval, fjac, sval, sjac);
+    return 0;
+  };
+  switch (model) {
+    case mpc::kTwoLinkArm:
+      return run(mpc::ArmModel<S, 2>{mpc::load_arm<S, double, 2>(c)});
+    case mpc::kMahiArm:
+      return run(mpc::ArmModel<S, 4>{mpc::load_arm<S, double, 4>(c)});
+    case mpc::kPendulum: return run(mpc::Pendulum<S>::load(c));
+    case mpc::kCartpole: return run(mpc::Cartpole<S>::load(c));
+    case mpc::kDoublePendulum: return run(mpc::DoublePendulum<S>::load(c));
+    case mpc::kAcrobot: return run(mpc::Acrobot<S>::load(c));
     default: return -1;
   }
 }
 
-// f(x, u) and the dt-scaled acceleration Jacobian rows for M instances;
-// x (nx, M), u (nu, M), fval (nx, M), jrows (nq, nz, M): batch-innermost.
+// f(x, u) and the dt-scaled acceleration Jacobian rows of a serial arm for
+// M instances (the nq-row policy's `acc_rows`); x (nx, M), u (nu, M),
+// fval (nx, M), jrows (nq, nz, M): batch-innermost.
 template <typename S, int NQ>
-void eval_all(long long M, const S* x, const S* u, S dt, const double* arm,
-              S* fval, S* jrows) {
+void arm_rows_all(long long M, const S* x, const S* u, S dt,
+                  const double* arm, S* fval, S* jrows) {
   constexpr int NX = 2 * NQ, NZ = 3 * NQ;
-  const mpc::ArmConsts<S, NQ> c = mpc::load_arm<S, double, NQ>(arm);
-  for (long long m = 0; m < M; ++m) {
+  const mpc::ArmModel<S, NQ> m{mpc::load_arm<S, double, NQ>(arm)};
+  for (long long p = 0; p < M; ++p) {
     S xl[NX], ul[NQ], fv[NX], J[NQ][NZ];
-    for (int i = 0; i < NX; ++i) xl[i] = x[i * M + m];
-    for (int i = 0; i < NQ; ++i) ul[i] = u[i * M + m];
-    mpc::arm_linearize<S, NQ>(c, xl, ul, dt, fv, J);
-    for (int i = 0; i < NX; ++i) fval[i * M + m] = fv[i];
+    for (int i = 0; i < NX; ++i) xl[i] = x[i * M + p];
+    for (int i = 0; i < NQ; ++i) ul[i] = u[i * M + p];
+    mpc::acc_rows<S>(m, xl, ul, dt, fv, J);
+    for (int i = 0; i < NX; ++i) fval[i * M + p] = fv[i];
     for (int i = 0; i < NQ; ++i)
-      for (int j = 0; j < NZ; ++j) jrows[(i * NZ + j) * M + m] = J[i][j];
+      for (int j = 0; j < NZ; ++j) jrows[(i * NZ + j) * M + p] = J[i][j];
   }
 }
 
 template <typename S>
-int eval(long long M, int nq, const S* x, const S* u, S dt, const double* arm,
-         S* fval, S* jrows) {
+int arm_rows(long long M, int nq, const S* x, const S* u, S dt,
+             const double* arm, S* fval, S* jrows) {
   switch (nq) {
-    case 2: eval_all<S, 2>(M, x, u, dt, arm, fval, jrows); return 0;
-    case 4: eval_all<S, 4>(M, x, u, dt, arm, fval, jrows); return 0;
+    case 2: arm_rows_all<S, 2>(M, x, u, dt, arm, fval, jrows); return 0;
+    case 4: arm_rows_all<S, 4>(M, x, u, dt, arm, fval, jrows); return 0;
     default: return -1;
   }
 }
@@ -57,28 +101,38 @@ int eval(long long M, int nq, const S* x, const S* u, S dt, const double* arm,
 
 extern "C" {
 
-int mpc_fused_solve_cpu_f32(long long B, int N, int nq, void* const* ptrs,
-                            const float* scal, const int* ints,
-                            const float* fan, const double* arm) {
-  return solve<float>(B, N, nq, ptrs, scal, ints, fan, arm);
+int mpc_fused_solve_cpu_f32(long long B, int N, int model, int nx, int nu,
+                            void* const* ptrs, const float* scal,
+                            const int* ints, const float* fan,
+                            const double* consts) {
+  return solve<float>(B, N, model, nx, nu, ptrs, scal, ints, fan, consts);
 }
 
-int mpc_fused_solve_cpu_f64(long long B, int N, int nq, void* const* ptrs,
-                            const double* scal, const int* ints,
-                            const double* fan, const double* arm) {
-  return solve<double>(B, N, nq, ptrs, scal, ints, fan, arm);
+int mpc_fused_solve_cpu_f64(long long B, int N, int model, int nx, int nu,
+                            void* const* ptrs, const double* scal,
+                            const int* ints, const double* fan,
+                            const double* consts) {
+  return solve<double>(B, N, model, nx, nu, ptrs, scal, ints, fan, consts);
 }
 
 int mpc_arm_eval_cpu_f32(long long M, int nq, const float* x, const float* u,
                          float dt, const double* arm, float* fval,
                          float* jrows) {
-  return eval<float>(M, nq, x, u, dt, arm, fval, jrows);
+  return arm_rows<float>(M, nq, x, u, dt, arm, fval, jrows);
 }
 
 int mpc_arm_eval_cpu_f64(long long M, int nq, const double* x,
                          const double* u, double dt, const double* arm,
                          double* fval, double* jrows) {
-  return eval<double>(M, nq, x, u, dt, arm, fval, jrows);
+  return arm_rows<double>(M, nq, x, u, dt, arm, fval, jrows);
+}
+
+int mpc_model_eval_cpu_f64(long long M, int model, int integ,
+                           const double* x, const double* u, double dt,
+                           const double* consts, double* fval, double* fjac,
+                           double* sval, double* sjac) {
+  return eval<double>(M, model, integ, x, u, dt, consts, fval, fjac, sval,
+                      sjac);
 }
 
 }  // extern "C"

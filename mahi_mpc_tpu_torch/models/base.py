@@ -57,6 +57,15 @@ class Dynamics:
         return A @ (x - x0) + B @ (u - u0) + x_dot0
 
 
+def with_closed_form(dyn: Dynamics, consts: list) -> Dynamics:
+    """Record the constants of a model that the fused CUDA kernel also has
+    in closed form (``csrc/model_dynamics.cuh``), as ``dyn.closed_form =
+    (name, consts)``: the products ``f`` folds, in the order the kernel's
+    ``load`` reads them.  Returns ``dyn``."""
+    object.__setattr__(dyn, "closed_form", (dyn.name, list(consts)))
+    return dyn
+
+
 _REGISTRY: Dict[str, Callable[..., Dynamics]] = {}
 
 

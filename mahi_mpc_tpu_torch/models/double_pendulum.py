@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import Dynamics, register
+from .base import Dynamics, register, with_closed_form
 
 Tensor = torch.Tensor
 
@@ -21,11 +21,12 @@ def make_double_pendulum(L: float = 1.0, m: float = 1.0,
                          g: float = 9.81) -> Dynamics:
     """Torques at both joints: u = [TA, TB]."""
 
+    ml2, mgl = m * L * L, m * g * L
+
     def f(x: Tensor, u: Tensor) -> Tensor:
         qA, qB, qAd, qBd = x[0], x[1], x[2], x[3]
         TA, TB = u[0], u[1]
         cB, sB = torch.cos(qB), torch.sin(qB)
-        ml2 = m * L * L
 
         # M(q) qdd + c(q, qd) + grav(q) = tau with
         # M = ml2 * [[3 + 2 cB, 1 + cB], [1 + cB, 1]].
@@ -36,8 +37,8 @@ def make_double_pendulum(L: float = 1.0, m: float = 1.0,
         c1 = -ml2 * sB * (2.0 * qAd * qBd + qBd * qBd)
         c2 = ml2 * sB * qAd * qAd
 
-        g1 = m * g * L * (2.0 * torch.cos(qA) + torch.cos(qA + qB))
-        g2 = m * g * L * torch.cos(qA + qB)
+        g1 = mgl * (2.0 * torch.cos(qA) + torch.cos(qA + qB))
+        g2 = mgl * torch.cos(qA + qB)
 
         rhs1 = TA - c1 - g1
         rhs2 = TB - c2 - g2
@@ -46,8 +47,9 @@ def make_double_pendulum(L: float = 1.0, m: float = 1.0,
         qBdd = (m11 * rhs2 - m12 * rhs1) / det
         return torch.stack([qAd, qBd, qAdd, qBdd])
 
-    return Dynamics("double_pendulum", nx=4, nu=2, f=f, supports_lanes=True,
-                    nq=2)
+    return with_closed_form(
+        Dynamics("double_pendulum", nx=4, nu=2, f=f, supports_lanes=True,
+                 nq=2), [ml2, mgl])
 
 
 @register("acrobot")
@@ -58,4 +60,6 @@ def make_acrobot(L: float = 1.0, m: float = 1.0, g: float = 9.81) -> Dynamics:
     def f(x: Tensor, u: Tensor) -> Tensor:
         return dp.f(x, torch.stack([torch.zeros_like(u[0]), u[0]]))
 
-    return Dynamics("acrobot", nx=4, nu=1, f=f, supports_lanes=True, nq=2)
+    return with_closed_form(
+        Dynamics("acrobot", nx=4, nu=1, f=f, supports_lanes=True, nq=2),
+        dp.closed_form[1])

@@ -14,6 +14,10 @@ one batched solve, warm-started from the previous plan.  Two routes, as
   tolerance from the cold or warm barrier; ``fixed_warm_iters`` has no
   effect there, as in the JAX package's service.
 
+LTV models (``params.is_linear``, reference C8) refreeze each instance's
+linearization at its measured state before every step (``relinearize``)
+and then take the same route.
+
 Instances carry independent status: a failed instance (DIVERGED or
 non-finite) gets a zero warm start, returns a zero control this step, and
 re-solves from scratch next step, as in the JAX package.
@@ -28,16 +32,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from ..convert import params_from_numpy, params_to_numpy
 from ..models.base import Dynamics, make_dynamics
+from ..ops.precision import strict_fp32
 from ..params import ModelParameters, SolverOptions
 from ..solver.batched import solve_batch_lanes
 from ..solver.fused import solve_batch_fused
 from ..solver.riccati import resolve_kkt_backend
 from ..solver.select import resolve_warm_solver
 from ..solver.sqp import DIVERGED
-from ..transcribe.shooting import MPCParams, default_params, make_problem
+from ..transcribe.shooting import (LinPoint, MPCParams, default_params,
+                                   make_problem)
 
 
 class BatchModelControl:
@@ -85,6 +92,8 @@ class BatchModelControl:
         self._mu_cold = float(opts.mu_init)
         self._mu_warm = max(opts.warm_mu_factor * opts.tol, opts.mu_min)
         self._warm = False
+        # LTV: (A, B, x_dot0) of every instance at once, built once.
+        self._relin = vmap(dynamics.linearize) if params.is_linear else None
         self.last = None          # last SolveResult
         self.solve_time_s = 0.0
 
@@ -105,10 +114,16 @@ class BatchModelControl:
         self._p = self._p._replace(x_des=self._tensor(x_des))
 
     def relinearize(self):
-        """LTV mode (C8) refreezes each instance's linearization; not ported
-        yet.  No-op for nonlinear models."""
-        if self.params.is_linear:
-            raise NotImplementedError("LTV relinearization is not ported yet")
+        """LTV mode (C8): refreeze each instance's (A, B, x_dot0) at its
+        current measured state and previous control — the batched analogue
+        of the reference's per-cycle ``get_A/get_B/get_x_dot``
+        (``ModelControl.cpp:125-135``).  No-op for nonlinear models."""
+        if self._relin is None:
+            return
+        p = self._p
+        with strict_fp32():
+            A, B, xd0 = self._relin(p.x0, p.u_prev)
+        self._p = p._replace(lin=LinPoint(A, B, xd0, p.x0, p.u_prev))
 
     def update_weights(self, Q=None, R=None, Rm=None):
         """Per-instance (B, nx)/(B, nu) or broadcastable weight updates."""

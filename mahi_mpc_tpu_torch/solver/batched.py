@@ -11,7 +11,9 @@ search.
 
 Where the JAX ``lax.while_loop``s test ``jnp.any(...)``, this loop reads one
 host scalar per SQP iteration and per line-search rung.  LTV mode
-(``prob.is_linear``) is not ported yet and raises ``NotImplementedError``.
+(``prob.is_linear``, reference C8) computes the exact discrete affine step
+of the frozen linearization once per solve (``_ltv_discrete``); defects,
+merit and objective are then batched matmuls, and no dynamics graph runs.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.func import jvp, vjp, vmap
+from torch.func import jacfwd, jvp, vjp, vmap
 
 from ..models.integrators import make_step
 from ..ops.precision import strict_fp32
@@ -37,6 +39,70 @@ Tensor = torch.Tensor
 def _lanes_step(prob: ShootingProblem, xs: Tensor, us: Tensor) -> Tensor:
     """Discrete step F on lanes-layout states: xs (nx, M), us (nu, M)."""
     return make_step(prob.dynamics.f, prob.dt, prob.integrator)(xs, us)
+
+
+# ---- LTV (successive-linearization) mode, reference C8 --------------------
+# The frozen-linearization step F(x, u) = step of A (x - x0) + B (u - u0) +
+# x_dot0 is affine with per-instance (A, B) constant across the horizon
+# (``ModelControl.cpp:125-135``), so its discrete Jacobians are one jacfwd
+# per instance (not per node) and the defects are batched matmuls.
+
+def _ltv_step_one(prob: ShootingProblem, lp, x: Tensor, u: Tensor) -> Tensor:
+    f = lambda x_, u_: prob.dynamics.linear_f(
+        x_, u_, lp.A, lp.B, lp.x_dot0, lp.x0, lp.u0)
+    return make_step(f, prob.dt, prob.integrator)(x, u)
+
+
+@strict_fp32()
+def _ltv_discrete(prob: ShootingProblem, p: MPCParams):
+    """Exact per-instance discrete affine step for LTV mode:
+    ``F(x, u) = Ad x + Bd u + cd`` with Ad (B, nx, nx), Bd (B, nx, nu),
+    cd (B, nx), from the frozen linearization ``p.lin`` (a (B, ...) batch).
+
+    An affine continuous-time ``f`` stays affine through every explicit
+    integrator, so the discrete step is exactly affine: ``cd`` is the step
+    at z = 0 and (Ad, Bd) its ``jacfwd`` there, vmapped over the batch,
+    once per solve.  Strict float32: TF32 here would hand the solver a
+    perturbed problem (the card's analogue of JAX commit 56dd6ff)."""
+    nx, nu = prob.nx, prob.nu
+    lin = p.lin
+    B = p.x0.shape[0]
+    want = {"A": (B, nx, nx), "B": (B, nx, nu), "x_dot0": (B, nx),
+            "x0": (B, nx), "u0": (B, nu)}
+    for k, shape in want.items():
+        got = tuple(getattr(lin, k).shape)
+        if got != shape:
+            raise ValueError(f"lin.{k}: expected {shape} (one frozen "
+                             f"linearization per instance), got {got}")
+
+    def one(lp):
+        joint = lambda w: _ltv_step_one(prob, lp, w[:nx], w[nx:])
+        z = torch.zeros(nx + nu, dtype=lp.x0.dtype, device=lp.x0.device)
+        J = jacfwd(joint)(z)
+        return J[:, :nx], J[:, nx:], joint(z)
+
+    return vmap(one)(lin)
+
+
+@strict_fp32()
+def _defects_ltv(prob: ShootingProblem, X: Tensor, U: Tensor,
+                 p: MPCParams, ltv=None) -> Tensor:
+    """Continuity residuals under the frozen LTV step: (B, N, nx)."""
+    Ad, Bd, cd = _ltv_discrete(prob, p) if ltv is None else ltv
+    xn = (torch.einsum("bij,bnj->bni", Ad, X[:, :-1])
+          + torch.einsum("bij,bnj->bni", Bd, U) + cd[:, None])
+    return xn - X[:, 1:]
+
+
+def _linearize_ltv(prob: ShootingProblem, X: Tensor, U: Tensor,
+                   p: MPCParams, ltv=None):
+    """Stage Jacobians for LTV mode: exact everywhere (the step is affine),
+    computed once per instance and broadcast over the horizon."""
+    B, Np1, nx = X.shape
+    N, nu = Np1 - 1, U.shape[-1]
+    Ad, Bd, cd = _ltv_discrete(prob, p) if ltv is None else ltv
+    return (Ad[:, None].expand(B, N, nx, nx), Bd[:, None].expand(B, N, nx, nu),
+            _defects_ltv(prob, X, U, p, ltv=(Ad, Bd, cd)))
 
 
 def _lanes(X: Tensor, U: Tensor):
@@ -99,13 +165,22 @@ def _linearize_lanes(prob: ShootingProblem, X: Tensor, U: Tensor,
         J = J.permute(2, 0, 1).reshape(B, N, nx, nz)
         val = W[:nx] + dt * f_val
     else:
-        stepw = lambda w: _lanes_step(prob, w[:nx], w[nx:])
-        val = stepw(W)                                  # (nx, M)
-        basis = const(np.eye(nz))[:, :, None].expand(nz, nz, M)
-        Jt = vmap(lambda t: jvp(stepw, (W,), (t,))[1])(basis)  # (nz, nx, M)
-        J = Jt.permute(2, 1, 0).reshape(B, N, nx, nz)
+        val, J = _fan_jacobian(prob, W)
+        J = J.permute(2, 0, 1).reshape(B, N, nx, nz)
     c = val.T.reshape(B, N, nx) - X[:, 1:]
     return J[..., :nx], J[..., nx:], c
+
+
+def _fan_jacobian(prob: ShootingProblem, W: Tensor):
+    """The discrete step and its Jacobian at M points W = [x; u] (nz, M):
+    val (nx, M), J (nx, nz, M), from nz unit-tangent ``torch.func.jvp``
+    passes vmapped over the unit basis (one batched pass on the card)."""
+    nx, nz = prob.nx, W.shape[0]
+    stepw = lambda w: _lanes_step(prob, w[:nx], w[nx:])
+    basis = torch.eye(nz, dtype=W.dtype, device=W.device)[:, :, None]
+    Jt = vmap(lambda t: jvp(stepw, (W,), (t,))[1])(
+        basis.expand(nz, nz, W.shape[1]))               # (nz, nx, M)
+    return stepw(W), Jt.permute(1, 0, 2)
 
 
 def _cost_separable_batch(X: Tensor, U: Tensor, p: MPCParams) -> Tensor:
@@ -130,9 +205,11 @@ def _merit_smooth_batch(X: Tensor, U: Tensor, p: MPCParams,
 
 
 def _merit_batch(prob: ShootingProblem, X: Tensor, U: Tensor, p: MPCParams,
-                 mu: Tensor, nu_pen: Tensor) -> Tensor:
-    """l1 merit per instance (B,): separable cost + barrier + nu |c|_1."""
-    c = _defects_lanes(prob, X, U)
+                 mu: Tensor, nu_pen: Tensor, ltv=None) -> Tensor:
+    """l1 merit per instance (B,): separable cost + barrier + nu |c|_1,
+    with the defects evaluated in lanes (LTV: batched affine matmuls)."""
+    c = (_defects_ltv(prob, X, U, p, ltv=ltv) if prob.is_linear
+         else _defects_lanes(prob, X, U))
     return (_merit_smooth_batch(X, U, p, mu)
             + nu_pen * torch.sum(torch.abs(c), dim=(1, 2)))
 
@@ -146,11 +223,9 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
     """Batched SQP with the JAX package's ``solve_batch_lanes`` semantics:
     every field of ``p`` carries a leading batch B, ``X0`` (B, N+1, nx) and
     ``U0`` (B, N, nu) warm-start it (zeros when None), ``mu0`` is the
-    initial barrier (default ``opts.mu_init``)."""
-    if prob.is_linear:
-        raise NotImplementedError(
-            "LTV mode of the lanes solver is not ported yet")
-    if not prob.dynamics.supports_lanes:
+    initial barrier (default ``opts.mu_init``).  LTV problems take the
+    frozen linearization from ``p.lin``, one per instance."""
+    if not (prob.is_linear or prob.dynamics.supports_lanes):
         raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
                          "lanes-polymorphic")
     nx, nu, N = prob.nx, prob.nu, prob.N
@@ -177,6 +252,9 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
     tol = float(opts.tol)
     backend = resolve_kkt_backend(opts.kkt_backend, batched=True,
                                   dims=(N, nz, nu), device=device)
+    # LTV: the exact discrete affine step depends only on the frozen
+    # linearization point, so it is computed once, outside the loop.
+    ltv = _ltv_discrete(prob, p) if prob.is_linear else None
 
     full = lambda v, dt=dtype: torch.full((B,), v, dtype=dt, device=device)
     reg, nu_pen = full(lc.REG_MIN), full(1.0)
@@ -186,7 +264,9 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
     kkt, feas_s = full(float("inf")), full(float("inf"))
 
     while bool(((~done) & (it < opts.max_iter)).any()):
-        A, Bm, c = _linearize_lanes(prob, X, U, mode=opts.linearize_mode)
+        A, Bm, c = (_linearize_ltv(prob, X, U, p, ltv=ltv) if prob.is_linear
+                    else _linearize_lanes(prob, X, U,
+                                          mode=opts.linearize_mode))
         qp = build_stage_qp(prob, X, U, p, mu, reg, lin=(A, Bm, c),
                             n_pin=opts.num_control_inputs_saved)
         sol = solve_lqr(qp, backend)
@@ -224,7 +304,8 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
             if not bool((~ok).any()):
                 break
             m_new = _merit_batch(prob, X + a[:, None, None] * dX,
-                                 U + a[:, None, None] * dU, p, mu, nu_pen_new)
+                                 U + a[:, None, None] * dU, p, mu, nu_pen_new,
+                                 ltv=ltv)
             pass_ = lc.armijo_pass(m_new, m0, a, ddir, eps_m)
             a = torch.where(ok | pass_, a, 0.5 * a)
             ok = ok | pass_
@@ -260,14 +341,19 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
         kkt, feas_s = sel(step_norm, kkt), sel(feas, feas_s)
 
     return SolveResult(X=X, U=U, iters=it, status=status, kkt=kkt,
-                       feas=feas_s, obj=_cost_batch_reference(prob, X, U, p))
+                       feas=feas_s,
+                       obj=_cost_batch_reference(prob, X, U, p, ltv=ltv))
 
 
 def _cost_batch_reference(prob: ShootingProblem, X: Tensor, U: Tensor,
-                          p: MPCParams) -> Tensor:
-    """Reference-form objective per instance (tracking on F(x_k, u_k))."""
+                          p: MPCParams, ltv=None) -> Tensor:
+    """Reference-form objective per instance (tracking on F(x_k, u_k)).
+    ``ltv``: the hoisted discrete affine step of LTV mode."""
     B, Np1, nx = X.shape
-    xn = _lanes_step(prob, *_lanes(X, U)).T.reshape(B, Np1 - 1, nx)
+    if prob.is_linear:
+        xn = _defects_ltv(prob, X, U, p, ltv=ltv) + X[:, 1:]
+    else:
+        xn = _lanes_step(prob, *_lanes(X, U)).T.reshape(B, Np1 - 1, nx)
     e = xn - p.x_des
     j = torch.einsum("bni,bi->b", e * e, p.q)
     du = torch.diff(U, dim=1, prepend=p.u_prev[:, None, :])

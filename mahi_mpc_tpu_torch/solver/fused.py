@@ -2,11 +2,11 @@
 
 Port of ``mahi_mpc_tpu/solver/fused.py``.  ``solve_batch_fused`` runs, per
 instance, the SQP of the JAX package's Pallas kernel (``_make_kernel``):
-each iteration linearizes the Euler step, builds the block-form stage QP
-with log-barrier box terms, solves it by a block Riccati recursion over
+each iteration linearizes the discrete step, builds the block-form stage
+QP with log-barrier box terms, solves it by a block Riccati recursion over
 (Pxx, Pxv, Pvv, px, pv), rolls the step forward with the
 fraction-to-boundary cap, and takes the largest Armijo-passing rung of a
-parallel fan on the l1 merit.  Two modes share it:
+parallel fan on the l1 merit.  Two iteration modes share it:
 
 - **fixed** (``adaptive=False``): exactly ``n_iter`` iterations at fixed
   barrier and regularization — the warm receding-horizon shape;
@@ -15,19 +15,28 @@ parallel fan on the l1 merit.  Two modes share it:
   early exit once an instance is done — cold starts and adaptive warm
   re-solves.
 
+and three step modes, as in the JAX kernel:
+
+- **fast** (Euler step of a second-order model, JAX's ``_fast2``): only the
+  nq acceleration rows of the step Jacobian need AD;
+- **generic** (midpoint, rk4): all nx rows through the integrator step;
+- **ltv** (``prob.is_linear``, reference C8): the exact affine step
+  ``Ad x + Bd u + cd`` of the frozen linearization, computed once per solve
+  on the host (``batched._ltv_discrete``) and streamed in; no AD.
+
 Two implementations of the same function live here:
 
-- the CUDA kernel ``csrc/fused_sqp.cu`` (one thread per instance,
+- the CUDA kernel (``csrc/fused_sqp*.cu``, one thread per instance,
   batch-innermost arrays), built with nvcc at first use (``_build.py``),
-  launched for CUDA tensors;
+  launched for CUDA tensors; it serves LTV for the (nx, nu) in
+  ``LTV_SHAPES`` and the nonlinear modes for the six registered models
+  (their dynamics written again in ``csrc/model_dynamics.cuh``);
 - ``_solve_batch_fused_plain``, the plain PyTorch version in batch-leading
   tensor form, used for CPU tensors and as the kernel's reference on the
   card.
 
-There is no fallback from one to the other.  Served: serial arms
-(``models/arm.py``) with the forward-Euler step, u- and x-bounds and head
-pinning.  Not yet ported: LTV mode and the generic nx-row path (midpoint,
-rk4); they raise ``NotImplementedError``.
+There is no fallback from one to the other: a problem the kernel does not
+serve raises on CUDA tensors (``fused_supported`` says which it serves).
 
 Line-search deviations from the JAX lanes solver follow the JAX fused
 kernel (a fan of rungs, and an l1 weight from max|p|); the one deliberate
@@ -47,11 +56,13 @@ import torch
 from torch.func import jvp, vmap
 
 from ..models.arm import arm_constants
+from ..models.integrators import make_step
 from ..ops.linalg import chol_lanes
 from ..ops.precision import strict_fp32
 from ..params import SolverOptions
 from ..transcribe.shooting import MPCParams, ShootingProblem
 from . import loop_common as lc
+from .batched import _fan_jacobian, _ltv_discrete
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
 from .stage_qp import barrier_terms
 
@@ -64,31 +75,56 @@ LS_FAN_FIXED = (1.0, 0.5, 0.25, 0.0625)
 LS_FAN_ADAPTIVE = (1.0, 0.5, 0.25, 0.0625, 0.015625, 0.00390625,
                    0.0009765625, 0.000244140625)
 MAX_FAN = 8               # csrc/fused_sqp.cuh kMaxFan
-KERNEL_NQ = (2, 4)        # arm sizes the kernel library is built for
+# The kernel's instantiations (csrc/fused_sqp.cuh `dispatch`): model ids in
+# the order of its ModelId (serial arms by joint count), integrators in the
+# order of csrc/model_dynamics.cuh Integrator, and the LTV (nx, nu).
+ARM_IDS = {2: 0, 4: 1}
+CLOSED_FORM_IDS = {"pendulum": 2, "cartpole": 3, "double_pendulum": 4,
+                   "acrobot": 5}
+INTEGRATORS = ("euler", "midpoint", "rk4")
+LTV_SHAPES = ((8, 4), (4, 2), (4, 1), (2, 1))
+
+
+def _fast2(prob: ShootingProblem) -> bool:
+    """The JAX kernel's nq-row rule: Euler step of a second-order model."""
+    nq = prob.dynamics.nq
+    return (not prob.is_linear and nq is not None
+            and 2 * nq == prob.nx and prob.integrator == "euler")
+
+
+def _mode(prob: ShootingProblem) -> str:
+    """The step mode: "ltv", "fast" (nq rows) or "generic" (nx rows)."""
+    if prob.is_linear:
+        return "ltv"
+    return "fast" if _fast2(prob) else "generic"
+
+
+def _kernel_model(dyn):
+    """(model id, constants) of the kernel's own dynamics for this model,
+    or None when the kernel has none.  The constants are the arms' chain
+    (``arm_constants``) or what the closed-form factory recorded
+    (``models.base.with_closed_form``)."""
+    if getattr(dyn, "chain", None) is not None:
+        return (ARM_IDS[dyn.nq], _arm_flat(dyn)) if dyn.nq in ARM_IDS \
+            else None
+    form = getattr(dyn, "closed_form", None)
+    if form is None or form[0] not in CLOSED_FORM_IDS:
+        return None
+    return CLOSED_FORM_IDS[form[0]], form[1]
 
 
 def fused_supported(prob: ShootingProblem) -> bool:
-    """Whether the fused solve serves this problem: a serial arm with the
-    forward-Euler step, nonlinear mode, and a joint count the kernel is
-    built for."""
-    dyn = prob.dynamics
-    return (not prob.is_linear and prob.integrator == "euler"
-            and getattr(dyn, "chain", None) is not None
-            and dyn.nq in KERNEL_NQ)
-
-
-def _check_supported(prob: ShootingProblem) -> None:
+    """Whether the kernel serves this problem (the JAX rule,
+    ``fused.py:173-179``, on this kernel's instantiations): LTV for every
+    (nx, nu) in ``LTV_SHAPES``; nonlinear mode for lanes-polymorphic
+    dynamics that the kernel has in CUDA (the serial arms with nq 2 or 4
+    and the four closed-form models), under any of ``INTEGRATORS``."""
+    if prob.integrator not in INTEGRATORS:
+        return False
     if prob.is_linear:
-        raise NotImplementedError(
-            "LTV mode of the fused solve is not ported yet")
-    if prob.integrator != "euler":
-        raise NotImplementedError(
-            f"the fused solve's generic path ({prob.integrator!r} "
-            f"integrator) is not ported yet; only 'euler' is served")
-    if not fused_supported(prob):
-        raise NotImplementedError(
-            f"dynamics {prob.dynamics.name!r} is not served by the fused "
-            f"solve (serial arms with nq in {KERNEL_NQ} only)")
+        return (prob.nx, prob.nu) in LTV_SHAPES
+    dyn = prob.dynamics
+    return dyn.supports_lanes and _kernel_model(dyn) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -165,16 +201,96 @@ def _acc_jacobian(dyn, x: Tensor, u: Tensor):
     return dyn.f(xt, ut).T, J[:, nq:].permute(2, 1, 0)
 
 
+def _plain_step(prob: ShootingProblem, ltv):
+    """The plain version's step mode (the kernel's step policy), as three
+    functions over batch-leading tensors:
+
+    - ``linearize(xs, us)``: xs (B, N, nx), us (B, N, nu) -> the step value
+      (B, N, nx), A (B, N, nx, nx), Bm (B, N, nx, nu) and the rows the
+      rollout reuses;
+    - ``next_dx(k, dx, du, ck_k, rows)``: dx (B, nx), du (B, nu) -> A dx +
+      B du + ck_k at stage k;
+    - ``value(xt, ut)``: the step at trial points (B, ..., nx)."""
+    dyn = prob.dynamics
+    nx, nu, nq = prob.nx, prob.nu, dyn.nq
+    nz = nx + nu
+    dt = float(prob.dt)
+    lanes = lambda x, n: x.reshape(-1, n).T          # (..., n) -> (n, M)
+    mode = _mode(prob)
+    if mode == "ltv":
+        Ad, Bd, cd = ltv               # (B, nx, nx), (B, nx, nu), (B, nx)
+
+        def affine(x, u, c):
+            """((Ad x) + (Bd u)) + c for x (B, ..., nx), u (B, ..., nu),
+            each dot product left to right as the kernel sums it."""
+            mid = (1,) * (x.dim() - 2)
+            A_, B_ = Ad.view(-1, *mid, nx, nx), Bd.view(-1, *mid, nx, nu)
+            return (_ssum(A_ * x[..., None, :])
+                    + _ssum(B_ * u[..., None, :])) + c
+
+        def linearize(xs, us):
+            Bsz, N = xs.shape[:2]
+            return (affine(xs, us, cd[:, None]),
+                    Ad[:, None].expand(Bsz, N, nx, nx),
+                    Bd[:, None].expand(Bsz, N, nx, nu), None)
+
+        def next_dx(k, dx, du, ck_k, rows):
+            return affine(dx, du, ck_k)
+
+        def value(xt, ut):
+            return affine(xt, ut, cd.view(-1, *(1,) * (xt.dim() - 2), nx))
+    elif mode == "fast":
+        def linearize(xs, us):
+            Bsz, N = xs.shape[:2]
+            kw = dict(dtype=xs.dtype, device=xs.device)
+            fval, Jac = _acc_jacobian(dyn, xs.reshape(-1, nx),
+                                      us.reshape(-1, nu))
+            rows = dt * Jac.reshape(Bsz, N, nq, nz)   # dt-scaled acc rows
+            A = torch.eye(nx, **kw).repeat(Bsz, N, 1, 1)
+            A[:, :, :nq, nq:] += dt * torch.eye(nq, **kw)
+            A[:, :, nq:, :] += rows[..., :nx]
+            Bm = torch.zeros(Bsz, N, nx, nu, **kw)
+            Bm[:, :, nq:, :] = rows[..., nx:]
+            return xs + dt * fval.reshape(Bsz, N, nx), A, Bm, rows
+
+        def next_dx(k, dx, du, ck_k, rows):
+            dzin = torch.cat([dx, du], dim=1)
+            return torch.cat([
+                (dx[:, :nq] + dt * dx[:, nq:]) + ck_k[:, :nq],
+                (dx[:, nq:] + (rows[:, k] @ dzin[..., None])[..., 0])
+                + ck_k[:, nq:]], dim=1)
+
+        def value(xt, ut):
+            fv = dyn.f(lanes(xt, nx), lanes(ut, nu)).T
+            return xt + fv.reshape(xt.shape) * dt            # Euler step
+    else:
+        step = make_step(dyn.f, dt, prob.integrator)
+
+        def linearize(xs, us):
+            Bsz, N = xs.shape[:2]
+            val, J = _fan_jacobian(prob, torch.cat(
+                [lanes(xs, nx), lanes(us, nu)], dim=0))
+            J = J.permute(2, 0, 1).reshape(Bsz, N, nx, nz)
+            return val.T.reshape(Bsz, N, nx), J[..., :nx], J[..., nx:], J
+
+        def next_dx(k, dx, du, ck_k, rows):
+            dzin = torch.cat([dx, du], dim=1)
+            return (rows[:, k] @ dzin[..., None])[..., 0] + ck_k
+
+        def value(xt, ut):
+            return step(lanes(xt, nx), lanes(ut, nu)).T.reshape(xt.shape)
+    return linearize, next_dx, value
+
+
 def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
                              X: Tensor, U: Tensor, p: MPCParams, mu: Tensor,
                              n_iter: int, fan: Sequence[float],
-                             adaptive: bool):
+                             adaptive: bool, ltv=None):
     """The fused solve in plain PyTorch: returns X, U and the (B, 8) stats
-    [stepn, feas, jref, alpha, mu, done, iters, 0] of the kernel."""
-    dyn = prob.dynamics
-    nx, nu, nq, N = prob.nx, prob.nu, dyn.nq, prob.N
+    [stepn, feas, jref, alpha, mu, done, iters, 0] of the kernel.  ``ltv``
+    is the streamed (Ad, Bd, cd) in LTV mode."""
+    nx, nu, N = prob.nx, prob.nu, prob.N
     nz = nx + nu
-    dt = float(prob.dt)
     B = X.shape[0]
     dtype, device = X.dtype, X.device
     n_pin = int(opts.num_control_inputs_saved)
@@ -190,6 +306,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
     xdes_prev = torch.cat([xdes[:, :1], xdes[:, :-1]], dim=1)
     tk = torch.arange(N, device=device) >= 1                # (N,)
     eye_nu = torch.eye(nu, dtype=dtype, device=device)
+    linearize, next_dx, step_value = _plain_step(prob, ltv)
 
     def stage_cost(x, u, du, e, tkm, mu_b, w):
         """Stage cost + barriers and the rate/magnitude term; x (..., nx);
@@ -212,18 +329,10 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
             break
         mu_c = mu[:, None]
 
-        # ---- linearize every stage at once: value, defect, Jacobian rows
-        xs, us = X[:, :N], U
-        fval, Jac = _acc_jacobian(dyn, xs.reshape(-1, nx),
-                                  us.reshape(-1, nu))
-        val = xs + dt * fval.reshape(B, N, nx)
+        # ---- linearize every stage at once: value, defect, Jacobians
+        xs = X[:, :N]
+        val, A, Bm, rows = linearize(xs, U)
         ck = val - X[:, 1:]
-        Jrows = dt * Jac.reshape(B, N, nq, nz)
-        A = torch.eye(nx, dtype=dtype, device=device).repeat(B, N, 1, 1)
-        A[:, :, :nq, nq:] += dt * torch.eye(nq, dtype=dtype, device=device)
-        A[:, :, nq:, :] += Jrows[..., :nx]
-        Bm = torch.zeros(B, N, nx, nu, dtype=dtype, device=device)
-        Bm[:, :, nq:, :] = Jrows[..., nx:]
 
         # ---- stage gradients, diagonal, costs (all stages at once)
         ukm1 = torch.cat([p.u_prev[:, None], U[:, :-1]], dim=1)
@@ -256,10 +365,14 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
             _bar_value(xN, p.x_min, p.x_max, mu_c)[:, None],
             torch.stack([q * (eN * eN), qf * (eF * eF)], dim=-1).flatten(1)],
             dim=1))
-        cost0 = cost0 + sc.sum(1)
-        jref_old = _ssum(qf * (eF * eF)) + jr.sum(1)
+        # The kernel accumulates the stage terms in its backward sweep,
+        # k = N-1 down to 0, after the terminal ones.
+        back = lambda t: t.flip(1)
+        cost0 = _ssum(torch.cat([cost0[:, None], back(sc)], dim=1))
+        jref_old = _ssum(torch.cat([_ssum(qf * (eF * eF))[:, None],
+                                    back(jr)], dim=1))
         feas_i = torch.amax(ck.abs(), dim=(1, 2))
-        c_l1 = ck.abs().sum(dim=(1, 2))
+        c_l1 = _ssum(back(ck).abs().flatten(1))
         pmax = torch.amax(px.abs(), dim=1)
 
         # ---- backward Riccati sweep: Az = [[A,0],[0,0]], Bz = [[B],[I]],
@@ -324,11 +437,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
                 torch.stack([Gk[:, nx:nx + nu] * dv, Gk[:, nx + nu:] * du_k],
                             dim=-1).flatten(1)], dim=1)
             ddir = ddir + _ssum(terms)
-            dzin = torch.cat([dx, du_k], dim=1)
-            dxn = torch.cat([
-                (dx[:, :nq] + dt * dx[:, nq:]) + ck[:, k, :nq],
-                (dx[:, nq:] + (Jrows[:, k] @ dzin[..., None])[..., 0])
-                + ck[:, k, nq:]], dim=1)
+            dxn = next_dx(k, dx, du_k, ck[:, k], rows)
             amax = _ftb(U[:, k], du_k, p.u_min, p.u_max, amax)
             amax = _ftb(X[:, k + 1], dxn, p.x_min, p.x_max, amax)
             stepn_i = torch.maximum(stepn_i, torch.maximum(
@@ -339,7 +448,8 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         ddir = ddir + _ssum(G_N * dx)
         ddir = ddir - nu_pen_new * c_l1
 
-        # ---- line search: all rungs and stages at once, (B, T, N, .)
+        # ---- line search: all rungs and stages at once, (B, T, N, .);
+        # stage terms summed k = 0 to N-1 as the kernel's forward pass does
         al = amax[:, None] * fan_t                              # (B, T)
         a4 = al[:, :, None, None]
         dukm1 = torch.cat([torch.zeros_like(dU[:, :1]), dU[:, :-1]], dim=1)
@@ -350,15 +460,14 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         w4 = lambda t: t[:, None, None]
         sc_t, rate_t = stage_cost(xt, ut, dut, et, tk[None, None],
                                   mu_c[..., None], w4)
-        fv = dyn.f(xt.reshape(-1, nx).T, ut.reshape(-1, nu).T).T
-        val_t = xt + fv.reshape(xt.shape) * dt                 # Euler step
+        val_t = step_value(xt, ut)
         xt1 = X[:, None, 1:] + a4 * dX[:, None, 1:]
-        cl1_t = _ssum((val_t - xt1).abs()).sum(-1)
+        cl1_t = _ssum((val_t - xt1).abs().flatten(-2))
         er_t = val_t - xdes[:, None]
-        jref_t = _ssum(torch.cat([rate_t[..., None],
-                                  q[:, None, None] * (er_t * er_t)], -1)
-                       ).sum(-1)
-        cost_t = sc_t.sum(-1)
+        jref_t = _ssum(_ssum(torch.cat([rate_t[..., None],
+                                        q[:, None, None] * (er_t * er_t)],
+                                       -1)))
+        cost_t = _ssum(sc_t)
         xtN = X[:, None, N] + al[..., None] * dX[:, None, N]   # (B, T, nx)
         eNt = xtN - xdes[:, None, N - 1]
         eFt = xtN - p.xf_des[:, None]
@@ -424,14 +533,28 @@ def _arm_flat(dyn) -> list:
     return out + [c["damping"]]
 
 
+def _cuda_library(prob: ShootingProblem) -> str:
+    """The CUDA library (``_build.CUDA_LIBRARIES``) that holds the kernel's
+    instantiation for this problem."""
+    if prob.is_linear:
+        return "fused_sqp_ltv"
+    if getattr(prob.dynamics, "chain", None) is not None:
+        return "fused_sqp" if _fast2(prob) else "fused_sqp_generic"
+    return "fused_sqp_models"
+
+
 def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                  X0: Tensor, U0: Tensor, p: MPCParams, mu: Tensor,
-                 n_iter: int, fan: Sequence[float], adaptive: bool):
+                 n_iter: int, fan: Sequence[float], adaptive: bool, ltv=None):
     """Call a build of the kernel body (``fn``: the CUDA launcher when
     ``stream`` is given, else the CPU test build) on batch-innermost copies
     of the inputs; returns X, U, stats in batch-leading layout."""
-    dyn = prob.dynamics
-    nx, nu, nq, N = prob.nx, prob.nu, dyn.nq, prob.N
+    if not fused_supported(prob):
+        raise ValueError(
+            f"no instantiation of the fused kernel serves {prob.dynamics.name!r}"
+            f" (is_linear={prob.is_linear}, integrator={prob.integrator!r}); "
+            f"see fused_supported()")
+    nx, nu, N = prob.nx, prob.nu, prob.N
     nz = nx + nu
     B = X0.shape[0]
     dtype, device = X0.dtype, X0.device
@@ -441,46 +564,59 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
     ins = [lanes(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
                               p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
                               p.xf_des, mu)]
+    ltv_in = [lanes(t) for t in ltv] if prob.is_linear else [None] * 3
     new = lambda *shape: torch.empty(shape + (B,), dtype=dtype, device=device)
+    # Rows a stage of the Jacobian scratch: the nq acceleration rows (fast),
+    # all nx (generic), none in LTV (one element keeps the pointer valid).
+    mode = _mode(prob)
+    n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[mode]
     outs = [new(N + 1, nx), new(N, nu), new(8)]
     scratch = [new(N, nu, nz),          # feedback gains K
                new(N, nu),              # feedforward kff
                new(N + 1, nx),          # step direction dX
                new(N, nu),              # step direction dU
                new(N + 1, nx + 2 * nu),  # stage gradients G
-               new(N, nq, nz),          # dt-scaled Jacobian rows J
+               new(N, n_store, nz) if n_store else new(1),  # Jacobian rows J
                new(N, nx)]              # stage defects ck
-    bufs = ins + outs + scratch
-    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    ptrs = (ctypes.c_void_p * 27)(*[
+        None if t is None else t.data_ptr()
+        for t in ins + ltv_in + outs + scratch])
     ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
     scal = (ctype * 4)(float(prob.dt), float(opts.tol), lc.mu_floor(opts),
                        float(opts.kappa_mu))
-    ints = (ctypes.c_int * 4)(int(n_iter), int(opts.num_control_inputs_saved),
-                              int(adaptive), len(fan))
+    ints = (ctypes.c_int * 6)(int(n_iter), int(opts.num_control_inputs_saved),
+                              int(adaptive), len(fan),
+                              INTEGRATORS.index(prob.integrator),
+                              int(prob.is_linear))
     fan_c = (ctype * MAX_FAN)(*fan)
-    arm = _arm_flat(dyn)
-    arm_c = (ctypes.c_double * len(arm))(*arm)
-    args = [B, N, nq, ptrs, scal, ints, fan_c, arm_c]
+    model, consts = (-1, [0.0]) if prob.is_linear else \
+        _kernel_model(prob.dynamics)
+    consts_c = (ctypes.c_double * len(consts))(*consts)
+    args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
     if stream is not None:
         args.append(stream)
     rc = fn(*args)
+    if rc == -1:
+        raise ValueError(f"the kernel build holds no instantiation for "
+                         f"model {model}, (nx, nu) = ({nx}, {nu}), {mode}")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
     back = lambda t: t.movedim(-1, 0).contiguous()
     return back(outs[0]), back(outs[1]), back(outs[2])
 
 
-def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive):
+def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv):
     """Launch the CUDA kernel on the current stream of X0's device."""
     if X0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
     from .._build import cuda_build
-    fn = cuda_build("fused_sqp")[0].mpc_fused_launch_f32
+    fn = cuda_build(_cuda_library(prob))[0].mpc_fused_launch_f32
     with torch.cuda.device(X0.device):
         stream = torch.cuda.current_stream(X0.device).cuda_stream
         out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
-                           fan, adaptive)
+                           fan, adaptive, ltv)
     solve_batch_fused.launches += 1
+    solve_batch_fused.mode_launches[_mode(prob)] += 1
     return out
 
 
@@ -491,7 +627,9 @@ def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive):
 def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
     """Host-side preparation (the JAX wrapper's fused.py:910-932), one call
     of ``body`` (plain version or a kernel build), and the status rules."""
-    _check_supported(prob)
+    if not (prob.is_linear or prob.dynamics.supports_lanes):
+        raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
+                         "lanes-polymorphic")
     nx, nu, N = prob.nx, prob.nu, prob.N
     B = p.x0.shape[0]
     dtype, device = p.x0.dtype, p.x0.device
@@ -528,7 +666,9 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
     mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
 
     with strict_fp32():
-        X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive)
+        ltv = _ltv_discrete(prob, p) if prob.is_linear else None
+        X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive,
+                        ltv)
 
     stepn, feas, obj = st[:, 0], st[:, 1], st[:, 2]
     finite = (torch.isfinite(stepn) & torch.isfinite(feas)
@@ -581,6 +721,7 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
 
 
 solve_batch_fused.launches = 0
+solve_batch_fused.mode_launches = {"fast": 0, "generic": 0, "ltv": 0}
 
 
 def solve_batch_fused_plain(prob: ShootingProblem, p: MPCParams,

@@ -159,8 +159,8 @@ def test_port_state_loads_in_jax(jax_service):
 
 def test_other_devices_raise():
     """No silent fallback: a device the solve has no path for raises; the
-    default options on the CPU resolve to the lanes route, and an LTV
-    model, not ported yet, raises."""
+    default options on the CPU resolve to the lanes route, for an LTV model
+    as for a nonlinear one."""
     svc = _service()
     p = svc._p._replace(x0=svc._p.x0.to("meta"))
     with pytest.raises(ValueError):
@@ -169,8 +169,8 @@ def test_other_devices_raise():
     assert lanes.warm_solver == "adaptive" and lanes.kkt_backend == "riccati"
     ltv = _mp(ModelParameters)
     ltv.is_linear = True
-    with pytest.raises(NotImplementedError):
-        BatchModelControl(ltv, batch=B, device="cpu").step()
+    lanes = BatchModelControl(ltv, batch=B, device="cpu")
+    assert lanes.warm_solver == "adaptive" and lanes.kkt_backend == "riccati"
 
 
 # ---------------------------------------------------------------------------
@@ -341,5 +341,121 @@ def test_jax_pendulum_state_loads(jax_repair):
                     jax.tree.leaves(jst["params"])):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert st["warm"] is True
+    u = svc.step()
+    assert bool(torch.isfinite(u).all()) and (svc.last.status == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# LTV mode (reference C8): relinearize at every step, on both routes.
+# ---------------------------------------------------------------------------
+
+def _ltv_pend_mp(cls):
+    mp = _pend_mp(cls)
+    mp.is_linear = True
+    return mp
+
+
+def _ltv_closed_loop(svc, to_u, steps=3):
+    """1 cold + (steps - 1) warm steps on the pendulum closed loop (RK4
+    plant, the same states fed to any service); returns (statuses,
+    controls, lin.x0) after each step."""
+    x, _, x_des = _pend_goals(PB, seed=6)
+    svc.set_references(x_des)
+    plant = rk4_step(make_dynamics("pendulum").f, 0.05)
+    out = []
+    for _ in range(steps):
+        svc.set_states(x)
+        u = to_u(svc.step())
+        out.append((np.asarray(svc.last.status), u,
+                    np.asarray(svc._p.lin.x0)))
+        x = plant(torch.tensor(x).T, torch.tensor(u).T).T.numpy()
+    return out
+
+
+def test_ltv_service_matches_jax():
+    """The LTV service side by side with the JAX one over 1 cold and 2 warm
+    steps (both on their CPU default, the lanes route): statuses equal,
+    controls at the float32 lanes band (atol 1e-3), and each step's
+    linearization frozen at that step's measured state."""
+    svc = BatchModelControl(_ltv_pend_mp(ModelParameters), batch=PB,
+                            device="cpu",
+                            opts=SolverOptions(tol=1e-4, max_iter=40),
+                            Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+    jsvc = JaxBatchModelControl(_ltv_pend_mp(JaxModelParameters), batch=PB,
+                                opts=JaxSolverOptions(tol=1e-4, max_iter=40),
+                                Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+    assert svc.warm_solver == "adaptive"
+    ours = _ltv_closed_loop(svc, lambda u: u.numpy())
+    theirs = _ltv_closed_loop(jsvc, np.asarray)
+    for (stat, u, lx0), (jstat, ju, jlx0) in zip(ours, theirs):
+        np.testing.assert_array_equal(stat, jstat)
+        assert (stat == 0).all()
+        np.testing.assert_allclose(u, ju, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(lx0, jlx0, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(ours[-1][2], svc._p.x0.numpy())
+
+
+def test_ltv_fused_route_closed_loop():
+    """The fused route in LTV mode (warm_solver="fused": the plain version
+    on the CPU) on the 4-DOF arm: a cold adaptive step and three fixed-3
+    warm steps, each after a relinearization at the measured state, against
+    the lanes route on the same states: every solve converges, controls at
+    the fused-vs-lanes LTV bands of tests/test_fused_adaptive.py:113-133
+    (cold atol 5e-3, warm atol 1e-3)."""
+    def service(**kw):
+        mp = _mp(ModelParameters)
+        mp.is_linear = True
+        return BatchModelControl(mp, batch=B, device="cpu", Q=Q, R=R, Rm=RM,
+                                 opts=SolverOptions(tol=TOL, max_iter=30,
+                                                    **kw))
+    fused = service(warm_solver="fused", fixed_warm_iters=3)
+    lanes = service()
+    assert (fused.warm_solver, lanes.warm_solver) == ("fused", "adaptive")
+    rng = np.random.default_rng(3)
+    x = torch.tensor(0.2 * rng.standard_normal((B, 8)), dtype=torch.float32)
+    x_des = 0.2 * rng.standard_normal((B, N, 8))
+    plant = rk4_step(make_dynamics("mahi_arm").f, 0.002)
+    u = None
+    for step in range(4):
+        for svc in (fused, lanes):
+            svc.set_references(x_des)
+            svc.set_states(x, u_prev=u)
+        uf, ul = fused.step(), lanes.step()
+        np.testing.assert_array_equal(fused._p.lin.x0.numpy(), x.numpy())
+        assert (fused.last.status == 0).all() and (lanes.last.status == 0).all()
+        np.testing.assert_allclose(uf.numpy(), ul.numpy(), rtol=0,
+                                   atol=5e-3 if step == 0 else 1e-3)
+        u = ul
+        x = plant(x.T, u.T).T
+    assert fused.last.iters.tolist() == [3] * B
+
+
+def test_ltv_state_dict_round_trip_with_jax():
+    """An LTV JAX service's state_dict (with its per-instance frozen
+    linearization) loads into the port as it is, the port's loads back into
+    the JAX service field for field, and the port steps on from it."""
+    jsvc = JaxBatchModelControl(_ltv_pend_mp(JaxModelParameters), batch=PB,
+                                opts=JaxSolverOptions(tol=1e-4, max_iter=40),
+                                Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+    x, _, x_des = _pend_goals(PB, seed=8)
+    jsvc.set_references(x_des)
+    jsvc.set_states(x)
+    jsvc.step()
+    jst = jsvc.state_dict()
+    assert np.asarray(jst["params"].lin.A).shape == (PB, 2, 2)
+    svc = BatchModelControl(_ltv_pend_mp(ModelParameters), batch=PB,
+                            device="cpu",
+                            opts=SolverOptions(tol=1e-4, max_iter=40))
+    svc.load_state(jst)
+    st = svc.state_dict()
+    for a, b in zip(jax.tree.leaves(tuple(st["params"])),
+                    jax.tree.leaves(jst["params"])):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    jsvc2 = JaxBatchModelControl(_ltv_pend_mp(JaxModelParameters), batch=PB,
+                                 opts=JaxSolverOptions(tol=1e-4, max_iter=40))
+    jsvc2.load_state(st)
+    for a, b in zip(jax.tree.leaves(jsvc2.state_dict()["params"]),
+                    jax.tree.leaves(jst["params"])):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     u = svc.step()
     assert bool(torch.isfinite(u).all()) and (svc.last.status == 0).all()

@@ -157,7 +157,27 @@ def test_kernel_backend_matches_scan(name):
                                atol=5e-4)
 
 
-def test_ltv_mode_raises():
-    _, prob, _, tp = _setup("pendulum", "float32")
-    with pytest.raises(NotImplementedError):
-        tb.solve_batch_lanes(dataclasses.replace(prob, is_linear=True), tp)
+@pytest.mark.parametrize("kkt_backend", ["riccati", "pallas"])
+def test_ltv_mode_matches_jax(kkt_backend):
+    """LTV mode on the pendulum setup, frozen at each instance's x0 and a
+    random previous control: the port (scan, or the Riccati kernel's plain
+    version) against the JAX lanes LTV solve with the scan, float32: equal
+    statuses, iterations within +-1, X and U at atol 1e-3."""
+    jprob, prob, p, tp = _setup("pendulum", "float32")
+    jprob = dataclasses.replace(jprob, is_linear=True)
+    prob = dataclasses.replace(prob, is_linear=True)
+    u0 = jnp.asarray(np.random.default_rng(9).standard_normal((3, 1)),
+                     jnp.float32)
+    A, Bm, xd0 = jax.vmap(jprob.dynamics.linearize)(p.x0, u0)
+    p = p._replace(u_prev=u0, lin=type(p.lin)(A, Bm, xd0, p.x0, u0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, p))
+    okw = SETUPS["pendulum"][-1]
+    rj = jax.tree.map(np.asarray, jb.solve_batch_lanes(
+        jprob, p, opts=JaxSolverOptions(kkt_backend="riccati", **okw)))
+    rt = tb.solve_batch_lanes(prob, tp, opts=SolverOptions(
+        kkt_backend=kkt_backend, **okw))
+    np.testing.assert_array_equal(rt.status.numpy(), rj.status)
+    assert (rj.status == 0).all()
+    assert np.abs(rt.iters.numpy() - rj.iters).max() <= 1
+    np.testing.assert_allclose(rt.X.numpy(), rj.X, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(rt.U.numpy(), rj.U, rtol=0, atol=1e-3)

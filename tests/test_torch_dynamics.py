@@ -17,6 +17,7 @@ from mahi_mpc_tpu import ModelParameters as JaxModelParameters
 from mahi_mpc_tpu.models import make_dynamics as jax_make_dynamics
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch.models import arm_constants, make_dynamics
+from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.solver.fused import _acc_jacobian, fused_supported
 from mahi_mpc_tpu_torch.solver.select import resolve_warm_solver
 from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
@@ -132,7 +133,8 @@ def test_model_parameters_json_both_ways(tmp_path, direction):
 
 def test_warm_solver_resolution():
     """'auto' picks the fused kernel on a CUDA device only; 'fused' is
-    honoured on any device; unsupported problems fall back."""
+    honoured on any device; unsupported problems fall back; RK4 is fused
+    (the generic nx-row path)."""
     dyn = make_dynamics("mahi_arm")
     mp = ModelParameters("t", num_x=8, num_u=4, step_size=0.002,
                          num_shooting_nodes=8, dynamics_name="mahi_arm")
@@ -148,10 +150,70 @@ def test_warm_solver_resolution():
     rk4 = make_problem(ModelParameters(
         "t", num_x=8, num_u=4, step_size=0.002, num_shooting_nodes=8,
         integrator="rk4"), dyn)
-    assert not fused_supported(rk4)
-    assert resolve_warm_solver(auto, rk4, "cuda") == "adaptive"
+    assert fused_supported(rk4)
+    assert resolve_warm_solver(auto, rk4, "cuda") == "fused"
+    assert resolve_warm_solver(auto, rk4, "cpu") == "adaptive"
     with pytest.raises(ValueError):
         resolve_warm_solver(SolverOptions(warm_solver="bogus"), prob)
+
+
+def _mp(name, **kw):
+    dyn = make_dynamics(name)
+    return ModelParameters("t", num_x=dyn.nx, num_u=dyn.nu, step_size=0.002,
+                           num_shooting_nodes=25, dynamics_name=name, **kw)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("name", ["mahi_arm", "two_link_arm", "pendulum",
+                                  "cartpole", "double_pendulum", "acrobot"])
+def test_auto_resolves_to_fused_on_cuda(name, integrator):
+    """tests/test_fused_adaptive.py:174-196 with device "cuda" for backend
+    "tpu": defaults on the card resolve to the fused kernel for every
+    registered model under every integrator, in both flavours (LTV
+    included); off the card "auto" keeps the lanes route."""
+    for ltv in (False, True):
+        prob = make_problem(_mp(name, integrator=integrator, is_linear=ltv),
+                            make_dynamics(name))
+        assert fused_supported(prob)
+        assert resolve_warm_solver(SolverOptions(), prob, "cuda") == "fused"
+        assert resolve_warm_solver(SolverOptions(), prob, "cpu") == \
+            "adaptive"
+        assert resolve_warm_solver(SolverOptions(fixed_warm_iters=3), prob,
+                                   "cpu") == "fixed"
+        assert resolve_warm_solver(SolverOptions(warm_solver="fused"), prob,
+                                   "cpu") == "fused"
+
+
+def test_resolution_falls_back_for_unfusable():
+    """tests/test_fused_adaptive.py:199-216: an explicit 'fused' for a
+    problem the kernel cannot serve falls back, on the card and off it.
+    Three such problems: dynamics without lanes support, lanes dynamics the
+    kernel has no CUDA form of, and an LTV (nx, nu) it is not built for."""
+    no_lanes = Dynamics("no_lanes", nx=2, nu=1,
+                        f=lambda x, u: torch.stack([x[1], u[0]]),
+                        supports_lanes=False)
+    unknown = Dynamics("custom", nx=2, nu=1,
+                       f=lambda x, u: torch.stack([x[1], u[0]]),
+                       supports_lanes=True, nq=1)
+    mp = ModelParameters("t", num_x=2, num_u=1, step_size=0.01,
+                         num_shooting_nodes=10)
+    wide = Dynamics("wide", nx=6, nu=3, f=lambda x, u: x,
+                    supports_lanes=True)
+    probs = [make_problem(mp, no_lanes), make_problem(mp, unknown),
+             make_problem(ModelParameters("t", num_x=6, num_u=3,
+                                          step_size=0.01,
+                                          num_shooting_nodes=10,
+                                          is_linear=True), wide)]
+    for prob in probs:
+        assert not fused_supported(prob)
+        for device in ("cuda", "cpu"):
+            assert resolve_warm_solver(SolverOptions(), prob, device) == \
+                "adaptive"
+            assert resolve_warm_solver(SolverOptions(warm_solver="fused"),
+                                       prob, device) == "adaptive"
+            assert resolve_warm_solver(
+                SolverOptions(warm_solver="fused", fixed_warm_iters=3), prob,
+                device) == "fixed"
 
 
 def test_import_leaves_jax_out():

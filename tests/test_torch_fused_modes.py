@@ -1,0 +1,290 @@
+"""The fused kernel's step modes beyond the serial arms under Euler: the
+LTV mode, the nq-row path of the pendulum family under Euler, and the
+generic nx-row path (midpoint, RK4) of every registered model.
+
+- The models' closed forms and integrators in ``csrc/model_dynamics.cuh``
+  (the code the kernel runs, built with g++) against the PyTorch models
+  and ``torch.func.jacfwd``.
+- The kernel body (``csrc/fused_sqp.cuh``, g++ build) against the plain
+  PyTorch version in every mode: float64 to roundoff, float32 at the bands
+  of tests/test_torch_kernel_cpu.py.
+- The generic path against the JAX package's lanes solver
+  (tests/test_fused_kernel.py:182-213's pin, float32, atol 2e-5).
+"""
+
+import ctypes
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import jacfwd, vmap
+
+from mahi_mpc_tpu import ModelParameters as JaxModelParameters
+from mahi_mpc_tpu import SolverOptions as JaxSolverOptions
+from mahi_mpc_tpu.models import make_dynamics as jax_make_dynamics
+from mahi_mpc_tpu.solver.batched import solve_batch_lanes as jax_lanes
+from mahi_mpc_tpu.transcribe.shooting import default_params as jax_default_params
+from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
+from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
+from mahi_mpc_tpu_torch._build import cpu_library
+from mahi_mpc_tpu_torch.convert import params_from_numpy
+from mahi_mpc_tpu_torch.models import make_dynamics
+from mahi_mpc_tpu_torch.models.integrators import make_step
+from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _kernel_model,
+                                             _mode, fused_supported,
+                                             solve_batch_fused,
+                                             solve_batch_fused_cpu_kernel)
+from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
+                                                    default_params,
+                                                    make_problem)
+
+torch.set_num_threads(1)
+
+MODELS = ["mahi_arm", "two_link_arm", "pendulum", "cartpole",
+          "double_pendulum", "acrobot"]
+B, N = 8, 8
+TOL = 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The kernel's model dynamics (csrc/model_dynamics.cuh) on the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("integrator", INTEGRATORS)
+@pytest.mark.parametrize("name", MODELS)
+def test_kernel_model_dynamics_match_torch(name, integrator):
+    """float64 at 1e-9: f and the step F under the integrator, and their
+    Jacobians d/d[x; u] from the kernel's dual numbers, against the
+    PyTorch model and torch.func.jacfwd of f and of make_step(f)."""
+    dyn = make_dynamics(name)
+    nx, nu = dyn.nx, dyn.nu
+    nz = nx + nu
+    M, dt = 16, 0.01
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((nx, M)))
+    u = torch.tensor(rng.standard_normal((nu, M)))
+    out = [torch.empty(s, dtype=torch.float64)
+           for s in ((nx, M), (nx, nz, M), (nx, M), (nx, nz, M))]
+    model, consts = _kernel_model(dyn)
+    rc = cpu_library().mpc_model_eval_cpu_f64(
+        M, model, INTEGRATORS.index(integrator), x.data_ptr(), u.data_ptr(),
+        dt, (ctypes.c_double * len(consts))(*consts),
+        *[t.data_ptr() for t in out])
+    assert rc == 0
+    fval, fjac, sval, sjac = out
+    step = make_step(dyn.f, dt, integrator)
+    for fn, val, jac in ((dyn.f, fval, fjac), (step, sval, sjac)):
+        one = lambda z: fn(z[:nx, None], z[nx:, None])[:, 0]
+        Z = torch.cat([x, u]).T
+        np.testing.assert_allclose(val.numpy(), fn(x, u).numpy(), rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(jac.permute(2, 0, 1).numpy(),
+                                   vmap(jacfwd(one))(Z).numpy(), rtol=0,
+                                   atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The kernel body against the plain version, every new mode.
+# ---------------------------------------------------------------------------
+
+def _problem(name, integrator, ltv, dtype, seed=0, dt=0.005, **bounds):
+    dyn = make_dynamics(name)
+    nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
+    ulim = 20.0 if name == "mahi_arm" else 60.0
+    mp = ModelParameters("t", num_x=nx, num_u=nu, step_size=dt,
+                         num_shooting_nodes=N, u_min=[-ulim] * nu,
+                         u_max=[ulim] * nu, dynamics_name=name,
+                         integrator=integrator, is_linear=ltv, **bounds)
+    prob = make_problem(mp, dyn)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    p = default_params(mp, dtype=dtype)._replace(
+        q=t([10.0] * nq + [1.0] * nq), r=t([0.1] * nu), rm=t([0.01] * nu))
+    ex = lambda a: a.expand((B,) + a.shape).clone()
+    p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
+                    else ex(f) for f in p])
+    p = p._replace(x0=t(0.2 * rng.standard_normal((B, nx))),
+                   u_prev=t(0.5 * rng.standard_normal((B, nu))),
+                   x_des=t(0.2 * rng.standard_normal((B, N, nx))))
+    if ltv:
+        A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
+        p = p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
+    return prob, p
+
+
+def _cold_then_warm(prob, p, solve):
+    opts = SolverOptions(tol=TOL, max_iter=30)
+    cold = solve(prob, p, opts=opts, mu0=opts.mu_init, adaptive=True)
+    return cold, solve(prob, p._replace(x0=p.x0 + 0.01), cold.X, cold.U,
+                       opts, n_iter=3)
+
+
+# (model, integrator, LTV): every LTV (nx, nu) of the registered models,
+# the generic path of every model, the nq-row path of the pendulum family.
+MODES = [
+    ("mahi_arm", "euler", True), ("double_pendulum", "rk4", True),
+    ("cartpole", "midpoint", True), ("acrobot", "euler", True),
+    ("pendulum", "euler", True),
+    ("mahi_arm", "rk4", False), ("two_link_arm", "midpoint", False),
+    ("double_pendulum", "rk4", False), ("cartpole", "midpoint", False),
+    ("acrobot", "rk4", False), ("pendulum", "midpoint", False),
+    ("pendulum", "euler", False), ("cartpole", "euler", False),
+    ("double_pendulum", "euler", False), ("acrobot", "euler", False),
+]
+_ids = lambda c: "-".join([c[0], c[1]] + (["ltv"] if c[2] else []))
+
+
+@pytest.mark.parametrize("case", MODES, ids=_ids)
+def test_kernel_body_matches_plain_f64(case):
+    """float64: X and U at 1e-8, equal statuses and iterations, cold
+    adaptive and warm fixed-3; every instance converges cold."""
+    prob, p = _problem(*case, torch.float64)
+    assert fused_supported(prob)
+    assert _mode(prob) == ("ltv" if case[2] else
+                           "fast" if case[1] == "euler" else "generic")
+    kernel = _cold_then_warm(prob, p, solve_batch_fused_cpu_kernel)
+    for rk, rp in zip(kernel, _cold_then_warm(prob, p, solve_batch_fused)):
+        np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), rtol=0,
+                                   atol=1e-8)
+        np.testing.assert_allclose(rk.U.numpy(), rp.U.numpy(), rtol=0,
+                                   atol=1e-8)
+        np.testing.assert_array_equal(rk.status.numpy(), rp.status.numpy())
+        np.testing.assert_array_equal(rk.iters.numpy(), rp.iters.numpy())
+    assert bool((kernel[0].status == 0).all())
+
+
+@pytest.mark.parametrize("case", [MODES[1], MODES[7], MODES[11]],
+                         ids=_ids)
+def test_kernel_body_matches_plain_f32(case):
+    """float32 at the bands of the JAX parity tests: adaptive cold equal
+    statuses, iterations within +-1, X and U at 1e-3; fixed-3 warm X and U
+    at 2e-5, kkt and feas at 1e-5, equal statuses."""
+    prob, p = _problem(*case, torch.float32)
+    (ck, wk) = _cold_then_warm(prob, p, solve_batch_fused_cpu_kernel)
+    (cp, wp) = _cold_then_warm(prob, p, solve_batch_fused)
+    np.testing.assert_array_equal(ck.status.numpy(), cp.status.numpy())
+    assert np.abs(ck.iters.numpy() - cp.iters.numpy()).max() <= 1
+    np.testing.assert_allclose(ck.X.numpy(), cp.X.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(ck.U.numpy(), cp.U.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(wk.X.numpy(), wp.X.numpy(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(wk.U.numpy(), wp.U.numpy(), rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(wk.status.numpy(), wp.status.numpy())
+    np.testing.assert_allclose(wk.kkt.numpy(), wp.kkt.numpy(), atol=1e-5)
+    np.testing.assert_allclose(wk.feas.numpy(), wp.feas.numpy(), atol=1e-5)
+
+
+def test_ltv_state_bounds_and_pinning_f64():
+    """LTV through the kernel's other branches, float64 at 1e-8: velocity
+    bounds (barrier and fraction-to-boundary on x) and head pinning (the
+    pinned controls stay at the warm start)."""
+    prob, p = _problem("double_pendulum", "euler", True, torch.float64,
+                       seed=4, dt=0.01, x_min=[-np.inf] * 2 + [-0.5] * 2,
+                       x_max=[np.inf] * 2 + [0.5] * 2)
+    p = p._replace(x0=p.x0.clamp(-0.3, 0.3), x_des=3.0 * p.x_des)
+    opts = SolverOptions(tol=TOL, max_iter=40)
+    cold = solve_batch_fused(prob, p, opts=opts, mu0=opts.mu_init,
+                             adaptive=True)
+    pin = dataclasses.replace(opts, num_control_inputs_saved=2)
+    p2 = p._replace(x0=p.x0 + 0.01)
+    for o in (opts, pin):
+        for kw in (dict(n_iter=3), dict(adaptive=True)):
+            rk = solve_batch_fused_cpu_kernel(prob, p2, cold.X, cold.U, o,
+                                              **kw)
+            rp = solve_batch_fused(prob, p2, cold.X, cold.U, o, **kw)
+            np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), atol=1e-8)
+            np.testing.assert_allclose(rk.U.numpy(), rp.U.numpy(), atol=1e-8)
+            np.testing.assert_array_equal(rk.status.numpy(),
+                                          rp.status.numpy())
+            assert float(rk.X[:, 1:, 2:].abs().max()) < 0.5
+            if o is pin:
+                np.testing.assert_array_equal(rk.U[:, :2].numpy(),
+                                              cold.U[:, :2].numpy())
+
+
+# ---------------------------------------------------------------------------
+# The generic path against the JAX lanes solver.
+# ---------------------------------------------------------------------------
+
+def _jax_lanes_pair(name, dt, ulim, seed):
+    """tests/test_fused_kernel.py:182-213's setup for ``name`` under RK4:
+    the JAX lanes cold solve, then its warm solve at x0 + 0.01; and the
+    same problem and params in the port."""
+    jdyn, dyn = jax_make_dynamics(name), make_dynamics(name)
+    nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
+    kw = dict(num_x=nx, num_u=nu, step_size=dt, num_shooting_nodes=8,
+              u_min=[-ulim] * nu, u_max=[ulim] * nu, dynamics_name=name,
+              integrator="rk4")
+    jmp = JaxModelParameters("t_rk4", **kw)
+    jprob = jax_make_problem(jmp, jdyn)
+    prob = make_problem(ModelParameters("t_rk4", **kw), dyn)
+    jopts = JaxSolverOptions(tol=1e-4, max_iter=40, dtype="float32")
+    f32 = jnp.float32
+    rng = np.random.default_rng(seed)
+    p = jax_default_params(jmp, dtype=f32)
+    p = p._replace(q=jnp.asarray([10.0] * nq + [1.0] * nq, f32),
+                   r=jnp.full((nu,), 0.1, f32), rm=jnp.full((nu,), 0.01, f32))
+    pb = jax.tree.map(lambda a: jnp.broadcast_to(a, (8,) + a.shape), p)
+    pb = pb._replace(
+        x0=jnp.asarray(0.2 * rng.standard_normal((8, nx)), f32),
+        x_des=jnp.asarray(0.1 * rng.standard_normal((8, 8, nx)), f32))
+    # One jitted program for both solves: the eager JAX lanes solve through
+    # the RK4 arm dispatches op by op and takes minutes.
+    solve = jax.jit(lambda pp, X, U, mu: jax_lanes(jprob, pp, X, U, jopts,
+                                                   mu0=mu))
+    zeros = lambda *s: jnp.zeros(s, f32)
+    r0 = solve(pb, zeros(8, 9, nx), zeros(8, 8, nu),
+               jnp.asarray(jopts.mu_init, f32))
+    pb2 = pb._replace(x0=pb.x0 + 0.01)
+    rw = solve(pb2, r0.X, r0.U, jnp.asarray(jopts.warm_mu_factor * jopts.tol,
+                                            f32))
+    tp2 = params_from_numpy(jax.tree.map(np.asarray, pb2))
+    return prob, tp2, jax.tree.map(np.asarray, r0), jax.tree.map(np.asarray,
+                                                                   rw)
+
+
+def _check_generic_warm(prob, tp2, X0, U0, rw_U):
+    """Fixed-3 warm solves through the generic nx-row path (plain version
+    and kernel body) from a lanes cold plan: U at atol 2e-5 of the lanes
+    warm solve ``rw_U``, every instance converged."""
+    assert _mode(prob) == "generic"
+    opts = SolverOptions(tol=1e-4, max_iter=40)
+    for solve in (solve_batch_fused, solve_batch_fused_cpu_kernel):
+        rf = solve(prob, tp2, X0, U0, opts,
+                   mu0=opts.warm_mu_factor * opts.tol, n_iter=3)
+        np.testing.assert_allclose(rf.U.numpy(), rw_U, rtol=0, atol=2e-5)
+        assert bool((rf.status == 0).all())
+
+
+# two_link_arm runs the kernel's arm instantiation of the generic path
+# (the same code as mahi_arm's, at nq = 2); mahi_arm itself is held below
+# against the port's lanes solver: the JAX lanes solve through the 4-DOF
+# RK4 arm takes ~5 min to compile on the CPU.
+@pytest.mark.parametrize("name, ulim", [("double_pendulum", 60.0),
+                                        ("two_link_arm", 25.0)])
+def test_generic_path_matches_jax_lanes(name, ulim):
+    """tests/test_fused_kernel.py:182-213 for ``name`` under RK4 (dt 5 ms,
+    N=8, B=8, float32): the port's fixed-3 warm solve from the JAX lanes
+    cold plan against the JAX lanes warm solve."""
+    prob, tp2, r0, rw = _jax_lanes_pair(name, 0.005, ulim, seed=1)
+    _check_generic_warm(prob, tp2, torch.tensor(r0.X), torch.tensor(r0.U),
+                        rw.U)
+
+
+def test_generic_path_matches_lanes_mahi_arm_rk4():
+    """The same pin for ``mahi_arm`` under RK4 against the port's lanes
+    solver (itself held against the JAX lanes solver in
+    tests/test_torch_batched_lanes.py): cold lanes plan, then the lanes
+    warm solve at x0 + 0.01 against fused fixed-3."""
+    from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
+    prob, p = _problem("mahi_arm", "rk4", False, torch.float32, seed=1)
+    p = p._replace(u_prev=torch.zeros_like(p.u_prev), x_des=0.5 * p.x_des)
+    opts = SolverOptions(tol=1e-4, max_iter=40)
+    r0 = solve_batch_lanes(prob, p, opts=opts, mu0=opts.mu_init)
+    assert bool((r0.status == 0).all())
+    p2 = p._replace(x0=p.x0 + 0.01)
+    rw = solve_batch_lanes(prob, p2, r0.X, r0.U, opts,
+                           mu0=opts.warm_mu_factor * opts.tol)
+    _check_generic_warm(prob, p2, r0.X, r0.U, rw.U.numpy())
