@@ -11,27 +11,32 @@ line each, with the seconds since start in ``t``:
    (``fused_sqp.cu``, ``fused_sqp_generic.cu``, ``fused_sqp_models.cu``,
    ``fused_sqp_ltv.cu``: the fused kernel's instantiations; ``riccati.cu``),
    one process each, started together; registers and spill bytes of every
-   kernel instantiation from ``-Xptxas -v``;
-3. parity — the fused kernel against its plain PyTorch version, both on the
-   card, at B=1024 on the 4-DOF ``mahi_arm`` (N=25, dt=2 ms, |u| <= 20,
-   float32) with bench-shaped data:
+   kernel instantiation from ``-Xptxas -v``; then the main path's
+   instantiation alone (``fused_sqp_group_kernel``, four threads an
+   instance): its ptxas line and blocks an SM;
+3. parity — the fused kernel (on the main path its group body) against its
+   plain PyTorch version, both on the card, at B=1024 on the 4-DOF
+   ``mahi_arm`` (N=25, dt=2 ms, |u| <= 20, float32) with bench-shaped data:
    - adaptive cold solve: statuses agree on >= 99 % of instances, and at
      most 1 % of the converged instances lie beyond |dU| 5e-3 of the plain
-     version's float64 solution.  The float32 answer of this algorithm is
-     itself only determined to ~1e-2 on about 1 % of instances (Armijo
-     rejects steps on float32 merit noise after a barrier decrease, so the
-     last iterations crawl), so the plain version in float32 is no closer
-     to the float64 solution there; the line prints both counts;
+     version's float64 solution (the line prints the plain float32
+     version's count too);
    - fixed-3 warm solve from the kernel's cold plan: max|dX|, max|dU|
      <= 1e-4;
    then both at the service's batch (B=16384): their times, and the
    fixed-3 warm solves held to max|dX|, max|dU| <= 1e-4 and the adaptive
-   cold statuses to >= 99 % agreement there too;
+   cold statuses to >= 99 % agreement there too; the group kernel's bound
+   (its operations counted by g++ on a counting scalar,
+   ``csrc/flop_count.cpp``, over the FP32 peak; its bytes over the HBM
+   rate) and roofline share; and its times at B = 4096, 16384 and 65536
+   (kernel only, a draw of its own);
 4. service — ``BatchModelControl`` on the card at B=16384 with
    ``fixed_warm_iters=3``: one cold step, then 10 warm steps with 0.01 N(0,1)
    state noise and a phase-shifted sinusoid reference (converged_frac >= 0.9
    after the cold and the last warm step; the kernel's launch count rises by
-   11); then a service with adaptive warm steps (1 cold + 3 warm);
+   11), one more step under ``torch.profiler`` (the group kernel's device
+   ms by its name, its share of the step, the host-only ms); then a service
+   with adaptive warm steps (1 cold + 3 warm);
 5. parity_fused_ltv — the fused kernel in LTV mode (``mahi_arm``
    frozen at each instance's x0, B=1024) against its plain version:
    adaptive cold statuses agree on >= 99 % and the kernel converges on
@@ -64,7 +69,8 @@ line each, with the seconds since start in ``t``:
    (computed outside the kernel) at rtol / atol 2e-4 on the stage QP and
    within 1e-2 of max|lam| on the random QPs, whose adjoint recursion
    amplifies float32 roundoff ~1e4-fold at N=25;
-10. timing_riccati — kernel and plain version at B=16384, (25, 12, 4);
+10. timing_riccati — kernel and plain version at B=16384, (25, 12, 4), and
+    its bound (bytes: the stage QP read and dz, du written once);
 11. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
     fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
     iteration each, then the adaptive warm lanes solve against fused
@@ -87,7 +93,9 @@ line each, with the seconds since start in ``t``:
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths, its error against the plain version (for the fused kernel's
-modes, the fixed-3 warm solve at B=16384) and both times, the
+modes, the fixed-3 warm solve at B=16384), both times, its bound
+(``bound_ms``, ``bound_by``) and ``library_ms`` (null: no single PyTorch
+call computes either function), the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -109,6 +117,12 @@ ADAPTIVE_WARM_STEPS = 3
 COLD_DU_BAND = 5e-3
 RICCATI_PARITY_BATCH = 1000       # not a multiple of the 128-thread block
 LANES_WARM_STEPS = 3
+LADDER = (4096, 16384, 65536)     # the fused kernel's batch ladder
+COUNT_SAMPLE = 32                 # instances whose operations g++ counts
+# NVIDIA's H100 SXM peaks (the on-chip-measurement table): FP32 outside the
+# tensor cores and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def emit(**kw):
@@ -169,17 +183,21 @@ def random_qp(B, N, nz, nu, seed, to):
                                      gf)])
 
 
-def profile_step(svc):
-    """One service step under torch.profiler: wall ms (profiler overhead
-    included), device ms summed over kernels, and the Riccati kernel's
-    device ms.  Device time 0 means the profiler saw no kernel."""
+def profile_step(svc, kernel):
+    """One service step under torch.profiler, after one profiled step that
+    warms the profiler up: wall ms (profiler overhead included), device ms
+    summed over kernels, the device ms of the kernels whose name holds
+    ``kernel`` and their launches, and the host-only ms (wall minus
+    device).  Device time 0 means the profiler saw no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        svc.step()
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -189,10 +207,14 @@ def profile_step(svc):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     total = sum(dev_us(e) for e in kernels) / 1e3
-    ric = sum(dev_us(e) for e in kernels if "riccati_kernel" in e.key) / 1e3
+    mine = [e for e in kernels if kernel in e.key]
+    ker = sum(dev_us(e) for e in mine) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
-    return dict(wall_ms=wall_ms, device_ms=total, riccati_device_ms=ric,
-                riccati_share_of_device=ric / total if total else None,
+    return dict(wall_ms=wall_ms, device_ms=total, kernel=kernel,
+                kernel_device_ms=ker, kernel_count=sum(e.count for e in mine),
+                kernel_share_of_device=ker / total if total else None,
+                kernel_share_of_wall=ker / wall_ms,
+                host_only_ms=wall_ms - total,
                 device_busy_share=total / wall_ms,
                 top_kernels=[[e.key[:70], dev_us(e) / 1e3, e.count]
                              for e in top])
@@ -320,12 +342,25 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     idx = torch.arange(SERVICE_BATCH, device=dev) % Br
     qpt = StageQP(*[a[idx] for a in arm_qp])
     lanes_in = tuple(_to_lanes(a) for a in qpt)
-    _, kernel_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 20)
+    sol, kernel_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 20)
     _, batch_ms = timed(lambda: solve_lqr_kernel_batch(qpt), 10)
     _, plain_ms = timed(lambda: _solve_lqr_kernel_plain(qpt), 3)
+    # Bound: the stage QP read once and dz, du written once, against the
+    # multiply-adds of the recursion counted by hand per stage (P Az, Az' P
+    # Az, P Bz, Bz' P Bz, Az' P Bz, the nu x nu solve of nz + 1 columns,
+    # the gain update, the rollout), 2 flops each.
+    nz_r, nu_r, Bq = 12, 4, SERVICE_BATCH
+    io_bytes = 4 * (sum(a.numel() for a in lanes_in)
+                    + sum(a.numel() for a in sol))
+    macs = (2 * nz_r ** 3 + 3 * nz_r ** 2 * nu_r + nz_r * nu_r ** 2
+            + nu_r ** 2 * (nz_r + 1) + nz_r * nu_r + nz_r ** 2)
+    ops = 2.0 * macs * N * Bq
+    bound = bound_ms(ops, io_bytes)
     emit(phase="timing_riccati", batch=SERVICE_BATCH, N=N, nz=12, nu=4,
          kernel_ms=kernel_ms, batch_entry_ms=batch_ms, plain_ms=plain_ms,
-         qp_mbytes=sum(a.numel() for a in qpt) * 4 / 1e6)
+         qp_mbytes=sum(a.numel() for a in qpt) * 4 / 1e6,
+         io_mbytes=io_bytes / 1e6, ops_hand_count=ops, **bound,
+         roofline_share=bound["bound_ms"] / kernel_ms)
 
     # ---- parity_lanes_vs_fused (tests/test_fused_kernel.py:54-95 on card)
     B = PARITY_BATCH
@@ -465,8 +500,8 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     l_arm, ms_arm = route_service(
         "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
         lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
-    emit(phase="service_lanes_profile", batch=Bs, **profile_step(svc),
-         stage_ms=lanes_stage_ms(svc))
+    emit(phase="service_lanes_profile", batch=Bs,
+         **profile_step(svc, "riccati_kernel"), stage_ms=lanes_stage_ms(svc))
 
     # ---- double_pendulum under RK4: "auto" (fused, generic path) and
     # "adaptive" (lanes, Riccati kernel at (6, 2)) on the same closed loop
@@ -511,7 +546,7 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
 
     return dict(launches=l_arm + l_dp, max_abs_err=max_err, ms=kernel_ms,
                 plain_ms=plain_ms, batch_entry_ms=batch_ms,
-                dp_fused_launches=dp["fused"][0])
+                dp_fused_launches=dp["fused"][0], **bound)
 
 
 def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
@@ -554,6 +589,30 @@ def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
             A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
         p = p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
     return mp, prob, p
+
+
+def bound_ms(ops, nbytes) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def fused_io_bytes(p, X0, U0, B) -> int:
+    """Bytes the fused solve must move: each input (plan, reference,
+    weights, bounds, mu) read once, X, U and the 8 stats written once."""
+    per = (X0[0].numel() + U0[0].numel()
+           + sum(t[0].numel() for t in (p.x_des, p.q, p.r, p.rm, p.u_prev,
+                                         p.u_min, p.u_max, p.x_min, p.x_max,
+                                         p.qf, p.xf_des)) + 1)
+    return 4 * B * (per + X0[0].numel() + U0[0].numel() + 8)
+
+
+def head(p, n):
+    """The first n instances of MPCParams p."""
+    return type(p)(*[type(f)(*[a[:n] for a in f]) if isinstance(f, tuple)
+                     else (None if f is None else f[:n]) for f in p])
 
 
 def to_f64(p):
@@ -786,7 +845,8 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
-    from mahi_mpc_tpu_torch.solver.fused import (solve_batch_fused,
+    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
+                                                 solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
         solve_lqr_kernel_batch
@@ -809,6 +869,15 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t_build,
          seconds_each={name: b[2] for name, b in builds.items()},
          ptxas={name: ptxas_summary(b[1]) for name, b in builds.items()})
+    # the main path's instantiation: four threads an instance
+    group = [k for k in ptxas_summary(builds["fused_sqp"][1])
+             if "fused_sqp_group_kernel" in k["kernel"]]
+    per_sm = {nq: builds["fused_sqp"][0].mpc_fused_group_blocks_per_sm(nq)
+              for nq in (2, 4)}
+    emit(phase="group_kernel", threads_per_instance=4, instances_per_block=32,
+         blocks_per_sm=per_sm, ptxas=group)
+    check(len(group) == 2 and min(per_sm.values()) > 0,
+          f"group kernel: {len(group)} instantiations, blocks/SM {per_sm}")
 
     # ---- problem and bench-shaped data (bench.py:75-99, 128-138)
     dyn = make_dynamics("mahi_arm")
@@ -826,14 +895,14 @@ def main() -> int:
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                     device=dev)
 
-    def batch_params(B):
+    def batch_params(B, gen=rng):
         p = default_params(mp, device=dev)._replace(
             q=f32(Qw), r=f32(Rw), rm=f32(Rmw))
         ex = lambda a: a.expand((B,) + a.shape).clone()
         p = MPCParams(*[type(f)(*[ex(a) for a in f])
                         if isinstance(f, tuple) else ex(f) for f in p])
-        return p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
-                          x_des=f32(0.2 * rng.standard_normal((B, N, nx))))
+        return p._replace(x0=f32(0.2 * gen.standard_normal((B, nx))),
+                          x_des=f32(0.2 * gen.standard_normal((B, N, nx))))
 
     def warm_schedule(B, n_rounds):
         perts = 0.01 * rng.standard_normal((n_rounds, B, nx))
@@ -930,6 +999,58 @@ def main() -> int:
           f"B={Bt} fixed-3 max|dX|,|dU| {warm_err_t} > 1e-4")
     check(same_t >= 0.99, f"B={Bt} adaptive statuses agree on {same_t:.4f}")
 
+    # ---- the group kernel's bound: its operations, counted by g++ on the
+    # first COUNT_SAMPLE instances of these inputs (csrc/flop_count.cpp),
+    # scaled to the batch; the adaptive solve's per instance-iteration,
+    # times this run's iterations
+    S = COUNT_SAMPLE
+    ops_w = count_fused_ops(prob, head(ptw, S), ct.X[:S], ct.U[:S], opts,
+                            mu0=mu_warm, n_iter=3)
+    ops_c1 = count_fused_ops(prob, head(pt, S), None, None, opts_cold,
+                             mu0=opts_cold.mu_init, n_iter=1, adaptive=True)
+    # the one-thread body's arithmetic on the same inputs (what the group
+    # body replaced on this path)
+    ops_t = count_fused_ops(prob, head(ptw, S), ct.X[:S], ct.U[:S], opts,
+                            mu0=mu_warm, n_iter=3, body="thread")
+    warm_ops = sum(ops_w.values()) * Bt / S
+    cold_ops = sum(ops_c1.values()) / S * float(ct.iters.sum())
+    io = fused_io_bytes(ptw, ct.X, ct.U, Bt)
+    warm_bound, cold_bound = bound_ms(warm_ops, io), bound_ms(cold_ops, io)
+    emit(phase="bound_fused", batch=Bt, count_sample=S,
+         ops_per_instance_fixed3=sum(ops_w.values()) / S,
+         ops_by_kind_fixed3=ops_w, ops_per_instance_iteration_adaptive=(
+             sum(ops_c1.values()) / S),
+         ops_per_instance_fixed3_one_thread_body=sum(ops_t.values()) / S,
+         fixed3_warm_bound_ms_one_thread_body=bound_ms(
+             sum(ops_t.values()) * Bt / S, io)["bound_ms"],
+         io_mbytes=io / 1e6,
+         fixed3_warm_ops=warm_ops, fixed3_warm_bound_ms=warm_bound["bound_ms"],
+         fixed3_warm_bound_by=warm_bound["bound_by"],
+         fixed3_warm_roofline_share=warm_bound["bound_ms"] / warm_ms,
+         adaptive_cold_ops=cold_ops,
+         adaptive_cold_bound_ms=cold_bound["bound_ms"],
+         adaptive_cold_roofline_share=cold_bound["bound_ms"] / cold_ms)
+
+    # ---- the batch ladder, kernel only (its own draw of data)
+    lad_rng = np.random.default_rng(1)
+    ladder = []
+    for Bl in LADDER:
+        pl = batch_params(Bl, lad_rng)
+        cl, cms = timed(lambda: cold(solve_batch_fused, pl), 2)
+        plw = pl._replace(x0=pl.x0 + 0.01)
+        _, wms = timed(lambda: solve_batch_fused(prob, plw, cl.X, cl.U, opts,
+                                                 mu0=mu_warm, n_iter=3), 10)
+        ladder.append(dict(batch=Bl, fixed3_warm_kernel_ms=wms,
+                           fixed3_warm_solves_per_s=Bl / (wms * 1e-3),
+                           adaptive_cold_kernel_ms=cms,
+                           adaptive_cold_mean_iters=cl.iters.float().mean()
+                           .item(),
+                           adaptive_cold_converged=(cl.status == 0).float()
+                           .mean().item()))
+        check(ladder[-1]["adaptive_cold_converged"] >= 0.99,
+              f"B={Bl} adaptive cold converged {ladder[-1]}")
+    emit(phase="batch_ladder", rungs=ladder)
+
     # ---- service: the main path, counted
     def service(fixed_warm_iters, n_warm):
         svc = BatchModelControl(
@@ -973,12 +1094,23 @@ def main() -> int:
         check(m["converged_frac"] >= 0.9, f"warm converged_frac {m}")
         check(launches == 1 + n_warm,
               f"kernel launched {launches} times for {1 + n_warm} steps")
-        return launches
+        return svc, ms
 
     solve_batch_fused.launches = 0
     solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
     solve_lqr_kernel_batch.launches = 0
-    service(3, WARM_STEPS)
+    svc3, step_ms = service(3, WARM_STEPS)
+    # fixed-3 steps under the profiler: the kernel's device time within a
+    # step, its share of the unprofiled step (CUDA events above), and that
+    # the main path ran the group kernel by its name
+    prof = profile_step(svc3, "fused_sqp_group_kernel")
+    emit(phase="service_profile", fixed_warm_iters=3, batch=SERVICE_BATCH,
+         ms_per_warm_step=step_ms,
+         kernel_share_of_step=prof["kernel_device_ms"] / step_ms,
+         host_side_ms=step_ms - prof["kernel_device_ms"], **prof)
+    check(prof["kernel_count"] == 1 and prof["kernel_device_ms"] > 0,
+          f"the profiled service step ran {prof['kernel_count']} "
+          f"fused_sqp_group_kernel launches")
     service(0, ADAPTIVE_WARM_STEPS)
     launches = solve_batch_fused.launches
     fast_launches = solve_batch_fused.mode_launches["fast"]
@@ -993,24 +1125,29 @@ def main() -> int:
                        mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
     modes[1]["launches"] = ric["dp_fused_launches"]
     modes.insert(0, dict(
-        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp.cu",
-        case="mahi_arm Euler, fixed-3 warm", launches=fast_launches,
-        max_abs_err=warm_err_t, ms=warm_ms, plain_ms=warm_plain_ms,
-        adaptive_cold_ms=cold_ms, adaptive_cold_plain_ms=cold_plain_ms))
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
+        case="mahi_arm Euler, fixed-3 warm (group body)",
+        launches=fast_launches, max_abs_err=warm_err_t, ms=warm_ms,
+        plain_ms=warm_plain_ms, bound_ms=warm_bound["bound_ms"],
+        adaptive_cold_ms=cold_ms, adaptive_cold_plain_ms=cold_plain_ms,
+        adaptive_cold_bound_ms=cold_bound["bound_ms"]))
     launches += sum(m.get("launches", 0) for m in modes[1:])
 
     emit(phase="done")
     print(json.dumps({"kernels": [{
         "name": "fused_sqp",
         "route": "cuda",
-        "source": "mahi_mpc_tpu_torch/csrc/fused_sqp.cuh",
+        "source": "mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
         "replaces": "mahi_mpc_tpu/solver/fused.py:186",
         "launches": launches,
         "max_abs_err": max(m["max_abs_err"] for m in modes),
         "ms": warm_ms,
         "plain_ms": warm_plain_ms,
+        "bound_ms": warm_bound["bound_ms"],
+        "bound_by": warm_bound["bound_by"],
+        "library_ms": None,
         "batch": SERVICE_BATCH,
-        "mode": "fixed-3 warm, mahi_arm Euler (nq-row path)",
+        "mode": "fixed-3 warm, mahi_arm Euler (group body, nq-row path)",
         "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item(),
         "modes": modes}, {
         "name": "riccati",
@@ -1021,6 +1158,9 @@ def main() -> int:
         "max_abs_err": ric["max_abs_err"],
         "ms": ric["ms"],
         "plain_ms": ric["plain_ms"],
+        "bound_ms": ric["bound_ms"],
+        "bound_by": ric["bound_by"],
+        "library_ms": None,
         "batch": SERVICE_BATCH,
         "mode": "N=25, nz=12, nu=4, lanes layout in and out",
         "batch_entry_ms": ric["batch_entry_ms"]}]}),

@@ -6,13 +6,14 @@ into ``_build/`` (ignored by git) and returns it loaded; the file name
 carries a hash of every source in ``csrc/``, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  ``cuda_build_all()`` starts one
 nvcc for each library at once.  ``cpu_library(name)`` builds the same
-kernel bodies for the CPU with g++ (tests only).  Nothing is built or
-loaded at import.
+kernel bodies for the CPU with g++: for the tests, and the group body's
+operation count (``flop_count``) for the roofline bound that
+``chip_smoke.py`` reports.  Nothing is built or loaded at import.
 
 The libraries:
 
 - ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve for the
-  serial arms under Euler;
+  serial arms under Euler (the group body, four threads an instance);
 - ``fused_sqp_generic`` (``csrc/fused_sqp_generic.cu``): the same kernel
   for the serial arms under midpoint and RK4 (the generic nx-row path);
 - ``fused_sqp_models`` (``csrc/fused_sqp_models.cu``): the same kernel for
@@ -59,10 +60,12 @@ _c_ll = ctypes.c_longlong
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
 _FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p]}
+_ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
 # name -> (CUDA source, {launcher: argtypes})
 CUDA_LIBRARIES = {
-    "fused_sqp": ("fused_sqp.cu", _FUSED_LAUNCH),
+    "fused_sqp": ("fused_sqp.cu", {**_FUSED_LAUNCH,
+                                   "mpc_fused_group_blocks_per_sm": [_c_int]}),
     "fused_sqp_generic": ("fused_sqp_generic.cu", _FUSED_LAUNCH),
     "fused_sqp_models": ("fused_sqp_models.cu", _FUSED_LAUNCH),
     "fused_sqp_ltv": ("fused_sqp_ltv.cu", _FUSED_LAUNCH),
@@ -77,12 +80,12 @@ CPU_LIBRARIES = {
     "fused_sqp": ("fused_sqp_cpu.cpp", {
         "mpc_fused_solve_cpu_f32": _FUSED_ARGS,
         "mpc_fused_solve_cpu_f64": _FUSED_ARGS,
-        "mpc_arm_eval_cpu_f32": [_c_ll, _c_int, _c_void_p, _c_void_p,
-                                 ctypes.c_float, _c_void_p, _c_void_p,
-                                 _c_void_p],
-        "mpc_arm_eval_cpu_f64": [_c_ll, _c_int, _c_void_p, _c_void_p,
-                                 ctypes.c_double, _c_void_p, _c_void_p,
-                                 _c_void_p],
+        "mpc_fused_solve_group_cpu_f32": _FUSED_ARGS,
+        "mpc_fused_solve_group_cpu_f64": _FUSED_ARGS,
+        **{f"mpc_arm_{kind}_cpu_{bits}": _ARM_EVAL + [real] + [_c_void_p] * 3
+           for kind in ("eval", "fold")
+           for bits, real in (("f32", ctypes.c_float),
+                              ("f64", ctypes.c_double))},
         "mpc_model_eval_cpu_f64": [_c_ll, _c_int, _c_int, _c_void_p,
                                    _c_void_p, ctypes.c_double, _c_void_p,
                                    _c_void_p, _c_void_p, _c_void_p,
@@ -91,6 +94,9 @@ CPU_LIBRARIES = {
     "riccati": ("riccati_cpu.cpp", {
         "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
         "mpc_riccati_cpu_f64": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
+    }),
+    "flop_count": ("flop_count.cpp", {
+        "mpc_fused_count_ops": _FUSED_ARGS + [_c_int, _c_void_p],
     }),
 }
 

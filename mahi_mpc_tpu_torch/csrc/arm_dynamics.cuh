@@ -163,8 +163,10 @@ inline ArmConsts<S, NQ> load_arm(const F* a) {
   return c;
 }
 
-template <typename T>
-MPC_HD void cross3(const T* a, const T* b, T* out) {
+// The 3-vector helpers take operands of two scalar types (a Dual and a
+// plain constant, say); the result has the type of their product.
+template <typename R, typename A, typename B>
+MPC_HD void cross3(const A* a, const B* b, R* out) {
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];
@@ -184,33 +186,52 @@ MPC_HD void link_inertia(const T (&R)[3][3], const S* I, T (&Iw)[3][3]) {
     }
 }
 
-template <typename T>
-MPC_HD void mv3(const T (&A)[3][3], const T* x, T* out) {
+template <typename R, typename A, typename B>
+MPC_HD void mv3(const A (&M)[3][3], const B* x, R* out) {
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    out[r] = (A[r][0] * x[0] + A[r][1] * x[1]) + A[r][2] * x[2];
+    out[r] = (M[r][0] * x[0] + M[r][1] * x[1]) + M[r][2] * x[2];
 }
 
-template <typename T>
-MPC_HD T dot3(const T* a, const T* b) {
+template <typename A, typename B>
+MPC_HD auto dot3(const A* a, const B* b) -> decltype(a[0] * b[0]) {
   return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
 }
 
-// qdd = M(q)^{-1} (u - h(q, qd) - damping qd) for one instance.
-template <typename T, typename S, int NQ>
-MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
-                    const T* u, T* qdd) {
-  // ---- forward kinematics: joint origins o, axes z, COMs cm, rotations R
-  T o[NQ][3], z[NQ][3], cm[NQ][3], R[NQ][3][3];
-  T Rc[3][3], p[3];
+// ---- the chain in one sweep from the base: per link the forward
+// kinematics (joint origin o, axis z, COM cm, world inertia Iw), its terms
+// of the mass matrix (when kMass), and its step of the RNEA forward sweep
+// (velocities, accelerations and the link's force F and moment terms G),
+// then the RNEA backward sweep for h(q, qd) with qdd = 0 and gravity as a
+// base acceleration.  Only o, z, F and G outlive their link, which keeps a
+// dual-number pass in registers.  Kinematics and M are in the scalar K,
+// velocities, forces and h in the scalar T of qd: K = T for one pass
+// through the whole chain; K plain and T a Dual for the tangent of a qd
+// direction, on which the kinematics and M do not depend.
+template <bool kMass, typename T, typename K, typename S, int NQ>
+MPC_HD void arm_chain(const ArmConsts<S, NQ>& c, const K* q, const T* qd,
+                      K (&M)[NQ][NQ], T* h) {
+  K o[NQ][3], z[NQ][3], Rc[3][3], p[3], o_prev[3];
+  T F[NQ][3], G[NQ][3], w_prev[3], al_prev[3], a_prev[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    p[r] = T(S(0));
+    p[r] = K(S(0));
 #pragma unroll
-    for (int cc = 0; cc < 3; ++cc) Rc[r][cc] = T(S(r == cc ? 1 : 0));
+    for (int cc = 0; cc < 3; ++cc) Rc[r][cc] = K(S(r == cc ? 1 : 0));
+    w_prev[r] = T(S(0));
+    al_prev[r] = T(S(0));
+    a_prev[r] = T(c.neg_g[r]);
+    o_prev[r] = K(S(0));
+  }
+  if (kMass) {
+#pragma unroll
+    for (int a = 0; a < NQ; ++a)
+#pragma unroll
+      for (int b = 0; b < NQ; ++b) M[a][b] = K(S(0));
   }
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
+    // ---- forward kinematics of link i
     const S* ax = c.axis[i];
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
@@ -229,80 +250,57 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
       for (int cc = 0; cc < 3; ++cc)
         KK[r][cc] = (Kx[r][0] * Kx[0][cc] + Kx[r][1] * Kx[1][cc])
                     + Kx[r][2] * Kx[2][cc];
-    const T s = m_sin(q[i]);
-    const T omc = S(1) - m_cos(q[i]);
-    T rot[3][3];
+    K Iw[3][3], cm[3];
+    {
+      const K s = m_sin(q[i]);
+      const K omc = S(1) - m_cos(q[i]);
+      K rot[3][3], Rn[3][3];
 #pragma unroll
-    for (int r = 0; r < 3; ++r)
+      for (int r = 0; r < 3; ++r)
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        rot[r][cc] = S(r == cc ? 1 : 0) + (s * Kx[r][cc] + omc * KK[r][cc]);
-    T Rn[3][3];
+        for (int cc = 0; cc < 3; ++cc)
+          rot[r][cc] = S(r == cc ? 1 : 0) + (s * Kx[r][cc] + omc * KK[r][cc]);
 #pragma unroll
-    for (int r = 0; r < 3; ++r)
+      for (int r = 0; r < 3; ++r)
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        Rn[r][cc] = (Rc[r][0] * rot[0][cc] + Rc[r][1] * rot[1][cc])
-                    + Rc[r][2] * rot[2][cc];
+        for (int cc = 0; cc < 3; ++cc)
+          Rn[r][cc] = (Rc[r][0] * rot[0][cc] + Rc[r][1] * rot[1][cc])
+                      + Rc[r][2] * rot[2][cc];
+      link_inertia(Rn, c.inertia[i], Iw);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
+      for (int r = 0; r < 3; ++r) {
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        Rc[r][cc] = Rn[r][cc];
-        R[i][r][cc] = Rn[r][cc];
+        for (int cc = 0; cc < 3; ++cc) Rc[r][cc] = Rn[r][cc];
+        o[i][r] = p[r];
       }
-      o[i][r] = p[r];
     }
 #pragma unroll
     for (int r = 0; r < 3; ++r)
-      cm[i][r] = p[r] + ((Rc[r][0] * c.com[i][0] + Rc[r][1] * c.com[i][1])
-                         + Rc[r][2] * c.com[i][2]);
-  }
+      cm[r] = p[r] + ((Rc[r][0] * c.com[i][0] + Rc[r][1] * c.com[i][1])
+                      + Rc[r][2] * c.com[i][2]);
 
-  // ---- mass matrix: sum_i m_i Jv_i' Jv_i + Jw_i' Iw_i Jw_i (upper, mirror)
-  T M[NQ][NQ];
+    // ---- link i's terms of M = sum_i m_i Jv_i' Jv_i + Jw_i' Iw_i Jw_i
+    if (kMass) {
+      K Jv[NQ][3], IwJw[NQ][3];
 #pragma unroll
-  for (int a = 0; a < NQ; ++a)
+      for (int j = 0; j <= i; ++j) {
+        K arm[3];
 #pragma unroll
-    for (int b = 0; b < NQ; ++b) M[a][b] = T(S(0));
+        for (int r = 0; r < 3; ++r) arm[r] = cm[r] - o[j][r];
+        cross3(z[j], arm, Jv[j]);
+        mv3(Iw, z[j], IwJw[j]);
+      }
 #pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    T Jv[NQ][3], IwJw[NQ][3], Iw[3][3];
+      for (int a = 0; a <= i; ++a)
 #pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      T arm[3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) arm[r] = cm[i][r] - o[j][r];
-      cross3(z[j], arm, Jv[j]);
+        for (int b = a; b <= i; ++b)
+          M[a][b] = M[a][b]
+                    + (c.mass[i] * dot3(Jv[a], Jv[b]) + dot3(z[a], IwJw[b]));
     }
-    link_inertia(R[i], c.inertia[i], Iw);
-#pragma unroll
-    for (int j = 0; j <= i; ++j) mv3(Iw, z[j], IwJw[j]);
-#pragma unroll
-    for (int a = 0; a <= i; ++a)
-#pragma unroll
-      for (int b = a; b <= i; ++b)
-        M[a][b] = M[a][b]
-                  + (c.mass[i] * dot3(Jv[a], Jv[b]) + dot3(z[a], IwJw[b]));
-  }
-#pragma unroll
-  for (int a = 0; a < NQ; ++a)
-#pragma unroll
-    for (int b = 0; b < a; ++b) M[a][b] = M[b][a];
 
-  // ---- RNEA bias with qdd = 0: forward sweep of velocities/accelerations
-  T w[NQ][3], al[NQ][3], ac[NQ][3];
-  T w_prev[3], al_prev[3], a_prev[3], o_prev[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    w_prev[r] = T(S(0));
-    al_prev[r] = T(S(0));
-    a_prev[r] = T(c.neg_g[r]);
-    o_prev[r] = T(S(0));
-  }
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    T d[3], t1[3], t2[3], t3[3], a_oi[3], zqd[3], rc[3];
+    // ---- link i's step of the RNEA forward sweep
+    K d[3], rc[3];
+    T t1[3], t2[3], t3[3], a_oi[3], zqd[3], w[3], al[3], ac[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) d[r] = o[i][r] - o_prev[r];
     cross3(al_prev, d, t1);
@@ -312,29 +310,45 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
     for (int r = 0; r < 3; ++r) {
       a_oi[r] = a_prev[r] + (t1[r] + t3[r]);
       zqd[r] = z[i][r] * qd[i];
-      w[i][r] = w_prev[r] + zqd[r];
+      w[r] = w_prev[r] + zqd[r];
     }
     cross3(w_prev, zqd, t1);
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      al[i][r] = al_prev[r] + t1[r];
-      rc[r] = cm[i][r] - o[i][r];
+      al[r] = al_prev[r] + t1[r];
+      rc[r] = cm[r] - o[i][r];
     }
-    cross3(al[i], rc, t1);
-    cross3(w[i], rc, t2);
-    cross3(w[i], t2, t3);
+    cross3(al, rc, t1);
+    cross3(w, rc, t2);
+    cross3(w, t2, t3);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) ac[r] = a_oi[r] + (t1[r] + t3[r]);
+    // the link's force and its moment terms about o_i (used toward the base)
+    T Iwal[3], Iww[3], wIww[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) F[i][r] = c.mass[i] * ac[r];
+    mv3(Iw, al, Iwal);
+    mv3(Iw, w, Iww);
+    cross3(w, Iww, wIww);
+    cross3(rc, F[i], t1);
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      ac[i][r] = a_oi[r] + (t1[r] + t3[r]);
-      w_prev[r] = w[i][r];
-      al_prev[r] = al[i][r];
+      G[i][r] = (Iwal[r] + wIww[r]) + t1[r];
+      w_prev[r] = w[r];
+      al_prev[r] = al[r];
       a_prev[r] = a_oi[r];
       o_prev[r] = o[i][r];
     }
   }
-  // ---- backward sweep of forces and moments toward the base
-  T h[NQ];
-  T f_child[3], n_child[3], o_child[3];
+  if (kMass) {
+#pragma unroll
+    for (int a = 0; a < NQ; ++a)
+#pragma unroll
+      for (int b = 0; b < a; ++b) M[a][b] = M[b][a];
+  }
+  // ---- RNEA backward sweep of forces and moments toward the base
+  T f_child[3], n_child[3];
+  K o_child[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     f_child[r] = T(S(0));
@@ -343,35 +357,27 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
   }
 #pragma unroll
   for (int i = NQ - 1; i >= 0; --i) {
-    T Iw[3][3], F[3], Iwal[3], Iww[3], wIww[3], Ni[3], marm[3], carm[3];
-    T t1[3], t2[3], ni[3];
-    link_inertia(R[i], c.inertia[i], Iw);
+    K carm[3];
+    T t2[3], ni[3];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) F[r] = c.mass[i] * ac[i][r];
-    mv3(Iw, al[i], Iwal);
-    mv3(Iw, w[i], Iww);
-    cross3(w[i], Iww, wIww);
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      Ni[r] = Iwal[r] + wIww[r];
-      marm[r] = cm[i][r] - o[i][r];
-      carm[r] = o_child[r] - o[i][r];
-    }
-    cross3(marm, F, t1);
+    for (int r = 0; r < 3; ++r) carm[r] = o_child[r] - o[i][r];
     cross3(carm, f_child, t2);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) ni[r] = (Ni[r] + t1[r]) + (n_child[r] + t2[r]);
+    for (int r = 0; r < 3; ++r) ni[r] = G[i][r] + (n_child[r] + t2[r]);
     h[i] = dot3(z[i], ni);
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      f_child[r] = F[r] + f_child[r];
+      f_child[r] = F[i][r] + f_child[r];
       n_child[r] = ni[r];
       o_child[r] = o[i][r];
     }
   }
+}
 
-  // ---- qdd = M^{-1} rhs by unrolled Cholesky (reciprocal-multiply form)
-  T L[NQ][NQ], y[NQ];
+// ---- unrolled Cholesky M = L L' and the solve L L' x = rhs
+// (reciprocal-multiply form); S is the plain scalar of the literals.
+template <typename S, typename T, int NQ>
+MPC_HD void arm_chol(const T (&M)[NQ][NQ], T (&L)[NQ][NQ]) {
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
     T s = M[j][j];
@@ -388,9 +394,14 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
       L[i][j] = t * inv;
     }
   }
+}
+
+template <typename S, typename T, int NQ>
+MPC_HD void arm_solve(const T (&L)[NQ][NQ], const T* rhs, T* x) {
+  T y[NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
-    T s = (u[i] - h[i]) - c.damping * qd[i];
+    T s = rhs[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
     y[i] = s * (S(1) / L[i][i]);
@@ -399,9 +410,106 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
   for (int i = NQ - 1; i >= 0; --i) {
     T s = y[i];
 #pragma unroll
-    for (int k = i + 1; k < NQ; ++k) s = s - L[k][i] * qdd[k];
-    qdd[i] = s * (S(1) / L[i][i]);
+    for (int k = i + 1; k < NQ; ++k) s = s - L[k][i] * x[k];
+    x[i] = s * (S(1) / L[i][i]);
   }
+}
+
+// qdd = M(q)^{-1} (u - h(q, qd) - damping qd) for one instance, the whole
+// chain in the scalar T (a Dual for the dual-number Jacobian rows).
+template <typename T, typename S, int NQ>
+MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
+                    const T* u, T* qdd) {
+  T M[NQ][NQ], L[NQ][NQ], h[NQ], rhs[NQ];
+  arm_chain<true>(c, q, qd, M, h);
+  arm_chol<S>(M, L);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) rhs[i] = (u[i] - h[i]) - c.damping * qd[i];
+  arm_solve<S>(L, rhs, qdd);
+}
+
+// ---- the folded linearization.  qdd = M^{-1} (u - h - D qd) is affine in
+// u and M does not depend on qd, so of the 3 NQ columns of d qdd / d[q, qd,
+// u] only the q columns need the whole chain:
+//   q_j:  M^{-1} (-dM qdd - dh), dM and dh from one single-tangent pass;
+//   qd_j: -M^{-1} (dh + D e_j), dh from the RNEA alone over plain
+//         kinematics;
+//   u_j:  M^{-1} e_j,
+// each solve with the Cholesky factor L of the value part.
+
+// The value part in plain scalars: L and qdd.
+template <typename S, int NQ>
+MPC_HD void arm_value(const ArmConsts<S, NQ>& c, const S* q, const S* qd,
+                      const S* u, S (&L)[NQ][NQ], S* qdd) {
+  S M[NQ][NQ], h[NQ], rhs[NQ];
+  arm_chain<true>(c, q, qd, M, h);
+  arm_chol<S>(M, L);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) rhs[i] = (u[i] - h[i]) - c.damping * qd[i];
+  arm_solve<S>(L, rhs, qdd);
+}
+
+// The q_j column, with the value part (L, qdd) from the same pass.
+template <typename S, int NQ>
+MPC_HD void arm_q_column(const ArmConsts<S, NQ>& c, const S* q, const S* qd,
+                         const S* u, int j, S (&L)[NQ][NQ], S* qdd,
+                         S* col) {
+  typedef Dual<S, 1> D;
+  D qs[NQ], qds[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    qs[i] = D(q[i]);
+    qs[i].d[0] = S(i == j ? 1 : 0);
+    qds[i] = D(qd[i]);
+  }
+  D M[NQ][NQ], h[NQ];
+  arm_chain<true>(c, qs, qds, M, h);
+  S Mv[NQ][NQ], rhs[NQ];
+#pragma unroll
+  for (int a = 0; a < NQ; ++a)
+#pragma unroll
+    for (int b = 0; b < NQ; ++b) Mv[a][b] = M[a][b].v;
+  arm_chol<S>(Mv, L);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) rhs[i] = (u[i] - h[i].v) - c.damping * qd[i];
+  arm_solve<S>(L, rhs, qdd);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    S acc = -h[i].d[0];
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) acc = acc - M[i][t].d[0] * qdd[t];
+    rhs[i] = acc;
+  }
+  arm_solve<S>(L, rhs, col);
+}
+
+// The qd_j column.
+template <typename S, int NQ>
+MPC_HD void arm_qd_column(const ArmConsts<S, NQ>& c, const S* q, const S* qd,
+                          int j, const S (&L)[NQ][NQ], S* col) {
+  typedef Dual<S, 1> D;
+  S M[NQ][NQ];                         // not formed: M does not depend on qd
+  D qds[NQ], h[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    qds[i] = D(qd[i]);
+    qds[i].d[0] = S(i == j ? 1 : 0);
+  }
+  arm_chain<false>(c, q, qds, M, h);
+  S rhs[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+    rhs[i] = -h[i].d[0] - (i == j ? c.damping : S(0));
+  arm_solve<S>(L, rhs, col);
+}
+
+// The u_j column.
+template <typename S, int NQ>
+MPC_HD void arm_u_column(const S (&L)[NQ][NQ], int j, S* col) {
+  S rhs[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) rhs[i] = S(i == j ? 1 : 0);
+  arm_solve<S>(L, rhs, col);
 }
 
 }  // namespace mpc

@@ -18,7 +18,9 @@
 // rollout's next state step, and evaluates a trial step.  The three modes
 // of the Pallas kernel (`fused.py:313-369`):
 //   FastNq<Model>   Euler step of a second-order model (the `_fast2` rule):
-//                   NQ dual-number acceleration rows, the rest analytic;
+//                   NQ dual-number acceleration rows, the rest analytic
+//                   (for the serial arms the card runs the group body of
+//                   fused_sqp_group.cuh instead; the tests run both);
 //   Generic<Model>  midpoint or RK4 (any integrator): NX rows by dual
 //                   numbers through the whole step;
 //   Ltv<NX, NU>     the frozen affine step Ad x + Bd u + cd, streamed in
@@ -162,12 +164,16 @@ MPC_HD S ftb(S v, S dv, S lo, S hi, S amax) {
 }
 
 // ---- step policies.  Each has sizes NX, NU, the stored rows a stage NJ,
-// and `bind(args, b)`, one instance's view with:
+// the flag kIncrement, and `bind(args, b)`, one instance's view with:
 //   linearize(k, x, u, dt, val, A, Bm, Js): the step value F(x, u), its
 //     Jacobians A, Bm, and the rows the rollout reuses written to Js;
 //   next_dx(k, dt, dx, du, Js, cks, dxn): dxn = A dx + B du + c_k from what
 //     linearize stored;
 //   value(x, u, dt, val): F(x, u) at a line-search trial point.
+// With kIncrement (the Euler step) `linearize` and `value` give the
+// increment F(x, u) - x = dt f instead, and the body forms each defect as
+// (x - x') + dt f, which keeps the float32 rounding of x and x' out of the
+// l1 merit (solver/fused.py `_solve_batch_fused_plain` says why).
 
 // Euler step of a second-order model: the position rows of A are
 // [I, dt I], B's are 0, and only the NQ acceleration rows need AD; their
@@ -176,6 +182,7 @@ template <typename S, typename Model>
 struct FastNq {
   static constexpr int NQ = Model::NQ, NX = Model::NX, NU = Model::NU,
                        NZ = NX + NU, NJ = NQ;
+  static constexpr bool kIncrement = true;
   Model m;
   MPC_HD const FastNq& bind(const FusedArgs<S>&, long long) const {
     return *this;
@@ -185,7 +192,7 @@ struct FastNq {
                         const Lane<S>& Js) const {
     S fval[NX], Jr[NQ][NZ];
     acc_rows<S, Model>(m, xl, ul, dt, fval, Jr);
-    for (int i = 0; i < NX; ++i) val[i] = xl[i] + dt * fval[i];
+    for (int i = 0; i < NX; ++i) val[i] = dt * fval[i];
     for (int i = 0; i < NQ; ++i) {
       for (int j = 0; j < NX; ++j) {
         A[i][j] = S(j == i ? 1 : 0) + (j == i + NQ ? dt : S(0));
@@ -213,7 +220,7 @@ struct FastNq {
   MPC_HD void value(const S* xt, const S* ut, S dt, S* val) const {
     S fv[NX];
     model_f(m, xt, ut, fv);
-    for (int i = 0; i < NX; ++i) val[i] = xt[i] + fv[i] * dt;
+    for (int i = 0; i < NX; ++i) val[i] = fv[i] * dt;
   }
 };
 
@@ -223,6 +230,7 @@ template <typename S, typename Model>
 struct Generic {
   static constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU,
                        NJ = NX;
+  static constexpr bool kIncrement = false;
   Model m;
   int integ;
   MPC_HD const Generic& bind(const FusedArgs<S>&, long long) const {
@@ -262,6 +270,7 @@ template <typename S, int NX_, int NU_>
 struct Ltv {
   static constexpr int NX = NX_, NU = NU_, NJ = 0;
   struct Bound {
+    static constexpr bool kIncrement = false;
     Lane<const S> Ad, Bd, cd;
     // ((Ad x) + (Bd u)) + c, each dot product left to right.
     MPC_HD void affine(const S* x, const S* u, const S* c, S* out) const {
@@ -307,6 +316,7 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
   constexpr int NX = Step::NX, NU = Step::NU, NZ = NX + NU,
                 NG = NX + 2 * NU;
   const auto& st = step.bind(a, b);
+  constexpr bool kInc = std::decay<decltype(st)>::type::kIncrement;
   const long long B = a.B;
   const int N = a.N;
   const S dt = a.dt;
@@ -404,7 +414,12 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
       S val[NX], ck[NX], A[NX][NX], Bm[NX][NU];
       st.linearize(k, xl, ul, dt, val, A, Bm, Js);
       for (int i = 0; i < NX; ++i) {
-        ck[i] = val[i] - xn1[i];
+        if (kInc) {
+          ck[i] = (xl[i] - xn1[i]) + val[i];
+          val[i] = xl[i] + val[i];
+        } else {
+          ck[i] = val[i] - xn1[i];
+        }
         cks[k * NX + i] = ck[i];
       }
 
@@ -698,8 +713,11 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
         st.value(xt, ut, dt, vt);
         S cl1 = cl1_t[j], jr = rmag;
         for (int i = 0; i < NX; ++i) {
-          const S vi = vt[i];
-          cl1 = cl1 + m_abs(vi - (xn1[i] + aj * dxk1[i]));
+          const S vi = kInc ? xt[i] + vt[i] : vt[i];
+          const S di = kInc
+              ? ((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i])) + vt[i]
+              : vi - (xn1[i] + aj * dxk1[i]);
+          cl1 = cl1 + m_abs(di);
           const S er = vi - xdes[k * NX + i];
           jr = jr + q[i] * (er * er);
         }

@@ -1,9 +1,11 @@
-// The fused kernel's per-instance body built for the CPU, for the tests
-// only: the same fused_sqp.cuh that nvcc compiles for the card, with every
-// instantiation family, looped over instances and built for float and
-// double.  Built with `g++ -O2 -shared -fPIC` and loaded with ctypes
-// (solver/fused.py); the package's main path never loads it.
-#include "fused_sqp.cuh"
+// The fused kernel's bodies built for the CPU, for the tests only: the same
+// fused_sqp.cuh (one thread an instance, every instantiation family) and
+// fused_sqp_group.cuh (the arms under Euler, four lanes an instance run one
+// after another) that nvcc compiles for the card, looped over instances and
+// built for float and double.  Built with `g++ -O2 -shared -fPIC` and
+// loaded with ctypes (solver/fused.py); the package's main path never loads
+// it.
+#include "fused_sqp_group.cuh"
 
 namespace {
 
@@ -15,6 +17,28 @@ int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
       a, model, nx, nu, c, [&](const auto& step) -> int {
         for (long long b = 0; b < B; ++b) mpc::solve_instance<S>(a, step, b);
         return 0;
+      });
+}
+
+// The group body for the problems it serves (the arms under Euler); -1 for
+// any other.
+template <typename S>
+int solve_group(long long B, int N, int model, int nx, int nu,
+                void* const* ptrs, const S* scal, const int* ints,
+                const S* fan, const double* c) {
+  const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
+  return mpc::dispatch<S, mpc::kArmFast>(
+      a, model, nx, nu, c, [&](const auto& step) -> int {
+        typedef typename std::decay<decltype(step)>::type Step;
+        if constexpr (mpc::GroupBody<Step>::value) {
+          typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
+          S tile[Tile::kSize];
+          for (long long b = 0; b < B; ++b)
+            mpc::solve_group<S>(a, step.m, b, mpc::Group{0, 0u}, tile);
+          return 0;
+        } else {
+          return -1;
+        }
       });
 }
 
@@ -87,12 +111,49 @@ void arm_rows_all(long long M, const S* x, const S* u, S dt,
   }
 }
 
+// The same through the folded linearization the group body runs
+// (arm_dynamics.cuh `arm_q_column`, `arm_qd_column`, `arm_u_column`), every
+// column by one call: fval from the q_0 pass's value part.
+template <typename S, int NQ>
+void arm_fold_all(long long M, const S* x, const S* u, S dt,
+                  const double* arm, S* fval, S* jrows) {
+  constexpr int NX = 2 * NQ, NZ = 3 * NQ;
+  const mpc::ArmConsts<S, NQ> c = mpc::load_arm<S, double, NQ>(arm);
+  for (long long p = 0; p < M; ++p) {
+    S xl[NX], ul[NQ], L[NQ][NQ], qdd[NQ], qdd_j[NQ], col[NQ];
+    for (int i = 0; i < NX; ++i) xl[i] = x[i * M + p];
+    for (int i = 0; i < NQ; ++i) ul[i] = u[i * M + p];
+    auto put = [&](int j) {
+      for (int i = 0; i < NQ; ++i) jrows[(i * NZ + j) * M + p] = dt * col[i];
+    };
+    for (int j = NQ - 1; j >= 0; --j) {
+      mpc::arm_q_column(c, xl, xl + NQ, ul, j, L, j == 0 ? qdd : qdd_j, col);
+      put(j);
+    }
+    for (int j = 0; j < NQ; ++j) {
+      mpc::arm_qd_column(c, xl, xl + NQ, j, L, col);
+      put(NQ + j);
+      mpc::arm_u_column(L, j, col);
+      put(NX + j);
+    }
+    for (int i = 0; i < NQ; ++i) {
+      fval[i * M + p] = xl[NQ + i];
+      fval[(NQ + i) * M + p] = qdd[i];
+    }
+  }
+}
+
+// `folded` 0: the dual-number rows; 1: the folded columns.
 template <typename S>
-int arm_rows(long long M, int nq, const S* x, const S* u, S dt,
+int arm_rows(long long M, int nq, int folded, const S* x, const S* u, S dt,
              const double* arm, S* fval, S* jrows) {
+  auto run = [&](auto all) {
+    all(M, x, u, dt, arm, fval, jrows);
+    return 0;
+  };
   switch (nq) {
-    case 2: arm_rows_all<S, 2>(M, x, u, dt, arm, fval, jrows); return 0;
-    case 4: arm_rows_all<S, 4>(M, x, u, dt, arm, fval, jrows); return 0;
+    case 2: return folded ? run(arm_fold_all<S, 2>) : run(arm_rows_all<S, 2>);
+    case 4: return folded ? run(arm_fold_all<S, 4>) : run(arm_rows_all<S, 4>);
     default: return -1;
   }
 }
@@ -115,16 +176,45 @@ int mpc_fused_solve_cpu_f64(long long B, int N, int model, int nx, int nu,
   return solve<double>(B, N, model, nx, nu, ptrs, scal, ints, fan, consts);
 }
 
+int mpc_fused_solve_group_cpu_f32(long long B, int N, int model, int nx,
+                                  int nu, void* const* ptrs,
+                                  const float* scal, const int* ints,
+                                  const float* fan, const double* consts) {
+  return solve_group<float>(B, N, model, nx, nu, ptrs, scal, ints, fan,
+                            consts);
+}
+
+int mpc_fused_solve_group_cpu_f64(long long B, int N, int model, int nx,
+                                  int nu, void* const* ptrs,
+                                  const double* scal, const int* ints,
+                                  const double* fan, const double* consts) {
+  return solve_group<double>(B, N, model, nx, nu, ptrs, scal, ints, fan,
+                             consts);
+}
+
 int mpc_arm_eval_cpu_f32(long long M, int nq, const float* x, const float* u,
                          float dt, const double* arm, float* fval,
                          float* jrows) {
-  return arm_rows<float>(M, nq, x, u, dt, arm, fval, jrows);
+  return arm_rows<float>(M, nq, 0, x, u, dt, arm, fval, jrows);
 }
 
 int mpc_arm_eval_cpu_f64(long long M, int nq, const double* x,
                          const double* u, double dt, const double* arm,
                          double* fval, double* jrows) {
-  return arm_rows<double>(M, nq, x, u, dt, arm, fval, jrows);
+  return arm_rows<double>(M, nq, 0, x, u, dt, arm, fval, jrows);
+}
+
+// The same arguments, through the folded columns.
+int mpc_arm_fold_cpu_f32(long long M, int nq, const float* x, const float* u,
+                         float dt, const double* arm, float* fval,
+                         float* jrows) {
+  return arm_rows<float>(M, nq, 1, x, u, dt, arm, fval, jrows);
+}
+
+int mpc_arm_fold_cpu_f64(long long M, int nq, const double* x,
+                         const double* u, double dt, const double* arm,
+                         double* fval, double* jrows) {
+  return arm_rows<double>(M, nq, 1, x, u, dt, arm, fval, jrows);
 }
 
 int mpc_model_eval_cpu_f64(long long M, int model, int integ,

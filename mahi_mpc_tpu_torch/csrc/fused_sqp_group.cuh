@@ -1,0 +1,722 @@
+// The fused SQP body for the serial arms under the Euler step, with four
+// threads (a "group") on one instance: the body of the kernel that the
+// `fused_sqp` library launches for `mahi_arm` and `two_link_arm`
+// (fused_sqp_launch.cuh), and, built by g++, of the tests' CPU build.
+//
+// It computes what `solve_instance<FastNq<ArmModel>>` (fused_sqp.cuh)
+// computes, in the same iteration modes and branches, with three changes of
+// method:
+//
+// * The linearization is folded (arm_dynamics.cuh `arm_*_column`): of the
+//   3 NQ columns of d qdd / d[q, qd, u], only the NQ q columns take a pass
+//   through the whole chain; a qd column is the RNEA alone and a u column two
+//   triangular solves.  Lane l takes the tasks l, l + 4, l + 8 of the list
+//   (q_0 .. q_{NQ-1}, qd_0 .., u_0 ..).
+// * The block Riccati step is split over the lanes on a per-instance tile in
+//   shared memory (`GroupTile`), with the structural zeros of A = [[I, dt
+//   I], [Jq, I + Jqd]] and B = [[0], [Ju]] skipped (`At`): lane l owns the
+//   state rows and columns l, l + 4 (`row`), the control index l, and the
+//   right-hand-side columns l, l + 4, l + 8, l + 12 of the gain solve.  Each
+//   sum keeps the one-thread body's order, so the step is the one-thread
+//   body's to the last bit (its zero terms add nothing); only the folded
+//   Jacobian rounds differently.
+// * The line-search rungs run in parallel: lane l evaluates rungs l and
+//   l + 4 over all stages; the first passing rung in fan order wins.
+//
+// The body is a sequence of phases.  On the device the four lanes run a
+// phase at once and meet at a `__syncwarp` of the group; on the host
+// (`kHostLanes` = 4) one thread runs the lanes of a phase one after another,
+// over a local array that stands in for the shared tile.  So the g++ build
+// runs the group body's own arithmetic.  What a lane keeps from one phase to
+// the next lives in its `Own` slot; what all lanes need goes through the
+// tile; code between phases is uniform (every lane computes the same from
+// the same tile values).  Lane 0 also keeps the merit's sums (cost, l1
+// defect, reference cost, directional derivative) in the one-thread body's
+// order: the Armijo test compares them with the rungs' sums, and float32
+// noise between the two decides whether a near-converged step passes.
+#pragma once
+
+#include "fused_sqp.cuh"
+
+namespace mpc {
+
+constexpr int kGroup = 4;
+#if defined(__CUDA_ARCH__)
+constexpr int kHostLanes = 1;   // each thread holds its own lane's state
+#else
+constexpr int kHostLanes = kGroup;
+#endif
+
+// The lanes of one instance: `phase(f)` runs f(lane) for each lane and
+// then a group barrier.
+struct Group {
+  int lane;
+  unsigned mask;
+  template <typename F>
+  MPC_HD void phase(const F& f) const {
+#if defined(__CUDA_ARCH__)
+    f(lane);
+    __syncwarp(mask);
+#else
+    for (int l = 0; l < kGroup; ++l) f(l);
+#endif
+  }
+  // Index of lane l's private slot.
+  MPC_HD static int slot(int l) {
+#if defined(__CUDA_ARCH__)
+    return 0;
+#else
+    return l;
+#endif
+  }
+};
+
+// The per-instance tile: the Riccati carries, the stage's Jacobian rows and
+// defect, the step's blocks and gains, and the lanes' partial sums.  The
+// rollout's double-buffered dx/du and the rung results reuse the step's
+// blocks, which are free then.
+template <int NX, int NU, int NQ>
+struct GroupTile {
+  static constexpr int NZ = NX + NU, NR = NZ + 1, kRedN = 8;
+  static constexpr int kPxx = 0, kPxv = kPxx + NX * NX,
+                       kPvv = kPxv + NX * NU, kpx = kPvv + NU * NU,
+                       kpv = kpx + NX, kJr = kpv + NU, kck = kJr + NQ * NZ,
+                       kQxx = kck + NX, kQxu = kQxx + NX * NX,
+                       kQuu = kQxu + NX * NU, kqu = kQuu + NU * NU,
+                       kY = kqu + NU, kRed = kY + NU * NR,
+                       kEnd = kRed + kGroup * kRedN;
+  static constexpr int kDx = kQxx, kDu = kDx + 2 * NX, kFan = kDu + 2 * NU;
+  static_assert(kFan + 3 * kMaxFan <= kRed, "rollout / fan overflow");
+  // Odd stride: the eight groups of a warp fall on different banks.
+  static constexpr int kSize = kEnd | 1;
+};
+
+template <typename S, int NX, int NU, int NQ>
+struct TileView {
+  typedef GroupTile<NX, NU, NQ> G;
+  S* t;
+  MPC_HD S& Pxx(int i, int j) const { return t[G::kPxx + i * NX + j]; }
+  MPC_HD S& Pxv(int i, int l) const { return t[G::kPxv + i * NU + l]; }
+  MPC_HD S& Pvv(int l, int m) const { return t[G::kPvv + l * NU + m]; }
+  MPC_HD S& px(int i) const { return t[G::kpx + i]; }
+  MPC_HD S& pv(int l) const { return t[G::kpv + l]; }
+  MPC_HD S& Jr(int s, int c) const { return t[G::kJr + s * G::NZ + c]; }
+  MPC_HD S& ck(int i) const { return t[G::kck + i]; }
+  MPC_HD S& Qxx(int i, int j) const { return t[G::kQxx + i * NX + j]; }
+  MPC_HD S& Qxu(int i, int l) const { return t[G::kQxu + i * NU + l]; }
+  MPC_HD S& Quu(int l, int m) const { return t[G::kQuu + l * NU + m]; }
+  MPC_HD S& qu(int l) const { return t[G::kqu + l]; }
+  MPC_HD S& Y(int l, int c) const { return t[G::kY + l * G::NR + c]; }
+  MPC_HD S& red(int lane, int v) const {
+    return t[G::kRed + lane * G::kRedN + v];
+  }
+  MPC_HD S& dx(int buf, int i) const { return t[G::kDx + buf * NX + i]; }
+  MPC_HD S& du(int buf, int l) const { return t[G::kDu + buf * NU + l]; }
+  MPC_HD S& fan(int j, int v) const { return t[G::kFan + j * 3 + v]; }
+};
+
+// Which step policies run the group body: the arms under Euler.
+template <typename Step> struct GroupBody {
+  static constexpr bool value = false;
+};
+template <typename S, int NQ> struct GroupBody<FastNq<S, ArmModel<S, NQ>>> {
+  static constexpr bool value = true;
+};
+
+template <typename S, int NQ>
+MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
+                        long long b, const Group& g, S* tile) {
+  constexpr int NX = 2 * NQ, NU = NQ, NZ = NX + NU, NG = NX + 2 * NU,
+                NR = NZ + 1, RPL = NX / kGroup, kRungs = kMaxFan / kGroup;
+  static_assert(NX % kGroup == 0 && NU <= kGroup, "group split");
+  const TileView<S, NX, NU, NQ> T{tile};
+  const long long B = a.B;
+  const int N = a.N;
+  const S dt = a.dt;
+  typedef Lane<const S> CL;
+  typedef Lane<S> WL;
+  const CL X0{a.X0 + b, B}, U0{a.U0 + b, B}, xdes{a.xdes + b, B};
+  const CL q{a.q + b, B}, r{a.r + b, B}, rm{a.rm + b, B};
+  const CL uprev{a.uprev + b, B}, umin{a.umin + b, B}, umax{a.umax + b, B};
+  const CL xmin{a.xmin + b, B}, xmax{a.xmax + b, B};
+  const CL qf{a.qf + b, B}, xfdes{a.xfdes + b, B};
+  const WL X{a.X + b, B}, U{a.U + b, B}, stats{a.stats + b, B};
+  const WL Ks{a.K + b, B}, kffs{a.kff + b, B}, dXs{a.dX + b, B};
+  const WL dUs{a.dU + b, B}, Gs{a.G + b, B}, Js{a.J + b, B}, cks{a.ck + b, B};
+  // State row r of lane l: l, l + 4, ... (each lane one position and one
+  // velocity row when NX = 8).
+  auto row = [](int l, int rr) { return l + kGroup * rr; };
+
+  // What a lane keeps between phases: its rows' and control's stage terms,
+  // its partial sums, and its rungs' accumulators.
+  struct Own {
+    S gzx[RPL], Dx[RPL], qz[RPL];
+    S gzv, gu, Du, qu;
+    S cost, jref, cl1, feas, pmax, ddir, amax, stepn;   // cost..ddir: lane 0
+    S cost_t[kRungs], cl1_t[kRungs], jref_t[kRungs];
+  };
+  Own own[kHostLanes];
+
+  // Stage cost of a trial point (solve_instance's `stage_cost`).
+  auto stage_cost = [&](const S* xl, const S* ul, const S* du, const S* e,
+                        bool tk, S mu, S& rate_mag) -> S {
+    S c = S(0);
+    for (int i = 0; i < NX; ++i) c = c + (tk ? q[i] * (e[i] * e[i]) : S(0));
+    rate_mag = S(0);
+    for (int k = 0; k < NU; ++k) {
+      rate_mag = rate_mag + r[k] * (du[k] * du[k]);
+      rate_mag = rate_mag + rm[k] * (ul[k] * ul[k]);
+    }
+    const S bx = bar_value(xl, xmin, xmax, NX, mu);
+    c = c + (tk ? bx : S(0));
+    c = c + bar_value(ul, umin, umax, NU, mu);
+    return c + rate_mag;
+  };
+  auto load = [&](const auto& src, int base, int n, S* dst) {
+    for (int i = 0; i < n; ++i) dst[i] = src[base + i];
+  };
+  // sum_t A[t][c] v(t) for A = [[I, dt I], [Jq, I + Jqd]] (the stage's Jr
+  // in the tile): the one-thread body's dense sum in its order, with the
+  // structural zeros of the top rows skipped, so the same value.
+  auto At = [&](int c, const auto& v) -> S {
+    S acc = c < NQ ? v(c) : v(c - NQ) * dt;
+    for (int s = 0; s < NQ; ++s)
+      acc = acc + (S(NQ + s == c ? 1 : 0) + T.Jr(s, c)) * v(NQ + s);
+    return acc;
+  };
+  // Max / min of the lanes' partials in the tile.
+  auto max4 = [&](int v) {
+    return nmax(nmax(nmax(T.red(0, v), T.red(1, v)), T.red(2, v)),
+                T.red(3, v));
+  };
+  auto min4 = [&](int v) {
+    return nmin(nmin(nmin(T.red(0, v), T.red(1, v)), T.red(2, v)),
+                T.red(3, v));
+  };
+
+  // ---- warm start into the working (output) buffers
+  g.phase([&](int l) {
+    for (int e = l; e < (N + 1) * NX; e += kGroup) X[e] = X0[e];
+    for (int e = l; e < N * NU; e += kGroup) U[e] = U0[e];
+  });
+
+  const S inf = S(INFINITY);
+  S mu = a.mu0[b], reg = S(kRegMin), nu_pen = S(1), done = S(0),
+    iters = S(0);
+  S stepn = inf, feas = inf, jref = inf, alpha = inf;
+
+#pragma unroll 1
+  for (int it = 0; it < a.n_iter; ++it) {
+    if (a.adaptive && done >= S(0.5)) break;   // per-instance early exit
+
+    // ======================= backward sweep =======================
+    // terminal cost-to-go: lane l writes its rows of Pxx, Pxv, px and its
+    // control's Pvv row and pv
+    g.phase([&](int l) {
+      Own& o = own[Group::slot(l)];
+      o.cost = S(0);
+      o.jref = S(0);
+      o.cl1 = S(0);
+      o.feas = S(0);
+      o.pmax = S(0);
+      for (int rr = 0; rr < RPL; ++rr) {
+        const int i = row(l, rr);
+        const S xN = X[N * NX + i];
+        const S eN = xN - xdes[(N - 1) * NX + i], eF = xN - xfdes[i];
+        S gg, h;
+        bar_terms(xN, xmin[i], xmax[i], mu, gg, h);
+        for (int j = 0; j < NX; ++j) T.Pxx(i, j) = S(0);
+        T.Pxx(i, i) = (S(2) * q[i] + S(2) * qf[i]) + h;
+        const S pxi = (S(2) * q[i] * eN + S(2) * qf[i] * eF) + gg;
+        T.px(i) = pxi;
+        Gs[N * NG + i] = pxi;
+        for (int k = 0; k < NU; ++k) T.Pxv(i, k) = S(0);
+        o.pmax = nmax(o.pmax, m_abs(pxi));
+      }
+      if (l == 0) {                      // the terminal merit terms
+        S xN[NX];
+        load(X, N * NX, NX, xN);
+        o.cost = bar_value(xN, xmin, xmax, NX, mu);
+        for (int i = 0; i < NX; ++i) {
+          const S eN = xN[i] - xdes[(N - 1) * NX + i], eF = xN[i] - xfdes[i];
+          o.cost = o.cost + q[i] * (eN * eN);
+          o.cost = o.cost + qf[i] * (eF * eF);
+        }
+        for (int i = 0; i < NX; ++i) {
+          const S eF = xN[i] - xfdes[i];
+          o.jref = o.jref + qf[i] * (eF * eF);
+        }
+      }
+      if (l < NU) {
+        T.pv(l) = S(0);
+        for (int k = 0; k < NU; ++k) T.Pvv(l, k) = S(0);
+        Gs[N * NG + NX + l] = S(0);
+        Gs[N * NG + NX + NU + l] = S(0);
+      }
+    });
+
+#pragma unroll 1
+    for (int k = N - 1; k >= 0; --k) {
+      const bool tk = k >= 1;
+      const int kp = k >= 1 ? k - 1 : 0;
+      const bool pinned = k < a.n_pin;
+
+      // ---- (A) folded linearization, defects, stage gradients, merit
+      // partials
+      g.phase([&](int l) {
+        Own& o = own[Group::slot(l)];
+        S xl[NX], ul[NU];
+        load(X, k * NX, NX, xl);
+        load(U, k * NU, NU, ul);
+        S L[NQ][NQ], qdd[NQ], col[NQ];
+        auto put = [&](int c) {
+          for (int i = 0; i < NQ; ++i) {
+            const S v = dt * col[i];
+            T.Jr(i, c) = v;
+            Js[(k * NQ + i) * NZ + c] = v;
+          }
+        };
+        if (l < NQ) {
+          arm_q_column(m.c, xl, xl + NQ, ul, l, L, qdd, col);
+          put(l);
+        } else {
+          arm_value(m.c, xl, xl + NQ, ul, L, qdd);
+        }
+#pragma unroll 1
+        for (int t = l < NQ ? l + kGroup : l; t < 3 * NQ; t += kGroup) {
+          if (t < 2 * NQ) {
+            arm_qd_column(m.c, xl, xl + NQ, t - NQ, L, col);
+          } else {
+            arm_u_column(L, t - 2 * NQ, col);
+          }
+          put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
+        }
+        for (int rr = 0; rr < RPL; ++rr) {
+          const int i = row(l, rr);
+          const S fi = i < NQ ? xl[NQ + i] : qdd[i - NQ];
+          const S cki = (xl[i] - X[(k + 1) * NX + i]) + dt * fi;
+          T.ck(i) = cki;
+          cks[k * NX + i] = cki;
+          S gg, h;
+          const S e = xl[i] - xdes[kp * NX + i];
+          bar_terms(xl[i], xmin[i], xmax[i], mu, gg, h);
+          o.gzx[rr] = tk ? S(2) * q[i] * e + gg : S(0);
+          o.Dx[rr] = tk ? S(2) * q[i] + h : S(0);
+          Gs[k * NG + i] = o.gzx[rr];
+        }
+        if (l < NU) {
+          const S ukm1 = k == 0 ? uprev[l] : U[(k - 1) * NU + l];
+          const S r2 = S(2) * r[l], rm2 = S(2) * rm[l];
+          const S du = ul[l] - ukm1;
+          S gg, h;
+          bar_terms(ul[l], umin[l], umax[l], mu, gg, h);
+          o.gzv = -(r2 * du);
+          o.gu = (r2 * du + rm2 * ul[l]) + gg;
+          o.Du = (r2 + rm2) + (h + reg);
+          Gs[k * NG + NX + l] = o.gzv;
+          Gs[k * NG + NX + NU + l] = o.gu;
+        }
+        if (l == 0) {           // merit sums over the whole stage, in order
+          S du[NU], e[NX], rmag;
+          for (int j = 0; j < NU; ++j)
+            du[j] = ul[j] - (k == 0 ? uprev[j] : U[(k - 1) * NU + j]);
+          for (int i = 0; i < NX; ++i) {
+            const S inc = dt * (i < NQ ? xl[NQ + i] : qdd[i - NQ]);
+            const S cki = (xl[i] - X[(k + 1) * NX + i]) + inc;
+            o.feas = nmax(o.feas, m_abs(cki));
+            o.cl1 = o.cl1 + m_abs(cki);
+            e[i] = xl[i] - xdes[kp * NX + i];
+          }
+          o.cost = o.cost + stage_cost(xl, ul, du, e, tk, mu, rmag);
+          S jr = rmag;
+          for (int i = 0; i < NX; ++i) {
+            const S er = (xl[i] + dt * (i < NQ ? xl[NQ + i] : qdd[i - NQ]))
+                         - xdes[k * NX + i];
+            jr = jr + q[i] * (er * er);
+          }
+          o.jref = o.jref + jr;
+        }
+      });
+
+      // ---- (B) the step's blocks: the upper triangle of Qxx in columns,
+      // Qxu and Quu columns, qz_x and qu
+      g.phase([&](int l) {
+        Own& o = own[Group::slot(l)];
+        S Prp[NX];                                 // px + Pxx ck
+        for (int i = 0; i < NX; ++i) {
+          S acc = T.Pxx(i, 0) * T.ck(0);
+          for (int t = 1; t < NX; ++t) acc = acc + T.Pxx(i, t) * T.ck(t);
+          Prp[i] = T.px(i) + acc;
+        }
+        for (int rr = 0; rr < RPL; ++rr) {
+          const int j = row(l, rr);
+          S v[NX];                                 // (Pxx A)[:, j]
+          for (int i = 0; i < NX; ++i)
+            v[i] = At(j, [&](int t) { return T.Pxx(i, t); });
+          for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
+            const S acc = At(i, [&](int t) { return v[t]; });
+            T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
+          }
+          o.qz[rr] = o.gzx[rr] + At(j, [&](int t) { return Prp[t]; });
+        }
+        if (l < NU) {
+          S pb[NX], m1[NX];                        // Pxx B[:, l], + Pxv
+          for (int i = 0; i < NX; ++i) {
+            S acc = T.Pxx(i, NQ) * T.Jr(0, NX + l);
+            for (int s = 1; s < NQ; ++s)
+              acc = acc + T.Pxx(i, NQ + s) * T.Jr(s, NX + l);
+            pb[i] = acc;
+            m1[i] = acc + T.Pxv(i, l);
+          }
+          for (int i = 0; i < NX; ++i)             // Qxu[:, l] = A' m1
+            T.Qxu(i, l) = At(i, [&](int t) { return m1[t]; });
+          for (int mm = 0; mm < NU; ++mm) {        // Quu[:, l]
+            S bpb = T.Jr(0, NX + mm) * pb[NQ];
+            S bpv = T.Jr(0, NX + mm) * T.Pxv(NQ, l);
+            S bpv_t = T.Jr(0, NX + l) * T.Pxv(NQ, mm);
+            for (int s = 1; s < NQ; ++s) {
+              bpb = bpb + T.Jr(s, NX + mm) * pb[NQ + s];
+              bpv = bpv + T.Jr(s, NX + mm) * T.Pxv(NQ + s, l);
+              bpv_t = bpv_t + T.Jr(s, NX + l) * T.Pxv(NQ + s, mm);
+            }
+            const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, l);
+            T.Quu(mm, l) = mm == l ? quu + o.Du : quu;
+          }
+          S pv_acc = T.Pxv(0, l) * T.ck(0);        // pv + Pxv' ck
+          for (int t = 1; t < NX; ++t) pv_acc = pv_acc + T.Pxv(t, l) * T.ck(t);
+          const S prp_v = T.pv(l) + pv_acc;
+          S bp = T.Jr(0, NX + l) * Prp[NQ];         // (B' Prp)[l]
+          for (int s = 1; s < NQ; ++s) bp = bp + T.Jr(s, NX + l) * Prp[NQ + s];
+          o.qu = o.gu + (bp + prp_v);
+          T.qu(l) = o.qu;
+        }
+      });
+
+      // ---- (C) Cholesky of Quu (every lane; ops/elem.py chol order) and
+      // the solves of the right-hand-side columns [ -Qxu' | 2R | -qu ]
+      g.phase([&](int l) {
+        S Lc[NU][NU], Linv[NU];
+        for (int j = 0; j < NU; ++j) {
+          S s = T.Quu(j, j);
+          for (int t = 0; t < j; ++t) s = s - Lc[j][t] * Lc[j][t];
+          const S d = m_sqrt(s);
+          Lc[j][j] = d;
+          Linv[j] = S(1) / d;
+          for (int i = j + 1; i < NU; ++i) {
+            S t2 = T.Quu(i, j);
+            for (int t = 0; t < j; ++t) t2 = t2 - Lc[i][t] * Lc[j][t];
+            Lc[i][j] = t2 * Linv[j];
+          }
+        }
+#pragma unroll 1
+        for (int c = l; c < NR; c += kGroup) {
+          S y[NU];
+          for (int mm = 0; mm < NU; ++mm)
+            y[mm] = c < NX ? -T.Qxu(c, mm)
+                    : c < NZ ? (mm == c - NX ? S(2) * r[mm] : S(0))
+                             : -T.qu(mm);
+          for (int i = 0; i < NU; ++i) {           // L y = rhs
+            for (int t = 0; t < i; ++t) y[i] = y[i] - Lc[i][t] * y[t];
+            y[i] = y[i] * Linv[i];
+          }
+          for (int i = NU - 1; i >= 0; --i) {      // L' x = y
+            for (int t = i + 1; t < NU; ++t) y[i] = y[i] - Lc[t][i] * y[t];
+            y[i] = y[i] * Linv[i];
+          }
+          for (int mm = 0; mm < NU; ++mm) {
+            const S v = pinned ? S(0) : y[mm];
+            T.Y(mm, c) = v;
+            if (c < NZ) Ks[(k * NU + mm) * NZ + c] = v;
+            else kffs[k * NU + mm] = v;
+          }
+        }
+      });
+
+      // ---- (D) the new carries: Pxx = sym(Qxx + Qxu Kx) in columns (both
+      // of its terms (i, j) and (j, i) here), or Qxx where the head is
+      // pinned; Pxv, Pvv columns; px, pv
+      g.phase([&](int l) {
+        Own& o = own[Group::slot(l)];
+        auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
+          S acc = T.Qxu(i, 0) * T.Y(0, j);
+          for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
+          return acc;
+        };
+        for (int rr = 0; rr < RPL; ++rr) {
+          const int j = row(l, rr);
+          for (int i = 0; i < NX; ++i) {
+            const S qxx = i <= j ? T.Qxx(i, j) : T.Qxx(j, i);
+            T.Pxx(i, j) = pinned ? qxx
+                : S(0.5) * ((qxx + qkx(i, j)) + (qxx + qkx(j, i)));
+          }
+          S pxj = o.qz[rr];
+          if (!pinned) {
+            S acc = T.Qxu(j, 0) * T.Y(0, NZ);
+            for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(j, t) * T.Y(t, NZ);
+            pxj = pxj + acc;
+          }
+          T.px(j) = pxj;
+          o.pmax = nmax(o.pmax, m_abs(pxj));
+        }
+        if (l < NU) {
+          const S r2l = S(2) * r[l];
+          S pvl = o.gzv;
+          if (pinned) {
+            for (int i = 0; i < NX; ++i) T.Pxv(i, l) = S(0);
+            for (int mm = 0; mm < NU; ++mm)
+              T.Pvv(mm, l) = mm == l ? r2l : S(0);
+          } else {
+            for (int i = 0; i < NX; ++i) {
+              S acc = T.Qxu(i, 0) * T.Y(0, NX + l);
+              for (int t = 1; t < NU; ++t)
+                acc = acc + T.Qxu(i, t) * T.Y(t, NX + l);
+              T.Pxv(i, l) = S(0.5) * (acc + -(r2l * T.Y(l, i)));
+            }
+            for (int mm = 0; mm < NU; ++mm) {
+              const S pvv = S(-0.5) * (S(2) * r[mm] * T.Y(mm, NX + l)
+                                       + r2l * T.Y(l, NX + mm));
+              T.Pvv(mm, l) = mm == l ? pvv + r2l : pvv;
+            }
+            pvl = pvl - r2l * T.Y(l, NZ);
+          }
+          T.pv(l) = pvl;
+          o.pmax = nmax(o.pmax, m_abs(pvl));
+        }
+      });
+    }
+
+    // every lane's max|p| and lane 0's sums, through the tile
+    g.phase([&](int l) {
+      const Own& o = own[Group::slot(l)];
+      T.red(l, 0) = o.pmax;
+      if (l == 0) {
+        T.red(0, 1) = o.cost;
+        T.red(0, 2) = o.jref;
+        T.red(0, 3) = o.cl1;
+        T.red(0, 4) = o.feas;
+      }
+    });
+    const S cost0 = T.red(0, 1), jref_old = T.red(0, 2), c_l1 = T.red(0, 3);
+    const S feas_i = T.red(0, 4), pmax = max4(0);
+    const S nu_pen_new = nmax(nu_pen, S(2) * pmax + S(1));
+    const S m0 = cost0 + nu_pen_new * c_l1;
+
+    // ======================= forward rollout =======================
+    // dx / dv of stage k in buffer k & 1; du_k goes to the other buffer,
+    // where it is the next stage's dv.
+    g.phase([&](int l) {
+      Own& o = own[Group::slot(l)];
+      for (int rr = 0; rr < RPL; ++rr) {
+        T.dx(0, row(l, rr)) = S(0);
+        dXs[row(l, rr)] = S(0);
+      }
+      if (l < NU) T.du(0, l) = S(0);
+      o.ddir = S(0);
+      o.amax = S(1);
+      o.stepn = S(0);
+    });
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) {
+      const int cur = k & 1, nxt = cur ^ 1;
+      g.phase([&](int l) {
+        if (l >= NU) return;
+        const int base = (k * NU + l) * NZ;
+        S acc = Ks[base] * T.dx(cur, 0);
+        for (int j = 1; j < NX; ++j) acc = acc + Ks[base + j] * T.dx(cur, j);
+        for (int j = 0; j < NU; ++j)
+          acc = acc + Ks[base + NX + j] * T.du(cur, j);
+        T.du(nxt, l) = acc + kffs[k * NU + l];
+      });
+      g.phase([&](int l) {
+        Own& o = own[Group::slot(l)];
+        if (l == 0) {                      // directional derivative, in order
+          for (int i = 0; i < NX; ++i)
+            o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
+          for (int j = 0; j < NU; ++j) {
+            o.ddir = o.ddir + Gs[k * NG + NX + j] * T.du(cur, j);
+            o.ddir = o.ddir + Gs[k * NG + NX + NU + j] * T.du(nxt, j);
+          }
+        }
+        for (int rr = 0; rr < RPL; ++rr) {
+          const int i = row(l, rr);
+          S dxn;
+          if (i < NQ) {
+            dxn = (T.dx(cur, i) + dt * T.dx(cur, NQ + i)) + cks[k * NX + i];
+          } else {
+            const int base = (k * NQ + i - NQ) * NZ;
+            S acc = Js[base] * T.dx(cur, 0);
+            for (int j = 1; j < NX; ++j)
+              acc = acc + Js[base + j] * T.dx(cur, j);
+            for (int j = 0; j < NU; ++j)
+              acc = acc + Js[base + NX + j] * T.du(nxt, j);
+            dxn = (T.dx(cur, i) + acc) + cks[k * NX + i];
+          }
+          T.dx(nxt, i) = dxn;
+          dXs[(k + 1) * NX + i] = dxn;
+          o.amax = ftb(X[(k + 1) * NX + i], dxn, xmin[i], xmax[i], o.amax);
+          o.stepn = nmax(o.stepn, m_abs(dxn));
+        }
+        if (l < NU) {
+          const S dul = T.du(nxt, l);
+          o.amax = ftb(U[k * NU + l], dul, umin[l], umax[l], o.amax);
+          o.stepn = nmax(o.stepn, m_abs(dul));
+          dUs[k * NU + l] = dul;
+        }
+      });
+    }
+    g.phase([&](int l) {
+      Own& o = own[Group::slot(l)];
+      if (l == 0) {
+        for (int i = 0; i < NX; ++i)
+          o.ddir = o.ddir + Gs[N * NG + i] * T.dx(N & 1, i);
+        T.red(0, 5) = o.ddir;
+      }
+      T.red(l, 6) = o.amax;
+      T.red(l, 7) = o.stepn;
+    });
+    const S ddir = T.red(0, 5) - nu_pen_new * c_l1;
+    const S amax = min4(6), stepn_i = max4(7);
+
+    // ============ line search: lane l takes rungs l and l + 4 ============
+    const S eps_m = S(kNoiseFloorMult) * Eps<S>::value * (S(1) + m_abs(m0));
+    g.phase([&](int l) {
+      Own& o = own[Group::slot(l)];
+      S al[kRungs];
+      for (int s = 0; s < kRungs; ++s) {
+        al[s] = amax * a.fan[l + kGroup * s];
+        o.cost_t[s] = S(0);
+        o.cl1_t[s] = S(0);
+        o.jref_t[s] = S(0);
+      }
+#pragma unroll 1
+      for (int k = 0; k < N; ++k) {
+        const bool tk = k >= 1;
+        const int kp = k >= 1 ? k - 1 : 0;
+        S xl[NX], ul[NU], xn1[NX], dxk[NX], duk[NU], dxk1[NX], ukm1[NU],
+            dukm1[NU];
+        load(X, k * NX, NX, xl);
+        load(U, k * NU, NU, ul);
+        load(X, (k + 1) * NX, NX, xn1);
+        load(dXs, k * NX, NX, dxk);
+        load(dUs, k * NU, NU, duk);
+        load(dXs, (k + 1) * NX, NX, dxk1);
+        if (k == 0) {
+          load(uprev, 0, NU, ukm1);
+          for (int j = 0; j < NU; ++j) dukm1[j] = S(0);
+        } else {
+          load(U, (k - 1) * NU, NU, ukm1);
+          load(dUs, (k - 1) * NU, NU, dukm1);
+        }
+        for (int s = 0; s < kRungs; ++s) {
+          if (l + kGroup * s >= a.n_fan) break;
+          const S aj = al[s];
+          S xt[NX], ut[NU], dut[NU], et[NX], fv[NX];
+          for (int i = 0; i < NX; ++i) {
+            xt[i] = xl[i] + aj * dxk[i];
+            et[i] = xt[i] - xdes[kp * NX + i];
+          }
+          for (int j = 0; j < NU; ++j) {
+            ut[j] = ul[j] + aj * duk[j];
+            dut[j] = ut[j] - (ukm1[j] + aj * dukm1[j]);
+          }
+          S rmag;
+          const S sc = stage_cost(xt, ut, dut, et, tk, mu, rmag);
+          model_f(m, xt, ut, fv);
+          S cl1 = o.cl1_t[s], jr = rmag;
+          for (int i = 0; i < NX; ++i) {
+            const S inc = fv[i] * dt;
+            const S vi = xt[i] + inc;
+            cl1 = cl1 + m_abs(((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i]))
+                              + inc);
+            const S er = vi - xdes[k * NX + i];
+            jr = jr + q[i] * (er * er);
+          }
+          o.cost_t[s] = o.cost_t[s] + sc;
+          o.cl1_t[s] = cl1;
+          o.jref_t[s] = o.jref_t[s] + jr;
+        }
+      }
+      // terminal terms per rung and the Armijo test
+      S xN[NX], dxN[NX];
+      load(X, N * NX, NX, xN);
+      load(dXs, N * NX, NX, dxN);
+      for (int s = 0; s < kRungs; ++s) {
+        const int j = l + kGroup * s;
+        if (j >= a.n_fan) break;
+        S xt[NX];
+        S ct = o.cost_t[s], jr = o.jref_t[s];
+        for (int i = 0; i < NX; ++i) {
+          xt[i] = xN[i] + al[s] * dxN[i];
+          const S eN = xt[i] - xdes[(N - 1) * NX + i];
+          const S eF = xt[i] - xfdes[i];
+          ct = (ct + q[i] * eN * eN) + qf[i] * eF * eF;
+          jr = jr + qf[i] * eF * eF;
+        }
+        ct = ct + bar_value(xt, xmin, xmax, NX, mu);
+        const S mj = ct + nu_pen_new * o.cl1_t[s];
+        const bool pass = m_isfinite(mj)
+            && mj <= (m0 + S(kArmijoSlope) * al[s] * ddir) + eps_m;
+        T.fan(j, 0) = pass ? S(1) : S(0);
+        T.fan(j, 1) = al[s];
+        T.fan(j, 2) = jr;
+      }
+    });
+    // first passing rung in fan order wins
+    S alpha_new = S(0), jref_new = jref_old;
+    for (int j = 0; j < a.n_fan; ++j)
+      if (T.fan(j, 0) > S(0.5)) {
+        alpha_new = T.fan(j, 1);
+        jref_new = T.fan(j, 2);
+        break;
+      }
+
+    // 0*inf-guarded update: a rejected direction may hold inf/NaN.
+    if (alpha_new > S(0)) {
+      g.phase([&](int l) {
+        for (int e = l; e < (N + 1) * NX; e += kGroup)
+          X[e] = X[e] + alpha_new * dXs[e];
+        for (int e = l; e < N * NU; e += kGroup)
+          U[e] = U[e] + alpha_new * dUs[e];
+      });
+    }
+
+    nu_pen = nu_pen_new;
+    stepn = stepn_i;
+    feas = feas_i;
+    jref = jref_new;
+    alpha = alpha_new;
+    if (!a.adaptive) continue;
+
+    // ---- adaptive bookkeeping, uniform over the group (solve_instance's)
+    const bool no_move = alpha_new == S(0) || !m_isfinite(alpha_new);
+    const bool crawl = no_move || alpha_new < S(0.01) * amax;
+    const S reg_new = crawl
+        ? nmin(reg * S(kRegGrow) + S(kRegGrowAbs), S(kRegDiverged))
+        : nmax(reg * S(kRegShrink), S(kRegMin));
+    const bool inner_done =
+        stepn_i < nmax(S(kInnerMuMult) * mu, a.tol)
+        && feas_i < S(kInnerMuMult) * a.tol;
+    const S mu_new = inner_done ? nmax(a.mu_floor, a.kappa * mu) : mu;
+    const bool conv = stepn_i < a.tol && feas_i < a.tol
+        && mu <= S(2) * a.mu_floor;
+    const bool div = reg_new >= S(kRegDiverged);
+    done = conv ? S(1) : (div ? S(2) : S(0));
+    mu = mu_new;
+    reg = reg_new;
+    iters = iters + S(1);
+  }
+
+  g.phase([&](int l) {
+    if (l != 0) return;
+    stats[0] = stepn;
+    stats[1] = feas;
+    stats[2] = jref;
+    stats[3] = alpha;
+    stats[4] = mu;
+    stats[5] = done;
+    stats[6] = iters;
+    stats[7] = S(0);
+  });
+}
+
+}  // namespace mpc

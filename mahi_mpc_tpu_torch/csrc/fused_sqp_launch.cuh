@@ -4,31 +4,40 @@
 // Replaces the Pallas kernel `_make_kernel` in mahi_mpc_tpu/solver/fused.py
 // (launched at fused.py:981-1004), in both of its iteration modes (fixed,
 // adaptive) and all three of its step modes: the Euler nq-row path, the
-// generic nx-row path (midpoint, RK4) and LTV.  The per-instance body is
-// fused_sqp.cuh; each CUDA library (fused_sqp*.cu) instantiates one family
-// of step policies through `launch_fused`, so nvcc builds them in parallel.
+// generic nx-row path (midpoint, RK4) and LTV.  Each CUDA library
+// (fused_sqp*.cu) instantiates one family of step policies through
+// `launch_fused`, so nvcc builds them in parallel.
 //
-// What bounds it on this card: the work is a long sequential FP32 program
-// per instance (N=25 stages x [dual-number linearization + a block Riccati
-// step] + a fan of trial steps per iteration), with no data shared between
-// instances; and each instance streams its scratch (gains K, kff, steps dX,
-// dU, gradients G, Jacobian rows J, defects ck: 13.7 KB at nx=8, nu=4, N=25
-// on the Euler path, 18.5 KB on the generic one) through global memory three
-// times per iteration.  Design: one thread per instance, 128 threads a
-// block, so the card's parallelism is the batch; every array is
-// batch-innermost, so a warp's 32 loads of one element are one coalesced
-// 128-byte transaction and the scratch streams through L2 rather than
-// sitting in shared memory (which would hold only a few instances per SM).
-// The Riccati carries (Pxx 8x8, Pxv, Pvv, px, pv) live in registers; what
-// does not fit spills to local memory (PERF.md has the -Xptxas -v counts).
-// The LTV step's Ad/Bd/cd (104 floats at nx=8) are read where they are used
-// rather than held, for the same register budget.  The adaptive mode's
-// per-tile early exit of the Pallas kernel becomes a per-thread loop exit.
+// What bounds it on this card: operations.  The work is a long FP32 program
+// per instance (N=25 stages x [linearization + a block Riccati step] + a
+// fan of trial steps per iteration), with no data shared between instances;
+// each instance streams its scratch (gains K, kff, steps dX, dU, gradients
+// G, Jacobian rows J, defects ck: 13.7 KB at nx=8, nu=4, N=25 on the Euler
+// path, 18.5 KB on the generic one) through global memory, batch-innermost,
+// three times an iteration (~0.6 ms of HBM time a fixed-3 solve at
+// B=16384), far below the arithmetic.  Two bodies:
+//
+// - the arms under Euler (the main path, library `fused_sqp`): four threads
+//   an instance (fused_sqp_group.cuh: the folded arm Jacobian, the Riccati
+//   step split over the group on a shared-memory tile, the line-search rungs
+//   in parallel), 32 instances a 128-thread block, two blocks an SM (255
+//   registers a thread, ~no spills: at four blocks an SM, 128 registers,
+//   the dual-number pass spilled ~1.7 KB a thread and a fixed-3 solve took
+//   19 % longer on the H100, PERF.md);
+// - every other policy (`solve_instance`, fused_sqp.cuh): one thread an
+//   instance, 128 threads a block, the Riccati carries in registers; what
+//   does not fit spills to local memory.  The LTV step's Ad/Bd/cd are read
+//   where they are used rather than held.
+//
+// A warp's load of one element of a batch-innermost array is one 128-byte
+// transaction (one thread an instance) or one 32-byte sector (a group: 8
+// instances a warp).  The adaptive mode's per-tile early exit of the Pallas
+// kernel becomes a per-instance loop exit.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "fused_sqp.cuh"
+#include "fused_sqp_group.cuh"
 
 template <typename Step>
 __global__ void __launch_bounds__(128)
@@ -38,8 +47,45 @@ fused_sqp_kernel(mpc::FusedArgs<float> a, Step step) {
   mpc::solve_instance<float>(a, step, b);
 }
 
+// Four consecutive threads of a warp an instance, 32 instances a block;
+// each group's tile in dynamic shared memory.
+constexpr int kGroupThreads = 128;
+constexpr int kGroupsPerBlock = kGroupThreads / mpc::kGroup;
+
+constexpr int kGroupMinBlocks = 2;
+
+template <int NQ>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+fused_sqp_group_kernel(mpc::FusedArgs<float> a, mpc::ArmModel<float, NQ> m) {
+  extern __shared__ float tiles[];
+  typedef mpc::GroupTile<2 * NQ, NQ, NQ> Tile;
+  const int t = threadIdx.x, gi = t / mpc::kGroup;
+  const long long b = (long long)blockIdx.x * kGroupsPerBlock + gi;
+  if (b >= a.B) return;                 // the whole group leaves together
+  const mpc::Group g{t % mpc::kGroup, 0xFu << (t & 28)};
+  mpc::solve_group<float, NQ>(a, m, b, g, tiles + gi * Tile::kSize);
+}
+
+template <int NQ>
+int launch_group(const mpc::FusedArgs<float>& a,
+                 const mpc::ArmModel<float, NQ>& m, cudaStream_t s) {
+  typedef mpc::GroupTile<2 * NQ, NQ, NQ> Tile;
+  const size_t smem = sizeof(float) * Tile::kSize * kGroupsPerBlock;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_sqp_group_kernel<NQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned grid =
+      (unsigned)((a.B + kGroupsPerBlock - 1) / kGroupsPerBlock);
+  fused_sqp_group_kernel<NQ><<<grid, kGroupThreads, smem, s>>>(a, m);
+  return (int)cudaGetLastError();
+}
+
 // Launch the instantiation of family mask kFamilies that serves (model, nx,
-// nu) on `stream`; does not synchronise.  Returns cudaGetLastError(), or -1
+// nu) on `stream` (the group body for the arms under Euler, the one-thread
+// body otherwise); does not synchronise.  Returns cudaGetLastError(), or -1
 // when this library holds no instantiation for the problem.
 template <int kFamilies>
 int launch_fused(long long B, int N, int model, int nx, int nu,
@@ -53,8 +99,12 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
   return mpc::dispatch<float, kFamilies>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
-        fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
-        return (int)cudaGetLastError();
+        if constexpr (mpc::GroupBody<Step>::value) {
+          return launch_group(a, step.m, s);
+        } else {
+          fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
+          return (int)cudaGetLastError();
+        }
       });
 }
 

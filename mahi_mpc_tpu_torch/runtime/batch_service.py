@@ -49,12 +49,18 @@ from ..transcribe.shooting import (LinPoint, MPCParams, default_params,
 
 class BatchModelControl:
     """Receding-horizon MPC for a batch of B instances of one model, on one
-    device."""
+    device: the CUDA card unless ``device`` says otherwise (``"cpu"`` runs
+    the kernels' plain PyTorch versions)."""
 
     def __init__(self, params: ModelParameters, batch: int,
                  dynamics: Optional[Dynamics] = None,
                  opts: SolverOptions = SolverOptions(),
-                 device="cpu", Q=None, R=None, Rm=None):
+                 device="cuda", Q=None, R=None, Rm=None):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BatchModelControl runs on a CUDA device by default and none "
+                "is available; pass device=\"cpu\" to run on the CPU")
         if dynamics is None:
             dynamics = make_dynamics(params.dynamics_name,
                                      **params.dynamics_kwargs)
@@ -62,7 +68,7 @@ class BatchModelControl:
         self.dynamics = dynamics
         self.opts = opts
         self.batch = batch
-        self.device = torch.device(device)
+        self.device = device
         self.problem = make_problem(params, dynamics)
         self.warm_solver = resolve_warm_solver(opts, self.problem,
                                                self.device)

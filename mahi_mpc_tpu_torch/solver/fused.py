@@ -26,11 +26,13 @@ and three step modes, as in the JAX kernel:
 
 Two implementations of the same function live here:
 
-- the CUDA kernel (``csrc/fused_sqp*.cu``, one thread per instance,
-  batch-innermost arrays), built with nvcc at first use (``_build.py``),
-  launched for CUDA tensors; it serves LTV for the (nx, nu) in
-  ``LTV_SHAPES`` and the nonlinear modes for the six registered models
-  (their dynamics written again in ``csrc/model_dynamics.cuh``);
+- the CUDA kernel (``csrc/fused_sqp*.cu``, batch-innermost arrays; four
+  threads an instance for the serial arms under Euler, the main path, one
+  thread an instance otherwise), built with nvcc at first use
+  (``_build.py``), launched for CUDA tensors; it serves LTV for the
+  (nx, nu) in ``LTV_SHAPES`` and the nonlinear modes for the six
+  registered models (their dynamics written again in
+  ``csrc/model_dynamics.cuh``);
 - ``_solve_batch_fused_plain``, the plain PyTorch version in batch-leading
   tensor form, used for CPU tensors and as the kernel's reference on the
   card.
@@ -203,14 +205,18 @@ def _acc_jacobian(dyn, x: Tensor, u: Tensor):
 
 def _plain_step(prob: ShootingProblem, ltv):
     """The plain version's step mode (the kernel's step policy), as three
-    functions over batch-leading tensors:
+    functions over batch-leading tensors and a flag:
 
     - ``linearize(xs, us)``: xs (B, N, nx), us (B, N, nu) -> the step value
       (B, N, nx), A (B, N, nx, nx), Bm (B, N, nx, nu) and the rows the
       rollout reuses;
     - ``next_dx(k, dx, du, ck_k, rows)``: dx (B, nx), du (B, nu) -> A dx +
       B du + ck_k at stage k;
-    - ``value(xt, ut)``: the step at trial points (B, ..., nx)."""
+    - ``value(xt, ut)``: the step at trial points (B, ..., nx);
+    - ``incremental``: True when ``linearize`` and ``value`` return the
+      step's increment F(x, u) - x instead (the Euler step's dt f), so that
+      a defect is formed as (x - x') + increment (``_solve_batch_fused_plain``
+      says why)."""
     dyn = prob.dynamics
     nx, nu, nq = prob.nx, prob.nu, dyn.nq
     nz = nx + nu
@@ -251,7 +257,7 @@ def _plain_step(prob: ShootingProblem, ltv):
             A[:, :, nq:, :] += rows[..., :nx]
             Bm = torch.zeros(Bsz, N, nx, nu, **kw)
             Bm[:, :, nq:, :] = rows[..., nx:]
-            return xs + dt * fval.reshape(Bsz, N, nx), A, Bm, rows
+            return dt * fval.reshape(Bsz, N, nx), A, Bm, rows
 
         def next_dx(k, dx, du, ck_k, rows):
             dzin = torch.cat([dx, du], dim=1)
@@ -262,7 +268,7 @@ def _plain_step(prob: ShootingProblem, ltv):
 
         def value(xt, ut):
             fv = dyn.f(lanes(xt, nx), lanes(ut, nu)).T
-            return xt + fv.reshape(xt.shape) * dt            # Euler step
+            return fv.reshape(xt.shape) * dt        # the Euler increment
     else:
         step = make_step(dyn.f, dt, prob.integrator)
 
@@ -279,7 +285,7 @@ def _plain_step(prob: ShootingProblem, ltv):
 
         def value(xt, ut):
             return step(lanes(xt, nx), lanes(ut, nu)).T.reshape(xt.shape)
-    return linearize, next_dx, value
+    return linearize, next_dx, value, mode == "fast"
 
 
 def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
@@ -306,7 +312,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
     xdes_prev = torch.cat([xdes[:, :1], xdes[:, :-1]], dim=1)
     tk = torch.arange(N, device=device) >= 1                # (N,)
     eye_nu = torch.eye(nu, dtype=dtype, device=device)
-    linearize, next_dx, step_value = _plain_step(prob, ltv)
+    linearize, next_dx, step_value, incremental = _plain_step(prob, ltv)
 
     def stage_cost(x, u, du, e, tkm, mu_b, w):
         """Stage cost + barriers and the rate/magnitude term; x (..., nx);
@@ -329,10 +335,20 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
             break
         mu_c = mu[:, None]
 
-        # ---- linearize every stage at once: value, defect, Jacobians
+        # ---- linearize every stage at once: value, defect, Jacobians.  On
+        # the Euler path the defect is (x - x') + dt f: x and x' differ by
+        # about dt f, so their float32 rounding stays out of it.  (As
+        # F(x) - x' it carries ~ulp(x) a component, which the l1 merit
+        # weights by nu_pen: near convergence that noise exceeded the Armijo
+        # noise floor, rejected full steps and grew reg until the damped
+        # step passed tol away from the solution, the float32 crawl.)
         xs = X[:, :N]
         val, A, Bm, rows = linearize(xs, U)
-        ck = val - X[:, 1:]
+        if incremental:
+            ck = (xs - X[:, 1:]) + val
+            val = xs + val
+        else:
+            ck = val - X[:, 1:]
 
         # ---- stage gradients, diagonal, costs (all stages at once)
         ukm1 = torch.cat([p.u_prev[:, None], U[:, :-1]], dim=1)
@@ -461,8 +477,13 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         sc_t, rate_t = stage_cost(xt, ut, dut, et, tk[None, None],
                                   mu_c[..., None], w4)
         val_t = step_value(xt, ut)
-        xt1 = X[:, None, 1:] + a4 * dX[:, None, 1:]
-        cl1_t = _ssum((val_t - xt1).abs().flatten(-2))
+        if incremental:
+            d_t = ((X[:, None, :N] - X[:, None, 1:])
+                   + a4 * (dX[:, None, :N] - dX[:, None, 1:])) + val_t
+            val_t = xt + val_t
+        else:
+            d_t = val_t - (X[:, None, 1:] + a4 * dX[:, None, 1:])
+        cl1_t = _ssum(d_t.abs().flatten(-2))
         er_t = val_t - xdes[:, None]
         jref_t = _ssum(_ssum(torch.cat([rate_t[..., None],
                                         q[:, None, None] * (er_t * er_t)],
@@ -742,13 +763,47 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
                                  opts: SolverOptions = SolverOptions(),
                                  mu0=None, n_iter: Optional[int] = None,
                                  ls_fan: Optional[Sequence[float]] = None,
-                                 adaptive: bool = False) -> SolveResult:
+                                 adaptive: bool = False,
+                                 body: str = "thread") -> SolveResult:
     """The kernel body built for the CPU by g++ (float32 or float64 CPU
     tensors): how the tests run the kernel's own arithmetic without a
-    card."""
+    card.  ``body="thread"``: the one-thread body (``solve_instance``) of
+    every policy; ``body="group"``: the group body
+    (``csrc/fused_sqp_group.cuh``), which serves the serial arms under
+    Euler and is what the card runs for them."""
     from .._build import cpu_library
     lib = cpu_library("fused_sqp")
-    fn = (lib.mpc_fused_solve_cpu_f32 if p.x0.dtype == torch.float32
-          else lib.mpc_fused_solve_cpu_f64)
+    name = {"thread": "mpc_fused_solve_cpu", "group":
+            "mpc_fused_solve_group_cpu"}[body]
+    bits = "f32" if p.x0.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"{name}_{bits}")
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
                   functools.partial(_run_library, fn, None))
+
+
+def count_fused_ops(prob: ShootingProblem, p: MPCParams,
+                    X0: Optional[Tensor] = None, U0: Optional[Tensor] = None,
+                    opts: SolverOptions = SolverOptions(), mu0=None,
+                    n_iter: Optional[int] = None, adaptive: bool = False,
+                    body: str = "group"):
+    """The floating-point operations of a kernel body for the serial arms
+    under Euler on these inputs, as {"add", "mul", "div_sqrt",
+    "transcendental"} summed over the instances: the body run by g++ on a
+    scalar that counts (``csrc/flop_count.cpp``), in float64 on CPU copies
+    of the inputs.  ``body="group"``: the card's body, the numerator of the
+    kernel's roofline bound; ``body="thread"``: the one-thread body, the
+    arithmetic the group body replaced."""
+    from .._build import cpu_library
+    lib = cpu_library("flop_count")
+    counts = torch.zeros(4, dtype=torch.float64)
+    group = {"thread": 0, "group": 1}[body]
+    fn = lambda *args: lib.mpc_fused_count_ops(*args, group,
+                                               counts.data_ptr())
+    host = lambda t: None if t is None else t.detach().to("cpu",
+                                                          torch.float64)
+    p64 = MPCParams(*[type(f)(*[host(a) for a in f]) if isinstance(f, tuple)
+                      else host(f) for f in p])
+    _solve(prob, p64, host(X0), host(U0), opts, mu0, n_iter, None, adaptive,
+           functools.partial(_run_library, fn, None))
+    return dict(zip(("add", "mul", "div_sqrt", "transcendental"),
+                    counts.tolist()))

@@ -157,6 +157,30 @@ def test_port_state_loads_in_jax(jax_service):
     assert np.asarray(back["params"].q)[0, 0] == 5.0
 
 
+def test_default_device_is_the_card():
+    """The service's entry point runs on the CUDA card unless the caller
+    asks for the CPU: the default device is "cuda", which raises a clear
+    error on a machine without a card instead of falling back to the CPU;
+    device="cpu" runs the plain versions."""
+    import inspect
+    assert inspect.signature(BatchModelControl).parameters["device"] \
+        .default == "cuda"
+    mp = _mp(ModelParameters)
+    if torch.cuda.is_available():
+        assert BatchModelControl(mp, batch=B).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            BatchModelControl(mp, batch=B)
+    svc = BatchModelControl(mp, batch=B, device="cpu",
+                            opts=SolverOptions(tol=TOL, max_iter=30),
+                            Q=Q, R=R, Rm=RM)
+    assert svc.device.type == "cpu"
+    svc.set_states(np.zeros((B, 8)))
+    svc.set_references(np.full((B, N, 8), 0.1))
+    u = svc.step()
+    assert u.device.type == "cpu" and bool(torch.isfinite(u).all())
+
+
 def test_other_devices_raise():
     """No silent fallback: a device the solve has no path for raises; the
     default options on the CPU resolve to the lanes route, for an LTV model

@@ -1,8 +1,9 @@
 """The fused kernel's own arithmetic on the CPU: ``csrc/fused_sqp.cuh`` (the
-body nvcc compiles for the card) built with g++ and run against the plain
-PyTorch version — the port's analogue of Pallas interpret mode.  float64
-pins the math to roundoff; float32 holds the bands of the JAX parity
-tests."""
+one-thread body) and ``csrc/fused_sqp_group.cuh`` (the group body the card
+runs for the arms under Euler), built with g++ and run against the plain
+PyTorch version — the port's analogue of Pallas interpret mode.  Every pin
+runs both bodies (``body``).  float64 pins the math to roundoff; float32
+holds the bands of the JAX parity tests."""
 
 import ctypes
 import dataclasses
@@ -15,6 +16,7 @@ from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch._build import cpu_library
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.solver.fused import (_acc_jacobian, _arm_flat,
+                                             count_fused_ops,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
 from mahi_mpc_tpu_torch.transcribe.shooting import (MPCParams, default_params,
@@ -52,18 +54,22 @@ def _problem(dtype, name="mahi_arm", x_bounded=False, seed=0):
         x_des=t(scale * rng.standard_normal((B, N, nx))))
 
 
-def _solve_both(prob, p, opts, **kw):
-    return (solve_batch_fused_cpu_kernel(prob, p, opts=opts, **kw),
+BODIES = ["thread", "group"]
+
+
+def _solve_both(prob, p, opts, body, **kw):
+    return (solve_batch_fused_cpu_kernel(prob, p, opts=opts, body=body, **kw),
             solve_batch_fused(prob, p, opts=opts, **kw))
 
 
-def _cold_then_warm(prob, p, opts):
+def _cold_then_warm(prob, p, opts, body):
     """Adaptive cold solve, then fixed-3 warm from the plain version's plan
-    at a perturbed state, each by kernel and plain version."""
-    cold = _solve_both(prob, p, opts, mu0=opts.mu_init, adaptive=True)
+    at a perturbed state, each by kernel body and plain version."""
+    cold = _solve_both(prob, p, opts, body, mu0=opts.mu_init, adaptive=True)
     p2 = p._replace(x0=p.x0 + 0.01)
     X0, U0 = cold[1].X, cold[1].U
-    warm = (solve_batch_fused_cpu_kernel(prob, p2, X0, U0, opts, n_iter=3),
+    warm = (solve_batch_fused_cpu_kernel(prob, p2, X0, U0, opts, n_iter=3,
+                                         body=body),
             solve_batch_fused(prob, p2, X0, U0, opts, n_iter=3))
     return cold, warm
 
@@ -73,16 +79,18 @@ def lib():
     return cpu_library()
 
 
-@pytest.fixture(scope="module")
-def f64_runs(lib):
+@pytest.fixture(scope="module", params=BODIES)
+def f64_runs(lib, request):
     prob, p = _problem(torch.float64)
-    return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30))
+    return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30),
+                           request.param)
 
 
-@pytest.fixture(scope="module")
-def f32_runs(lib):
+@pytest.fixture(scope="module", params=BODIES)
+def f32_runs(lib, request):
     prob, p = _problem(torch.float32)
-    return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30))
+    return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30),
+                           request.param)
 
 
 @pytest.mark.parametrize("name", ["mahi_arm", "two_link_arm"])
@@ -113,6 +121,49 @@ def test_kernel_dynamics_and_jacobian_rows(lib, name, dtype):
     np.testing.assert_allclose(fval.T.numpy(), ref_f.numpy(), **tol)
     np.testing.assert_allclose(jrows.permute(2, 0, 1).numpy(),
                                (dt * ref_J).numpy(), **tol)
+
+
+@pytest.mark.parametrize("name", ["mahi_arm", "two_link_arm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_folded_jacobian_rows(lib, name, dtype):
+    """The folded linearization the group body runs (q columns by one
+    tangent pass through the chain, qd columns through the RNEA alone, u
+    columns by two triangular solves) against the dual-number rows
+    (``acc_rows``) and against ``Dynamics.linearize``: float64 at 1e-12,
+    float32 at 1e-5 against the dual-number rows in float32 (both float32
+    arithmetic of the same chain, accelerations and their dt-scaled
+    derivatives of order 1e0-1e1) and at the float32 band of
+    ``test_kernel_dynamics_and_jacobian_rows`` against the float64
+    linearization."""
+    dyn = make_dynamics(name)
+    nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
+    M, dt = 32, 0.002
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((nx, M)), dtype=dtype)
+    u = torch.tensor(rng.standard_normal((nu, M)), dtype=dtype)
+    arm = _arm_flat(dyn)
+    arm_c = (ctypes.c_double * len(arm))(*arm)
+    bits = "f64" if dtype == torch.float64 else "f32"
+    out = {}
+    for kind in ("eval", "fold"):
+        fval = torch.empty(nx, M, dtype=dtype)
+        jrows = torch.empty(nq, nx + nu, M, dtype=dtype)
+        fn = getattr(lib, f"mpc_arm_{kind}_cpu_{bits}")
+        assert fn(M, nq, x.data_ptr(), u.data_ptr(), dt, arm_c,
+                  fval.data_ptr(), jrows.data_ptr()) == 0
+        out[kind] = fval.T.numpy(), jrows.permute(2, 0, 1).numpy()
+    tol = dict(rtol=1e-12, atol=1e-12) if dtype == torch.float64 else \
+        dict(rtol=1e-5, atol=1e-5)
+    for a, b in zip(out["fold"], out["eval"]):
+        np.testing.assert_allclose(a, b, **tol)
+    # Dynamics.linearize at each point: A = d f / dx, B = d f / du (float64)
+    lin = [dyn.linearize(x[:, j].double(), u[:, j].double())
+           for j in range(M)]
+    ref = np.stack([np.concatenate([A[nq:].numpy(), Bm[nq:].numpy()], 1)
+                    for A, Bm, _ in lin])
+    ref_tol = dict(rtol=0, atol=1e-12) if dtype == torch.float64 else \
+        dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out["fold"][1], dt * ref, **ref_tol)
 
 
 @pytest.mark.parametrize("mode", ["cold_adaptive", "warm_fixed3"])
@@ -151,8 +202,9 @@ def test_kernel_matches_plain_f32_adaptive(f32_runs):
     assert float(rk.kkt.max()) < TOL and float(rk.feas.max()) < TOL
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("case", ["x_bounds", "head_pinning", "two_link_arm"])
-def test_kernel_branches_match_plain_f64(lib, case):
+def test_kernel_branches_match_plain_f64(lib, case, body):
     """The kernel's other branches against the plain version, float64 at
     1e-8: active state bounds (barrier and fraction-to-boundary on x), head
     pinning (num_control_inputs_saved=2: pinned controls stay exactly at
@@ -171,7 +223,7 @@ def test_kernel_branches_match_plain_f64(lib, case):
     p2 = p._replace(x0=p.x0 + 0.01)
     for kw in (dict(n_iter=3), dict(adaptive=True)):
         rk = solve_batch_fused_cpu_kernel(prob, p2, cold.X, cold.U, opts,
-                                          **kw)
+                                          body=body, **kw)
         rp = solve_batch_fused(prob, p2, cold.X, cold.U, opts, **kw)
         np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), atol=1e-8)
         np.testing.assert_allclose(rk.U.numpy(), rp.U.numpy(), atol=1e-8)
@@ -182,3 +234,30 @@ def test_kernel_branches_match_plain_f64(lib, case):
         if case == "x_bounds":
             q = rk.X[:, 1:, :prob.dynamics.nq]
             assert bool((q.abs() < 0.3).all())
+
+
+def test_group_body_operation_count():
+    """``count_fused_ops`` runs a body on a counting scalar
+    (csrc/flop_count.cpp): fixed mode does the same work every iteration
+    (three iterations count three times one, to within the update's few
+    operations and the barrier's data-dependent terms), an adaptive
+    iteration adds the deeper fan's rungs, the group body's folded
+    Jacobian does less than the one-thread body's dual-number rows, and a
+    problem the arms' Euler bodies do not serve raises."""
+    prob, p = _problem(torch.float32)
+    opts = SolverOptions(tol=TOL, max_iter=30)
+    one, three = (count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=n)
+                  for n in (1, 3))
+    assert set(one) == {"add", "mul", "div_sqrt", "transcendental"}
+    assert min(one.values()) > 0
+    total = lambda c: sum(c.values())
+    np.testing.assert_allclose(total(three), 3 * total(one), rtol=1e-3)
+    adaptive = count_fused_ops(prob, p, opts=opts, mu0=opts.mu_init,
+                               n_iter=1, adaptive=True)
+    assert total(adaptive) > total(one)
+    thread = count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=1,
+                             body="thread")
+    assert total(one) < total(thread)
+    pend, pp = _problem(torch.float32, name="pendulum")
+    with pytest.raises(ValueError):
+        count_fused_ops(pend, pp, opts=opts, n_iter=1)
