@@ -119,8 +119,8 @@ RICCATI_PARITY_BATCH = 1000       # not a multiple of the 128-thread block
 LANES_WARM_STEPS = 3
 LADDER = (4096, 16384, 65536)     # the fused kernel's batch ladder
 COUNT_SAMPLE = 32                 # instances whose operations g++ counts
-# NVIDIA's H100 SXM peaks (the on-chip-measurement table): FP32 outside the
-# tensor cores and HBM3.
+# NVIDIA's H100 SXM peaks from its datasheet: FP32 outside the tensor cores
+# and HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
