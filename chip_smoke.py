@@ -26,10 +26,11 @@ line each, with the seconds since start in ``t``:
    then both at the service's batch (B=16384): their times, and the
    fixed-3 warm solves held to max|dX|, max|dU| <= 1e-4 and the adaptive
    cold statuses to >= 99 % agreement there too; the group kernel's bound
-   (its operations counted by g++ on a counting scalar,
-   ``csrc/flop_count.cpp``, over the FP32 peak; its bytes over the HBM
-   rate) and roofline share; and its times at B = 4096, 16384 and 65536
-   (kernel only, a draw of its own);
+   (the function's operations, counted by g++ on a counting scalar,
+   ``csrc/flop_count.cpp``: the group body's tally less the work its lanes
+   repeat, over the FP32 peak; its bytes over the HBM rate), its roofline
+   share, and the bound of the body's own tally beside it; and its times
+   at B = 4096, 16384 and 65536 (kernel only, a draw of its own);
 4. service — ``BatchModelControl`` on the card at B=16384 with
    ``fixed_warm_iters=3``: one cold step, then 10 warm steps with 0.01 N(0,1)
    state noise and a phase-shifted sinusoid reference (converged_frac >= 0.9
@@ -94,8 +95,9 @@ line each, with the seconds since start in ``t``:
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths, its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384), both times, its bound
-(``bound_ms``, ``bound_by``) and ``library_ms`` (null: no single PyTorch
-call computes either function), the
+(``bound_ms``, ``bound_by``; for the fused kernel also ``body_bound_ms``,
+the bound of its body's own tally) and ``library_ms`` (null: no single
+PyTorch call computes either function), the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -999,37 +1001,40 @@ def main() -> int:
           f"B={Bt} fixed-3 max|dX|,|dU| {warm_err_t} > 1e-4")
     check(same_t >= 0.99, f"B={Bt} adaptive statuses agree on {same_t:.4f}")
 
-    # ---- the group kernel's bound: its operations, counted by g++ on the
+    # ---- the group kernel's bound: the function's operations (the group
+    # body's tally less the work its lanes repeat), counted by g++ on the
     # first COUNT_SAMPLE instances of these inputs (csrc/flop_count.cpp),
     # scaled to the batch; the adaptive solve's per instance-iteration,
-    # times this run's iterations
+    # times this run's iterations.  The body's own tally beside it.
     S = COUNT_SAMPLE
     ops_w = count_fused_ops(prob, head(ptw, S), ct.X[:S], ct.U[:S], opts,
                             mu0=mu_warm, n_iter=3)
     ops_c1 = count_fused_ops(prob, head(pt, S), None, None, opts_cold,
                              mu0=opts_cold.mu_init, n_iter=1, adaptive=True)
-    # the one-thread body's arithmetic on the same inputs (what the group
-    # body replaced on this path)
-    ops_t = count_fused_ops(prob, head(ptw, S), ct.X[:S], ct.U[:S], opts,
-                            mu0=mu_warm, n_iter=3, body="thread")
-    warm_ops = sum(ops_w.values()) * Bt / S
-    cold_ops = sum(ops_c1.values()) / S * float(ct.iters.sum())
+    total = lambda ops, part: sum(ops[part].values()) / S
+    warm_ops = total(ops_w, "minimum") * Bt
+    cold_ops = total(ops_c1, "minimum") * float(ct.iters.sum())
     io = fused_io_bytes(ptw, ct.X, ct.U, Bt)
     warm_bound, cold_bound = bound_ms(warm_ops, io), bound_ms(cold_ops, io)
+    warm_body_bound = bound_ms(total(ops_w, "body") * Bt, io)
+    cold_body_bound = bound_ms(total(ops_c1, "body") * float(ct.iters.sum()),
+                               io)
     emit(phase="bound_fused", batch=Bt, count_sample=S,
-         ops_per_instance_fixed3=sum(ops_w.values()) / S,
-         ops_by_kind_fixed3=ops_w, ops_per_instance_iteration_adaptive=(
-             sum(ops_c1.values()) / S),
-         ops_per_instance_fixed3_one_thread_body=sum(ops_t.values()) / S,
-         fixed3_warm_bound_ms_one_thread_body=bound_ms(
-             sum(ops_t.values()) * Bt / S, io)["bound_ms"],
+         ops_per_instance_fixed3=total(ops_w, "minimum"),
+         ops_by_kind_fixed3=ops_w["minimum"],
+         ops_per_instance_iteration_adaptive=total(ops_c1, "minimum"),
+         body_ops_per_instance_fixed3=total(ops_w, "body"),
+         body_ops_by_kind_fixed3=ops_w["body"],
+         body_ops_per_instance_iteration_adaptive=total(ops_c1, "body"),
          io_mbytes=io / 1e6,
          fixed3_warm_ops=warm_ops, fixed3_warm_bound_ms=warm_bound["bound_ms"],
          fixed3_warm_bound_by=warm_bound["bound_by"],
          fixed3_warm_roofline_share=warm_bound["bound_ms"] / warm_ms,
+         fixed3_warm_body_bound_ms=warm_body_bound["bound_ms"],
          adaptive_cold_ops=cold_ops,
          adaptive_cold_bound_ms=cold_bound["bound_ms"],
-         adaptive_cold_roofline_share=cold_bound["bound_ms"] / cold_ms)
+         adaptive_cold_roofline_share=cold_bound["bound_ms"] / cold_ms,
+         adaptive_cold_body_bound_ms=cold_body_bound["bound_ms"])
 
     # ---- the batch ladder, kernel only (its own draw of data)
     lad_rng = np.random.default_rng(1)
@@ -1129,6 +1134,7 @@ def main() -> int:
         case="mahi_arm Euler, fixed-3 warm (group body)",
         launches=fast_launches, max_abs_err=warm_err_t, ms=warm_ms,
         plain_ms=warm_plain_ms, bound_ms=warm_bound["bound_ms"],
+        body_bound_ms=warm_body_bound["bound_ms"],
         adaptive_cold_ms=cold_ms, adaptive_cold_plain_ms=cold_plain_ms,
         adaptive_cold_bound_ms=cold_bound["bound_ms"]))
     launches += sum(m.get("launches", 0) for m in modes[1:])
@@ -1146,6 +1152,7 @@ def main() -> int:
         "bound_ms": warm_bound["bound_ms"],
         "bound_by": warm_bound["bound_by"],
         "library_ms": None,
+        "body_bound_ms": warm_body_bound["bound_ms"],
         "batch": SERVICE_BATCH,
         "mode": "fixed-3 warm, mahi_arm Euler (group body, nq-row path)",
         "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item(),

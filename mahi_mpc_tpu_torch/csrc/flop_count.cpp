@@ -4,10 +4,12 @@
 // add or subtract, multiply, divide or square root, and sine, cosine or log
 // done on it.  A body runs as it runs for the card (the host loop over the
 // group's four lanes does the lanes' work once each), so the tally is the
-// work of the kernel's own code for the given inputs: its roofline bound's
-// operations (chip_smoke.py).  Built with g++ and loaded with ctypes
-// (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
-// are not counted.
+// work of the kernel's own code for the given inputs.  For the group body it
+// also counts the work that the body repeats across its lanes and the
+// function needs once (`repeated_ops`): the tally less that is the
+// function's operations, the numerator of the kernel's roofline bound
+// (chip_smoke.py).  Built with g++ and loaded with ctypes (solver/fused.py
+// `count_fused_ops`); comparisons, selects, |x| and loads are not counted.
 #include "fused_sqp_group.cuh"
 
 namespace mpc {
@@ -50,6 +52,69 @@ template <> struct Eps<Flop> {
   static constexpr double value = 1.1920928955078125e-07;
 };
 
+inline void add(OpCount& to, const OpCount& n, double times) {
+  to.add += times * n.add;
+  to.mul += times * n.mul;
+  to.div_sqrt += times * n.div_sqrt;
+  to.transcendental += times * n.transcendental;
+}
+
+// The operations of f() alone.
+template <typename F>
+OpCount ops_of(const F& f) {
+  const OpCount saved = g_ops;
+  g_ops = OpCount();
+  f();
+  const OpCount n = g_ops;
+  g_ops = saved;
+  return n;
+}
+
+// What the group body does more than once in one stage of one iteration,
+// where the function needs it once:
+//  - the value part (kinematics, M, its Cholesky factor, qdd): every lane
+//    forms it, as the values of its q column's dual-number pass or by
+//    arm_value, so kGroup - 1 times more than once;
+//  - the plain kinematics and RNEA values under each qd column's tangent;
+//  - in the Riccati step: Prp and the Cholesky of Quu, which every lane
+//    forms; B' Pxv and Qxu Kx, each entry formed twice; the mirrored
+//    entries of Quu, Pxx and Pvv; the adds of A's identity block (`At`
+//    adds 1 or 0 to Jr at every use, where the function adds the NQ ones
+//    once);
+//  - lane 0's merit sums forming the defects and dt f again, and every
+//    rung after the first forming the rung-free x - x' and dx - dx'.
+// A pinned head stage forms no Qxu Kx, Pxx or Pvv terms.  Each piece that
+// is a function of arm_dynamics.cuh is counted by running it; the rest
+// follows the loops of fused_sqp_group.cuh.
+template <int NQ>
+OpCount repeated_ops(const ArmConsts<Flop, NQ>& c, int n_fan, bool pinned) {
+  constexpr int NX = 2 * NQ, NU = NQ, G = kGroup;
+  Flop q[NQ], qd[NQ], u[NQ], L[NQ][NQ], M[NQ][NQ], h[NQ], qdd[NQ];
+  for (int i = 0; i < NQ; ++i) q[i] = qd[i] = u[i] = Flop(0.1 * (i + 1));
+  OpCount r;
+  add(r, ops_of([&] { arm_value(c, q, qd, u, L, qdd); }), G - 1);
+  add(r, ops_of([&] { arm_chain<false>(c, q, qd, M, h); }), NQ);
+  const double tri = NU * (NU - 1) / 2.0, xtri = NX * (NX - 1) / 2.0;
+  r.mul += (G - 1) * NX * NX;                       // Prp
+  r.add += (G - 1) * NX * NX;
+  for (int j = 0; j < NU; ++j) {                    // Cholesky of Quu
+    r.mul += (G - 1) * (j + (NU - 1 - j) * (j + 1.0));
+    r.add += (G - 1) * (j + (NU - 1 - j) * double(j));
+    r.div_sqrt += (G - 1) * 2;
+  }
+  r.mul += (NU * NU + tri) * NQ;                    // B' Pxv, B' Pxx B
+  r.add += (NU * NU + tri) * (NQ - 1) + 3 * tri;    // and Quu mirrored
+  r.add += (NX * NX + NX * (NX + 1) / 2 + NX + NU * NX) * NQ - NQ;   // At
+  if (!pinned) {
+    r.mul += NX * NX * NU + xtri + 4 * tri;         // Qxu Kx; Pxx, Pvv
+    r.add += NX * NX * (NU - 1) + 3 * xtri + tri;   // mirrored
+  }
+  r.mul += 2 * NX;                                  // lane 0's merit sums
+  r.add += 3 * NX + NU;
+  r.add += (n_fan - 1) * 2.0 * NX;                  // the rungs
+  return r;
+}
+
 }  // namespace mpc
 
 extern "C" {
@@ -57,8 +122,9 @@ extern "C" {
 // Runs the group body (group = 1) or the one-thread body (0) over the B
 // instances given (the fused kernel's arguments, every array float64) and
 // adds its operations to counts[0..3]: adds, multiplies, divides and square
-// roots, transcendentals.  Returns -1 when the problem is not the arms
-// under Euler.
+// roots, transcendentals; for the group body, adds the part of them that
+// it repeats (`repeated_ops` over the iterations each instance ran) to
+// counts[4..7].  Returns -1 when the problem is not the arms under Euler.
 int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
                         void* const* ptrs, const double* scal,
                         const int* ints, const double* fan,
@@ -68,17 +134,27 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
       B, N, ptrs, reinterpret_cast<const Flop*>(scal), ints,
       reinterpret_cast<const Flop*>(fan));
   mpc::g_ops = mpc::OpCount();
+  mpc::OpCount repeated;
   const int rc = mpc::dispatch<Flop, mpc::kArmFast>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
         if constexpr (mpc::GroupBody<Step>::value) {
           typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
           Flop tile[Tile::kSize];
+          double iters = 0;
           for (long long b = 0; b < B; ++b) {
             if (group)
               mpc::solve_group<Flop>(a, step.m, b, mpc::Group{0, 0u}, tile);
             else
               mpc::solve_instance<Flop>(a, step, b);
+            iters += a.adaptive ? a.stats[b + 6 * B].v : a.n_iter;
+          }
+          if (group) {
+            const int pin = a.n_pin < a.N ? a.n_pin : a.N;
+            mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, false),
+                     iters * (a.N - pin));
+            mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, true),
+                     iters * pin);
           }
           return 0;
         } else {
@@ -89,6 +165,10 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
   counts[1] += mpc::g_ops.mul;
   counts[2] += mpc::g_ops.div_sqrt;
   counts[3] += mpc::g_ops.transcendental;
+  counts[4] += repeated.add;
+  counts[5] += repeated.mul;
+  counts[6] += repeated.div_sqrt;
+  counts[7] += repeated.transcendental;
   return rc;
 }
 

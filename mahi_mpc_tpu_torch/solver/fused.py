@@ -787,15 +787,18 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
                     n_iter: Optional[int] = None, adaptive: bool = False,
                     body: str = "group"):
     """The floating-point operations of a kernel body for the serial arms
-    under Euler on these inputs, as {"add", "mul", "div_sqrt",
+    under Euler on these inputs, each as {"add", "mul", "div_sqrt",
     "transcendental"} summed over the instances: the body run by g++ on a
     scalar that counts (``csrc/flop_count.cpp``), in float64 on CPU copies
-    of the inputs.  ``body="group"``: the card's body, the numerator of the
-    kernel's roofline bound; ``body="thread"``: the one-thread body, the
-    arithmetic the group body replaced."""
+    of the inputs.  Returns {"body": the body's own tally, "minimum": the
+    function's operations, each counted once}.  ``body="group"``: the
+    card's body; its minimum (the tally less the work its lanes repeat) is
+    the numerator of the kernel's roofline bound.  ``body="thread"``: the
+    one-thread body, the arithmetic the group body replaced (minimum
+    None)."""
     from .._build import cpu_library
     lib = cpu_library("flop_count")
-    counts = torch.zeros(4, dtype=torch.float64)
+    counts = torch.zeros(8, dtype=torch.float64)
     group = {"thread": 0, "group": 1}[body]
     fn = lambda *args: lib.mpc_fused_count_ops(*args, group,
                                                counts.data_ptr())
@@ -805,5 +808,7 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
                       else host(f) for f in p])
     _solve(prob, p64, host(X0), host(U0), opts, mu0, n_iter, None, adaptive,
            functools.partial(_run_library, fn, None))
-    return dict(zip(("add", "mul", "div_sqrt", "transcendental"),
-                    counts.tolist()))
+    kinds = ("add", "mul", "div_sqrt", "transcendental")
+    tally = dict(zip(kinds, counts[:4].tolist()))
+    minimum = dict(zip(kinds, (counts[:4] - counts[4:]).tolist()))
+    return dict(body=tally, minimum=minimum if group else None)

@@ -242,22 +242,33 @@ def test_group_body_operation_count():
     (three iterations count three times one, to within the update's few
     operations and the barrier's data-dependent terms), an adaptive
     iteration adds the deeper fan's rungs, the group body's folded
-    Jacobian does less than the one-thread body's dual-number rows, and a
-    problem the arms' Euler bodies do not serve raises."""
+    Jacobian does less than the one-thread body's dual-number rows, the
+    function's minimum (the group body's tally less what its lanes repeat:
+    three more value parts and a plain chain under each qd tangent, about
+    a third of the tally) is below the tally in every kind, and a problem
+    the arms' Euler bodies do not serve raises."""
     prob, p = _problem(torch.float32)
     opts = SolverOptions(tol=TOL, max_iter=30)
     one, three = (count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=n)
                   for n in (1, 3))
-    assert set(one) == {"add", "mul", "div_sqrt", "transcendental"}
-    assert min(one.values()) > 0
+    assert set(one) == {"body", "minimum"}
+    assert set(one["body"]) == {"add", "mul", "div_sqrt", "transcendental"}
+    assert min(one["body"].values()) > 0
     total = lambda c: sum(c.values())
-    np.testing.assert_allclose(total(three), 3 * total(one), rtol=1e-3)
+    for part in ("body", "minimum"):
+        np.testing.assert_allclose(total(three[part]), 3 * total(one[part]),
+                                   rtol=1e-3)
+    for kind, n in one["minimum"].items():
+        assert 0 < n < one["body"][kind]
+    assert 0.55 < total(one["minimum"]) / total(one["body"]) < 0.8
     adaptive = count_fused_ops(prob, p, opts=opts, mu0=opts.mu_init,
                                n_iter=1, adaptive=True)
-    assert total(adaptive) > total(one)
+    assert total(adaptive["body"]) > total(one["body"])
+    assert total(adaptive["minimum"]) > total(one["minimum"])
     thread = count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=1,
                              body="thread")
-    assert total(one) < total(thread)
+    assert thread["minimum"] is None
+    assert total(one["body"]) < total(thread["body"])
     pend, pp = _problem(torch.float32, name="pendulum")
     with pytest.raises(ValueError):
         count_fused_ops(pend, pp, opts=opts, n_iter=1)
