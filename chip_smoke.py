@@ -13,7 +13,10 @@ line each, with the seconds since start in ``t``:
    one process each, started together; registers and spill bytes of every
    kernel instantiation from ``-Xptxas -v``; then the main path's
    instantiation alone (``fused_sqp_group_kernel``, four threads an
-   instance): its ptxas line and blocks an SM;
+   instance): its ptxas line and blocks an SM; and the Riccati kernel
+   (``riccati_group_kernel``, a group of 16 / 8 / 4 threads an instance) at
+   each stage shape: its ptxas line, shared memory and blocks an SM (0 B of
+   spill stores and >= 2 blocks an SM, or the phase fails);
 3. parity — the fused kernel (on the main path its group body) against its
    plain PyTorch version, both on the card, at B=1024 on the 4-DOF
    ``mahi_arm`` (N=25, dt=2 ms, |u| <= 20, float32) with bench-shaped data:
@@ -70,8 +73,12 @@ line each, with the seconds since start in ``t``:
    (computed outside the kernel) at rtol / atol 2e-4 on the stage QP and
    within 1e-2 of max|lam| on the random QPs, whose adjoint recursion
    amplifies float32 roundoff ~1e4-fold at N=25;
-10. timing_riccati — kernel and plain version at B=16384, (25, 12, 4), and
-    its bound (bytes: the stage QP read and dz, du written once);
+10. timing_riccati — at B=16384, N=25: the kernel alone at (12, 4) and
+    (6, 2), the batch-leading entry (kernel and multipliers) and the
+    lanes-layout entry (permutes and kernel) at (12, 4), the plain version;
+    ``bound_ms`` (bytes: the stage QP read and dz, du written once) and
+    ``design_bound_ms`` (the bytes this design moves: also the rollout's
+    second read of Az, Bz, r and the gains' round trip);
 11. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
     fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
     iteration each, then the adaptive warm lanes solve against fused
@@ -226,7 +233,7 @@ def lanes_stage_ms(svc) -> dict:
     """Wall ms (synchronised, mean of 3 after a warm-up call) of each stage
     of one lanes SQP iteration at the service's current plan: the
     linearization in both modes, the QP build, the KKT solve through the
-    kernel's batch entry (permutes and multipliers included), and one
+    kernel's batch entry (multipliers included), and one
     line-search rung (a merit evaluation)."""
     import torch
 
@@ -274,9 +281,11 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     from mahi_mpc_tpu_torch.solver.batched import (_linearize_lanes,
                                                    solve_batch_lanes)
     from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
+    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+    from mahi_mpc_tpu_torch.solver.riccati import _multipliers
     from mahi_mpc_tpu_torch.solver.riccati_kernel import (
-        _solve_lqr_kernel_plain, _to_lanes, solve_lqr_kernel_batch,
-        solve_lqr_kernel_lanes)
+        _launch_cuda, _solve_lqr_kernel_plain, _to_lanes,
+        solve_lqr_kernel_batch, solve_lqr_kernel_lanes)
     from mahi_mpc_tpu_torch.solver.stage_qp import StageQP, build_stage_qp
     from mahi_mpc_tpu_torch.transcribe.shooting import MPCParams
 
@@ -340,29 +349,54 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
                   f"{name}: lam beyond 1e-2 of max|lam|")
         max_err = max(max_err, line["max_abs_du"], line["max_abs_dz"])
 
-    # ---- timing_riccati at the service's batch, (25, 12, 4)
+    # ---- timing_riccati at the service's batch: the kernel alone (its
+    # launch and its outputs' allocation) at (12, 4) on the stage QP and at
+    # (6, 2) on the random QP; at (12, 4) also the batch-leading entry
+    # (kernel, then multipliers), the multipliers alone, the lanes entry
+    # (permutes around the kernel) and the plain version
     idx = torch.arange(SERVICE_BATCH, device=dev) % Br
-    qpt = StageQP(*[a[idx] for a in arm_qp])
-    lanes_in = tuple(_to_lanes(a) for a in qpt)
-    sol, kernel_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 20)
+    tile = lambda qp: StageQP(*[a[idx] for a in qp])
+    qpt, qp62 = tile(arm_qp), tile(cases["random_6x2"])
+    sol, kernel_ms = timed(lambda: _launch_cuda(qpt), 20)
+    _, kernel_ms_62 = timed(lambda: _launch_cuda(qp62), 20)
     _, batch_ms = timed(lambda: solve_lqr_kernel_batch(qpt), 10)
+    with strict_fp32():
+        _, mult_ms = timed(lambda: _multipliers(qpt, *sol), 5)
+    lanes_in = tuple(_to_lanes(a) for a in qpt)
+    _, lanes_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 10)
     _, plain_ms = timed(lambda: _solve_lqr_kernel_plain(qpt), 3)
-    # Bound: the stage QP read once and dz, du written once, against the
-    # multiply-adds of the recursion counted by hand per stage (P Az, Az' P
-    # Az, P Bz, Bz' P Bz, Az' P Bz, the nu x nu solve of nz + 1 columns,
-    # the gain update, the rollout), 2 flops each.
-    nz_r, nu_r, Bq = 12, 4, SERVICE_BATCH
-    io_bytes = 4 * (sum(a.numel() for a in lanes_in)
-                    + sum(a.numel() for a in sol))
-    macs = (2 * nz_r ** 3 + 3 * nz_r ** 2 * nu_r + nz_r * nu_r ** 2
-            + nu_r ** 2 * (nz_r + 1) + nz_r * nu_r + nz_r ** 2)
-    ops = 2.0 * macs * N * Bq
-    bound = bound_ms(ops, io_bytes)
+
+    def bounds(qp):
+        """bound_ms: the function's bytes (the stage QP read once, dz and du
+        written once) against the multiply-adds of the recursion counted by
+        hand per stage (P Az, Az' P Az, P Bz, Bz' P Bz, Az' P Bz, the nu x
+        nu solve of nz + 1 columns, the gain update, the rollout), 2 flops
+        each; design_bound_ms: the bytes this design moves (also Az, Bz, r
+        read again by the rollout, K and kff written and read back)."""
+        Bq, Nq, nz, nu = (qp.Az.shape[0], qp.Az.shape[1], qp.Az.shape[2],
+                          qp.Bz.shape[-1])
+        io = 4 * (sum(a.numel() for a in qp)
+                  + Bq * ((Nq + 1) * nz + Nq * nu))
+        design = io + 4 * Bq * Nq * (nz * nz + nz * nu + nz
+                                     + 2 * (nu * nz + nu))
+        macs = (2 * nz ** 3 + 3 * nz ** 2 * nu + nz * nu ** 2
+                + nu ** 2 * (nz + 1) + nz * nu + nz ** 2)
+        ops = 2.0 * macs * Nq * Bq
+        return dict(io_mbytes=io / 1e6, design_mbytes=design / 1e6,
+                    ops_hand_count=ops, **bound_ms(ops, io),
+                    design_bound_ms=bound_ms(ops, design)["bound_ms"])
+
+    bound, bound62 = bounds(qpt), bounds(qp62)
     emit(phase="timing_riccati", batch=SERVICE_BATCH, N=N, nz=12, nu=4,
-         kernel_ms=kernel_ms, batch_entry_ms=batch_ms, plain_ms=plain_ms,
-         qp_mbytes=sum(a.numel() for a in qpt) * 4 / 1e6,
-         io_mbytes=io_bytes / 1e6, ops_hand_count=ops, **bound,
-         roofline_share=bound["bound_ms"] / kernel_ms)
+         kernel_ms=kernel_ms, batch_entry_ms=batch_ms,
+         multipliers_ms=mult_ms, lanes_entry_ms=lanes_ms, plain_ms=plain_ms,
+         qp_mbytes=sum(a.numel() for a in qpt) * 4 / 1e6, **bound,
+         roofline_share=bound["bound_ms"] / kernel_ms,
+         design_share=bound["design_bound_ms"] / kernel_ms)
+    emit(phase="timing_riccati", batch=SERVICE_BATCH, N=N, nz=6, nu=2,
+         kernel_ms=kernel_ms_62, **bound62,
+         roofline_share=bound62["bound_ms"] / kernel_ms_62,
+         design_share=bound62["design_bound_ms"] / kernel_ms_62)
 
     # ---- parity_lanes_vs_fused (tests/test_fused_kernel.py:54-95 on card)
     B = PARITY_BATCH
@@ -503,7 +537,8 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
         "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
         lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
     emit(phase="service_lanes_profile", batch=Bs,
-         **profile_step(svc, "riccati_kernel"), stage_ms=lanes_stage_ms(svc))
+         **profile_step(svc, "riccati_group_kernel"),
+         stage_ms=lanes_stage_ms(svc))
 
     # ---- double_pendulum under RK4: "auto" (fused, generic path) and
     # "adaptive" (lanes, Riccati kernel at (6, 2)) on the same closed loop
@@ -548,6 +583,9 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
 
     return dict(launches=l_arm + l_dp, max_abs_err=max_err, ms=kernel_ms,
                 plain_ms=plain_ms, batch_entry_ms=batch_ms,
+                multipliers_ms=mult_ms, lanes_entry_ms=lanes_ms,
+                ms_6x2=kernel_ms_62, bound_ms_6x2=bound62["bound_ms"],
+                design_bound_ms_6x2=bound62["design_bound_ms"],
                 dp_fused_launches=dp["fused"][0], **bound)
 
 
@@ -880,6 +918,23 @@ def main() -> int:
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
           f"group kernel: {len(group)} instantiations, blocks/SM {per_sm}")
+    # the Riccati kernel: a group of threads an instance, every stage shape
+    ric_lib = builds["riccati"][0]
+    ric_k = {tuple(k["template_args"]): k
+             for k in ptxas_summary(builds["riccati"][1])
+             if "riccati_group_kernel" in k["kernel"]}
+    for (nz, nu), k in sorted(ric_k.items(), reverse=True):
+        k.update(smem_bytes=ric_lib.mpc_riccati_smem_bytes(nz, nu),
+                 blocks_per_sm=ric_lib.mpc_riccati_blocks_per_sm(nz, nu))
+        emit(phase="riccati_kernel", nz=nz, nu=nu, **k)
+        check(k["spill_store_bytes"] == 0 and k["blocks_per_sm"] >= 2,
+              f"Riccati kernel ({nz}, {nu}): {k}")
+    check(sorted(ric_k) == [(3, 1), (5, 1), (6, 2), (12, 4)],
+          f"Riccati kernel instantiations {sorted(ric_k)}")
+    # registers, spill store bytes, shared memory bytes, blocks an SM
+    ric_ptxas = {f"{nz}x{nu}": [k["registers"], k["spill_store_bytes"],
+                                k["smem_bytes"], k["blocks_per_sm"]]
+                 for (nz, nu), k in ric_k.items()}
 
     # ---- problem and bench-shaped data (bench.py:75-99, 128-138)
     dyn = make_dynamics("mahi_arm")
@@ -1168,9 +1223,15 @@ def main() -> int:
         "bound_ms": ric["bound_ms"],
         "bound_by": ric["bound_by"],
         "library_ms": None,
+        "design_bound_ms": ric["design_bound_ms"],
         "batch": SERVICE_BATCH,
-        "mode": "N=25, nz=12, nu=4, lanes layout in and out",
-        "batch_entry_ms": ric["batch_entry_ms"]}]}),
+        "mode": "N=25, nz=12, nu=4, batch-leading in and out (group body)",
+        "batch_entry_ms": ric["batch_entry_ms"],
+        "multipliers_ms": ric["multipliers_ms"],
+        "lanes_entry_ms": ric["lanes_entry_ms"],
+        "ms_6x2": ric["ms_6x2"], "bound_ms_6x2": ric["bound_ms_6x2"],
+        "design_bound_ms_6x2": ric["design_bound_ms_6x2"],
+        "ptxas": ric_ptxas}]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ The libraries:
   the closed-form models, every integrator;
 - ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
   mode;
-- ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve.
+- ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve (a
+  group of threads an instance, ``csrc/riccati.cuh``).
 
 The fused kernel's instantiations are split into four libraries only so
 that nvcc builds them in parallel; all four export the same launcher.
@@ -72,6 +73,8 @@ CUDA_LIBRARIES = {
     "riccati": ("riccati.cu", {
         "mpc_riccati_launch_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p,
                                    _c_void_p],
+        "mpc_riccati_smem_bytes": [_c_int, _c_int],
+        "mpc_riccati_blocks_per_sm": [_c_int, _c_int],
     }),
 }
 

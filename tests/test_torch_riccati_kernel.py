@@ -1,7 +1,8 @@
 """The Riccati KKT kernel on the CPU: its plain PyTorch version against the
-JAX package's Pallas kernel in interpret mode, and the kernel body
-(``csrc/riccati.cuh``, the code nvcc compiles for the card) built with g++
-against the plain version at every stage shape the library is built for."""
+JAX package's Pallas kernel in interpret mode, and the kernel's group body
+(``csrc/riccati.cuh``, the code nvcc compiles for the card; g++ runs a
+group's lanes one after another, phase by phase) against the plain version
+at every stage shape the library is built for."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +12,9 @@ import torch
 from mahi_mpc_tpu.solver.pallas_riccati import solve_lqr_pallas_batch
 from mahi_mpc_tpu.solver.stage_qp import StageQP as JaxStageQP
 from mahi_mpc_tpu_torch.solver.riccati_kernel import (
-    KERNEL_SHAPES, _solve_lqr_kernel_plain, _to_lanes, kkt_kernel_supported,
-    solve_lqr_kernel_batch, solve_lqr_kernel_cpu_build,
-    solve_lqr_kernel_lanes)
+    KERNEL_SHAPES, _lanes_entry, _run_cpu_build, _solve_lqr_kernel_plain,
+    _to_lanes, kkt_kernel_supported, solve_lqr_kernel_batch,
+    solve_lqr_kernel_cpu_build, solve_lqr_kernel_lanes)
 from mahi_mpc_tpu_torch.solver.stage_qp import StageQP
 
 torch.set_num_threads(1)
@@ -160,6 +161,39 @@ def test_indefinite_huu_nan_in_that_instance_only():
         np.testing.assert_array_equal(_finite(sol), want, err_msg=name)
     _assert_bands(sols["plain"], sols["jax"], mask=want)
     _assert_bands(sols["cpu_build"], sols["plain"], mask=want)
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_indefinite_huu_nan_isolated_in_its_block(shape):
+    """float32, B=40, N=8: instance 9 has an indefinite Huu and shares its
+    block of groups (128 threads: 8 instances at nz=12, 16 at nz=5 or 6, 32
+    at nz=3) and, at nz=12, its warp with finite neighbours; the g++ build
+    of the group body reuses one tile from instance to instance.  Only
+    instance 9 is NaN, and every other instance matches the plain version
+    at the bands."""
+    nz, nu = shape
+    nan_i = 9
+    qp = _torch_qp(random_qp_np(40, 8, nz, nu, seed=nz, indefinite=nan_i))
+    got, ref = solve_lqr_kernel_cpu_build(qp), _solve_lqr_kernel_plain(qp)
+    want = np.ones(40, bool)
+    want[nan_i] = False
+    np.testing.assert_array_equal(_finite(got), want)
+    np.testing.assert_array_equal(_finite(ref), want)
+    assert not np.isfinite(got.dz.numpy()[nan_i]).all()
+    _assert_bands(got, ref, mask=want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cpu_build_batch_and_lanes_entries_agree(dtype):
+    """The g++ build through the batch-leading entry and through the
+    lanes-layout entry's permutes (the code the CUDA lanes entry runs
+    around its launch): the same dz and du, bit for bit."""
+    qp = _torch_qp(random_qp_np(37, 25, 12, 4, seed=2), dtype)
+    sol = solve_lqr_kernel_cpu_build(qp)
+    dz, du = _lanes_entry(_run_cpu_build, tuple(_to_lanes(x) for x in qp))
+    assert dz.shape == (26, 12, 37) and du.shape == (25, 4, 37)
+    np.testing.assert_array_equal(dz.movedim(-1, 0).numpy(), sol.dz.numpy())
+    np.testing.assert_array_equal(du.movedim(-1, 0).numpy(), sol.du.numpy())
 
 
 def test_wrappers_on_cpu_run_the_plain_version():
