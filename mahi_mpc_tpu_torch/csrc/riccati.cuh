@@ -98,10 +98,6 @@ inline RiccatiArgs<T> make_args(long long B, int N, void* const* ptrs) {
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
-// Stage buffers a group's tile holds: while the group computes on one, the
-// copies of the next kStageBuffers - 1 stages are in flight.
-constexpr int kStageBuffers = 2;
-
 // The group size and the tile layout (in elements) of stage shape (NZ, NU).
 // Every slot starts on a multiple of four elements, so 16-byte copies land
 // aligned.
@@ -119,10 +115,10 @@ struct RicShape {
                        kgu = kgz + pad4(NZ), kStage = kgu + pad4(NU);
   static constexpr int kK = kHzz, kkff = kHuu;
   static_assert(NU * NZ <= pad4(NZ * NZ) && NU <= pad4(NU * NU), "reuse");
-  // the tile: the stage buffers, P, the next P before symmetrisation, and
+  // the tile: two stage buffers, P, the next P before symmetrisation, and
   // the shared terms; [K | kff] as X[a][c], row stride NR (a multiple of 4)
   static constexpr int NR = pad4(NZ + 1);
-  static constexpr int kP = kStageBuffers * kStage, kPn = kP + pad4(NZ * NZ),
+  static constexpr int kP = 2 * kStage, kPn = kP + pad4(NZ * NZ),
                        kPrp = kPn + pad4(NZ * NZ), kPB = kPrp + pad4(NZ),
                        kQuu = kPB + pad4(NZ * NU), kqu = kQuu + pad4(NU * NU),
                        kX = kqu + pad4(NU), kEnd = kX + NU * NR;
@@ -156,13 +152,11 @@ RIC_HD void ric_commit() {
 #endif
 }
 
-// Wait until all but this thread's `kPending` most recent copy groups have
-// landed (the group barrier that follows makes them visible to the other
-// lanes).
-template <int kPending>
+// Wait until this thread's copies have landed (the group barrier that
+// follows makes them visible to the other lanes).
 RIC_HD void ric_wait() {
 #if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
 }
 
@@ -290,12 +284,7 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
   T* const Quu = tile + Sh::kQuu;
   T* const qu = tile + Sh::kqu;
   T* const X = tile + Sh::kX;
-  // Stage s of a sweep (s = 0, 1, ... in sweep order) lives in buf(s); a
-  // sweep keeps kAhead stages in flight, one commit group each (an empty
-  // group past the sweep's end), so `ric_wait<kAhead - 1>` at the end of
-  // stage s leaves stage s + 1 landed.
-  constexpr int kAhead = kStageBuffers - 1;
-  auto buf = [&](int s) { return tile + (s % kStageBuffers) * Sh::kStage; };
+  auto buf = [&](int s) { return tile + (s & 1) * Sh::kStage; };
 
   // Lane l's copies of the backward sweep's stage k into dst.
   auto fetch_back = [&](int k, T* dst, int l) {
@@ -337,14 +326,8 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
       for (int j = 0; j < NZ; ++j) P[l * NZ + j] = Hf[l * NZ + j];
       own[g.slot(l)].p = gf[l];
     }
-    for (int s = 0; s < kAhead; ++s) {
-      if (s < N) {
-        fetch_back(N - 1 - s, buf(s), l);
-      } else {
-        ric_commit();
-      }
-    }
-    ric_wait<kAhead - 1>();
+    fetch_back(N - 1, buf(0), l);
+    ric_wait();
   });
 
   // ---- backward sweep.  Every sum runs over its terms in index order;
@@ -353,15 +336,12 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
 #pragma unroll 1
   for (int k = N - 1; k >= 0; --k) {
     const T* S = buf(N - 1 - k);
+    T* const next = buf(N - k);
 
-    // (1) copy stage k - kAhead into the free buffer; P r + p, P Bz, and this
+    // (1) copy stage k-1 into the other buffer; P r + p, P Bz, and this
     // lane's rows of A'P, Qzz = Hzz + (A'P) A and Qzu = Hzu + (A'P) B
     g.phase([&](int l) {
-      if (k >= kAhead) {
-        fetch_back(k - kAhead, buf(N - 1 - k + kAhead), l);
-      } else {
-        ric_commit();
-      }
+      if (k > 0) fetch_back(k - 1, next, l);
       if (l < NZ) {
         Own& o = own[g.slot(l)];
         const int i = l;
@@ -517,7 +497,7 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
       }
     });
 
-    // (5) P = sym(Pn) through the tile's transpose; stage k - 1 has landed
+    // (5) P = sym(Pn) through the tile's transpose; stage k-1 has landed
     // when the phase ends
     g.phase([&](int l) {
       if (l < NZ) {
@@ -528,7 +508,7 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
         for (int j = 0; j < NZ; ++j)
           P[l * NZ + j] = T(0.5) * (v[j] + Pn[j * NZ + l]);
       }
-      ric_wait<kAhead - 1>();
+      ric_wait();
 #if defined(__CUDA_ARCH__)
       // The rollout's copies read the gains other lanes stored.
       if (k == 0) __threadfence();
@@ -539,17 +519,11 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
   // ---- forward rollout, dz_0 = 0 (node 0 is pinned to the measurement)
   T dzs[kHost], dus[kHost];
   g.phase([&](int l) {
-    for (int s = 0; s < kAhead; ++s) {
-      if (s < N) {
-        fetch_fwd(s, buf(s), l);
-      } else {
-        ric_commit();
-      }
-    }
+    fetch_fwd(0, buf(0), l);
     dzs[g.slot(l)] = T(0);
     dus[g.slot(l)] = T(0);
     if (l < NZ) dz[l] = T(0);
-    ric_wait<kAhead - 1>();
+    ric_wait();
   });
 #pragma unroll 1
   for (int k = 0; k < N; ++k) {
@@ -557,13 +531,9 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
     // dz_k and du_k of every lane, the same in each (so one copy serves
     // every lane on the host)
     T dzk[NZ], duk[NU];
-    // (D) copy stage k + kAhead; lanes c < NU form du_c = K_c dz_k + kff_c
+    // (D) copy stage k+1; lanes c < NU form du_c = K_c dz_k + kff_c
     g.phase([&](int l) {
-      if (k + kAhead < N) {
-        fetch_fwd(k + kAhead, buf(k + kAhead), l);
-      } else {
-        ric_commit();
-      }
+      if (k + 1 < N) fetch_fwd(k + 1, buf(k + 1), l);
 #pragma unroll
       for (int j = 0; j < NZ; ++j) dzk[j] = g.from_lane(dzs, j);
       if (l < NU) {
@@ -598,7 +568,7 @@ RIC_HD void riccati_group(const RiccatiArgs<T>& a, long long b,
         dzs[g.slot(l)] = u;
         dz[(k + 1) * NZ + l] = u;
       }
-      ric_wait<kAhead - 1>();
+      ric_wait();
     });
   }
 }

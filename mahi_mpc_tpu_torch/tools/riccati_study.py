@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Stage buffers and blocks an SM for the Riccati kernel: the library
-built with ``kStageBuffers`` = s (``csrc/riccati.cuh``: s - 1 stages in
-flight) and ``__launch_bounds__(128, b)`` (``csrc/riccati.cu``) for the
-(s, b) of ``VARIANTS`` (the first is what the sources build), each build's
-ptxas line and occupancy, its results against the plain version, and its
-time at B=16384, N=25 at every stage shape, the builds timed in turns
-(forward, then backward) in one process; and the instruction mix of the
-sources' build (``cuobjdump -sass``, static counts by opcode).
+"""Blocks an SM for the Riccati kernel: the library built with
+``__launch_bounds__(128, b)`` (``csrc/riccati.cu``) for the b of
+``BLOCKS`` (the first is what the sources build), each build's ptxas line
+and occupancy, its results against the plain version, and its time at
+B=16384, N=25 at every stage shape, the builds timed in turns (forward,
+then backward) in one process; and the instruction mix of the sources'
+build (``cuobjdump -sass``, static counts by opcode).
 
 Run from the root of a checkout on one Hopper card:
 ``python3 mahi_mpc_tpu_torch/tools/riccati_study.py``.  It builds into a
@@ -28,8 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-BUILT = (2, 4)
-VARIANTS = (BUILT, (3, 4), (2, 3), (2, 5))
+BLOCKS = (4, 3, 5)
 SHAPES = ((12, 4), (6, 2), (5, 1), (3, 1))
 BATCH, N = 16384, 25
 
@@ -59,19 +57,16 @@ def study(tmp: Path) -> int:
                          text=True, check=True).stdout.strip()
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     cu_src = (CSRC / "riccati.cu").read_text()
-    cuh_src = (CSRC / "riccati.cuh").read_text()
-    cu_key, cuh_key = (f"kRicMinBlocks = {BUILT[1]};",
-                       f"kStageBuffers = {BUILT[0]};")
-    if cu_key not in cu_src or cuh_key not in cuh_src:
-        raise RuntimeError(f"the sources no longer build {BUILT}")
+    cu_key = f"kRicMinBlocks = {BLOCKS[0]};"
+    if cu_key not in cu_src:
+        raise RuntimeError(f"csrc/riccati.cu no longer sets {cu_key}")
 
-    def build(v):
-        d = tmp / f"s{v[0]}_b{v[1]}"
+    def build(b):
+        d = tmp / f"b{b}"
         d.mkdir()
         (d / "riccati.cu").write_text(cu_src.replace(
-            cu_key, f"kRicMinBlocks = {v[1]};"))
-        (d / "riccati.cuh").write_text(cuh_src.replace(
-            cuh_key, f"kStageBuffers = {v[0]};"))
+            cu_key, f"kRicMinBlocks = {b};"))
+        shutil.copy(CSRC / "riccati.cuh", d)
         out = d / "riccati.so"
         cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(out), str(d / "riccati.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -84,13 +79,13 @@ def study(tmp: Path) -> int:
         lib.mpc_riccati_blocks_per_sm.argtypes = [ctypes.c_int] * 2
         return lib, proc.stdout + proc.stderr
 
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as ex:
-        libs = dict(zip(VARIANTS, ex.map(build, VARIANTS)))
-    for (s, b), (lib, report) in libs.items():
+    with concurrent.futures.ThreadPoolExecutor(len(BLOCKS)) as ex:
+        libs = dict(zip(BLOCKS, ex.map(build, BLOCKS)))
+    for b, (lib, report) in libs.items():
         for k in ptxas_summary(report):
             nz, nu = k["template_args"]
             print(json.dumps(dict(
-                stage_buffers=s, min_blocks=b, nz=nz, nu=nu,
+                min_blocks=b, nz=nz, nu=nu,
                 registers=k["registers"],
                 spill_store_bytes=k["spill_store_bytes"],
                 blocks_per_sm=lib.mpc_riccati_blocks_per_sm(nz, nu))),
@@ -100,8 +95,7 @@ def study(tmp: Path) -> int:
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
         / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
-                           str(tmp / f"s{BUILT[0]}_b{BUILT[1]}" /
-                               "riccati.so")],
+                           str(tmp / f"b{BLOCKS[0]}" / "riccati.so")],
                           capture_output=True, text=True).stdout
     for fn in sass.split("Function : ")[1:]:
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -111,7 +105,8 @@ def study(tmp: Path) -> int:
             key = op if op.startswith("LDS") else op.split(".")[0]
             mix[key] = mix.get(key, 0) + 1
         top = sorted(mix, key=mix.get, reverse=True)[:16]
-        print(json.dumps(dict(build=BUILT, kernel=fn.split("\n")[0].strip(),
+        print(json.dumps(dict(min_blocks=BLOCKS[0],
+                              kernel=fn.split("\n")[0].strip(),
                               instructions=len(ops),
                               by_opcode={k: mix[k] for k in top})),
               flush=True)
@@ -120,7 +115,7 @@ def study(tmp: Path) -> int:
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                     device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    run = lambda v, qp: _run_library(libs[v][0].mpc_riccati_launch_f32,
+    run = lambda b, qp: _run_library(libs[b][0].mpc_riccati_launch_f32,
                                      stream, qp)
 
     def timed(fn, reps=20):
@@ -139,19 +134,19 @@ def study(tmp: Path) -> int:
     for nz, nu in SHAPES:
         qp = random_qp(1000, N, nz, nu, seed=3, to=f32)
         ref = _solve_lqr_kernel_plain(qp)
-        for v in VARIANTS:
-            dz, du = run(v, qp)
+        for b in BLOCKS:
+            dz, du = run(b, qp)
             err = max((dz - ref.dz).abs().max().item(),
                       (du - ref.du).abs().max().item())
             ok = ok and err <= 1e-3
         idx = torch.arange(BATCH, device=dev) % 1000
         qpt = type(qp)(*[a[idx] for a in qp])
-        ms = {v: [] for v in VARIANTS}
-        for v in VARIANTS + VARIANTS[::-1]:
-            ms[v].append(timed(lambda: run(v, qpt)))
+        ms = {b: [] for b in BLOCKS}
+        for b in BLOCKS + BLOCKS[::-1]:
+            ms[b].append(timed(lambda: run(b, qpt)))
         print(json.dumps(dict(nz=nz, nu=nu, batch=BATCH, N=N,
-                              kernel_ms={f"stage_buffers_{v[0]}_min_blocks_"
-                                         f"{v[1]}": t for v, t in ms.items()},
+                              kernel_ms={f"min_blocks_{b}": t
+                                         for b, t in ms.items()},
                               max_abs_err_vs_plain_ok=ok)), flush=True)
     return 0 if ok else 1
 
