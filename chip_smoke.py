@@ -78,7 +78,10 @@ line each, with the seconds since start in ``t``:
     lanes-layout entry (permutes and kernel) at (12, 4), the plain version;
     ``bound_ms`` (bytes: the stage QP read and dz, du written once) and
     ``design_bound_ms`` (the bytes this design moves: also the rollout's
-    second read of Az, Bz, r and the gains' round trip);
+    second read of Az, Bz, r and the gains' round trip); the kernel's du,
+    dz held to the plain version's as in phase 9 at both timed shapes, and
+    at B=16383 on phase 9's random (12, 4) QP (its last block short a
+    group, its indefinite instance NaN alone);
 11. parity_lanes_vs_fused — the lanes SQP (Riccati kernel) against the
     fused kernel at B=1024 from the lanes cold plan with x0 + 0.01: one
     iteration each, then the adaptive warm lanes solve against fused
@@ -124,7 +127,7 @@ SERVICE_BATCH = 16384
 WARM_STEPS = 10
 ADAPTIVE_WARM_STEPS = 3
 COLD_DU_BAND = 5e-3
-RICCATI_PARITY_BATCH = 1000       # not a multiple of the 128-thread block
+RICCATI_PARITY_BATCH = 1000       # under one wave of the Riccati kernel
 LANES_WARM_STEPS = 3
 LADDER = (4096, 16384, 65536)     # the fused kernel's batch ladder
 COUNT_SAMPLE = 32                 # instances whose operations g++ counts
@@ -282,7 +285,7 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
                                                    solve_batch_lanes)
     from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
     from mahi_mpc_tpu_torch.ops.precision import strict_fp32
-    from mahi_mpc_tpu_torch.solver.riccati import _multipliers
+    from mahi_mpc_tpu_torch.solver.riccati import LQRSolution, _multipliers
     from mahi_mpc_tpu_torch.solver.riccati_kernel import (
         _launch_cuda, _solve_lqr_kernel_plain, _to_lanes,
         solve_lqr_kernel_batch, solve_lqr_kernel_lanes)
@@ -308,25 +311,27 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     cases = {"random_12x4": qp12._replace(Huu=Huu),
              "random_6x2": random_qp(Br, N, 6, 2, seed=12, to=f32),
              "stage_qp_mahi_arm": arm_qp}
-    max_err = 0.0
-    for name, qp in cases.items():
-        k, pl = solve_lqr_kernel_batch(qp), _solve_lqr_kernel_plain(qp)
+
+    def held(phase, name, k, pl, want):
+        """Emit and return the line holding the kernel's solution ``k`` to
+        the plain ``pl``: non-finite in the instances outside ``want`` and
+        only there, in both; du and dz within rtol 2e-4 / atol 2e-5 (lam,
+        where ``k`` has it, is only reported: the callers judge it)."""
         sync()
         fin = lambda s: (torch.isfinite(s.du).all(dim=(1, 2))
                          & torch.isfinite(s.dz).all(dim=(1, 2)))
         fk, fp = fin(k), fin(pl)
-        want = torch.ones(Br, dtype=torch.bool, device=dev)
-        if name == "random_12x4":
-            want[nan_i] = False
         check(bool((fk == want).all()) and bool((fp == want).all()),
-              f"{name}: non-finite instances kernel "
-              f"{(~fk).nonzero().flatten().tolist()}, plain "
-              f"{(~fp).nonzero().flatten().tolist()}")
-        line = dict(phase="parity_riccati", case=name, batch=Br, N=N,
-                    nz=qp.Az.shape[-1], nu=qp.Bz.shape[-1],
+              f"{phase} {name}: non-finite instances kernel "
+              f"{(~fk).nonzero().flatten().tolist()[:20]}, plain "
+              f"{(~fp).nonzero().flatten().tolist()[:20]}")
+        line = dict(phase=phase, case=name, batch=k.du.shape[0], N=N,
+                    nz=k.dz.shape[-1], nu=k.du.shape[-1],
                     nan_instances=int((~fk).sum()))
         for field, rtol, atol in (("du", 2e-4, 2e-5), ("dz", 2e-4, 2e-5),
                                   ("lam", 2e-4, 2e-4)):
+            if getattr(k, field) is None:
+                continue
             a, b = getattr(k, field)[want], getattr(pl, field)[want]
             err = (a - b).abs()
             line[f"max_abs_{field}"] = err.max().item()
@@ -336,7 +341,16 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
         emit(**line)
         for field in ("du", "dz"):
             check(line[f"band_excess_{field}"] <= 0,
-                  f"{name}: {field} beyond rtol 2e-4 / atol 2e-5")
+                  f"{phase} {name}: {field} beyond rtol 2e-4 / atol 2e-5")
+        return line
+
+    max_err = 0.0
+    for name, qp in cases.items():
+        want = torch.ones(Br, dtype=torch.bool, device=dev)
+        if name == "random_12x4":
+            want[nan_i] = False
+        line = held("parity_riccati", name, solve_lqr_kernel_batch(qp),
+                    _solve_lqr_kernel_plain(qp), want)
         if name == "stage_qp_mahi_arm":
             check(line["band_excess_lam"] <= 0,
                   f"{name}: lam beyond rtol/atol 2e-4")
@@ -353,18 +367,37 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     # launch and its outputs' allocation) at (12, 4) on the stage QP and at
     # (6, 2) on the random QP; at (12, 4) also the batch-leading entry
     # (kernel, then multipliers), the multipliers alone, the lanes entry
-    # (permutes around the kernel) and the plain version
-    idx = torch.arange(SERVICE_BATCH, device=dev) % Br
-    tile = lambda qp: StageQP(*[a[idx] for a in qp])
-    qpt, qp62 = tile(arm_qp), tile(cases["random_6x2"])
+    # (permutes around the kernel) and the plain version.  The kernel's
+    # answers at both timed shapes are held to the plain version's, and so
+    # is one at B = SERVICE_BATCH - 1 at (12, 4): there the last block runs
+    # 7 of its 8 groups, and the random QP's indefinite instance recurs
+    # every Br instances, its neighbours finite.
+    tile = lambda qp, B: StageQP(*[a[torch.arange(B, device=dev) % Br]
+                                   for a in qp])
+    qpt, qp62 = (tile(arm_qp, SERVICE_BATCH),
+                 tile(cases["random_6x2"], SERVICE_BATCH))
     sol, kernel_ms = timed(lambda: _launch_cuda(qpt), 20)
-    _, kernel_ms_62 = timed(lambda: _launch_cuda(qp62), 20)
+    sol62, kernel_ms_62 = timed(lambda: _launch_cuda(qp62), 20)
     _, batch_ms = timed(lambda: solve_lqr_kernel_batch(qpt), 10)
     with strict_fp32():
         _, mult_ms = timed(lambda: _multipliers(qpt, *sol), 5)
     lanes_in = tuple(_to_lanes(a) for a in qpt)
     _, lanes_ms = timed(lambda: solve_lqr_kernel_lanes(lanes_in), 10)
-    _, plain_ms = timed(lambda: _solve_lqr_kernel_plain(qpt), 3)
+    pl, plain_ms = timed(lambda: _solve_lqr_kernel_plain(qpt), 3)
+    as_sol = lambda dzdu: LQRSolution(dz=dzdu[0], du=dzdu[1], lam=None)
+    all_finite = torch.ones(SERVICE_BATCH, dtype=torch.bool, device=dev)
+    tail = SERVICE_BATCH - 1
+    qptail = tile(cases["random_12x4"], tail)
+    for name, k, pl_, want in (
+            ("stage_qp_mahi_arm", as_sol(sol), pl, all_finite),
+            ("random_6x2", as_sol(sol62), _solve_lqr_kernel_plain(qp62),
+             all_finite),
+            ("random_12x4_tail", as_sol(_launch_cuda(qptail)),
+             _solve_lqr_kernel_plain(qptail),
+             torch.arange(tail, device=dev) % Br != nan_i)):
+        line = held("timing_riccati_parity", name, k, pl_, want)
+        max_err = max(max_err, line["max_abs_du"], line["max_abs_dz"])
+    del pl, qptail
 
     def bounds(qp):
         """bound_ms: the function's bytes (the stage QP read once, dz and du
@@ -536,9 +569,12 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     l_arm, ms_arm = route_service(
         "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
         lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
-    emit(phase="service_lanes_profile", batch=Bs,
-         **profile_step(svc, "riccati_group_kernel"),
+    prof = profile_step(svc, "riccati_group_kernel")
+    emit(phase="service_lanes_profile", batch=Bs, **prof,
          stage_ms=lanes_stage_ms(svc))
+    check(prof["kernel_count"] >= 1 and prof["kernel_device_ms"] > 0,
+          f"the profiled lanes step ran {prof['kernel_count']} "
+          f"riccati_group_kernel launches")
 
     # ---- double_pendulum under RK4: "auto" (fused, generic path) and
     # "adaptive" (lanes, Riccati kernel at (6, 2)) on the same closed loop
