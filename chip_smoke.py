@@ -100,19 +100,43 @@ line each, with the seconds since start in ``t``:
     ``warm_solver="auto"`` on the card resolves to the fused kernel's
     generic path (launches = steps, no Riccati launch), and
     ``warm_solver="adaptive"`` takes the lanes route (the Riccati kernel at
-    (6, 2)), each with the asserts of phase 12.
+    (6, 2)), each with the asserts of phase 12;
+14. runtime_control — the single-instance runtime on the card:
+    ``generate_model`` of the main path's arm (fixed-3 warm options) into a
+    temporary directory (it must build ``fused_sqp``), ``ModelControl``
+    loaded from it, a cold ``calc_u`` (converged) and 200 warm ``calc_u``
+    in closed loop on the arm's Euler plant, started on a sinusoid
+    reference (no failure, |q - q_des| < 0.05 rad over the last half), for
+    the manifest's fixed-3 and for adaptive warm solves given at load
+    time: the fused kernel's launches rise by one a warm ``calc_u`` and
+    the Riccati kernel's not at all; ``calc_u`` p50 / p99 ms and the cold
+    solve's seconds.  Then the B=1 fused warm solve (fixed-3 and adaptive)
+    held to its plain version on the same inputs (statuses equal, max|dX|,
+    |dU| <= 1e-4), the group kernel's device ms a launch at B=1 (profiler,
+    50 launches), the plain version's ms, the bound at B=1, and 20
+    ``calc_u`` under the profiler (host against kernel); an LTV
+    ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, B=1 held to
+    the plain version); and 1 s of ``start_calc`` with the native plan
+    server under a 1 kHz ``control_at_time`` reader (``NativePacer``):
+    no failure, no stale or placeholder serve, launches = solves - 1;
+15. service_non_lanes — ``BatchModelControl`` over the arm written as a
+    per-instance ``Dynamics`` (no lanes support), B=1024: the
+    ``solve_batch`` route, 1 cold + 2 warm steps, converged_frac >= 0.9,
+    no kernel launched.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths, its error against the plain version (for the fused kernel's
-modes, the fixed-3 warm solve at B=16384), both times, its bound
-(``bound_ms``, ``bound_by``; for the fused kernel also ``body_bound_ms``,
-the bound of its body's own tally) and ``library_ms`` (null: no single
-PyTorch call computes either function), the
+modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
+both times (``ms_b1``, ``plain_ms_b1`` at B=1), its bound (``bound_ms``,
+``bound_by``; for the fused kernel also ``body_bound_ms``, the bound of
+its body's own tally, and ``bound_ms_b1``) and ``library_ms`` (null: no
+single PyTorch call computes either function), the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -130,6 +154,11 @@ COLD_DU_BAND = 5e-3
 RICCATI_PARITY_BATCH = 1000       # under one wave of the Riccati kernel
 LANES_WARM_STEPS = 3
 LADDER = (4096, 16384, 65536)     # the fused kernel's batch ladder
+RUNTIME_WARM_CALLS = 200          # warm calc_u a warm shape, B=1
+RUNTIME_LTV_CALLS = 50
+THREAD_SECONDS = 1.0
+TRACK_BAND = 0.05                 # rad, |q - q_des| in the closed loops
+NON_LANES_BATCH = 1024
 COUNT_SAMPLE = 32                 # instances whose operations g++ counts
 # NVIDIA's H100 SXM peaks from its datasheet: FP32 outside the tensor cores
 # and HBM3.
@@ -195,12 +224,13 @@ def random_qp(B, N, nz, nu, seed, to):
                                      gf)])
 
 
-def profile_step(svc, kernel):
-    """One service step under torch.profiler, after one profiled step that
-    warms the profiler up: wall ms (profiler overhead included), device ms
-    summed over kernels, the device ms of the kernels whose name holds
-    ``kernel`` and their launches, and the host-only ms (wall minus
-    device).  Device time 0 means the profiler saw no kernel."""
+def profile_step(step, kernel):
+    """One call of ``step`` (a service step) under torch.profiler, after
+    one profiled call that warms the profiler up: wall ms (profiler
+    overhead included), device ms summed over kernels, the device ms of the
+    kernels whose name holds ``kernel`` and their launches, and the
+    host-only ms (wall minus device).  Device time 0 means the profiler saw
+    no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -208,12 +238,12 @@ def profile_step(svc, kernel):
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        svc.step()
+        step()
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        svc.step()
+        step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -569,7 +599,7 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
     l_arm, ms_arm = route_service(
         "service_lanes", svc, x0, f32(0.2 * rng.standard_normal((Bs, N, nx))),
         lambda i, u: (x0 + f32(perts[i]), f32(refs[i])))
-    prof = profile_step(svc, "riccati_group_kernel")
+    prof = profile_step(svc.step, "riccati_group_kernel")
     emit(phase="service_lanes_profile", batch=Bs, **prof,
          stage_ms=lanes_stage_ms(svc))
     check(prof["kernel_count"] >= 1 and prof["kernel_device_ms"] > 0,
@@ -910,6 +940,341 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
              max_abs_err=g_pend["warm_max_abs_dxu"])]
 
 
+def arm_reference(mp, t):
+    """A reference for ``calc_u``: joint j follows 0.3 sin(2 pi t + j) rad,
+    with its rate, at the plan's N nodes after ``t``."""
+    import numpy as np
+
+    nq = mp.num_x // 2
+    tt = t + (1 + np.arange(mp.num_shooting_nodes)) * mp.step_size
+    w, ph = 2 * np.pi, np.arange(nq)
+    return np.concatenate([0.3 * np.sin(w * tt[:, None] + ph),
+                           0.3 * w * np.cos(w * tt[:, None] + ph)], axis=1)
+
+
+def calc_u_params(mc, t, x, u):
+    """The batch-of-one params ``mc.calc_u(t, x, u, arm_reference(mp, t))``
+    hands its solver (the LTV linearization included)."""
+    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+    from mahi_mpc_tpu_torch.transcribe.shooting import LinPoint, map_params
+
+    x0, u0 = mc._tensor(x), mc._tensor(u)
+    p = mc._p._replace(x_des=mc._tensor(arm_reference(mc.params, t)), x0=x0,
+                       u_prev=u0)
+    if mc.params.is_linear:
+        with strict_fp32():
+            A, B, xd0 = mc.dynamics.linearize(x0, u0)
+        p = p._replace(lin=LinPoint(A, B, xd0, x0, u0))
+    return map_params(lambda a: a[None], p)
+
+
+def held_b1(mc, p1, kw):
+    """The fused solve at B=1 from ``mc``'s warm start, kernel against
+    plain version on the same inputs: max |dX|, |dU| (both statuses
+    equal, or the check fails)."""
+    from mahi_mpc_tpu_torch.solver.fused import (solve_batch_fused,
+                                                 solve_batch_fused_plain)
+
+    X1, U1 = mc._X0[None], mc._U0[None]
+    rk, rp = [solve(mc.problem, p1, X1, U1, mc.opts, mu0=mc._mu_warm, **kw)
+              for solve in (solve_batch_fused, solve_batch_fused_plain)]
+    err = max((rk.X - rp.X).abs().max().item(),
+              (rk.U - rp.U).abs().max().item())
+    check(int(rk.status[0]) == int(rp.status[0]) and err <= 1e-4,
+          f"B=1 {kw}: max|dX|,|dU| {err}, statuses {int(rk.status[0])} / "
+          f"{int(rp.status[0])}")
+    return err
+
+
+def closed_loop(mc, plant, x, n_warm, t0=0.0):
+    """One cold and ``n_warm`` warm ``calc_u`` of ``mc`` in closed loop on
+    ``plant``, one plan step a call: (cold plan, warm plans, final state,
+    largest |q - q_des| over the last half)."""
+    import numpy as np
+
+    mp = mc.params
+    u = np.zeros(mp.num_u)
+    plans, errs = [], []
+    for k in range(1 + n_warm):
+        t = t0 + k * mp.step_size
+        ref = arm_reference(mp, t)
+        plan = mc.calc_u(t, x, u, ref)
+        plans.append(plan)
+        u = plan.U[0]
+        x = plant(x, u)
+        errs.append(np.abs(x[:mp.num_x // 2] - ref[0, :mp.num_x // 2]).max())
+    return plans[0], plans[1:], x, float(np.max(errs[len(errs) // 2:]))
+
+
+def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
+    """Phase 14, runtime_control: the single-instance runtime of ``mp`` (the
+    main path's 4-DOF arm) on the card.  Returns what the kernels line
+    reports of the fused kernel at B=1."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.models import euler_step, make_dynamics
+    from mahi_mpc_tpu_torch.runtime import ModelControl, generate_model
+    from mahi_mpc_tpu_torch.runtime.native import NativePacer
+    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
+
+    dyn = make_dynamics("mahi_arm")
+    euler = euler_step(dyn.f, mp.step_size)
+    plant = lambda x, u: euler(torch.as_tensor(x, dtype=torch.float64),
+                               torch.as_tensor(u, dtype=torch.float64)
+                               ).numpy()
+    weights = dict(Q=Qw, R=Rw, Rm=Rmw)
+    # Start on the reference (its value at t = 0, one step before node 0).
+    x_start = arm_reference(mp, -mp.step_size)[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        manifest = generate_model(
+            mp, directory=tmp, device=dev, opts=SolverOptions(
+                tol=opts.tol, max_iter=30, fixed_warm_iters=3))
+        gen_s = time.perf_counter() - t0
+        libs = json.loads(open(manifest).read())["libraries"]
+        check(list(libs) == ["fused_sqp"],
+              f"generate_model built {list(libs)} for the Euler arm")
+
+        def reset():
+            solve_batch_fused.launches = 0
+            solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+            solve_lqr_kernel_batch.launches = 0
+
+        def counts():
+            return (solve_batch_fused.launches,
+                    dict(solve_batch_fused.mode_launches),
+                    solve_lqr_kernel_batch.launches)
+
+        # -- the main path: generated model, cold + warm closed loop, for
+        # both warm shapes (fixed-3 from the manifest, adaptive by options)
+        runs = {}
+        for k, given in ((3, None), (0, SolverOptions(
+                tol=opts.tol, max_iter=30, fixed_warm_iters=0))):
+            mc = ModelControl(mp.name, directory=tmp, opts=given,
+                              device=dev, **weights)
+            check(mc.warm_solver == "fused" and mc.device == dev,
+                  f"ModelControl resolved {mc.warm_solver} on {mc.device}")
+            reset()
+            cold, warm, x, err = closed_loop(mc, plant, x_start,
+                                             RUNTIME_WARM_CALLS)
+            launches, modes, ric = counts()
+            lat = np.array([p.solve_time_s for p in warm]) * 1e3
+            st = np.array([p.status for p in warm])
+            it = np.array([p.iters for p in warm])
+            summ = mc.stats.summary()
+            line = dict(fixed_warm_iters=k, cold_status=cold.status,
+                        cold_iters=cold.iters, cold_s=cold.solve_time_s,
+                        warm_calls=len(warm), launches=launches,
+                        launches_fast=modes["fast"], riccati_launches=ric,
+                        calc_u_p50_ms=float(np.percentile(lat, 50)),
+                        calc_u_p99_ms=float(np.percentile(lat, 99)),
+                        calc_u_mean_ms=float(lat.mean()),
+                        warm_converged=float((st == 0).mean()),
+                        warm_mean_iters=float(it.mean()),
+                        failures=summ["failures"],
+                        max_track_err_last_half=err,
+                        final_state_finite=bool(np.isfinite(x).all()))
+            emit(phase="runtime_control", generate_s=gen_s, **line)
+            check(cold.status == 0, f"cold calc_u status {cold.status}")
+            check(launches == len(warm) == modes["fast"] and ric == 0,
+                  f"{launches} fused launches ({modes}), {ric} Riccati, for "
+                  f"{len(warm)} warm calc_u")
+            check(summ["failures"] == 0 and bool((st != 2).all())
+                  and np.isfinite(x).all() and err < TRACK_BAND,
+                  f"runtime closed loop {line}")
+            if k == 0:
+                check((st == 0).mean() >= 0.9, f"adaptive warm {line}")
+            runs[k] = (mc, line)
+
+        # -- the fused warm solve at B=1 against its plain version, at the
+        # next state the last plan predicts (launches after the counted run)
+        mc, line = runs[3]
+        mu = mc._mu_warm
+        t_last = RUNTIME_WARM_CALLS * mp.step_size
+        x_next, u_last = mc._X0[1].cpu().numpy(), mc._U0[0].cpu().numpy()
+        p1 = calc_u_params(mc, t_last, x_next, u_last)
+        X1, U1 = mc._X0[None], mc._U0[None]
+        b1 = {name: held_b1(mc, p1, kw) for name, kw in (
+            ("fixed3", dict(n_iter=3)), ("adaptive", dict(adaptive=True)))}
+        warm1 = lambda solve: solve(mc.problem, p1, X1, U1, mc.opts,
+                                    mu0=mu, n_iter=3)
+        reps = 50
+        prof = profile_step(lambda: [warm1(solve_batch_fused)
+                                     for _ in range(reps)],
+                            "fused_sqp_group_kernel")
+        check(prof["kernel_count"] == reps,
+              f"{prof['kernel_count']} group kernel launches for {reps}")
+        kernel_ms = prof["kernel_device_ms"] / prof["kernel_count"]
+        _, wrapper_ms = timed(lambda: warm1(solve_batch_fused), reps)
+        _, plain_ms = timed(lambda: warm1(solve_batch_fused_plain), 3)
+        prof_calc = profile_step(
+            lambda: [mc.calc_u(t_last, x_next, u_last,
+                               arm_reference(mp, t_last))
+                     for _ in range(20)], "fused_sqp_group_kernel")
+        ops = count_fused_ops(mc.problem, p1, X1, U1, mc.opts, mu0=mu,
+                              n_iter=3)
+        bound = bound_ms(sum(ops["minimum"].values()),
+                         fused_io_bytes(p1, X1, U1, 1))
+        out.update(ms_b1=kernel_ms, plain_ms_b1=plain_ms,
+                   max_abs_err_b1=max(b1.values()),
+                   bound_ms_b1=bound["bound_ms"],
+                   bound_by_b1=bound["bound_by"])
+        emit(phase="runtime_fused_b1", max_abs_dxu_fixed3=b1["fixed3"],
+             max_abs_dxu_adaptive=b1["adaptive"], kernel_device_ms=kernel_ms,
+             wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+             calc_u_p50_ms=line["calc_u_p50_ms"],
+             kernel_share_of_calc_u_p50=kernel_ms / line["calc_u_p50_ms"],
+             calc_u_profiled={k: prof_calc[k] for k in (
+                 "wall_ms", "device_ms", "kernel_device_ms", "kernel_count",
+                 "device_busy_share", "top_kernels")})
+
+        # -- the LTV flavour: a generated LTV model, cold + warm closed loop
+        lmp = dataclasses.replace(mp, name=mp.name + "_ltv", is_linear=True)
+        generate_model(lmp, directory=tmp, device=dev, opts=SolverOptions(
+            tol=opts.tol, max_iter=30, fixed_warm_iters=3))
+        lmc = ModelControl(lmp.name, directory=tmp, device=dev, **weights)
+        reset()
+        cold, warm, x, err = closed_loop(lmc, plant, x_start,
+                                         RUNTIME_LTV_CALLS)
+        launches, modes, ric = counts()
+        st = np.array([p.status for p in warm])
+        lat = np.array([p.solve_time_s for p in warm]) * 1e3
+        emit(phase="runtime_control_ltv", cold_status=cold.status,
+             cold_iters=cold.iters, cold_s=cold.solve_time_s,
+             warm_calls=len(warm), launches=launches,
+             launches_ltv=modes["ltv"],
+             calc_u_p50_ms=float(np.percentile(lat, 50)),
+             calc_u_p99_ms=float(np.percentile(lat, 99)),
+             warm_converged=float((st == 0).mean()),
+             max_track_err_last_half=err)
+        check(cold.status == 0 and launches == len(warm) == modes["ltv"]
+              and bool((st != 2).all()) and np.isfinite(x).all(),
+              f"LTV runtime: cold {cold.status}, {launches} launches "
+              f"({modes}) for {len(warm)}, statuses {np.unique(st)}")
+        out["ltv_launches"] = launches
+        out["ltv_max_abs_err_b1"] = held_b1(
+            lmc, calc_u_params(lmc, RUNTIME_LTV_CALLS * mp.step_size,
+                               lmc._X0[1].cpu().numpy(),
+                               lmc._U0[0].cpu().numpy()), dict(n_iter=3))
+
+        # -- the solver thread: 1 s of start_calc under a 1 kHz
+        # control_at_time reader, with the native plan server.  The reader
+        # holds the plant to the plan (its state at the read's time): a
+        # plant integrated in Python would hold the interpreter lock that
+        # the solver thread needs.  The lock is handed over every 0.2 ms
+        # (the default 5 ms would pace the reader below 1 kHz).
+        tmc = ModelControl(mp.name, directory=tmp, use_native_server=True,
+                           device=dev, **weights)
+        u = np.zeros(mp.num_u)
+        tmc.set_state(0.0, x_start, u, arm_reference(mp, 0.0))
+        reset()
+        switch = sys.getswitchinterval()
+        tmc.start_calc()
+        try:
+            deadline = time.perf_counter() + 60.0
+            while (tmc.control_results().status == -1
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            check(tmc.control_results().status != -1,
+                  "the solver thread made no plan in 60 s")
+            sys.setswitchinterval(2e-4)
+            solves0 = tmc.stats.summary()["solves"]
+            pacer = NativePacer(0.001)
+            t_start = time.perf_counter()
+            ticks = 0
+            while (t := time.perf_counter() - t_start) < THREAD_SECONDS:
+                u = tmc.control_at_time(t)
+                tmc.set_state(t, tmc.control_results().state_at_time(t), u,
+                              arm_reference(mp, t))
+                ticks += 1
+                pacer.wait()
+        finally:
+            sys.setswitchinterval(switch)
+            tmc.stop_calc()
+        launches, modes, ric = counts()
+        summ = tmc.stats.summary()
+        emit(phase="runtime_thread", seconds=THREAD_SECONDS, reads=ticks,
+             solves=summ["solves"], solves_in_window=summ["solves"] - solves0,
+             launches=launches,
+             served_stale=summ["served_stale"],
+             served_placeholder=summ["served_placeholder"],
+             failures=summ["failures"], solve_p50_ms=summ["p50_ms"],
+             solve_p99_ms=summ["p99_ms"], pacer_misses=pacer.misses,
+             pacer_worst_late_ms=pacer.worst_late_s * 1e3,
+             published=tmc._native.published_count,
+             thread_alive=tmc._calc_thread is not None)
+        check(summ["failures"] == 0 and summ["served_stale"] == 0
+              and summ["served_placeholder"] == 0
+              and summ["solves"] >= 10 and launches == summ["solves"] - 1
+              and tmc._calc_thread is None,
+              f"solver thread: {summ}, {launches} launches")
+        out["thread_launches"] = launches
+        out["launches"] = (runs[3][1]["launches"] + runs[0][1]["launches"]
+                           + out["ltv_launches"] + launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng) -> None:
+    """Phase 15, service_non_lanes: BatchModelControl over the arm written
+    as a per-instance model (no lanes support), B=1024: the route of
+    ``solve_batch``."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.models import Dynamics, make_dynamics
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+    from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
+
+    arm = make_dynamics("mahi_arm")
+    per_instance = Dynamics("mahi_arm_per_instance", nx=arm.nx, nu=arm.nu,
+                            f=arm.f)
+    Bs = NON_LANES_BATCH
+    svc = BatchModelControl(mp, batch=Bs, dynamics=per_instance, device=dev,
+                            opts=SolverOptions(tol=opts.tol, max_iter=30),
+                            Q=Qw, R=Rw, Rm=Rmw)
+    check(svc.warm_solver == "adaptive" and svc.kkt_backend == "riccati",
+          f"non-lanes service: {svc.warm_solver}, {svc.kkt_backend}")
+    nx, N = mp.num_x, mp.num_shooting_nodes
+    x0 = 0.2 * rng.standard_normal((Bs, nx))
+    svc.set_states(x0)
+    svc.set_references(0.2 * rng.standard_normal((Bs, N, nx)))
+    solve_batch_fused.launches = 0
+    solve_lqr_kernel_batch.launches = 0
+    u = None
+    for k in range(3):
+        if k:
+            svc.set_states(x0 + 0.01 * rng.standard_normal((Bs, nx)),
+                           u_prev=u)
+        u = svc.step()
+        m = svc.metrics()
+        emit(phase="service_non_lanes", step="cold" if k == 0 else "warm",
+             batch=Bs, step_s=m["solve_s"],
+             converged_frac=m["converged_frac"], mean_iters=m["mean_iters"],
+             max_feas=m["max_feas"])
+        check(m["converged_frac"] >= 0.9 and bool(torch.isfinite(u).all()),
+              f"non-lanes service step {k}: {m}")
+    check(solve_batch_fused.launches == 0
+          and solve_lqr_kernel_batch.launches == 0,
+          "the non-lanes route launched a kernel")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1199,7 +1564,7 @@ def main() -> int:
     # fixed-3 steps under the profiler: the kernel's device time within a
     # step, its share of the unprofiled step (CUDA events above), and that
     # the main path ran the group kernel by its name
-    prof = profile_step(svc3, "fused_sqp_group_kernel")
+    prof = profile_step(svc3.step, "fused_sqp_group_kernel")
     emit(phase="service_profile", fixed_warm_iters=3, batch=SERVICE_BATCH,
          ms_per_warm_step=step_ms,
          kernel_share_of_step=prof["kernel_device_ms"] / step_ms,
@@ -1230,6 +1595,21 @@ def main() -> int:
         adaptive_cold_bound_ms=cold_bound["bound_ms"]))
     launches += sum(m.get("launches", 0) for m in modes[1:])
 
+    b1 = runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed)
+    launches += b1["launches"]
+    modes.append(dict(
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
+        case="ModelControl mahi_arm Euler, B=1: 200 fixed-3 and 200 "
+             "adaptive warm calc_u, the solver thread",
+        launches=b1["launches"] - b1["ltv_launches"],
+        max_abs_err=b1["max_abs_err_b1"], ms=b1["ms_b1"],
+        plain_ms=b1["plain_ms_b1"], bound_ms=b1["bound_ms_b1"]))
+    modes.append(dict(
+        mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
+        case="ModelControl LTV mahi_arm, B=1: 50 fixed-3 warm calc_u",
+        launches=b1["ltv_launches"], max_abs_err=b1["ltv_max_abs_err_b1"]))
+    service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
+
     emit(phase="done")
     print(json.dumps({"kernels": [{
         "name": "fused_sqp",
@@ -1247,6 +1627,10 @@ def main() -> int:
         "batch": SERVICE_BATCH,
         "mode": "fixed-3 warm, mahi_arm Euler (group body, nq-row path)",
         "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item(),
+        "ms_b1": b1["ms_b1"],
+        "plain_ms_b1": b1["plain_ms_b1"],
+        "max_abs_err_b1": b1["max_abs_err_b1"],
+        "bound_ms_b1": b1["bound_ms_b1"],
         "modes": modes}, {
         "name": "riccati",
         "route": "cuda",

@@ -8,7 +8,9 @@ and an unchanged one is loaded as it is.  ``cuda_build_all()`` starts one
 nvcc for each library at once.  ``cpu_library(name)`` builds the same
 kernel bodies for the CPU with g++: for the tests, and the group body's
 operation count (``flop_count``) for the roofline bound that
-``chip_smoke.py`` reports.  Nothing is built or loaded at import.
+``chip_smoke.py`` reports.  ``host_build(source)`` builds a standalone C++
+source of the runtime (the plan server) with g++ into the same cache,
+named by a hash of that source.  Nothing is built or loaded at import.
 
 The libraries:
 
@@ -112,11 +114,13 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(cmd_prefix, source: Path, stem: str) -> tuple[Path, str, float]:
-    """Compile ``source`` into ``_build/<stem>-<hash>.so`` unless it exists;
-    returns (path, compiler output, seconds spent building)."""
+def _compile(cmd_prefix, source: Path, stem: str,
+             digest: str | None = None) -> tuple[Path, str, float]:
+    """Compile ``source`` into ``_build/<stem>-<digest>.so`` unless it
+    exists (``digest``: a hash of the sources it reads, by default all of
+    ``csrc/``); returns (path, compiler output, seconds spent building)."""
     BUILD_DIR.mkdir(exist_ok=True)
-    out = BUILD_DIR / f"{stem}-{_source_hash()}.so"
+    out = BUILD_DIR / f"{stem}-{digest or _source_hash()}.so"
     log = out.with_suffix(".log")
     # One build per library across processes (test workers): the others
     # wait on the lock and load the result.
@@ -135,7 +139,8 @@ def _compile_locked(cmd_prefix, source: Path, out: Path, log: Path):
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd_prefix + ["-o", tmp, str(source)],
-                              capture_output=True, text=True, cwd=CSRC)
+                              capture_output=True, text=True,
+                              cwd=source.parent)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"building {source.name} failed:\n{proc.stdout}{proc.stderr}")
@@ -187,12 +192,26 @@ def cuda_build_all() -> dict:
         return {name: f.result() for name, f in futures.items()}
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("no C++ compiler found for the CPU build")
+    return gxx
+
+
 @functools.lru_cache(maxsize=None)
 def cpu_library(name: str = "fused_sqp") -> ctypes.CDLL:
     """A kernel body built for the CPU (tests only)."""
-    gxx = shutil.which("g++") or shutil.which("c++")
-    if gxx is None:
-        raise RuntimeError("no C++ compiler found for the CPU kernel build")
     source, functions = CPU_LIBRARIES[name]
-    path, _, _ = _compile([gxx] + GXX_FLAGS, CSRC / source, f"{name}_cpu")
+    path, _, _ = _compile([_gxx()] + GXX_FLAGS, CSRC / source, f"{name}_cpu")
     return _load(path, functions)
+
+
+@functools.lru_cache(maxsize=None)
+def host_build(source: Path) -> Path:
+    """The shared library g++ builds from one standalone C++ source of the
+    runtime; the caller loads it and declares its functions."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    path, _, _ = _compile([_gxx()] + GXX_FLAGS + ["-pthread"], source,
+                          source.stem, digest)
+    return path

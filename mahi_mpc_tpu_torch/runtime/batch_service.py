@@ -12,7 +12,9 @@ one batched solve, warm-started from the previous plan.  Two routes, as
 - ``"fixed"`` / ``"adaptive"``: the lanes SQP ``solve_batch_lanes`` (with
   the Riccati kernel under it on a CUDA device), cold and warm, to
   tolerance from the cold or warm barrier; ``fixed_warm_iters`` has no
-  effect there, as in the JAX package's service.
+  effect there, as in the JAX package's service.  Dynamics that are
+  neither lanes-polymorphic nor LTV take ``solve_batch`` instead, the
+  counterpart of the JAX service's ``jax.vmap(solve)``.
 
 LTV models (``params.is_linear``, reference C8) refreeze each instance's
 linearization at its measured state before every step (``relinearize``)
@@ -42,9 +44,9 @@ from ..solver.batched import solve_batch_lanes
 from ..solver.fused import solve_batch_fused
 from ..solver.riccati import resolve_kkt_backend
 from ..solver.select import resolve_warm_solver
-from ..solver.sqp import DIVERGED
-from ..transcribe.shooting import (LinPoint, MPCParams, default_params,
-                                   make_problem)
+from ..solver.sqp import DIVERGED, solve_batch
+from ..transcribe.shooting import (LinPoint, default_params, make_problem,
+                                   map_params)
 
 
 class BatchModelControl:
@@ -73,10 +75,14 @@ class BatchModelControl:
         self.warm_solver = resolve_warm_solver(opts, self.problem,
                                                self.device)
         nx, nu, N = params.num_x, params.num_u, params.num_shooting_nodes
-        # The lanes route's KKT backend as the solver resolves it ("pallas"
-        # is the Riccati kernel); None on the fused route.
+        # Off the fused route: the lanes SQP, or one instance at a time
+        # through solve_batch for dynamics it cannot batch in lanes (the
+        # JAX service's use_lanes rule).
+        self._lanes = params.is_linear or dynamics.supports_lanes
+        # The KKT backend as the solver resolves it ("pallas" is the
+        # Riccati kernel); None on the fused route.
         self.kkt_backend = None if self.warm_solver == "fused" else \
-            resolve_kkt_backend(opts.kkt_backend, batched=True,
+            resolve_kkt_backend(opts.kkt_backend, batched=self._lanes,
                                 dims=(N, nx + nu, nu), device=self.device)
         self._dtype = getattr(torch, opts.dtype)
 
@@ -87,10 +93,8 @@ class BatchModelControl:
             p = p._replace(r=self._tensor(R))
         if Rm is not None:
             p = p._replace(rm=self._tensor(Rm))
-        expand = lambda a: a.expand((batch,) + a.shape).clone()
-        self._p = MPCParams(*[
-            type(f)(*[expand(a) for a in f]) if isinstance(f, tuple)
-            else expand(f) for f in p])
+        self._p = map_params(
+            lambda a: a.expand((batch,) + a.shape).clone(), p)
         self._X = torch.zeros(batch, N + 1, nx, dtype=self._dtype,
                               device=self.device)
         self._U = torch.zeros(batch, N, nu, dtype=self._dtype,
@@ -156,7 +160,7 @@ class BatchModelControl:
         self.relinearize()
         opts = self.opts
         if self.warm_solver != "fused":
-            solve, kw = solve_batch_lanes, {}
+            solve, kw = (solve_batch_lanes if self._lanes else solve_batch), {}
         elif self._warm and opts.fixed_warm_iters > 0:
             solve, kw = solve_batch_fused, dict(n_iter=opts.fixed_warm_iters)
         else:

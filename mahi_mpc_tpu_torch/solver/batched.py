@@ -31,7 +31,7 @@ from ..transcribe.shooting import MPCParams, ShootingProblem
 from . import loop_common as lc
 from .riccati import resolve_kkt_backend, solve_lqr
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
-from .stage_qp import barrier_value, build_stage_qp, fraction_to_boundary
+from .stage_qp import build_stage_qp, fraction_to_boundary, merit_smooth
 
 Tensor = torch.Tensor
 
@@ -183,34 +183,13 @@ def _fan_jacobian(prob: ShootingProblem, W: Tensor):
     return stepw(W), Jt.permute(1, 0, 2)
 
 
-def _cost_separable_batch(X: Tensor, U: Tensor, p: MPCParams) -> Tensor:
-    """Reference cost in separable form, per instance: (B,)."""
-    e = X[:, 1:] - p.x_des
-    j_track = torch.einsum("bni,bi->b", e * e, p.q)
-    du = torch.diff(U, dim=1, prepend=p.u_prev[:, None, :])
-    j_rate = torch.einsum("bni,bi->b", du * du, p.r)
-    j_mag = torch.einsum("bni,bi->b", U * U, p.rm)
-    ef = X[:, -1] - p.xf_des
-    return j_track + j_rate + j_mag + torch.einsum("bi,bi->b", ef * ef, p.qf)
-
-
-def _merit_smooth_batch(X: Tensor, U: Tensor, p: MPCParams,
-                        mu: Tensor) -> Tensor:
-    """Cost + barrier (everything except the l1 defect penalty): (B,)."""
-    mu3 = mu[:, None, None]
-    bar_x = barrier_value(X[:, 1:], p.x_min[:, None], p.x_max[:, None], mu3)
-    bar_u = barrier_value(U, p.u_min[:, None], p.u_max[:, None], mu3)
-    return (_cost_separable_batch(X, U, p) + bar_x.sum(dim=1)
-            + bar_u.sum(dim=1))
-
-
 def _merit_batch(prob: ShootingProblem, X: Tensor, U: Tensor, p: MPCParams,
                  mu: Tensor, nu_pen: Tensor, ltv=None) -> Tensor:
     """l1 merit per instance (B,): separable cost + barrier + nu |c|_1,
     with the defects evaluated in lanes (LTV: batched affine matmuls)."""
     c = (_defects_ltv(prob, X, U, p, ltv=ltv) if prob.is_linear
          else _defects_lanes(prob, X, U))
-    return (_merit_smooth_batch(X, U, p, mu)
+    return (merit_smooth(X, U, p, mu)
             + nu_pen * torch.sum(torch.abs(c), dim=(1, 2)))
 
 
@@ -287,7 +266,7 @@ def solve_batch_lanes(prob: ShootingProblem, p: MPCParams,
 
         # m0's defects are the linearization residuals already in qp.r.
         r_l1 = qp.r.abs().sum(dim=(1, 2))
-        m0 = _merit_smooth_batch(X, U, p, mu) + nu_pen_new * r_l1
+        m0 = merit_smooth(X, U, p, mu) + nu_pen_new * r_l1
         ddir = (torch.sum(qp.gz[:, 1:] * torch.cat(
                     [dX[:, 1:-1], dU[:, :-1]], dim=2), dim=(1, 2))
                 + torch.sum(qp.gu * dU, dim=(1, 2))

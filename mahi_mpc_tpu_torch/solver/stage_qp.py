@@ -9,11 +9,11 @@ cost.  Box bounds enter as log-barrier terms, masked where a bound is
 infinite.
 
 The JAX package builds one instance's QP and vmaps it; here
-``build_stage_qp`` is written batch-leading for the whole batch at once
-(every tensor has the batch B in front), from a stage linearization
-``lin = (A, B, c)`` that the lanes solver computes for the whole batch.
-The ``lin=None`` path, which linearizes one instance itself, waits for the
-single-instance solve.
+``build_stage_qp`` and ``merit`` are written batch-leading for the whole
+batch at once (every tensor has the batch B in front).  The lanes solver
+hands ``build_stage_qp`` the stage linearization ``lin = (A, B, c)`` it
+computed in lanes; without it (``lin=None``, the SQP of ``solver/sqp.py``)
+each instance is linearized by ``ShootingProblem.linearize_stages``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.func import vmap
 
 from ..transcribe.shooting import MPCParams, ShootingProblem
 
@@ -84,21 +85,21 @@ def fraction_to_boundary(v: Tensor, dv: Tensor, lo: Tensor, hi: Tensor,
 
 
 def build_stage_qp(prob: ShootingProblem, X: Tensor, U: Tensor, p: MPCParams,
-                   mu: Tensor, reg: Tensor, lin, n_pin: int = 0) -> StageQP:
+                   mu: Tensor, reg: Tensor, lin=None,
+                   n_pin: int = 0) -> StageQP:
     """Linearize + quadraticize a batch at its iterate.
 
     X (B, N+1, nx), U (B, N, nu), ``p`` with (B, ...) fields, ``mu`` and
     ``reg`` (B,) (barrier parameter and the Levenberg term added to Huu),
-    ``lin = (A (B, N, nx, nx), Bm (B, N, nx, nu), c (B, N, nx))``.
+    ``lin = (A (B, N, nx, nx), Bm (B, N, nx, nu), c (B, N, nx))``, or None
+    to take it from ``prob.linearize_stages`` instance by instance.
 
     ``n_pin`` freezes the first ``n_pin`` controls at their iterate values
     (the reference's ``m_num_control_inputs_saved``): pinned stages get
     Bz = 0, Hzu = 0, gu = 0, Huu = I, so every KKT backend returns du_k = 0
     exactly."""
     if lin is None:
-        raise NotImplementedError(
-            "build_stage_qp needs the stage linearization lin=(A, B, c); the "
-            "single-instance path that linearizes itself is not ported yet")
+        lin = vmap(prob.linearize_stages)(X, U, p)
     nx, nu, N = prob.nx, prob.nu, prob.N
     nz = nx + nu
     Bsz = X.shape[0]
@@ -162,3 +163,33 @@ def build_stage_qp(prob: ShootingProblem, X: Tensor, U: Tensor, p: MPCParams,
         Huu = torch.where(pin, torch.eye(nu, **kw), Huu)
 
     return StageQP(Az, Bz, r, Hzz, Hzu, Huu, gz, gu, Hf, gf)
+
+
+def _cost_separable(X: Tensor, U: Tensor, p: MPCParams) -> Tensor:
+    """Reference cost in separable form, per instance: (B,)."""
+    e = X[:, 1:] - p.x_des
+    j_track = torch.einsum("bni,bi->b", e * e, p.q)
+    du = torch.diff(U, dim=1, prepend=p.u_prev[:, None, :])
+    j_rate = torch.einsum("bni,bi->b", du * du, p.r)
+    j_mag = torch.einsum("bni,bi->b", U * U, p.rm)
+    ef = X[:, -1] - p.xf_des
+    return j_track + j_rate + j_mag + torch.einsum("bi,bi->b", ef * ef, p.qf)
+
+
+def merit_smooth(X: Tensor, U: Tensor, p: MPCParams, mu: Tensor) -> Tensor:
+    """Cost + barrier, the merit without its l1 defect penalty: (B,)."""
+    mu3 = mu[:, None, None]
+    bar_x = barrier_value(X[:, 1:], p.x_min[:, None], p.x_max[:, None], mu3)
+    bar_u = barrier_value(U, p.u_min[:, None], p.u_max[:, None], mu3)
+    return (_cost_separable(X, U, p) + bar_x.sum(dim=1)
+            + bar_u.sum(dim=1))
+
+
+def merit(prob: ShootingProblem, X: Tensor, U: Tensor, p: MPCParams,
+          mu: Tensor, nu_pen: Tensor) -> Tensor:
+    """l1 merit of the barrier subproblem per instance (B,): separable cost
+    + barrier + nu_pen * ||defects||_1, with ``mu`` and ``nu_pen`` (B,);
+    the defects from ``prob.defects`` instance by instance."""
+    c = vmap(prob.defects)(X, U, p)
+    return (merit_smooth(X, U, p, mu)
+            + nu_pen * torch.sum(torch.abs(c), dim=(1, 2)))

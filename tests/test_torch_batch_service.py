@@ -11,10 +11,13 @@ import torch
 
 from mahi_mpc_tpu import ModelParameters as JaxModelParameters
 from mahi_mpc_tpu import SolverOptions as JaxSolverOptions
+from mahi_mpc_tpu.models import make_dynamics as jax_make_dynamics
+from mahi_mpc_tpu.models.base import Dynamics as JaxDynamics
 from mahi_mpc_tpu.runtime import BatchModelControl as JaxBatchModelControl
 from mahi_mpc_tpu.solver.fused import solve_batch_fused as jax_solve_fused
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch.models import make_dynamics, rk4_step
+from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.runtime import BatchModelControl
 from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
 
@@ -483,3 +486,44 @@ def test_ltv_state_dict_round_trip_with_jax():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     u = svc.step()
     assert bool(torch.isfinite(u).all()) and (svc.last.status == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# Dynamics without lanes support: the JAX service serves them through
+# jax.vmap(solve) (mahi_mpc_tpu/runtime/batch_service.py:74-82).
+# ---------------------------------------------------------------------------
+
+def test_non_lanes_dynamics_served_as_jax():
+    """A user model written per instance (the pendulum's f in a Dynamics
+    with supports_lanes=False) through 1 cold and 2 warm steps of the
+    port's service and the JAX one, float64, on the same numpy inputs:
+    statuses equal, controls and planned U within 1e-6."""
+    opts = dict(tol=1e-6, max_iter=40, dtype="float64")
+    weights = dict(Q=[20.0, 0.5], R=[0.05], Rm=[0.0])
+    svc = BatchModelControl(
+        _pend_mp(ModelParameters), batch=PB, device="cpu",
+        dynamics=Dynamics("pend_nl", nx=2, nu=1,
+                          f=make_dynamics("pendulum").f),
+        opts=SolverOptions(**opts), **weights)
+    jsvc = JaxBatchModelControl(
+        _pend_mp(JaxModelParameters), batch=PB,
+        dynamics=JaxDynamics("pend_nl", nx=2, nu=1,
+                             f=jax_make_dynamics("pendulum").f),
+        opts=JaxSolverOptions(**opts), **weights)
+    assert svc.warm_solver == "adaptive" and svc.kkt_backend == "riccati"
+    x, _, x_des = _pend_goals(PB, seed=10)
+    plant = rk4_step(make_dynamics("pendulum").f, 0.05)
+    for s in (svc, jsvc):
+        s.set_references(x_des)
+    for _ in range(3):
+        svc.set_states(x)
+        jsvc.set_states(x)
+        u, ju = svc.step().numpy(), np.asarray(jsvc.step())
+        stat = svc.last.status.numpy()
+        np.testing.assert_array_equal(stat, np.asarray(jsvc.last.status))
+        assert (stat == 0).all()
+        np.testing.assert_allclose(u, ju, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(svc.last.U.numpy(),
+                                   np.asarray(jsvc.last.U), rtol=0,
+                                   atol=1e-6)
+        x = plant(torch.tensor(x).T, torch.tensor(ju).T).T.numpy()

@@ -82,12 +82,25 @@ def test_build_stage_qp_matches_jax(case):
         assert bool((got.gu[:, :n_pin] == 0).all())
 
 
-def test_build_stage_qp_needs_lin():
-    _, prob, p, a = _inputs("unbounded")
+@pytest.mark.parametrize("case", ["unbounded", "pinned"])
+def test_build_stage_qp_needs_lin(case):
+    """Without a stage linearization (lin=None) the QP linearizes each
+    instance itself through ShootingProblem.linearize_stages, as the JAX
+    build_stage_qp does: against jax.vmap(build_stage_qp(lin=None)), every
+    field at float64 1e-12."""
+    jprob, prob, p, a = _inputs(case)
+    n_pin = 2 if case == "pinned" else 0
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    ref = jax.vmap(lambda X, U, pp, mu, reg: jsq.build_stage_qp(
+        jprob, X, U, pp, mu, reg, n_pin=n_pin))(
+        j["X"], j["U"], p, j["mu"], j["reg"])
     tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64)
     t = {k: torch.tensor(v) for k, v in a.items()}
-    with pytest.raises(NotImplementedError):
-        build_stage_qp(prob, t["X"], t["U"], tp, t["mu"], t["reg"], lin=None)
+    got = build_stage_qp(prob, t["X"], t["U"], tp, t["mu"], t["reg"],
+                         lin=None, n_pin=n_pin)
+    for name, g, r in zip(got._fields, got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-12, err_msg=name)
 
 
 def _box(seed, n=5, m=7):
