@@ -95,6 +95,11 @@ CPU_LIBRARIES = {
                                    _c_void_p, ctypes.c_double, _c_void_p,
                                    _c_void_p, _c_void_p, _c_void_p,
                                    _c_void_p],
+        **{f"mpc_model_increment_cpu_{bits}": [
+            _c_ll, _c_int, _c_int, _c_void_p, _c_void_p, real, _c_void_p,
+            _c_void_p, _c_void_p]
+           for bits, real in (("f32", ctypes.c_float),
+                              ("f64", ctypes.c_double))},
     }),
     "riccati": ("riccati_cpu.cpp", {
         "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],

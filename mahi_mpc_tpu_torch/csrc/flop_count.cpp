@@ -1,15 +1,18 @@
 // The fused kernel's floating-point operations, counted: the group body
-// (fused_sqp_group.cuh) or the one-thread body (fused_sqp.cuh) of the arms
-// under Euler, instantiated on a scalar that is a double and tallies every
+// (fused_sqp_group.cuh) of the arms under Euler, or the one-thread body
+// (fused_sqp.cuh) of any instantiation (the generic, closed-form and LTV
+// policies), instantiated on a scalar that is a double and tallies every
 // add or subtract, multiply, divide or square root, and sine, cosine or log
 // done on it.  A body runs as it runs for the card (the host loop over the
 // group's four lanes does the lanes' work once each), so the tally is the
-// work of the kernel's own code for the given inputs.  For the group body it
-// also counts the work that the body repeats across its lanes and the
-// function needs once (`repeated_ops`): the tally less that is the
-// function's operations, the numerator of the kernel's roofline bound
-// (chip_smoke.py).  Built with g++ and loaded with ctypes (solver/fused.py
-// `count_fused_ops`); comparisons, selects, |x| and loads are not counted.
+// work of the kernel's own code for the given inputs.  It also counts the
+// work that the body repeats and the function needs once: for the group
+// body what its lanes repeat (`repeated_ops`), for the one-thread body what
+// a stage's linearization repeats (`linearize_repeats`).  The tally less
+// that is the function's operations, the numerator of the kernel's roofline
+// bound (chip_smoke.py).  Built with g++ and loaded with ctypes
+// (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
+// are not counted.
 #include "fused_sqp_group.cuh"
 
 namespace mpc {
@@ -115,16 +118,76 @@ OpCount repeated_ops(const ArmConsts<Flop, NQ>& c, int n_fan, bool pinned) {
   return r;
 }
 
+// A point to evaluate a step at in the counts below: the operation counts
+// of the models' code do not depend on the values.
+template <int NX, int NU>
+void count_point(Flop (&x)[NX], Flop (&u)[NU]) {
+  for (int i = 0; i < NX; ++i) x[i] = Flop(0.1 * (i + 1));
+  for (int j = 0; j < NU; ++j) u[j] = Flop(-0.1 * (j + 1));
+}
+
+// What the one-thread body does more than once in one stage's
+// linearization, where the function needs it once:
+//  - the step's value: each of the NZ / K dual passes forms it again (the
+//    increment under the generic policy, the accelerations under the
+//    nq-row policy), so passes 2..P repeat the value part of the first,
+//    which is the same code run on plain scalars;
+//  - the adds of A's identity block: A = I + rows adds 1 or 0 to every
+//    entry, where the function adds the NX ones of the diagonal (the nq-row
+//    policy: the NQ ones of its acceleration rows; its position rows are
+//    the constant [I, dt I]).
+template <typename Model>
+OpCount linearize_repeats(const Generic<Flop, Model>& s, Flop dt) {
+  constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU;
+  constexpr int K = kDualTangents < NZ ? kDualTangents : NZ;
+  Flop x[NX], u[NU], out[NX];
+  count_point(x, u);
+  OpCount r;
+  add(r, ops_of([&] { model_increment(s.m, s.integ, dt, x, u, out); }),
+      (NZ + K - 1) / K - 1);
+  r.add += NX * NX - NX;
+  return r;
+}
+
+template <typename Model>
+OpCount linearize_repeats(const FastNq<Flop, Model>& s, Flop) {
+  constexpr int NX = Model::NX, NU = Model::NU, NQ = Model::NQ,
+                NZ = NX + NU;
+  constexpr int K = kDualTangents < NZ ? kDualTangents : NZ;
+  Flop x[NX], u[NU], qdd[NQ];
+  count_point(x, u);
+  OpCount r;
+  add(r, ops_of([&] { s.m.acc(x, u, qdd); }), (NZ + K - 1) / K - 1);
+  r.add += NX * NX - NQ;
+  return r;
+}
+
+template <int NX, int NU>
+OpCount linearize_repeats(const Ltv<Flop, NX, NU>&, Flop) {
+  OpCount r;
+  r.add += NX * NX - NX;
+  return r;
+}
+
+// The iterations instance b ran: all of them in fixed mode.
+inline double iterations(const FusedArgs<Flop>& a, long long b) {
+  return a.adaptive ? a.stats[b + 6 * a.B].v : a.n_iter;
+}
+
 }  // namespace mpc
 
 extern "C" {
 
-// Runs the group body (group = 1) or the one-thread body (0) over the B
-// instances given (the fused kernel's arguments, every array float64) and
-// adds its operations to counts[0..3]: adds, multiplies, divides and square
-// roots, transcendentals; for the group body, adds the part of them that
-// it repeats (`repeated_ops` over the iterations each instance ran) to
-// counts[4..7].  Returns -1 when the problem is not the arms under Euler.
+// Runs the group body (group = 1; the arms under Euler) or the one-thread
+// body (group = 0; every instantiation: the arms under Euler as the group
+// body replaced them, and the generic, closed-form and LTV policies the
+// card runs it for) over the B instances given (the fused kernel's
+// arguments, every array float64) and adds its operations to counts[0..3]:
+// adds, multiplies, divides and square roots, transcendentals; and the part
+// of them that it repeats (`repeated_ops` a stage of each iteration for the
+// group body, `linearize_repeats` for the one-thread body) to
+// counts[4..7].  Returns -1 when no instantiation of that body serves the
+// problem.
 int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
                         void* const* ptrs, const double* scal,
                         const int* ints, const double* fan,
@@ -135,32 +198,40 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
       reinterpret_cast<const Flop*>(fan));
   mpc::g_ops = mpc::OpCount();
   mpc::OpCount repeated;
-  const int rc = mpc::dispatch<Flop, mpc::kArmFast>(
-      a, model, nx, nu, consts, [&](const auto& step) -> int {
-        typedef typename std::decay<decltype(step)>::type Step;
-        if constexpr (mpc::GroupBody<Step>::value) {
-          typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
-          Flop tile[Tile::kSize];
-          double iters = 0;
-          for (long long b = 0; b < B; ++b) {
-            if (group)
-              mpc::solve_group<Flop>(a, step.m, b, mpc::Group{0, 0u}, tile);
-            else
-              mpc::solve_instance<Flop>(a, step, b);
-            iters += a.adaptive ? a.stats[b + 6 * B].v : a.n_iter;
-          }
-          if (group) {
-            const int pin = a.n_pin < a.N ? a.n_pin : a.N;
-            mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, false),
-                     iters * (a.N - pin));
-            mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, true),
-                     iters * pin);
-          }
-          return 0;
-        } else {
-          return -1;
-        }
-      });
+  auto thread = [&](const auto& step) -> int {
+    const mpc::OpCount stage = mpc::linearize_repeats(step, a.dt);
+    double iters = 0;
+    for (long long b = 0; b < B; ++b) {
+      mpc::solve_instance<Flop>(a, step, b);
+      iters += mpc::iterations(a, b);
+    }
+    mpc::add(repeated, stage, iters * a.N);
+    return 0;
+  };
+  auto grouped = [&](const auto& step) -> int {
+    typedef typename std::decay<decltype(step)>::type Step;
+    if constexpr (mpc::GroupBody<Step>::value) {
+      typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
+      Flop tile[Tile::kSize];
+      double iters = 0;
+      for (long long b = 0; b < B; ++b) {
+        mpc::solve_group<Flop>(a, step.m, b, mpc::Group{0, 0u}, tile);
+        iters += mpc::iterations(a, b);
+      }
+      const int pin = a.n_pin < a.N ? a.n_pin : a.N;
+      mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, false),
+               iters * (a.N - pin));
+      mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, true),
+               iters * pin);
+      return 0;
+    } else {
+      return -1;
+    }
+  };
+  const int rc = group
+      ? mpc::dispatch<Flop, mpc::kArmFast>(a, model, nx, nu, consts, grouped)
+      : mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
+                                               thread);
   counts[0] += mpc::g_ops.add;
   counts[1] += mpc::g_ops.mul;
   counts[2] += mpc::g_ops.div_sqrt;

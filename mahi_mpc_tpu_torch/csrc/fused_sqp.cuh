@@ -14,18 +14,26 @@
 // instance's iterate and stats never change again).
 //
 // The step policy `Step` is the only model-specific part: it linearizes a
-// stage (the step value, A, B, and the rows the rollout reuses), takes the
-// rollout's next state step, and evaluates a trial step.  The three modes
-// of the Pallas kernel (`fused.py:313-369`):
+// stage (the step's increment, A, B, and the rows the rollout reuses),
+// takes the rollout's next state step, and evaluates the increment at a
+// trial point.  The three modes of the Pallas kernel (`fused.py:313-369`):
 //   FastNq<Model>   Euler step of a second-order model (the `_fast2` rule):
 //                   NQ dual-number acceleration rows, the rest analytic
 //                   (for the serial arms the card runs the group body of
 //                   fused_sqp_group.cuh instead; the tests run both);
-//   Generic<Model>  midpoint or RK4 (any integrator): NX rows by dual
-//                   numbers through the whole step;
-//   Ltv<NX, NU>     the frozen affine step Ad x + Bd u + cd, streamed in
-//                   batch-innermost and read row by row where it is used:
+//   Generic<Model>  midpoint or RK4 (any integrator): NX rows of the
+//                   increment's Jacobian by dual numbers through the step;
+//   Ltv<NX, NU>     the frozen affine step, streamed in batch-innermost as
+//                   (Ad - I, Bd, cd) and read row by row where it is used:
 //                   no AD and no Jacobian scratch.
+// Every policy gives the increment F(x, u) - x, never F, and the body forms
+// each defect as (x - x') + increment: x and x' differ by about the
+// increment, so their float32 rounding (~ulp(x) a component) stays out of
+// the l1 merit, which weighs the defects by nu_pen.  As F(x) - x' that
+// rounding rejected full steps near the solution and the solve crawled to
+// a damped answer (solver/fused.py `_solve_batch_fused_plain`).  The JAX
+// Pallas kernel forms F(x) - x' (fused.py:332, :368); in float64 the two
+// forms agree to roundoff.
 //
 // Arrays are batch-innermost: element e of an instance's (..., B) array is
 // at p[e * B + b], so neighbouring threads read neighbouring addresses.
@@ -79,9 +87,9 @@ struct FusedArgs {
   S fan[kMaxFan];
   // inputs, batch-innermost: X0 (N+1,nx,B) U0 (N,nu,B) xdes (N,nx,B),
   // q r rm uprev umin umax xmin xmax qf xfdes (n,B), mu0 (B); LTV only:
-  // Ad (nx,nx,B) Bd (nx,nu,B) cd (nx,B)
+  // AdI = Ad - I (nx,nx,B) Bd (nx,nu,B) cd (nx,B)
   const S *X0, *U0, *xdes, *q, *r, *rm, *uprev, *umin, *umax, *xmin, *xmax,
-      *qf, *xfdes, *mu0, *Ad, *Bd, *cd;
+      *qf, *xfdes, *mu0, *AdI, *Bd, *cd;
   // outputs X (N+1,nx,B) U (N,nu,B) stats (8,B)
   S *X, *U, *stats;
   // scratch K (N,nu,nz,B) kff (N,nu,B) dX (N+1,nx,B) dU (N,nu,B)
@@ -111,7 +119,7 @@ inline FusedArgs<S> make_args(long long B, int N, void* const* ptrs,
   for (int j = 0; j < kMaxFan; ++j) a.fan[j] = j < a.n_fan ? fan[j] : S(0);
   const S** in[] = {&a.X0, &a.U0, &a.xdes, &a.q, &a.r, &a.rm, &a.uprev,
                     &a.umin, &a.umax, &a.xmin, &a.xmax, &a.qf, &a.xfdes,
-                    &a.mu0, &a.Ad, &a.Bd, &a.cd};
+                    &a.mu0, &a.AdI, &a.Bd, &a.cd};
   S** out[] = {&a.X, &a.U, &a.stats, &a.K, &a.kff, &a.dX, &a.dU, &a.G,
                &a.J, &a.ck};
   int t = 0;
@@ -164,16 +172,13 @@ MPC_HD S ftb(S v, S dv, S lo, S hi, S amax) {
 }
 
 // ---- step policies.  Each has sizes NX, NU, the stored rows a stage NJ,
-// the flag kIncrement, and `bind(args, b)`, one instance's view with:
-//   linearize(k, x, u, dt, val, A, Bm, Js): the step value F(x, u), its
-//     Jacobians A, Bm, and the rows the rollout reuses written to Js;
-//   next_dx(k, dt, dx, du, Js, cks, dxn): dxn = A dx + B du + c_k from what
-//     linearize stored;
-//   value(x, u, dt, val): F(x, u) at a line-search trial point.
-// With kIncrement (the Euler step) `linearize` and `value` give the
-// increment F(x, u) - x = dt f instead, and the body forms each defect as
-// (x - x') + dt f, which keeps the float32 rounding of x and x' out of the
-// l1 merit (solver/fused.py `_solve_batch_fused_plain` says why).
+// and `bind(args, b)`, one instance's view with:
+//   linearize(k, x, u, dt, val, A, Bm, Js): the increment F(x, u) - x, the
+//     step's Jacobians A, Bm, and the rows the rollout reuses written to Js;
+//   next_dx(k, dt, dx, du, Js, cks, dxn): dxn = (dx + (A - I) dx + B du)
+//     + c_k from what linearize stored;
+//   value(x, u, dt, val): the increment F(x, u) - x at a line-search trial
+//     point.
 
 // Euler step of a second-order model: the position rows of A are
 // [I, dt I], B's are 0, and only the NQ acceleration rows need AD; their
@@ -182,7 +187,6 @@ template <typename S, typename Model>
 struct FastNq {
   static constexpr int NQ = Model::NQ, NX = Model::NX, NU = Model::NU,
                        NZ = NX + NU, NJ = NQ;
-  static constexpr bool kIncrement = true;
   Model m;
   MPC_HD const FastNq& bind(const FusedArgs<S>&, long long) const {
     return *this;
@@ -224,13 +228,13 @@ struct FastNq {
   }
 };
 
-// Any integrator: NX rows of the step Jacobian [A | B] by dual numbers
-// through the whole step, stored as they come, one column a pass.
+// Any integrator: NX rows of the increment's Jacobian [A - I | B] by dual
+// numbers through the step, stored as they come, one column a pass; the
+// body's A is I + those rows.
 template <typename S, typename Model>
 struct Generic {
   static constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU,
                        NJ = NX;
-  static constexpr bool kIncrement = false;
   Model m;
   int integ;
   MPC_HD const Generic& bind(const FusedArgs<S>&, long long) const {
@@ -239,11 +243,12 @@ struct Generic {
   MPC_HD void linearize(int k, const S* xl, const S* ul, S dt, S* val,
                         S (&A)[NX][NX], S (&Bm)[NX][NU],
                         const Lane<S>& Js) const {
-    step_rows(m, integ, dt, xl, ul, val, [&](int d, int i, S v) {
+    increment_rows(m, integ, dt, xl, ul, val, [&](int d, int i, S v) {
       Js[(k * NX + i) * NZ + d] = v;
     });
     for (int i = 0; i < NX; ++i) {
-      for (int j = 0; j < NX; ++j) A[i][j] = Js[(k * NX + i) * NZ + j];
+      for (int j = 0; j < NX; ++j)
+        A[i][j] = S(j == i ? 1 : 0) + Js[(k * NX + i) * NZ + j];
       for (int j = 0; j < NU; ++j) Bm[i][j] = Js[(k * NX + i) * NZ + NX + j];
     }
   }
@@ -254,59 +259,54 @@ struct Generic {
       S acc = Js[base] * dx[0];
       for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx[j];
       for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du[j];
-      dxn[i] = acc + cks[k * NX + i];
+      dxn[i] = (dx[i] + acc) + cks[k * NX + i];
     }
   }
   MPC_HD void value(const S* xt, const S* ut, S dt, S* val) const {
-    model_step(m, integ, dt, xt, ut, val);
+    model_increment(m, integ, dt, xt, ut, val);
   }
 };
 
 // LTV (reference C8): the exact affine step F = Ad x + Bd u + cd of the
-// frozen linearization, computed once per solve on the host.  Its rows are
-// read from the batch-innermost inputs where they are used (coalesced, L2
-// resident) rather than held in registers for the whole solve.
+// frozen linearization, computed once per solve on the host and streamed
+// in as (Ad - I, Bd, cd), so that the increment F - x = (Ad - I) x + Bd u
+// + cd is formed without the difference.  Its rows are read from the
+// batch-innermost inputs where they are used (coalesced, L2 resident)
+// rather than held in registers for the whole solve.
 template <typename S, int NX_, int NU_>
 struct Ltv {
   static constexpr int NX = NX_, NU = NU_, NJ = 0;
   struct Bound {
-    static constexpr bool kIncrement = false;
-    Lane<const S> Ad, Bd, cd;
-    // ((Ad x) + (Bd u)) + c, each dot product left to right.
-    MPC_HD void affine(const S* x, const S* u, const S* c, S* out) const {
-      for (int i = 0; i < NX; ++i) {
-        S ax = Ad[i * NX] * x[0];
-        for (int j = 1; j < NX; ++j) ax = ax + Ad[i * NX + j] * x[j];
-        S bu = Bd[i * NU] * u[0];
-        for (int j = 1; j < NU; ++j) bu = bu + Bd[i * NU + j] * u[j];
-        out[i] = (ax + bu) + c[i];
-      }
+    Lane<const S> AdI, Bd, cd;
+    // Row i of (Ad - I) x + Bd u, each dot product left to right.
+    MPC_HD S row(const S* x, const S* u, int i) const {
+      S ax = AdI[i * NX] * x[0];
+      for (int j = 1; j < NX; ++j) ax = ax + AdI[i * NX + j] * x[j];
+      S bu = Bd[i * NU] * u[0];
+      for (int j = 1; j < NU; ++j) bu = bu + Bd[i * NU + j] * u[j];
+      return ax + bu;
     }
     MPC_HD void linearize(int, const S* xl, const S* ul, S, S* val,
                           S (&A)[NX][NX], S (&Bm)[NX][NU],
                           const Lane<S>&) const {
-      S c[NX];
       for (int i = 0; i < NX; ++i) {
-        c[i] = cd[i];
-        for (int j = 0; j < NX; ++j) A[i][j] = Ad[i * NX + j];
+        for (int j = 0; j < NX; ++j)
+          A[i][j] = S(j == i ? 1 : 0) + AdI[i * NX + j];
         for (int j = 0; j < NU; ++j) Bm[i][j] = Bd[i * NU + j];
+        val[i] = row(xl, ul, i) + cd[i];
       }
-      affine(xl, ul, c, val);
     }
     MPC_HD void next_dx(int k, S, const S* dx, const S* du, const Lane<S>&,
                         const Lane<S>& cks, S* dxn) const {
-      S c[NX];
-      for (int i = 0; i < NX; ++i) c[i] = cks[k * NX + i];
-      affine(dx, du, c, dxn);
+      for (int i = 0; i < NX; ++i)
+        dxn[i] = (dx[i] + row(dx, du, i)) + cks[k * NX + i];
     }
     MPC_HD void value(const S* xt, const S* ut, S, S* val) const {
-      S c[NX];
-      for (int i = 0; i < NX; ++i) c[i] = cd[i];
-      affine(xt, ut, c, val);
+      for (int i = 0; i < NX; ++i) val[i] = row(xt, ut, i) + cd[i];
     }
   };
   MPC_HD Bound bind(const FusedArgs<S>& a, long long b) const {
-    return Bound{{a.Ad + b, a.B}, {a.Bd + b, a.B}, {a.cd + b, a.B}};
+    return Bound{{a.AdI + b, a.B}, {a.Bd + b, a.B}, {a.cd + b, a.B}};
   }
 };
 
@@ -316,7 +316,6 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
   constexpr int NX = Step::NX, NU = Step::NU, NZ = NX + NU,
                 NG = NX + 2 * NU;
   const auto& st = step.bind(a, b);
-  constexpr bool kInc = std::decay<decltype(st)>::type::kIncrement;
   const long long B = a.B;
   const int N = a.N;
   const S dt = a.dt;
@@ -409,17 +408,13 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
       else load(U, (k - 1) * NU, NU, ukm1);
       const int kp = k >= 1 ? k - 1 : 0;
 
-      // ---- linearize: step value, Jacobians, defect (the policy stores
-      // what the rollout reuses)
+      // ---- linearize: increment, Jacobians, defect (x - x') + increment
+      // (the policy stores what the rollout reuses)
       S val[NX], ck[NX], A[NX][NX], Bm[NX][NU];
       st.linearize(k, xl, ul, dt, val, A, Bm, Js);
       for (int i = 0; i < NX; ++i) {
-        if (kInc) {
-          ck[i] = (xl[i] - xn1[i]) + val[i];
-          val[i] = xl[i] + val[i];
-        } else {
-          ck[i] = val[i] - xn1[i];
-        }
+        ck[i] = (xl[i] - xn1[i]) + val[i];
+        val[i] = xl[i] + val[i];
         cks[k * NX + i] = ck[i];
       }
 
@@ -713,10 +708,8 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
         st.value(xt, ut, dt, vt);
         S cl1 = cl1_t[j], jr = rmag;
         for (int i = 0; i < NX; ++i) {
-          const S vi = kInc ? xt[i] + vt[i] : vt[i];
-          const S di = kInc
-              ? ((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i])) + vt[i]
-              : vi - (xn1[i] + aj * dxk1[i]);
+          const S vi = xt[i] + vt[i];
+          const S di = ((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i])) + vt[i];
           cl1 = cl1 + m_abs(di);
           const S er = vi - xdes[k * NX + i];
           jr = jr + q[i] * (er * er);

@@ -43,9 +43,9 @@ int solve_group(long long B, int N, int model, int nx, int nu,
 }
 
 // For M points (batch-innermost x (nx, M), u (nu, M)) of one model: f and
-// its Jacobian d f / d[x; u] (nx, nz, M), and the step F under `integ` and
-// its Jacobian (nx, nz, M), through the dual-number code the kernel runs
-// (the generic policy's `step_rows`).
+// its Jacobian d f / d[x; u] (nx, nz, M), and the step F = x + increment
+// under `integ` and its Jacobian I + rows (nx, nz, M), through the
+// dual-number code the kernel runs (the generic policy's `increment_rows`).
 template <typename S, typename Model>
 void eval_model(const Model& m, long long M, int integ, const S* x,
                 const S* u, S dt, S* fval, S* fjac, S* sval, S* sjac) {
@@ -62,34 +62,65 @@ void eval_model(const Model& m, long long M, int integ, const S* x,
       mpc::model_f(m, xd, ud, out);
       for (int i = 0; i < NX; ++i) fjac[(i * NZ + d) * M + p] = out[i].d[0];
     }
-    mpc::step_rows(m, integ, dt, xl, ul, sv, [&](int d, int i, S v) {
-      sjac[(i * NZ + d) * M + p] = v;
+    mpc::increment_rows(m, integ, dt, xl, ul, sv, [&](int d, int i, S v) {
+      sjac[(i * NZ + d) * M + p] = S(d == i ? 1 : 0) + v;
     });
     for (int i = 0; i < NX; ++i) {
       fval[i * M + p] = fv[i];
-      sval[i * M + p] = sv[i];
+      sval[i * M + p] = xl[i] + sv[i];
     }
+  }
+}
+
+// The increment F - x (nx, M) and its rows [A - I | B] (nx, nz, M) at the
+// same points, as the generic policy stores them.
+template <typename S, typename Model>
+void eval_increment(const Model& m, long long M, int integ, const S* x,
+                    const S* u, S dt, S* ival, S* irows) {
+  constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU;
+  for (long long p = 0; p < M; ++p) {
+    S xl[NX], ul[NU], iv[NX];
+    for (int i = 0; i < NX; ++i) xl[i] = x[i * M + p];
+    for (int j = 0; j < NU; ++j) ul[j] = u[j * M + p];
+    mpc::increment_rows(m, integ, dt, xl, ul, iv, [&](int d, int i, S v) {
+      irows[(i * NZ + d) * M + p] = v;
+    });
+    for (int i = 0; i < NX; ++i) ival[i * M + p] = iv[i];
+  }
+}
+
+// Runs fn on the registered model `model` built from the constants c.
+template <typename S, typename F>
+int with_model(int model, const double* c, const F& fn) {
+  switch (model) {
+    case mpc::kTwoLinkArm:
+      return fn(mpc::ArmModel<S, 2>{mpc::load_arm<S, double, 2>(c)});
+    case mpc::kMahiArm:
+      return fn(mpc::ArmModel<S, 4>{mpc::load_arm<S, double, 4>(c)});
+    case mpc::kPendulum: return fn(mpc::Pendulum<S>::load(c));
+    case mpc::kCartpole: return fn(mpc::Cartpole<S>::load(c));
+    case mpc::kDoublePendulum: return fn(mpc::DoublePendulum<S>::load(c));
+    case mpc::kAcrobot: return fn(mpc::Acrobot<S>::load(c));
+    default: return -1;
   }
 }
 
 template <typename S>
 int eval(long long M, int model, int integ, const S* x, const S* u, S dt,
          const double* c, S* fval, S* fjac, S* sval, S* sjac) {
-  auto run = [&](const auto& m) {
+  return with_model<S>(model, c, [&](const auto& m) {
     eval_model<S>(m, M, integ, x, u, dt, fval, fjac, sval, sjac);
     return 0;
-  };
-  switch (model) {
-    case mpc::kTwoLinkArm:
-      return run(mpc::ArmModel<S, 2>{mpc::load_arm<S, double, 2>(c)});
-    case mpc::kMahiArm:
-      return run(mpc::ArmModel<S, 4>{mpc::load_arm<S, double, 4>(c)});
-    case mpc::kPendulum: return run(mpc::Pendulum<S>::load(c));
-    case mpc::kCartpole: return run(mpc::Cartpole<S>::load(c));
-    case mpc::kDoublePendulum: return run(mpc::DoublePendulum<S>::load(c));
-    case mpc::kAcrobot: return run(mpc::Acrobot<S>::load(c));
-    default: return -1;
-  }
+  });
+}
+
+template <typename S>
+int increment(long long M, int model, int integ, const S* x, const S* u,
+              S dt, const double* c, S* ival, S* irows) {
+  return with_model<S>(model, c, [&](const auto& m) {
+    eval_increment<S>(m, M, integ, x, u, dt, ival, irows);
+    return 0;
+  });
 }
 
 // f(x, u) and the dt-scaled acceleration Jacobian rows of a serial arm for
@@ -223,6 +254,22 @@ int mpc_model_eval_cpu_f64(long long M, int model, int integ,
                            double* sval, double* sjac) {
   return eval<double>(M, model, integ, x, u, dt, consts, fval, fjac, sval,
                       sjac);
+}
+
+// The generic policy's increment F - x (nx, M) and its rows [A - I | B]
+// (nx, nz, M) at the same points, float32 or float64.
+int mpc_model_increment_cpu_f32(long long M, int model, int integ,
+                                const float* x, const float* u, float dt,
+                                const double* consts, float* ival,
+                                float* irows) {
+  return increment<float>(M, model, integ, x, u, dt, consts, ival, irows);
+}
+
+int mpc_model_increment_cpu_f64(long long M, int model, int integ,
+                                const double* x, const double* u, double dt,
+                                const double* consts, double* ival,
+                                double* irows) {
+  return increment<double>(M, model, integ, x, u, dt, consts, ival, irows);
 }
 
 }  // extern "C"

@@ -26,8 +26,8 @@
 //   19 % longer on the H100, PERF.md);
 // - every other policy (`solve_instance`, fused_sqp.cuh): one thread an
 //   instance, 128 threads a block, the Riccati carries in registers; what
-//   does not fit spills to local memory.  The LTV step's Ad/Bd/cd are read
-//   where they are used rather than held.
+//   does not fit spills to local memory.  The LTV step's Ad - I, Bd, cd are
+//   read where they are used rather than held.
 //
 // A warp's load of one element of a batch-innermost array is one 128-byte
 // transaction (one thread an instance) or one 32-byte sector (a group: 8

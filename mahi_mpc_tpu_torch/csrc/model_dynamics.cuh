@@ -116,12 +116,15 @@ MPC_HD void model_f(const Model& m, const T* x, const T* u, T* out) {
   }
 }
 
-// One explicit step F(x, u) (models/integrators.py): Euler x + f dt,
-// midpoint x + dt f(x + dt/2 k1), RK4 x + dt/6 (((k1 + 2 k2) + 2 k3) + k4).
-// The stages run in a loop, so f is inlined once whatever the integrator.
+// The increment F(x, u) - x of one explicit step (models/integrators.py
+// `make_increment`), formed directly and not as a difference: Euler dt f,
+// midpoint dt f(x + dt/2 k1), RK4 dt/6 (((k1 + 2 k2) + 2 k3) + k4).  Under
+// dual numbers its tangent is the increment's own, built from the stages'
+// tangents: the seed of x enters only through the stage points.  The
+// stages run in a loop, so f is inlined once whatever the integrator.
 template <typename T, typename Model, typename S>
-MPC_HD void model_step(const Model& m, int integ, S dt, const T* x,
-                       const T* u, T* out) {
+MPC_HD void model_increment(const Model& m, int integ, S dt, const T* x,
+                            const T* u, T* out) {
   constexpr int NX = Model::NX;
   const int stages = integ == kRk4 ? 4 : (integ == kMidpoint ? 2 : 1);
   const S half = S(0.5) * dt;
@@ -143,7 +146,7 @@ MPC_HD void model_step(const Model& m, int integ, S dt, const T* x,
   }
   const S h = integ == kRk4 ? dt / S(6) : dt;
 #pragma unroll
-  for (int i = 0; i < NX; ++i) out[i] = x[i] + h * acc[i];
+  for (int i = 0; i < NX; ++i) out[i] = h * acc[i];
 }
 
 // Seed dual inputs for pass `pass`: direction d = pass K + k of z = [x; u].
@@ -194,12 +197,13 @@ MPC_HD void acc_rows(const Model& m, const S* x, const S* u, S dt, S* fval,
   }
 }
 
-// The step value and its full Jacobian d F / d[x; u] (NX x NZ) through the
-// integrator: the generic nx-row path.  Column d of the Jacobian goes to
-// `col(d, i, value)`, so a caller can stream it to memory.
+// The step's increment F(x, u) - x and its Jacobian rows d(F - x) / d[x; u]
+// = [A - I | B] (NX x NZ) through the integrator: the generic nx-row path.
+// Column d of the rows goes to `col(d, i, value)`, so a caller can stream
+// it to memory.
 template <typename S, typename Model, typename Col>
-MPC_HD void step_rows(const Model& m, int integ, S dt, const S* x,
-                      const S* u, S* val, const Col& col) {
+MPC_HD void increment_rows(const Model& m, int integ, S dt, const S* x,
+                           const S* u, S* val, const Col& col) {
   constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU;
   constexpr int K = kDualTangents < NZ ? kDualTangents : NZ;
   constexpr int PASSES = (NZ + K - 1) / K;
@@ -208,7 +212,7 @@ MPC_HD void step_rows(const Model& m, int integ, S dt, const S* x,
   for (int pass = 0; pass < PASSES; ++pass) {
     D xd[NX], ud[NU], out[NX];
     seed<S, K, NX, NU>(x, u, pass, xd, ud);
-    model_step(m, integ, dt, xd, ud, out);
+    model_increment(m, integ, dt, xd, ud, out);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       if (pass == 0) val[i] = out[i].v;

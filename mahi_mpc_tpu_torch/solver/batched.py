@@ -171,12 +171,16 @@ def _linearize_lanes(prob: ShootingProblem, X: Tensor, U: Tensor,
     return J[..., :nx], J[..., nx:], c
 
 
-def _fan_jacobian(prob: ShootingProblem, W: Tensor):
-    """The discrete step and its Jacobian at M points W = [x; u] (nz, M):
-    val (nx, M), J (nx, nz, M), from nz unit-tangent ``torch.func.jvp``
-    passes vmapped over the unit basis (one batched pass on the card)."""
+def _fan_jacobian(prob: ShootingProblem, W: Tensor, step=None):
+    """The discrete step (or ``step(xs, us)``, another function of the
+    stage) and its Jacobian at M points W = [x; u] (nz, M): val (nx, M), J
+    (nx, nz, M), from nz unit-tangent ``torch.func.jvp`` passes vmapped
+    over the unit basis (one batched pass on the card)."""
     nx, nz = prob.nx, W.shape[0]
-    stepw = lambda w: _lanes_step(prob, w[:nx], w[nx:])
+    if step is None:
+        stepw = lambda w: _lanes_step(prob, w[:nx], w[nx:])
+    else:
+        stepw = lambda w: step(w[:nx], w[nx:])
     basis = torch.eye(nz, dtype=W.dtype, device=W.device)[:, :, None]
     Jt = vmap(lambda t: jvp(stepw, (W,), (t,))[1])(
         basis.expand(nz, nz, W.shape[1]))               # (nz, nx, M)

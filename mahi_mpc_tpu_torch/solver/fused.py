@@ -22,7 +22,13 @@ and three step modes, as in the JAX kernel:
 - **generic** (midpoint, rk4): all nx rows through the integrator step;
 - **ltv** (``prob.is_linear``, reference C8): the exact affine step
   ``Ad x + Bd u + cd`` of the frozen linearization, computed once per solve
-  on the host (``batched._ltv_discrete``) and streamed in; no AD.
+  on the host (``batched._ltv_discrete``) and streamed in as
+  ``(Ad - I, Bd, cd)``; no AD.
+
+Every step mode gives the step's increment ``F(x, u) - x``, formed
+directly, and every defect is formed as ``(x - x') + increment``
+(``_solve_batch_fused_plain`` says why); the JAX kernel forms
+``F(x) - x'``, which agrees in float64 and crawls in float32.
 
 Two implementations of the same function live here:
 
@@ -58,7 +64,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..models.arm import arm_constants
-from ..models.integrators import make_step
+from ..models.integrators import make_increment
 from ..ops.linalg import chol_lanes
 from ..ops.precision import strict_fp32
 from ..params import SolverOptions
@@ -205,18 +211,16 @@ def _acc_jacobian(dyn, x: Tensor, u: Tensor):
 
 def _plain_step(prob: ShootingProblem, ltv):
     """The plain version's step mode (the kernel's step policy), as three
-    functions over batch-leading tensors and a flag:
+    functions over batch-leading tensors:
 
-    - ``linearize(xs, us)``: xs (B, N, nx), us (B, N, nu) -> the step value
-      (B, N, nx), A (B, N, nx, nx), Bm (B, N, nx, nu) and the rows the
-      rollout reuses;
-    - ``next_dx(k, dx, du, ck_k, rows)``: dx (B, nx), du (B, nu) -> A dx +
-      B du + ck_k at stage k;
-    - ``value(xt, ut)``: the step at trial points (B, ..., nx);
-    - ``incremental``: True when ``linearize`` and ``value`` return the
-      step's increment F(x, u) - x instead (the Euler step's dt f), so that
-      a defect is formed as (x - x') + increment (``_solve_batch_fused_plain``
-      says why)."""
+    - ``linearize(xs, us)``: xs (B, N, nx), us (B, N, nu) -> the step's
+      increment F(x, u) - x (B, N, nx), A (B, N, nx, nx), Bm (B, N, nx, nu)
+      and the rows the rollout reuses;
+    - ``next_dx(k, dx, du, ck_k, rows)``: dx (B, nx), du (B, nu) ->
+      (dx + (A - I) dx + B du) + ck_k at stage k;
+    - ``value(xt, ut)``: the increment at trial points (B, ..., nx).
+
+    Sums run left to right in the kernel's order (``_ssum``)."""
     dyn = prob.dynamics
     nx, nu, nq = prob.nx, prob.nu, dyn.nq
     nz = nx + nu
@@ -224,27 +228,27 @@ def _plain_step(prob: ShootingProblem, ltv):
     lanes = lambda x, n: x.reshape(-1, n).T          # (..., n) -> (n, M)
     mode = _mode(prob)
     if mode == "ltv":
-        Ad, Bd, cd = ltv               # (B, nx, nx), (B, nx, nu), (B, nx)
+        AdI, Bd, cd = ltv              # (B, nx, nx), (B, nx, nu), (B, nx)
+        A = torch.eye(nx, dtype=AdI.dtype, device=AdI.device) + AdI
 
-        def affine(x, u, c):
-            """((Ad x) + (Bd u)) + c for x (B, ..., nx), u (B, ..., nu),
-            each dot product left to right as the kernel sums it."""
+        def rows_of(x, u):
+            """(Ad - I) x + Bd u for x (B, ..., nx), u (B, ..., nu), each
+            dot product left to right as the kernel sums it."""
             mid = (1,) * (x.dim() - 2)
-            A_, B_ = Ad.view(-1, *mid, nx, nx), Bd.view(-1, *mid, nx, nu)
-            return (_ssum(A_ * x[..., None, :])
-                    + _ssum(B_ * u[..., None, :])) + c
+            A_, B_ = AdI.view(-1, *mid, nx, nx), Bd.view(-1, *mid, nx, nu)
+            return _ssum(A_ * x[..., None, :]) + _ssum(B_ * u[..., None, :])
 
         def linearize(xs, us):
             Bsz, N = xs.shape[:2]
-            return (affine(xs, us, cd[:, None]),
-                    Ad[:, None].expand(Bsz, N, nx, nx),
+            return (rows_of(xs, us) + cd[:, None],
+                    A[:, None].expand(Bsz, N, nx, nx),
                     Bd[:, None].expand(Bsz, N, nx, nu), None)
 
         def next_dx(k, dx, du, ck_k, rows):
-            return affine(dx, du, ck_k)
+            return (dx + rows_of(dx, du)) + ck_k
 
         def value(xt, ut):
-            return affine(xt, ut, cd.view(-1, *(1,) * (xt.dim() - 2), nx))
+            return rows_of(xt, ut) + cd.view(-1, *(1,) * (xt.dim() - 2), nx)
     elif mode == "fast":
         def linearize(xs, us):
             Bsz, N = xs.shape[:2]
@@ -270,22 +274,25 @@ def _plain_step(prob: ShootingProblem, ltv):
             fv = dyn.f(lanes(xt, nx), lanes(ut, nu)).T
             return fv.reshape(xt.shape) * dt        # the Euler increment
     else:
-        step = make_step(dyn.f, dt, prob.integrator)
+        inc = make_increment(dyn.f, dt, prob.integrator)
 
         def linearize(xs, us):
+            # the increment's rows [A - I | B]; the body's A is I + them
             Bsz, N = xs.shape[:2]
             val, J = _fan_jacobian(prob, torch.cat(
-                [lanes(xs, nx), lanes(us, nu)], dim=0))
+                [lanes(xs, nx), lanes(us, nu)], dim=0), inc)
             J = J.permute(2, 0, 1).reshape(Bsz, N, nx, nz)
-            return val.T.reshape(Bsz, N, nx), J[..., :nx], J[..., nx:], J
+            eye = torch.eye(nx, dtype=xs.dtype, device=xs.device)
+            return (val.T.reshape(Bsz, N, nx), eye + J[..., :nx],
+                    J[..., nx:], J)
 
         def next_dx(k, dx, du, ck_k, rows):
             dzin = torch.cat([dx, du], dim=1)
-            return (rows[:, k] @ dzin[..., None])[..., 0] + ck_k
+            return (dx + _ssum(rows[:, k] * dzin[:, None, :])) + ck_k
 
         def value(xt, ut):
-            return step(lanes(xt, nx), lanes(ut, nu)).T.reshape(xt.shape)
-    return linearize, next_dx, value, mode == "fast"
+            return inc(lanes(xt, nx), lanes(ut, nu)).T.reshape(xt.shape)
+    return linearize, next_dx, value
 
 
 def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
@@ -294,7 +301,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
                              adaptive: bool, ltv=None):
     """The fused solve in plain PyTorch: returns X, U and the (B, 8) stats
     [stepn, feas, jref, alpha, mu, done, iters, 0] of the kernel.  ``ltv``
-    is the streamed (Ad, Bd, cd) in LTV mode."""
+    is the streamed (Ad - I, Bd, cd) in LTV mode."""
     nx, nu, N = prob.nx, prob.nu, prob.N
     nz = nx + nu
     B = X.shape[0]
@@ -312,7 +319,7 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
     xdes_prev = torch.cat([xdes[:, :1], xdes[:, :-1]], dim=1)
     tk = torch.arange(N, device=device) >= 1                # (N,)
     eye_nu = torch.eye(nu, dtype=dtype, device=device)
-    linearize, next_dx, step_value, incremental = _plain_step(prob, ltv)
+    linearize, next_dx, step_increment = _plain_step(prob, ltv)
 
     def stage_cost(x, u, du, e, tkm, mu_b, w):
         """Stage cost + barriers and the rate/magnitude term; x (..., nx);
@@ -335,20 +342,17 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
             break
         mu_c = mu[:, None]
 
-        # ---- linearize every stage at once: value, defect, Jacobians.  On
-        # the Euler path the defect is (x - x') + dt f: x and x' differ by
-        # about dt f, so their float32 rounding stays out of it.  (As
+        # ---- linearize every stage at once: increment, defect, Jacobians.
+        # Every defect is (x - x') + increment: x and x' differ by about the
+        # increment, so their float32 rounding stays out of it.  (As
         # F(x) - x' it carries ~ulp(x) a component, which the l1 merit
         # weights by nu_pen: near convergence that noise exceeded the Armijo
         # noise floor, rejected full steps and grew reg until the damped
         # step passed tol away from the solution, the float32 crawl.)
         xs = X[:, :N]
-        val, A, Bm, rows = linearize(xs, U)
-        if incremental:
-            ck = (xs - X[:, 1:]) + val
-            val = xs + val
-        else:
-            ck = val - X[:, 1:]
+        inc, A, Bm, rows = linearize(xs, U)
+        ck = (xs - X[:, 1:]) + inc
+        val = xs + inc
 
         # ---- stage gradients, diagonal, costs (all stages at once)
         ukm1 = torch.cat([p.u_prev[:, None], U[:, :-1]], dim=1)
@@ -476,13 +480,10 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
         w4 = lambda t: t[:, None, None]
         sc_t, rate_t = stage_cost(xt, ut, dut, et, tk[None, None],
                                   mu_c[..., None], w4)
-        val_t = step_value(xt, ut)
-        if incremental:
-            d_t = ((X[:, None, :N] - X[:, None, 1:])
-                   + a4 * (dX[:, None, :N] - dX[:, None, 1:])) + val_t
-            val_t = xt + val_t
-        else:
-            d_t = val_t - (X[:, None, 1:] + a4 * dX[:, None, 1:])
+        inc_t = step_increment(xt, ut)
+        d_t = ((X[:, None, :N] - X[:, None, 1:])
+               + a4 * (dX[:, None, :N] - dX[:, None, 1:])) + inc_t
+        val_t = xt + inc_t
         cl1_t = _ssum(d_t.abs().flatten(-2))
         er_t = val_t - xdes[:, None]
         jref_t = _ssum(_ssum(torch.cat([rate_t[..., None],
@@ -687,7 +688,11 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
     mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
 
     with strict_fp32():
-        ltv = _ltv_discrete(prob, p) if prob.is_linear else None
+        ltv = None
+        if prob.is_linear:
+            # the kernel streams Ad - I: its increment forms no difference
+            Ad, Bd, cd = _ltv_discrete(prob, p)
+            ltv = (Ad - torch.eye(nx, dtype=Ad.dtype, device=device), Bd, cd)
         X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive,
                         ltv)
 
@@ -786,16 +791,21 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
                     opts: SolverOptions = SolverOptions(), mu0=None,
                     n_iter: Optional[int] = None, adaptive: bool = False,
                     body: str = "group"):
-    """The floating-point operations of a kernel body for the serial arms
-    under Euler on these inputs, each as {"add", "mul", "div_sqrt",
-    "transcendental"} summed over the instances: the body run by g++ on a
-    scalar that counts (``csrc/flop_count.cpp``), in float64 on CPU copies
-    of the inputs.  Returns {"body": the body's own tally, "minimum": the
-    function's operations, each counted once}.  ``body="group"``: the
-    card's body; its minimum (the tally less the work its lanes repeat) is
-    the numerator of the kernel's roofline bound.  ``body="thread"``: the
-    one-thread body, the arithmetic the group body replaced (minimum
-    None)."""
+    """The floating-point operations of a kernel body on these inputs,
+    each as {"add", "mul", "div_sqrt", "transcendental"} summed over the
+    instances: the body run by g++ on a scalar that counts
+    (``csrc/flop_count.cpp``), in float64 on CPU copies of the inputs.
+    Returns {"body": the body's own tally, "minimum": the function's
+    operations, each counted once: the tally less what the body repeats},
+    the minimum being the numerator of the kernel's roofline bound.
+    ``body="group"``: the card's body for the serial arms under Euler (it
+    repeats work across its lanes).  ``body="thread"``: the one-thread body
+    of any problem the kernel serves, what the card runs for the generic,
+    closed-form and LTV policies; it repeats the step's value in every dual
+    pass of a stage's linearization and adds A's identity entry by entry.
+    For the arms under Euler it is the arithmetic the group body replaced,
+    not what the card runs, and its minimum is None (the function's is
+    ``body="group"``'s)."""
     from .._build import cpu_library
     lib = cpu_library("flop_count")
     counts = torch.zeros(8, dtype=torch.float64)
@@ -811,4 +821,5 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     kinds = ("add", "mul", "div_sqrt", "transcendental")
     tally = dict(zip(kinds, counts[:4].tolist()))
     minimum = dict(zip(kinds, (counts[:4] - counts[4:]).tolist()))
-    return dict(body=tally, minimum=minimum if group else None)
+    card_runs = group or _cuda_library(prob) != "fused_sqp"
+    return dict(body=tally, minimum=minimum if card_runs else None)

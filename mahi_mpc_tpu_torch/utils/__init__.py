@@ -1,3 +1,4 @@
+from .profiling import annotate, device_trace
 from .results import ControlLog
 
-__all__ = ["ControlLog"]
+__all__ = ["ControlLog", "annotate", "device_trace"]
