@@ -145,11 +145,32 @@ line each, with the seconds since start in ``t``:
     ``device_trace``, one ``annotate`` region a step: solves/s,
     converged_frac (>= 0.9 after the cold step), the share within 0.05 rad
     of the goal, one fused launch a step, and the exported trace must name
-    the fused kernel and the region.
+    the fused kernel and the region;
+18. sharded_service — phase 4's fixed-3 service (B=16384, 1 cold + 10
+    warm steps) without a mesh, on a mesh of the one card and on a mesh of
+    the card twice (two batch shards) at B=16384 and B=16383 (padded by
+    one): one fused launch a shard a step, converged_frac >= 0.9 after
+    every step, the one-card mesh bitwise the meshless service, the
+    two-shard services within 1e-6 with equal statuses; ms per warm step
+    of each;
+19. sharded_lanes — the lanes route (``warm_solver="adaptive"``) at
+    B=1024 over two shards of the card against one (statuses equal, U
+    within 2e-4), the Riccati kernel once a shard an SQP iteration;
+20. distributed — ``examples/distributed_solve.py`` (B=16384) as two
+    processes on the card over gloo, then one over NCCL at world size 1
+    with ``scaling_table``: every rank exits 0, the two runs' gathered U
+    and statuses agree;
+21. pariccati — ``kkt_backend="pariccati"`` against the scan (and the
+    dense oracle where small), float64 and float32, at B=1 N=25, B=16
+    N=512, trajgen's N=40 QP, N=1000 and B=1024 N=25, with wall ms of the
+    scan, pariccati and the Riccati kernel;
+22. time_shard — ``solve_lqr_time_sharded`` over the card repeated T = 2
+    and 4 at N = 24 and 1000 against the scan, and one SQP ``solve`` with
+    the registered backend against ``"riccati"``.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-main paths (the fused kernel's include phase 17's, the Riccati kernel's
-phase 16's), its error against the plain version (for the fused kernel's
+main paths (the fused kernel's include phases 17-18's, the Riccati
+kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
 both times (``ms_b1``, ``plain_ms_b1`` at B=1), its bound (``bound_ms``,
 ``bound_by``; for the fused kernel also ``body_bound_ms``, the bound of
@@ -162,6 +183,7 @@ CUDA device it exits 1 and prints no result.
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -196,6 +218,14 @@ TRAJ_BACKEND_BAND = 1e-3
 # relative to the instance's max|dz|, max|du| (the g++ build: 1.0e-5).
 TRAJ_KKT_BAND = 1e-4
 SCENARIO_STEPS = 50               # examples/batch_scenarios.py's default
+# Two shards of one batch against one, and two processes against one: the
+# fused solve is per instance, so the plans are expected to agree bit for
+# bit; a difference within this band passes and is printed.
+SHARD_DU_BAND = 1e-6
+# The lanes route over two shards against one (tests/test_parallel.py's
+# band: each shard's loop runs to its own slowest instance).
+LANES_SHARD_BAND = 2e-4
+DIST_TIMEOUT = 300                # seconds a distributed child may take
 # NVIDIA's H100 SXM peaks from its datasheet: FP32 outside the tensor cores
 # and HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -1480,6 +1510,429 @@ def batch_scenarios_phase(dev) -> int:
     return launches
 
 
+def _step_timed(svc):
+    """One service step between CUDA events: (controls, ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    u = svc.step()
+    end.record()
+    torch.cuda.synchronize()
+    return u, start.elapsed_time(end)
+
+
+def sharded_service_phase(dev, mp, Qw, Rw, Rmw, rng, warm_schedule) -> dict:
+    """Phase 18, sharded_service: the main path's service (``mahi_arm``
+    Euler, fixed-3 warm, B=16384, 1 cold + 10 warm steps on bench-shaped
+    data) with no mesh, on a mesh of the one card, and on a mesh of the
+    card twice (two shards) at B=16384 and at B=16383 (padded by one).
+    Each service runs the fused kernel once a shard a step (counted from
+    0 just before it) and converges >= 0.9 after every step; the one-card
+    mesh's controls and plan equal the meshless service's bitwise, the
+    two-shard services' within SHARD_DU_BAND with equal statuses.  Returns
+    the launches and the median ms per warm step of each service."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.parallel import make_mesh
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+    from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
+
+    nx, N, Bs = mp.num_x, mp.num_shooting_nodes, SERVICE_BATCH
+    x0 = 0.2 * rng.standard_normal((Bs, nx))
+    x_des = 0.2 * rng.standard_normal((Bs, N, nx))
+    perts, refs = warm_schedule(Bs, WARM_STEPS)
+    opts = SolverOptions(tol=1e-4, max_iter=30, fixed_warm_iters=3)
+    # Collect the earlier phases' cyclic garbage (the profiler's events of
+    # phase 17) now, not in whichever timed step trips the collector.
+    t0 = time.perf_counter()
+    collected = gc.collect()
+    gc_s = time.perf_counter() - t0
+
+    def drive(name, mesh, B):
+        svc = BatchModelControl(mp, batch=B, device=dev, mesh=mesh,
+                                opts=opts, Q=Qw, R=Rw, Rm=Rmw)
+        shards = svc.mesh.shape["batch"]
+        svc.set_states(x0[:B])
+        svc.set_references(x_des[:B])
+        torch.cuda.synchronize()
+        solve_batch_fused.launches = 0
+        u, _ = _step_timed(svc)
+        out = dict(us=[u.clone()], status=[svc.last.status.clone()],
+                   conv=[svc.metrics()["converged_frac"]], ms=[])
+        for i in range(WARM_STEPS):
+            svc.set_states(x0[:B] + perts[i][:B], u_prev=u)
+            svc.set_references(refs[i][:B])
+            u, ms = _step_timed(svc)
+            out["ms"].append(ms)
+            out["us"].append(u.clone())
+            out["status"].append(svc.last.status.clone())
+            out["conv"].append(svc.metrics()["converged_frac"])
+        launches = solve_batch_fused.launches
+        out.update(plan=svc._U.clone(), launches=launches, shards=shards)
+        emit(phase="sharded_service", service=name, batch=B, shards=shards,
+             mesh=[str(d) for d in svc.mesh.devices.flat],
+             ms_per_warm_step=float(np.mean(out["ms"])),
+             ms_per_warm_step_median=float(np.median(out["ms"])),
+             ms_per_warm_step_all=out["ms"], converged_frac_each=out["conv"],
+             launches=launches)
+        check(tuple(u.shape) == (B, mp.num_u)
+              and bool(torch.isfinite(u).all()),
+              f"sharded_service {name}: non-finite or misshapen controls")
+        check(min(out["conv"]) >= 0.9,
+              f"sharded_service {name}: converged_frac {out['conv']}")
+        check(launches == shards * (1 + WARM_STEPS),
+              f"sharded_service {name}: {launches} fused launches for "
+              f"{shards} shards x {1 + WARM_STEPS} steps")
+        return out
+
+    card = make_mesh(n_batch=1, devices=[dev])
+    twice = make_mesh(n_batch=2, devices=[dev, dev])
+    runs = {"meshless": drive("meshless", None, Bs),
+            "one_card": drive("one_card", card, Bs),
+            "two_shards": drive("two_shards", twice, Bs),
+            "two_shards_padded": drive("two_shards_padded", twice, Bs - 1)}
+    ref = runs["meshless"]
+    line = {}
+    for name, r in runs.items():
+        if name == "meshless":
+            continue
+        B = r["us"][0].shape[0]
+        pairs = list(zip(r["us"] + [r["plan"]],
+                         ref["us"] + [ref["plan"]]))
+        du = max(float((a - b[:B]).abs().max()) for a, b in pairs)
+        same = all(torch.equal(a, b[:B]) for a, b in pairs)
+        st = all(torch.equal(a, b[:B]) for a, b in zip(r["status"],
+                                                        ref["status"]))
+        line[name] = dict(max_abs_du_vs_meshless=du, bitwise=same,
+                          statuses_equal=st,
+                          ms_per_warm_step_median=float(np.median(r["ms"])))
+        if name == "one_card":
+            check(same and st, f"sharded_service: the one-card mesh is not "
+                               f"bitwise the meshless service ({du})")
+        check(du <= SHARD_DU_BAND and st,
+              f"sharded_service {name}: max|dU| {du} vs the meshless "
+              f"service, statuses equal {st}")
+    # medians: a single host stall of one step would move a mean of ten
+    ms0 = float(np.median(ref["ms"]))
+    emit(phase="sharded_service_compare", batch=Bs,
+         gc_collect_s=gc_s, gc_collected=collected,
+         meshless_ms_per_warm_step_median=ms0,
+         two_shard_overhead_ms=(line["two_shards"]["ms_per_warm_step_median"]
+                                - ms0),
+         **line)
+    return dict(launches=sum(r["launches"] for r in runs.values()),
+                ms_median={k: float(np.median(r["ms"]))
+                           for k, r in runs.items()})
+
+
+def sharded_lanes_phase(dev, mp, Qw, Rw, Rmw, rng) -> int:
+    """Phase 19, sharded_lanes: the lanes route (``warm_solver="adaptive"``,
+    the Riccati kernel at (12, 4)) at B=1024 over a mesh of the card twice,
+    against the unsharded service, 1 cold + LANES_WARM_STEPS warm steps:
+    statuses equal and controls within LANES_SHARD_BAND after every step;
+    the Riccati kernel launched once a shard an SQP iteration (counted from
+    0 just before each service).  Returns the sharded service's
+    launches."""
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.parallel import make_mesh
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+    from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
+    from mahi_mpc_tpu_torch.solver.riccati_kernel import \
+        solve_lqr_kernel_batch
+
+    nx, N, B = mp.num_x, mp.num_shooting_nodes, PARITY_BATCH
+    x0 = 0.2 * rng.standard_normal((B, nx))
+    x_des = 0.2 * rng.standard_normal((B, N, nx))
+    perts = 0.01 * rng.standard_normal((LANES_WARM_STEPS, B, nx))
+
+    def drive(mesh):
+        svc = BatchModelControl(
+            mp, batch=B, device=dev, mesh=mesh,
+            opts=SolverOptions(tol=1e-4, max_iter=30, warm_solver="adaptive"),
+            Q=Qw, R=Rw, Rm=Rmw)
+        check(svc.kkt_backend == "pallas",
+              f"sharded_lanes: kkt_backend {svc.kkt_backend}")
+        svc.set_states(x0)
+        svc.set_references(x_des)
+        solve_lqr_kernel_batch.launches = 0
+        solve_batch_fused.launches = 0
+        us, status, loop_iters, ms = [], [], 0, []
+        u = None
+        for i in range(1 + LANES_WARM_STEPS):
+            if i:
+                svc.set_states(x0 + perts[i - 1], u_prev=u)
+            u, t = _step_timed(svc)
+            ms.append(t)
+            us.append(u.clone())
+            status.append(svc.last.status.clone())
+            loop_iters += sum(int(r.iters.max()) for r in svc._results)
+            check(svc.metrics()["converged_frac"] >= 0.9,
+                  f"sharded_lanes: {svc.metrics()}")
+        launches = solve_lqr_kernel_batch.launches
+        check(launches == loop_iters and solve_batch_fused.launches == 0,
+              f"sharded_lanes: {launches} Riccati launches for {loop_iters} "
+              f"shard-iterations, {solve_batch_fused.launches} fused")
+        return us, status, launches, ms, svc.mesh.shape["batch"]
+
+    ref = drive(None)
+    got = drive(make_mesh(n_batch=2, devices=[dev, dev]))
+    du = max(float((a - b).abs().max()) for a, b in zip(got[0], ref[0]))
+    st = all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+    emit(phase="sharded_lanes", batch=B, shards=got[4],
+         steps=1 + LANES_WARM_STEPS, max_abs_du_vs_unsharded=du,
+         statuses_equal=st, riccati_launches=got[2],
+         riccati_launches_unsharded=ref[2], ms_per_step=got[3],
+         ms_per_step_unsharded=ref[3])
+    check(st and du <= LANES_SHARD_BAND,
+          f"sharded_lanes: statuses equal {st}, max|dU| {du}")
+    return got[2]
+
+
+def _run_children(cmds, timeout) -> list:
+    """Start every command at once (cwd the checkout, its package on the
+    path, one thread each), wait for all; kill every one that is left if
+    any fails or runs out of time.  Returns (seconds, last stdout line as
+    JSON) for each; raises with the stderr's tail on a failure."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        check(p.returncode == 0, f"{' '.join(c[2:])} exited {p.returncode}: "
+                                 f"{err[-2000:]}")
+    return [(secs, json.loads(out.strip().splitlines()[-1]))
+            for out, _ in outs]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distributed_phase() -> dict:
+    """Phase 20, distributed: ``examples/distributed_solve.py`` (the
+    double-pendulum problem of tests/test_distributed.py, B=16384) as two
+    processes on the one card over gloo (NCCL refuses two ranks on one
+    card), each solving its half on cuda:0 with the libraries this run
+    built (no library in ``_build/`` may be new or rewritten), then as one
+    process over NCCL at world size 1 with ``scaling_table``.  Every rank
+    must exit 0; the gathered U and statuses of the two runs must agree (U
+    within SHARD_DU_BAND).  Returns the children's fused launches and the
+    one_chip row."""
+    import tempfile
+
+    import numpy as np
+
+    from mahi_mpc_tpu_torch._build import BUILD_DIR
+
+    mod = [sys.executable, "-m", "mahi_mpc_tpu_torch.examples.distributed_solve",
+           "--device", "cuda", "--local-device-ids", "0", "--batch",
+           str(SERVICE_BATCH)]
+    libraries = lambda: {f.name: f.stat().st_mtime_ns
+                         for f in BUILD_DIR.glob("*.so")}
+    built = libraries()
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo_dir, nccl_dir = Path(tmp, "gloo"), Path(tmp, "nccl")
+        port = _free_port()
+        gloo = _run_children(
+            [mod + ["--backend", "gloo", "--coordinator", f"localhost:{port}",
+                    "--num-processes", "2", "--rank", str(r), "--out",
+                    str(gloo_dir)] for r in range(2)], DIST_TIMEOUT)
+        port = _free_port()
+        (nccl,) = _run_children(
+            [mod + ["--backend", "nccl", "--coordinator", f"localhost:{port}",
+                    "--num-processes", "1", "--rank", "0", "--out",
+                    str(nccl_dir), "--scaling"]], DIST_TIMEOUT)
+        U2, U1 = (np.load(d / "U.npy") for d in (gloo_dir, nccl_dir))
+        s2, s1 = (np.load(d / "status.npy") for d in (gloo_dir, nccl_dir))
+    du = float(np.abs(U2 - U1).max())
+    rebuilt = sorted(set(libraries().items()) - set(built.items()))
+    one_chip = nccl[1]["scaling"]["one_chip"]
+    launches = sum(r["fused_launches"] for _, r in gloo) + \
+        nccl[1]["fused_launches"]
+    emit(phase="distributed", batch=SERVICE_BATCH,
+         gloo=dict(backend=gloo[0][1]["backend"], processes=2,
+                   seconds=gloo[0][0], ranks=[r for _, r in gloo]),
+         nccl=dict(backend=nccl[1]["backend"], processes=1,
+                   seconds=nccl[0], rank=nccl[1]),
+         max_abs_du_gloo_vs_nccl=du, statuses_equal=bool((s2 == s1).all()),
+         one_chip=one_chip, fused_launches=launches,
+         libraries_built_by_children=rebuilt)
+    check(not rebuilt, f"distributed: the children built {rebuilt}")
+    check(all(r["backend"] == "gloo" and r["processes"] == 2
+              and r["local_batch"] == SERVICE_BATCH // 2 for _, r in gloo),
+          f"distributed: gloo ranks {gloo}")
+    check(nccl[1]["backend"] == "nccl", f"distributed: {nccl}")
+    check(U2.shape == (SERVICE_BATCH, 8, 2) and bool(np.isfinite(U2).all()),
+          f"distributed: gathered U {U2.shape}")
+    check(du <= SHARD_DU_BAND and bool((s2 == s1).all()),
+          f"distributed: two ranks vs one, max|dU| {du}")
+    check(min(r["converged_frac"] for _, r in gloo) >= 0.9
+          and one_chip["converged_frac"] >= 0.9,
+          f"distributed: converged {gloo}, {one_chip}")
+    return dict(launches=launches, one_chip=one_chip)
+
+
+def pariccati_phase(dev, timed) -> None:
+    """Phase 21, pariccati: ``kkt_backend="pariccati"`` (the log-depth
+    scans, plain PyTorch) against the scan and, where it is small, the
+    dense oracle, in float64 and float32 on the card: a (12, 4) QP at B=1,
+    N=25; B=16 at N=512, (6, 2) (the JAX package's long-horizon case); the
+    trajgen demo's first QP at N=40, (3, 1); a (12, 4) QP at N=1000; and
+    B=1024 at N=25, (12, 4), with the Riccati kernel beside them.  dz, du
+    within 1e-9 of max|ref| of the scan in float64 (the dense oracle
+    1e-8); in float32 within 1e-4 of the float32 scan at N=25 (reported
+    only at the longer horizons, where float32 roundoff grows).  Wall ms
+    (CUDA events) of the scan, pariccati and the Riccati kernel at each
+    shape, float32 and float64."""
+    import torch
+
+    from mahi_mpc_tpu_torch.examples.trajectory_library import (
+        OPTS, demo_waypoints, make_generator)
+    from mahi_mpc_tpu_torch.solver.pariccati import solve_lqr_parallel
+    from mahi_mpc_tpu_torch.solver.riccati import (solve_lqr,
+                                                   solve_lqr_dense,
+                                                   solve_lqr_scan)
+    from mahi_mpc_tpu_torch.solver.stage_qp import StageQP, build_stage_qp
+
+    to64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    gen = make_generator("pendulum", TRAJ_NODES, TRAJ_DT, None, dev)
+    pb, X0, U0 = gen.problem_batch(demo_waypoints(2))
+    full = lambda v: torch.full((X0.shape[0],), v, device=dev)
+    traj = build_stage_qp(gen.problem, X0, U0, pb, full(OPTS.mu_init),
+                          full(1e-8))
+    cases = (("b1_n25", random_qp(1, 25, 12, 4, seed=21, to=to64), True),
+             ("b16_n512", random_qp(16, 512, 6, 2, seed=22, to=to64), False),
+             ("trajgen_n40", StageQP(*[a.double() for a in traj]), True),
+             ("b1_n1000", random_qp(1, 1000, 12, 4, seed=23, to=to64),
+              False),
+             ("b1024_n25", random_qp(1024, 25, 12, 4, seed=24, to=to64),
+              False))
+
+    def rel(got, ref):
+        """max over dz, du of max|got - ref| / max|ref|."""
+        return max(float((g.double() - r.double()).abs().max()
+                         / r.double().abs().max())
+                   for g, r in ((got.dz, ref.dz), (got.du, ref.du)))
+
+    for name, qp64, dense in cases:
+        B, N = qp64.Az.shape[0], qp64.Az.shape[1]
+        nz, nu = qp64.Az.shape[-1], qp64.Bz.shape[-1]
+        qp32 = StageQP(*[a.float() for a in qp64])
+        reps = 3 if N > 100 else 20
+        s64, scan64_ms = timed(lambda: solve_lqr_scan(qp64), reps)
+        p64, par64_ms = timed(lambda: solve_lqr_parallel(qp64), reps)
+        s32, scan32_ms = timed(lambda: solve_lqr_scan(qp32), reps)
+        p32, par32_ms = timed(lambda: solve_lqr_parallel(qp32), reps)
+        k32, kernel_ms = timed(lambda: solve_lqr(qp32, "pallas"), reps)
+        line = dict(phase="pariccati", case=name, batch=B, nodes=N, nz=nz,
+                    nu=nu, f64_rel_err_vs_scan=rel(p64, s64),
+                    f32_rel_err_vs_scan_f32=rel(p32, s32),
+                    f32_rel_err_vs_scan_f64=rel(p32, s64),
+                    f32_scan_rel_err_vs_scan_f64=rel(s32, s64),
+                    f32_kernel_rel_err_vs_scan_f64=rel(k32, s64),
+                    scan_ms_f64=scan64_ms, pariccati_ms_f64=par64_ms,
+                    scan_ms_f32=scan32_ms, pariccati_ms_f32=par32_ms,
+                    kernel_ms_f32=kernel_ms,
+                    pariccati_over_scan_f32=par32_ms / scan32_ms)
+        if dense:
+            line["f64_rel_err_vs_dense"] = rel(p64, solve_lqr_dense(qp64))
+        emit(**line)
+        check(line["f64_rel_err_vs_scan"] <= 1e-9,
+              f"pariccati {name}: float64 {line['f64_rel_err_vs_scan']}")
+        check(line.get("f64_rel_err_vs_dense", 0.0) <= 1e-8,
+              f"pariccati {name}: vs dense {line}")
+        if N == 25:
+            check(line["f32_rel_err_vs_scan_f32"] <= 1e-4,
+                  f"pariccati {name}: float32 {line}")
+
+
+def time_shard_phase(dev) -> None:
+    """Phase 22, time_shard: ``solve_lqr_time_sharded`` over a ``time``
+    mesh of the card repeated T = 2 and 4, at N=24 and N=1000 ((6, 2)
+    QPs, float64): dz, du within 1e-9 of max|ref| of the scan; then one
+    SQP ``solve`` of tests/test_time_shard.py:65-94's double pendulum with
+    the registered backend against ``kkt_backend="riccati"`` (both
+    converged, U within 1e-7)."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
+    from mahi_mpc_tpu_torch.models import make_double_pendulum
+    from mahi_mpc_tpu_torch.parallel import (enable_time_shard_backend,
+                                             make_mesh,
+                                             solve_lqr_time_sharded)
+    from mahi_mpc_tpu_torch.solver import solve
+    from mahi_mpc_tpu_torch.solver.riccati import solve_lqr_scan
+    from mahi_mpc_tpu_torch.transcribe.shooting import (default_params,
+                                                        make_problem)
+
+    to64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    for T in (2, 4):
+        mesh = make_mesh(n_batch=1, n_time=T, devices=[dev] * T)
+        for N in (24, 1000):
+            qp = random_qp(1, N, 6, 2, seed=30 + N, to=to64)
+            ref = solve_lqr_scan(qp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = solve_lqr_time_sharded(qp, mesh)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            err = max(float((g - r).abs().max() / r.abs().max())
+                      for g, r in ((got.dz, ref.dz), (got.du, ref.du)))
+            emit(phase="time_shard", time_shards=T, nodes=N,
+                 rel_err_vs_scan=err, wall_ms=wall)
+            check(err <= 1e-9, f"time_shard T={T} N={N}: {err}")
+
+    name = enable_time_shard_backend(make_mesh(n_batch=1, n_time=4,
+                                               devices=[dev] * 4))
+    N = 24
+    mp = ModelParameters("ts_e2e", num_x=4, num_u=2, step_size=0.02,
+                         num_shooting_nodes=N, u_min=[-5.0, -5.0],
+                         u_max=[5.0, 5.0])
+    prob = make_problem(mp, make_double_pendulum())
+    rng = np.random.default_rng(1)
+    p = default_params(mp, dtype=torch.float64, device=dev)._replace(
+        q=to64([10.0, 1.0, 5.0, 5.0]), r=to64([5.0, 5.0]),
+        rm=to64([0.1, 0.1]), x_des=to64(0.3 * rng.standard_normal((N, 4))),
+        x0=to64([0.1, -0.05, 0.0, 0.0]))
+    kw = dict(tol=1e-8, max_iter=60, dtype="float64")
+    t0 = time.perf_counter()
+    ref = solve(prob, p, opts=SolverOptions(kkt_backend="riccati", **kw))
+    t1 = time.perf_counter()
+    got = solve(prob, p, opts=SolverOptions(kkt_backend=name, **kw))
+    t2 = time.perf_counter()
+    du = float((got.U - ref.U).abs().max())
+    emit(phase="time_shard_solve", backend=name, time_shards=4, nodes=N,
+         status=int(got.status), status_riccati=int(ref.status),
+         iters=int(got.iters), iters_riccati=int(ref.iters),
+         max_abs_du=du, wall_s=t2 - t1, wall_s_riccati=t1 - t0)
+    check(int(got.status) == 0 and int(ref.status) == 0 and du <= 1e-7,
+          f"time_shard solve: statuses {int(got.status)}, "
+          f"{int(ref.status)}, max|dU| {du}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1821,6 +2274,12 @@ def main() -> int:
     traj = trajgen_phase(dev)
     scenario_launches = batch_scenarios_phase(dev)
     launches += scenario_launches
+    sharded = sharded_service_phase(dev, mp, Qw, Rw, Rmw, rng, warm_schedule)
+    launches += sharded["launches"]
+    lanes_sharded = sharded_lanes_phase(dev, mp, Qw, Rw, Rmw, rng)
+    dist = distributed_phase()
+    pariccati_phase(dev, timed)
+    time_shard_phase(dev)
 
     emit(phase="done")
     print(json.dumps({"kernels": [{
@@ -1844,12 +2303,15 @@ def main() -> int:
         "max_abs_err_b1": b1["max_abs_err_b1"],
         "bound_ms_b1": b1["bound_ms_b1"],
         "batch_scenarios_launches": scenario_launches,
+        "sharded_service_launches": sharded["launches"],
+        "sharded_service_ms_median": sharded["ms_median"],
+        "distributed_child_launches": dist["launches"],
         "modes": modes}, {
         "name": "riccati",
         "route": "cuda",
         "source": "mahi_mpc_tpu_torch/csrc/riccati.cu",
         "replaces": "mahi_mpc_tpu/solver/pallas_riccati.py:128",
-        "launches": ric["launches"] + traj["launches"],
+        "launches": ric["launches"] + traj["launches"] + lanes_sharded,
         "max_abs_err": ric["max_abs_err"],
         "ms": ric["ms"],
         "plain_ms": ric["plain_ms"],
@@ -1863,6 +2325,7 @@ def main() -> int:
         "multipliers_ms": ric["multipliers_ms"],
         "lanes_entry_ms": ric["lanes_entry_ms"],
         "trajgen_launches_n40": traj["launches"],
+        "sharded_lanes_launches": lanes_sharded,
         "trajgen_max_rel_err_n40": traj["max_rel_err_n40"],
         "ms_6x2": ric["ms_6x2"], "bound_ms_6x2": ric["bound_ms_6x2"],
         "design_bound_ms_6x2": ric["design_bound_ms_6x2"],
