@@ -14,7 +14,9 @@ line each, with the seconds since start in ``t``:
    ``flop_count.cpp`` beside them; registers and spill bytes of every
    kernel instantiation from ``-Xptxas -v``; then the main path's
    instantiation alone (``fused_sqp_group_kernel``, four threads an
-   instance): its ptxas line and blocks an SM; and the Riccati kernel
+   instance): its ptxas line and blocks an SM; the group body over a dense
+   step, ``Ltv<8, 4>`` and ``Generic<ArmModel<4>>``: each one's ptxas
+   line (spills printed) and blocks an SM; and the Riccati kernel
    (``riccati_group_kernel``, a group of 16 / 8 / 4 threads an instance) at
    each stage shape: its ptxas line, shared memory and blocks an SM (0 B of
    spill stores and >= 2 blocks an SM, or the phase fails);
@@ -56,17 +58,26 @@ line each, with the seconds since start in ``t``:
    path) and ``pendulum`` under Euler (the nq-row path of a closed-form
    model), with phase 3's rules;
 7. timing_fused_modes — kernel and plain version at B=16384, the batch of
-   the services: fixed-3 warm solves in LTV (``mahi_arm``) and under RK4
-   (``double_pendulum``, ``mahi_arm``), timed and held to max|dX|,
-   max|dU| <= 1e-4, each with its bound (the one-thread body's operations,
-   counted by g++ on a counting scalar, over the FP32 peak; its bytes over
-   the HBM rate) and roofline share; and the kernel's adaptive cold
-   solves, timed;
+   the services: fixed-3 warm solves in LTV (``mahi_arm`` (8, 4), the
+   group body; ``double_pendulum`` (4, 2) and ``cartpole`` (4, 1), one
+   thread an instance), under RK4 (``double_pendulum``, one thread an
+   instance; ``mahi_arm`` and ``two_link_arm``, the group body) and under
+   midpoint (``mahi_arm``, the group body), timed (the wrapper by CUDA events, ``ms``, as earlier
+   runs timed it; the kernel's own device ms by the profiler,
+   ``device_ms``: in LTV the per-solve discretization takes more than the
+   kernel) and held to max|dX|, max|dU| <= 1e-4, each with its bound (the
+   function's operations, counted by g++ on a counting scalar, over the
+   FP32 peak; its bytes over the HBM rate) and roofline share of either
+   time; and the kernel's adaptive cold solves, timed;
 8. service_ltv — ``BatchModelControl(mahi_arm, is_linear=True,
    fixed_warm_iters=3)`` at B=16384: a relinearization and a fused LTV
    solve every step, 1 cold + 10 warm steps (converged_frac >= 0.9 after
    the cold and the last warm step, 11 fused launches, all in LTV mode),
-   and ``relinearize`` timed alone;
+   and ``relinearize`` timed alone; one more step under ``torch.profiler``
+   (one launch of the group kernel of ``Ltv``, found by name); then
+   service_rk4, ``mahi_arm`` under RK4 at B=16384, 1 cold + 3 warm steps
+   (converged_frac >= 0.9, 4 fused launches, all generic) and one profiled
+   step (the group kernel of ``Generic``);
 9. parity_riccati — the Riccati kernel against its plain PyTorch version on
    the card, B=1000, N=25: random well-conditioned QPs at (nz, nu) = (12, 4)
    (one instance with an indefinite Huu: NaN there in both, finite
@@ -118,7 +129,10 @@ line each, with the seconds since start in ``t``:
     50 launches), the plain version's ms, the bound at B=1, and 20
     ``calc_u`` under the profiler (host against kernel); an LTV
     ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, B=1 held to
-    the plain version); and 1 s of ``start_calc`` with the native plan
+    the plain version, the LTV solve's ms by CUDA events and the group
+    kernel's device ms a launch by the profiler, the plain version's ms
+    and the bound at B=1); and 1 s of
+    ``start_calc`` with the native plan
     server under a 1 kHz ``control_at_time`` reader (``NativePacer``):
     no failure, no stale or placeholder serve, launches = solves - 1;
 15. service_non_lanes — ``BatchModelControl`` over the arm written as a
@@ -175,7 +189,13 @@ modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
 both times (``ms_b1``, ``plain_ms_b1`` at B=1), its bound (``bound_ms``,
 ``bound_by``; for the fused kernel also ``body_bound_ms``, the bound of
 its body's own tally, and ``bound_ms_b1``) and ``library_ms`` (null: no
-single PyTorch call computes either function), the
+single PyTorch call computes either function); the fused kernel's
+``modes`` give each mode's source, launches, times (``ms`` the wrapper's
+by CUDA events, as earlier runs report it, and ``device_ms`` the kernel's
+by the profiler; the B=1 Euler entry's ``ms`` is the kernel's device
+time, as it has been since it was added), bound and share (``share`` of
+``ms``, ``device_share`` of ``device_ms``), the group bodies over a dense
+step also their registers, spills and blocks an SM; then the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -198,6 +218,7 @@ PARITY_BATCH = 1024
 SERVICE_BATCH = 16384
 WARM_STEPS = 10
 ADAPTIVE_WARM_STEPS = 3
+RK4_WARM_STEPS = 3                # the RK4 mahi_arm service (phase 8)
 COLD_DU_BAND = 5e-3
 RICCATI_PARITY_BATCH = 1000       # under one wave of the Riccati kernel
 LANES_WARM_STEPS = 3
@@ -793,16 +814,19 @@ def to_f64(p):
                      if isinstance(f, tuple) else f.double() for f in p])
 
 
-def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
+def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
     """Phases 5-8: the fused kernel's LTV, generic and closed-form paths.
-    Returns the kernels line's entries for those modes."""
+    ``dense``: the group kernels' ptxas lines for LTV (8, 4) and the
+    generic 4-DOF arm, {"ltv" | "generic": {registers, spill_store_bytes,
+    blocks_per_sm, ...}}.  Returns the kernels line's entries for those
+    modes."""
     import numpy as np
     import torch
 
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
-    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
@@ -812,6 +836,20 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
     mu_warm = opts.warm_mu_factor * opts.tol
     sync = torch.cuda.synchronize
+
+    def service_profile(phase, svc, step_policy):
+        """One more service step under the profiler: the group kernel of
+        ``step_policy`` found by name, launched once, and its device ms."""
+        prof = profile_step(svc.step, "fused_sqp_group_kernel")
+        mine = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
+        emit(phase=phase, batch=svc.batch, **prof)
+        check(prof["kernel_count"] == 1 and prof["kernel_device_ms"] > 0
+              and bool(mine) and step_policy in mine[0][0],
+              f"{phase}: {prof['kernel_count']} fused_sqp_group_kernel "
+              f"launches, kernels {prof['top_kernels']}")
+        return dict(kernel=mine[0][0],
+                    kernel_device_ms=prof["kernel_device_ms"])
+
     cold = lambda solve, prob, p: solve(prob, p, None, None, opts_cold,
                                         mu0=opts_cold.mu_init, adaptive=True)
     warm3 = lambda solve, prob, p, r: solve(
@@ -890,7 +928,11 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
     times = {}
     for name, integrator, is_linear in (("mahi_arm", "euler", True),
                                         ("double_pendulum", "rk4", False),
-                                        ("mahi_arm", "rk4", False)):
+                                        ("mahi_arm", "rk4", False),
+                                        ("mahi_arm", "midpoint", False),
+                                        ("double_pendulum", "euler", True),
+                                        ("cartpole", "euler", True),
+                                        ("two_link_arm", "rk4", False)):
         _, prob, p = model_batch(dev, rng, name, Bt, integrator, is_linear)
         ct, cold_ms = timed(lambda: cold(solve_batch_fused, prob, p), 2)
         wk, warm_ms = timed(lambda: warm3(solve_batch_fused, prob, p, ct),
@@ -899,15 +941,24 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
                                            ct), 1)
         err = max((wk.X - wp.X).abs().max().item(),
                   (wk.U - wp.U).abs().max().item())
+        # the kernel's own device time a launch (the events above time the
+        # wrapper: in LTV the per-solve discretization `_ltv_discrete`, a
+        # vmapped jacfwd, takes more than the kernel)
+        prof = profile_step(lambda: [warm3(solve_batch_fused, prob, p, ct)
+                                     for _ in range(5)], "fused_sqp")
+        check(prof["kernel_count"] == 5,
+              f"{name} {integrator}: {prof['kernel_count']} kernel launches "
+              f"for 5 solves")
+        device_ms = prof["kernel_device_ms"] / 5
         # the bound: the function's operations (the one-thread body's
         # tally less what it repeats; g++ on a counting scalar, the first
         # COUNT_SAMPLE instances of these inputs) and the bytes of the
-        # inputs (the streamed Ad - I, Bd, cd too) and outputs; the body's
-        # own tally gives body_bound_ms
+        # inputs (the streamed Ad - I, Bd, cd too) and outputs; the tally
+        # of the body the card runs gives body_bound_ms
         S = COUNT_SAMPLE
         counted = count_fused_ops(prob, head(p._replace(x0=p.x0 + 0.01), S),
                                   ct.X[:S], ct.U[:S], opts, mu0=mu_warm,
-                                  n_iter=3, body="thread")
+                                  n_iter=3, body=card_body(prob))
         ops, body_ops = counted["minimum"], counted["body"]
         nx, nu = prob.nx, prob.nu
         io = fused_io_bytes(p, ct.X, ct.U, Bt) + (
@@ -916,7 +967,8 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
         body_bound = bound_ms(sum(body_ops.values()) / S * Bt, io)
         times[name, integrator, is_linear] = line = dict(
             phase="timing_fused_modes", model=name, integrator=integrator,
-            is_linear=is_linear, batch=Bt, fixed3_warm_kernel_ms=warm_ms,
+            is_linear=is_linear, batch=Bt, card_body=counted["card_body"],
+            fixed3_warm_kernel_ms=warm_ms,
             fixed3_warm_plain_ms=plain_ms, fixed3_warm_max_abs_dxu=err,
             fixed3_warm_status_agree=frac(wk.status == wp.status),
             adaptive_cold_kernel_ms=cold_ms,
@@ -929,10 +981,19 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
             fixed3_warm_bound_ms=bound["bound_ms"],
             fixed3_warm_bound_by=bound["bound_by"],
             fixed3_warm_roofline_share=bound["bound_ms"] / warm_ms,
+            fixed3_warm_kernel_device_ms=device_ms,
+            fixed3_warm_device_roofline_share=bound["bound_ms"] / device_ms,
+            kernel=[k[0] for k in prof["top_kernels"]
+                    if "fused_sqp" in k[0]][0],
             fixed3_warm_body_bound_ms=body_bound["bound_ms"])
         emit(**line)
         check(err <= 1e-4, f"B={Bt} {name} {integrator} is_linear="
                            f"{is_linear}: fixed-3 warm {err} > 1e-4")
+        # the launcher's body is the one `card_body` names
+        check(("fused_sqp_group_kernel" in line["kernel"])
+              == (line["card_body"] == "group"),
+              f"{name} {integrator} is_linear={is_linear}: launched "
+              f"{line['kernel']}, card_body {line['card_body']}")
 
     # ---- service_ltv: relinearize + fused LTV solve each step, counted
     mp, _, _ = model_batch(dev, rng, "mahi_arm", 1, is_linear=True)
@@ -985,42 +1046,117 @@ def fused_mode_phases(dev, rng, timed, warm_schedule) -> list:
     check(launches == ltv_launches == 1 + WARM_STEPS and ric == 0,
           f"LTV service: {launches} fused ({ltv_launches} LTV) and {ric} "
           f"Riccati launches for {1 + WARM_STEPS} steps")
+    profiled = {"ltv": service_profile("service_ltv_profile", svc, "Ltv")}
 
-    t_ltv = times["mahi_arm", "euler", True]
+    # ---- service_rk4: mahi_arm under RK4, the generic arm's group body
+    mp, _, _ = model_batch(dev, rng, "mahi_arm", 1, "rk4")
+    svc = BatchModelControl(mp, batch=Bs, device=dev,
+                            opts=SolverOptions(tol=1e-4, max_iter=30,
+                                               fixed_warm_iters=3),
+                            Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4,
+                            Rm=[0.01] * 4)
+    check(svc.warm_solver == "fused", f"RK4 service: {svc.warm_solver}")
+    x0 = 0.2 * rng.standard_normal((Bs, mp.num_x))
+    svc.set_states(x0)
+    svc.set_references(0.2 * rng.standard_normal((Bs, N_NODES, mp.num_x)))
+    perts, refs = warm_schedule(Bs, RK4_WARM_STEPS)
+    solve_batch_fused.launches = 0
+    solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+    solve_lqr_kernel_batch.launches = 0
+    u = svc.step()
+    cold_m = svc.metrics()
+    step_ms = []
+    for i in range(RK4_WARM_STEPS):
+        svc.set_states(x0 + perts[i], u_prev=u)
+        svc.set_references(refs[i])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u = svc.step()
+        end.record()
+        sync()
+        step_ms.append(start.elapsed_time(end))
+    m = svc.metrics()
+    rk4_launches = solve_batch_fused.mode_launches["generic"]
+    launches = solve_batch_fused.launches
+    ric = solve_lqr_kernel_batch.launches
+    ms_rk4 = float(np.mean(step_ms))
+    emit(phase="service_rk4", batch=Bs, cold_s=cold_m["solve_s"],
+         cold_converged_frac=cold_m["converged_frac"],
+         warm_steps=RK4_WARM_STEPS, ms_per_warm_step=ms_rk4,
+         ms_per_warm_step_all=step_ms, solves_per_s=Bs / (ms_rk4 * 1e-3),
+         converged_frac=m["converged_frac"], mean_iters=m["mean_iters"],
+         launches=launches, generic_launches=rk4_launches,
+         riccati_launches=ric)
+    check(tuple(u.shape) == (Bs, mp.num_u) and bool(torch.isfinite(u).all()),
+          "RK4 service: non-finite or misshapen controls")
+    check(cold_m["converged_frac"] >= 0.9 and m["converged_frac"] >= 0.9,
+          f"RK4 service: cold {cold_m}, warm {m}")
+    check(launches == rk4_launches == 1 + RK4_WARM_STEPS and ric == 0,
+          f"RK4 service: {launches} fused ({rk4_launches} generic) and "
+          f"{ric} Riccati launches for {1 + RK4_WARM_STEPS} steps")
+    profiled["generic"] = service_profile("service_rk4_profile", svc,
+                                          "Generic")
+
     t_dp = times["double_pendulum", "rk4", False]
-    t_arm = times["mahi_arm", "rk4", False]
     g_pend = gen["pendulum", "euler"]
+    # what the kernels line says of a group body's kernel: its ptxas line
+    # and occupancy, and the service step it was profiled in
+    group_of = lambda key: dict(
+        registers=dense[key]["registers"],
+        spill_store_bytes=dense[key]["spill_store_bytes"],
+        blocks_per_sm=dense[key]["blocks_per_sm"],
+        profiled_kernel=profiled[key]["kernel"],
+        profiled_kernel_device_ms=profiled[key]["kernel_device_ms"])
+
+    def timed_mode(key, mode, case, library, **kw):
+        """A mode's entry from its timing line: ``ms`` the wrapper's
+        fixed-3 warm time by CUDA events (as earlier runs report it),
+        ``device_ms`` the kernel's own by the profiler, and the bound's
+        share of each; the source is the group body's where the card runs
+        it, else the library's."""
+        t = times[key]
+        body = t["card_body"] == "group"
+        library = "mahi_mpc_tpu_torch/csrc/" + library
+        return dict(
+            mode=mode, source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh"
+            if body else library, library=library,
+            case=case + (" (group body)" if body else " (one thread an "
+                                                       "instance)"),
+            max_abs_err=t["fixed3_warm_max_abs_dxu"],
+            ms=t["fixed3_warm_kernel_ms"],
+            device_ms=t["fixed3_warm_kernel_device_ms"],
+            plain_ms=t["fixed3_warm_plain_ms"],
+            bound_ms=t["fixed3_warm_bound_ms"],
+            bound_by=t["fixed3_warm_bound_by"],
+            share=t["fixed3_warm_roofline_share"],
+            device_share=t["fixed3_warm_device_roofline_share"],
+            body_bound_ms=t["fixed3_warm_body_bound_ms"],
+            adaptive_cold_ms=t["adaptive_cold_kernel_ms"], **kw)
+
     return [
-        dict(mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
-             case="mahi_arm LTV, fixed-3 warm", launches=ltv_launches,
-             max_abs_err=t_ltv["fixed3_warm_max_abs_dxu"],
-             ms=t_ltv["fixed3_warm_kernel_ms"],
-             plain_ms=t_ltv["fixed3_warm_plain_ms"],
-             bound_ms=t_ltv["fixed3_warm_bound_ms"],
-             bound_by=t_ltv["fixed3_warm_bound_by"],
-             body_bound_ms=t_ltv["fixed3_warm_body_bound_ms"],
-             adaptive_cold_ms=t_ltv["adaptive_cold_kernel_ms"],
-             service_ms_per_warm_step=ms, relinearize_ms=relin_ms),
-        dict(mode="generic",
-             source="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
-             case="double_pendulum RK4, fixed-3 warm",
-             max_abs_err=t_dp["fixed3_warm_max_abs_dxu"],
-             ms=t_dp["fixed3_warm_kernel_ms"],
-             plain_ms=t_dp["fixed3_warm_plain_ms"],
-             bound_ms=t_dp["fixed3_warm_bound_ms"],
-             bound_by=t_dp["fixed3_warm_bound_by"],
-             body_bound_ms=t_dp["fixed3_warm_body_bound_ms"],
-             adaptive_cold_ms=t_dp["adaptive_cold_kernel_ms"]),
-        dict(mode="generic",
-             source="mahi_mpc_tpu_torch/csrc/fused_sqp_generic.cu",
-             case="mahi_arm RK4, fixed-3 warm",
-             max_abs_err=t_arm["fixed3_warm_max_abs_dxu"],
-             ms=t_arm["fixed3_warm_kernel_ms"],
-             plain_ms=t_arm["fixed3_warm_plain_ms"],
-             bound_ms=t_arm["fixed3_warm_bound_ms"],
-             bound_by=t_arm["fixed3_warm_bound_by"],
-             body_bound_ms=t_arm["fixed3_warm_body_bound_ms"],
-             adaptive_cold_ms=t_arm["adaptive_cold_kernel_ms"]),
+        timed_mode(("mahi_arm", "euler", True), "ltv",
+                   "mahi_arm LTV, fixed-3 warm, Ltv<8, 4>", "fused_sqp_ltv.cu",
+                   launches=ltv_launches, service_ms_per_warm_step=ms,
+                   relinearize_ms=relin_ms, **group_of("ltv")),
+        timed_mode(("double_pendulum", "rk4", False), "generic",
+                   "double_pendulum RK4, fixed-3 warm", "fused_sqp_models.cu"),
+        timed_mode(("mahi_arm", "rk4", False), "generic",
+                   "mahi_arm RK4, fixed-3 warm, Generic<ArmModel<4>>",
+                   "fused_sqp_generic.cu", launches=rk4_launches,
+                   service_ms_per_warm_step=ms_rk4, **group_of("generic")),
+        timed_mode(("mahi_arm", "midpoint", False), "generic",
+                   "mahi_arm midpoint, fixed-3 warm, Generic<ArmModel<4>>",
+                   "fused_sqp_generic.cu"),
+        timed_mode(("two_link_arm", "rk4", False), "generic",
+                   "two_link_arm RK4, fixed-3 warm, Generic<ArmModel<2>>",
+                   "fused_sqp_generic.cu"),
+        timed_mode(("double_pendulum", "euler", True), "ltv",
+                   "double_pendulum LTV, fixed-3 warm, Ltv<4, 2>",
+                   "fused_sqp_ltv.cu"),
+        timed_mode(("cartpole", "euler", True), "ltv",
+                   "cartpole LTV, fixed-3 warm, Ltv<4, 1>",
+                   "fused_sqp_ltv.cu"),
         dict(mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
              case="pendulum Euler, fixed-3 warm at B=1024",
              max_abs_err=g_pend["warm_max_abs_dxu"])]
@@ -1250,10 +1386,40 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
               f"LTV runtime: cold {cold.status}, {launches} launches "
               f"({modes}) for {len(warm)}, statuses {np.unique(st)}")
         out["ltv_launches"] = launches
-        out["ltv_max_abs_err_b1"] = held_b1(
-            lmc, calc_u_params(lmc, RUNTIME_LTV_CALLS * mp.step_size,
-                               lmc._X0[1].cpu().numpy(),
-                               lmc._U0[0].cpu().numpy()), dict(n_iter=3))
+        # the LTV warm solve at B=1: held to its plain version, the group
+        # kernel's device ms a launch (profiler, by name), its bound
+        pl = calc_u_params(lmc, RUNTIME_LTV_CALLS * mp.step_size,
+                           lmc._X0[1].cpu().numpy(),
+                           lmc._U0[0].cpu().numpy())
+        out["ltv_max_abs_err_b1"] = held_b1(lmc, pl, dict(n_iter=3))
+        XL, UL = lmc._X0[None], lmc._U0[None]
+        warm_l = lambda solve: solve(lmc.problem, pl, XL, UL, lmc.opts,
+                                     mu0=lmc._mu_warm, n_iter=3)
+        prof_l = profile_step(lambda: [warm_l(solve_batch_fused)
+                                       for _ in range(reps)],
+                              "fused_sqp_group_kernel")
+        check(prof_l["kernel_count"] == reps
+              and any("Ltv" in k[0] for k in prof_l["top_kernels"]),
+              f"LTV B=1: {prof_l['kernel_count']} group kernel launches "
+              f"for {reps}: {prof_l['top_kernels']}")
+        _, ltv_wrapper_ms = timed(lambda: warm_l(solve_batch_fused), reps)
+        _, ltv_plain_ms = timed(lambda: warm_l(solve_batch_fused_plain), 3)
+        ops_l = count_fused_ops(lmc.problem, pl, XL, UL, lmc.opts,
+                                mu0=lmc._mu_warm, n_iter=3, body="group")
+        nxl, nul = lmc.problem.nx, lmc.problem.nu
+        bound_l = bound_ms(sum(ops_l["minimum"].values()),
+                           fused_io_bytes(pl, XL, UL, 1)
+                           + 4 * (nxl * nxl + nxl * nul + nxl))
+        out.update(ltv_ms_b1=ltv_wrapper_ms,
+                   ltv_device_ms_b1=prof_l["kernel_device_ms"] / reps,
+                   ltv_plain_ms_b1=ltv_plain_ms,
+                   ltv_bound_ms_b1=bound_l["bound_ms"],
+                   ltv_bound_by_b1=bound_l["bound_by"])
+        emit(phase="runtime_ltv_b1", max_abs_dxu_fixed3=out[
+                 "ltv_max_abs_err_b1"], wrapper_ms=ltv_wrapper_ms,
+             kernel_device_ms=out["ltv_device_ms_b1"], plain_ms=ltv_plain_ms, bound_ms=bound_l["bound_ms"],
+             bound_by=bound_l["bound_by"],
+             kernel=prof_l["top_kernels"][0][0])
 
         # -- the solver thread: 1 s of start_calc under a 1 kHz
         # control_at_time reader, with the native plan server.  The reader
@@ -1944,7 +2110,8 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cpu_library, cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
-    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (ARM_IDS, INTEGRATORS,
+                                                 count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
@@ -1975,12 +2142,30 @@ def main() -> int:
     # the main path's instantiation: four threads an instance
     group = [k for k in ptxas_summary(builds["fused_sqp"][1])
              if "fused_sqp_group_kernel" in k["kernel"]]
-    per_sm = {nq: builds["fused_sqp"][0].mpc_fused_group_blocks_per_sm(nq)
-              for nq in (2, 4)}
+    per_sm = {nq: builds["fused_sqp"][0].mpc_fused_blocks_per_sm(
+        ARM_IDS[nq], 2 * nq, nq, 0, 0) for nq in (2, 4)}
     emit(phase="group_kernel", threads_per_instance=4, instances_per_block=32,
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
           f"group kernel: {len(group)} instantiations, blocks/SM {per_sm}")
+    # the group body over a dense step: LTV (8, 4) and the generic arms;
+    # Ltv<8, 4> and Generic<ArmModel<4>>'s lines printed and kept for the
+    # kernels line (spills printed, not failed on)
+    dense = {}
+    for key, lib, marks, args in (
+            ("ltv", "fused_sqp_ltv", ("3Ltv", "Li8ELi4E"), (-1, 8, 4, 0, 1)),
+            ("generic", "fused_sqp_generic", ("7Generic", "ArmModelIfLi4E"),
+             (ARM_IDS[4], 8, 4, INTEGRATORS.index("rk4"), 0))):
+        found = [k for k in ptxas_summary(builds[lib][1])
+                 if "fused_sqp_group_kernel" in k["kernel"]]
+        mine = [k for k in found if all(m in k["kernel"] for m in marks)]
+        check(len(found) == {"ltv": 1, "generic": 2}[key] and len(mine) == 1,
+              f"{lib}: group kernels {[k['kernel'] for k in found]}")
+        dense[key] = dict(mine[0], blocks_per_sm=builds[lib][0]
+                          .mpc_fused_blocks_per_sm(*args))
+        emit(phase="group_kernel_dense", step=key, library=lib,
+             group_kernels=len(found), **dense[key])
+        check(dense[key]["blocks_per_sm"] > 0, f"{key}: {dense[key]}")
     # the Riccati kernel: a group of threads an instance, every stage shape
     ric_lib = builds["riccati"][0]
     ric_k = {tuple(k["template_args"]): k
@@ -2243,7 +2428,7 @@ def main() -> int:
     check(solve_lqr_kernel_batch.launches == 0,
           "the fused route launched the Riccati kernel")
 
-    modes = fused_mode_phases(dev, rng, timed, warm_schedule)
+    modes = fused_mode_phases(dev, rng, timed, warm_schedule, dense)
     ric = lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule,
                        mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
     modes[1]["launches"] = ric["dp_fused_launches"]
@@ -2265,11 +2450,19 @@ def main() -> int:
              "adaptive warm calc_u, the solver thread",
         launches=b1["launches"] - b1["ltv_launches"],
         max_abs_err=b1["max_abs_err_b1"], ms=b1["ms_b1"],
-        plain_ms=b1["plain_ms_b1"], bound_ms=b1["bound_ms_b1"]))
+        device_ms=b1["ms_b1"], plain_ms=b1["plain_ms_b1"],
+        bound_ms=b1["bound_ms_b1"]))
     modes.append(dict(
-        mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
-        case="ModelControl LTV mahi_arm, B=1: 50 fixed-3 warm calc_u",
-        launches=b1["ltv_launches"], max_abs_err=b1["ltv_max_abs_err_b1"]))
+        mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
+        library="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
+        case="ModelControl LTV mahi_arm, B=1: 50 fixed-3 warm calc_u "
+             "(group body, Ltv<8, 4>)",
+        launches=b1["ltv_launches"], max_abs_err=b1["ltv_max_abs_err_b1"],
+        ms=b1["ltv_ms_b1"], device_ms=b1["ltv_device_ms_b1"],
+        plain_ms=b1["ltv_plain_ms_b1"], bound_ms=b1["ltv_bound_ms_b1"],
+        bound_by=b1["ltv_bound_by_b1"],
+        share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
+        device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"]))
     service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
     traj = trajgen_phase(dev)
     scenario_launches = batch_scenarios_phase(dev)

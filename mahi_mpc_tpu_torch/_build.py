@@ -17,16 +17,18 @@ The libraries:
 - ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve for the
   serial arms under Euler (the group body, four threads an instance);
 - ``fused_sqp_generic`` (``csrc/fused_sqp_generic.cu``): the same kernel
-  for the serial arms under midpoint and RK4 (the generic nx-row path);
+  for the serial arms under midpoint and RK4 (the generic nx-row path, the
+  group body);
 - ``fused_sqp_models`` (``csrc/fused_sqp_models.cu``): the same kernel for
-  the closed-form models, every integrator;
+  the closed-form models, every integrator (one thread an instance);
 - ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
-  mode;
+  mode (the group body at (8, 4), (4, 2), (4, 1); one thread at (2, 1));
 - ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve (a
   group of threads an instance, ``csrc/riccati.cuh``).
 
 The fused kernel's instantiations are split into four libraries only so
-that nvcc builds them in parallel; all four export the same launcher.
+that nvcc builds them in parallel; all four export the same launcher and
+occupancy query (``mpc_fused_blocks_per_sm``).
 """
 
 from __future__ import annotations
@@ -62,13 +64,13 @@ _c_ll = ctypes.c_longlong
 # ints, fan rungs, model constants (and the stream on the card).
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
-_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p]}
+_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p],
+                 "mpc_fused_blocks_per_sm": [_c_int] * 5}
 _ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
 # name -> (CUDA source, {launcher: argtypes})
 CUDA_LIBRARIES = {
-    "fused_sqp": ("fused_sqp.cu", {**_FUSED_LAUNCH,
-                                   "mpc_fused_group_blocks_per_sm": [_c_int]}),
+    "fused_sqp": ("fused_sqp.cu", _FUSED_LAUNCH),
     "fused_sqp_generic": ("fused_sqp_generic.cu", _FUSED_LAUNCH),
     "fused_sqp_models": ("fused_sqp_models.cu", _FUSED_LAUNCH),
     "fused_sqp_ltv": ("fused_sqp_ltv.cu", _FUSED_LAUNCH),
@@ -107,6 +109,7 @@ CPU_LIBRARIES = {
     }),
     "flop_count": ("flop_count.cpp", {
         "mpc_fused_count_ops": _FUSED_ARGS + [_c_int, _c_void_p],
+        "mpc_fused_card_body": [_c_int] * 5,
     }),
 }
 

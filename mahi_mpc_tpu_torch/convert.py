@@ -13,12 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .transcribe.shooting import LinPoint, MPCParams
+from .transcribe.shooting import LinPoint, MPCParams, check_device
 
 
-def params_from_numpy(mp, device="cpu", dtype=torch.float32) -> MPCParams:
+def params_from_numpy(mp, device="cuda", dtype=torch.float32) -> MPCParams:
     """Any MPCParams-shaped tuple of array-likes -> this package's
-    ``MPCParams`` of tensors on ``device`` in ``dtype``."""
+    ``MPCParams`` of tensors on ``device`` in ``dtype`` (the card unless
+    the caller asks for another device; raises when there is none)."""
+    check_device(device, "params_from_numpy")
     if len(mp) != len(MPCParams._fields):
         raise ValueError(f"expected {len(MPCParams._fields)} MPCParams "
                          f"fields, got {len(mp)}")

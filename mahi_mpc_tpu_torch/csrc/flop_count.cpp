@@ -1,15 +1,15 @@
 // The fused kernel's floating-point operations, counted: the group body
-// (fused_sqp_group.cuh) of the arms under Euler, or the one-thread body
-// (fused_sqp.cuh) of any instantiation (the generic, closed-form and LTV
-// policies), instantiated on a scalar that is a double and tallies every
+// (fused_sqp_group.cuh) of the policies it serves (the arms under every
+// integrator, LTV at (8, 4)), or the one-thread body (fused_sqp.cuh) of any
+// instantiation, instantiated on a scalar that is a double and tallies every
 // add or subtract, multiply, divide or square root, and sine, cosine or log
 // done on it.  A body runs as it runs for the card (the host loop over the
 // group's four lanes does the lanes' work once each), so the tally is the
 // work of the kernel's own code for the given inputs.  It also counts the
-// work that the body repeats and the function needs once: for the group
-// body what its lanes repeat (`repeated_ops`), for the one-thread body what
-// a stage's linearization repeats (`linearize_repeats`).  The tally less
-// that is the function's operations, the numerator of the kernel's roofline
+// work that the body repeats and the function needs once: for the group body
+// what its lanes repeat (`group_repeats`), for the one-thread body what a
+// stage's linearization repeats (`linearize_repeats`).  The tally less that
+// is the function's operations, the numerator of the kernel's roofline
 // bound (chip_smoke.py).  Built with g++ and loaded with ctypes
 // (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
 // are not counted.
@@ -174,18 +174,53 @@ inline double iterations(const FusedArgs<Flop>& a, long long b) {
   return a.adaptive ? a.stats[b + 6 * a.B].v : a.n_iter;
 }
 
+// What the group body repeats over the B instances, given its tally.  The
+// arms under Euler: `repeated_ops` a stage of each iteration (the folded
+// linearization is the group body's own method).  A dense step (LTV, the
+// generic arms): the group body computes the one-thread body's function
+// (the same linearization, the same Riccati step), whose minimum is the
+// one-thread body's tally less `linearize_repeats`; so that is counted by
+// running the one-thread body on the same inputs, and the group body
+// repeats the rest of its tally.
+template <int NQ>
+OpCount group_repeats(const FastNq<Flop, ArmModel<Flop, NQ>>& step,
+                      const FusedArgs<Flop>& a, OpCount) {
+  double iters = 0;
+  for (long long b = 0; b < a.B; ++b) iters += iterations(a, b);
+  const int pin = a.n_pin < a.N ? a.n_pin : a.N;
+  OpCount r;
+  add(r, repeated_ops(step.m.c, a.n_fan, false), iters * (a.N - pin));
+  add(r, repeated_ops(step.m.c, a.n_fan, true), iters * pin);
+  return r;
+}
+
+template <typename Step>
+OpCount group_repeats(const Step& step, const FusedArgs<Flop>& a,
+                      OpCount tally) {
+  double iters = 0;
+  OpCount least = ops_of([&] {
+    for (long long b = 0; b < a.B; ++b) {
+      solve_instance<Flop>(a, step, b);
+      iters += iterations(a, b);
+    }
+  });
+  add(least, linearize_repeats(step, a.dt), -iters * a.N);
+  add(tally, least, -1.0);
+  return tally;
+}
+
 }  // namespace mpc
 
 extern "C" {
 
-// Runs the group body (group = 1; the arms under Euler) or the one-thread
-// body (group = 0; every instantiation: the arms under Euler as the group
-// body replaced them, and the generic, closed-form and LTV policies the
-// card runs it for) over the B instances given (the fused kernel's
+// Runs the group body (group = 1; the policies `GroupBody` names) or the
+// one-thread body (group = 0; every instantiation: the closed-form models
+// and the smaller LTV shapes the card runs it for, the others as the group
+// body replaced them) over the B instances given (the fused kernel's
 // arguments, every array float64) and adds its operations to counts[0..3]:
 // adds, multiplies, divides and square roots, transcendentals; and the part
-// of them that it repeats (`repeated_ops` a stage of each iteration for the
-// group body, `linearize_repeats` for the one-thread body) to
+// of them that it repeats (`group_repeats` for the group body,
+// `linearize_repeats` a stage of each iteration for the one-thread body) to
 // counts[4..7].  Returns -1 when no instantiation of that body serves the
 // problem.
 int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
@@ -211,25 +246,18 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
   auto grouped = [&](const auto& step) -> int {
     typedef typename std::decay<decltype(step)>::type Step;
     if constexpr (mpc::GroupBody<Step>::value) {
-      typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
-      Flop tile[Tile::kSize];
-      double iters = 0;
-      for (long long b = 0; b < B; ++b) {
-        mpc::solve_group<Flop>(a, step.m, b, mpc::Group{0, 0u}, tile);
-        iters += mpc::iterations(a, b);
-      }
-      const int pin = a.n_pin < a.N ? a.n_pin : a.N;
-      mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, false),
-               iters * (a.N - pin));
-      mpc::add(repeated, mpc::repeated_ops(step.m.c, a.n_fan, true),
-               iters * pin);
+      Flop tile[mpc::GroupStep<Flop, Step>::Tile::kSize];
+      for (long long b = 0; b < B; ++b)
+        mpc::solve_group<Flop>(a, step, b, mpc::Group{0, 0u}, tile);
+      repeated = mpc::group_repeats(step, a, mpc::g_ops);
       return 0;
     } else {
       return -1;
     }
   };
   const int rc = group
-      ? mpc::dispatch<Flop, mpc::kArmFast>(a, model, nx, nu, consts, grouped)
+      ? mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
+                                               grouped)
       : mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
                                                thread);
   counts[0] += mpc::g_ops.add;
@@ -241,6 +269,21 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
   counts[6] += repeated.div_sqrt;
   counts[7] += repeated.transcendental;
   return rc;
+}
+
+// The body the card runs for (model, nx, nu) under integrator `integ` and
+// LTV flag `ltv`, as the launcher picks it (`GroupBody`): 1 the group body,
+// 0 the one-thread body, -1 no instantiation (solver/fused.py `card_body`).
+int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv) {
+  mpc::FusedArgs<mpc::Flop> a{};
+  a.integ = integ;
+  a.ltv = ltv;
+  static const double consts[256] = {};   // the model's constants: unused
+  return mpc::dispatch<mpc::Flop, mpc::kAllFamilies>(
+      a, model, nx, nu, consts, [](const auto& step) -> int {
+        typedef typename std::decay<decltype(step)>::type Step;
+        return mpc::GroupBody<Step>::value ? 1 : 0;
+      });
 }
 
 }  // extern "C"

@@ -18,14 +18,15 @@
 // takes the rollout's next state step, and evaluates the increment at a
 // trial point.  The three modes of the Pallas kernel (`fused.py:313-369`):
 //   FastNq<Model>   Euler step of a second-order model (the `_fast2` rule):
-//                   NQ dual-number acceleration rows, the rest analytic
-//                   (for the serial arms the card runs the group body of
-//                   fused_sqp_group.cuh instead; the tests run both);
+//                   NQ dual-number acceleration rows, the rest analytic;
 //   Generic<Model>  midpoint or RK4 (any integrator): NX rows of the
 //                   increment's Jacobian by dual numbers through the step;
 //   Ltv<NX, NU>     the frozen affine step, streamed in batch-innermost as
 //                   (Ad - I, Bd, cd) and read row by row where it is used:
 //                   no AD and no Jacobian scratch.
+// For the serial arms (FastNq and Generic) and LTV at (8, 4) the card
+// runs the group body of fused_sqp_group.cuh instead (`GroupBody`); the
+// tests run both.
 // Every policy gives the increment F(x, u) - x, never F, and the body forms
 // each defect as (x - x') + increment: x and x' differ by about the
 // increment, so their float32 rounding (~ulp(x) a component) stays out of

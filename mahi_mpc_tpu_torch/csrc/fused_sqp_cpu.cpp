@@ -1,10 +1,10 @@
 // The fused kernel's bodies built for the CPU, for the tests only: the same
 // fused_sqp.cuh (one thread an instance, every instantiation family) and
-// fused_sqp_group.cuh (the arms under Euler, four lanes an instance run one
-// after another) that nvcc compiles for the card, looped over instances and
-// built for float and double.  Built with `g++ -O2 -shared -fPIC` and
-// loaded with ctypes (solver/fused.py); the package's main path never loads
-// it.
+// fused_sqp_group.cuh (the arms under every integrator and LTV at (8, 4),
+// four lanes an instance run one after another) that nvcc compiles for the
+// card, looped over instances and built for float and double.  Built with
+// `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
+// package's main path never loads it.
 #include "fused_sqp_group.cuh"
 
 namespace {
@@ -20,21 +20,20 @@ int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
       });
 }
 
-// The group body for the problems it serves (the arms under Euler); -1 for
-// any other.
+// The group body for the problems it serves (`GroupBody`: the serial arms
+// under every integrator, LTV at (8, 4)); -1 for any other.
 template <typename S>
 int solve_group(long long B, int N, int model, int nx, int nu,
                 void* const* ptrs, const S* scal, const int* ints,
                 const S* fan, const double* c) {
   const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
-  return mpc::dispatch<S, mpc::kArmFast>(
+  return mpc::dispatch<S, mpc::kAllFamilies>(
       a, model, nx, nu, c, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
         if constexpr (mpc::GroupBody<Step>::value) {
-          typedef mpc::GroupTile<Step::NX, Step::NU, Step::NQ> Tile;
-          S tile[Tile::kSize];
+          S tile[mpc::GroupStep<S, Step>::Tile::kSize];
           for (long long b = 0; b < B; ++b)
-            mpc::solve_group<S>(a, step.m, b, mpc::Group{0, 0u}, tile);
+            mpc::solve_group<S>(a, step, b, mpc::Group{0, 0u}, tile);
           return 0;
         } else {
           return -1;

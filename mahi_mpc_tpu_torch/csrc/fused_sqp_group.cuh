@@ -1,27 +1,46 @@
-// The fused SQP body for the serial arms under the Euler step, with four
-// threads (a "group") on one instance: the body of the kernel that the
-// `fused_sqp` library launches for `mahi_arm` and `two_link_arm`
-// (fused_sqp_launch.cuh), and, built by g++, of the tests' CPU build.
+// The fused SQP body with four threads (a "group") on one instance: the
+// body of the kernel that the card launches for the serial arms under every
+// integrator and for the LTV step at (8, 4) (fused_sqp_launch.cuh,
+// `GroupBody`), and, built by g++, of the tests' CPU build.  The other LTV
+// shapes and the closed-form models run the one-thread `solve_instance`
+// (fused_sqp.cuh).
 //
-// It computes what `solve_instance<FastNq<ArmModel>>` (fused_sqp.cuh)
-// computes, in the same iteration modes and branches, with three changes of
-// method:
+// It computes what `solve_instance<Step>` computes, in the same iteration
+// modes and branches.  What depends on the step is a group step policy
+// (`GroupStep<S, Step>`, below): its share of a stage's linearization, the
+// products with A and B, the rollout's rows and a trial point's increment.
+// Three of them:
 //
-// * The linearization is folded (arm_dynamics.cuh `arm_*_column`): of the
-//   3 NQ columns of d qdd / d[q, qd, u], only the NQ q columns take a pass
-//   through the whole chain; a qd column is the RNEA alone and a u column two
-//   triangular solves.  Lane l takes the tasks l, l + 4, l + 8 of the list
-//   (q_0 .. q_{NQ-1}, qd_0 .., u_0 ..).
-// * The block Riccati step is split over the lanes on a per-instance tile in
-//   shared memory (`GroupTile`), with the structural zeros of A = [[I, dt
-//   I], [Jq, I + Jqd]] and B = [[0], [Ju]] skipped (`At`): lane l owns the
-//   state rows and columns l, l + 4 (`row`), the control index l, and the
-//   right-hand-side columns l, l + 4, l + 8, l + 12 of the gain solve.  Each
-//   sum keeps the one-thread body's order, so the step is the one-thread
-//   body's to the last bit (its zero terms add nothing); only the folded
+// * the arms under Euler (`FastNq<ArmModel>`): the linearization is folded
+//   (arm_dynamics.cuh `arm_*_column`): of the 3 NQ columns of d qdd / d[q,
+//   qd, u], only the NQ q columns take a pass through the whole chain; a qd
+//   column is the RNEA alone and a u column two triangular solves.  Lane l
+//   takes the tasks l, l + 4, l + 8 of the list (q_0 .. q_{NQ-1}, qd_0 ..,
+//   u_0 ..).  The structural zeros of A = [[I, dt I], [Jq, I + Jqd]] and B
+//   = [[0], [Ju]] are skipped in the step's products (their zero terms add
+//   nothing, so the sums are the one-thread body's); only the folded
 //   Jacobian rounds differently.
-// * The line-search rungs run in parallel: lane l evaluates rungs l and
-//   l + 4 over all stages; the first passing rung in fan order wins.
+// * the arms under midpoint and RK4 (`Generic<ArmModel>`): the NZ tangent
+//   columns of the increment's rows [A - I | B] are split over the lanes
+//   (lane l takes columns l, l + 4, l + 8), one dual-number pass through
+//   the step each, so a lane's registers hold one pass as the one-thread
+//   body's do.  A stage's rows and A = I + rows go to the tile, where the
+//   Riccati step reads them, and the rows to global J as well, where the
+//   rollout reads them: the rollout runs after the whole backward sweep,
+//   when the tile holds only stage 0, and forming them again would cost the
+//   passes once more.
+// * LTV (`Ltv<NX, NU>`): the affine step (Ad - I, Bd, cd) and A = I + (Ad
+//   - I) go into the tile once a solve (lane l reads rows l and l + 4 of
+//   each, coalesced in the batch-innermost layout); no stage, rollout step
+//   or rung reads them from global memory again.
+//
+// The block Riccati step is split over the lanes on a per-instance tile in
+// shared memory (`GroupTile`): lane l owns the state rows and columns l, l
+// + 4 (`row`), the control index l, and the right-hand-side columns l, l +
+// 4, l + 8, l + 12 of the gain solve.  Each sum keeps the one-thread body's
+// order, so with a dense A the step is the one-thread body's to the last
+// bit.  The line-search rungs run in parallel: lane l evaluates rungs l and
+// l + 4 over all stages; the first passing rung in fan order wins.
 //
 // The body is a sequence of phases.  On the device the four lanes run a
 // phase at once and meet at a `__syncwarp` of the group; on the host
@@ -30,10 +49,11 @@
 // runs the group body's own arithmetic.  What a lane keeps from one phase to
 // the next lives in its `Own` slot; what all lanes need goes through the
 // tile; code between phases is uniform (every lane computes the same from
-// the same tile values).  Lane 0 also keeps the merit's sums (cost, l1
-// defect, reference cost, directional derivative) in the one-thread body's
-// order: the Armijo test compares them with the rungs' sums, and float32
-// noise between the two decides whether a near-converged step passes.
+// the same tile values), so the group leaves the adaptive loop together.
+// Lane 0 also keeps the merit's sums (cost, l1 defect, reference cost,
+// directional derivative) in the one-thread body's order: the Armijo test
+// compares them with the rungs' sums, and float32 noise between the two
+// decides whether a near-converged step passes.
 #pragma once
 
 #include "fused_sqp.cuh"
@@ -71,29 +91,29 @@ struct Group {
   }
 };
 
-// The per-instance tile: the Riccati carries, the stage's Jacobian rows and
-// defect, the step's blocks and gains, and the lanes' partial sums.  The
-// rollout's double-buffered dx/du and the rung results reuse the step's
-// blocks, which are free then.
-template <int NX, int NU, int NQ>
+// The per-instance tile: the Riccati carries, the stage's NJ Jacobian rows
+// and defect, the step's blocks and gains, the lanes' partial sums, and NE
+// entries of the step policy's own.  The rollout's double-buffered dx/du
+// and the rung results reuse the step's blocks, which are free then.
+template <int NX, int NU, int NJ, int NE = 0>
 struct GroupTile {
   static constexpr int NZ = NX + NU, NR = NZ + 1, kRedN = 8;
   static constexpr int kPxx = 0, kPxv = kPxx + NX * NX,
                        kPvv = kPxv + NX * NU, kpx = kPvv + NU * NU,
-                       kpv = kpx + NX, kJr = kpv + NU, kck = kJr + NQ * NZ,
+                       kpv = kpx + NX, kJr = kpv + NU, kck = kJr + NJ * NZ,
                        kQxx = kck + NX, kQxu = kQxx + NX * NX,
                        kQuu = kQxu + NX * NU, kqu = kQuu + NU * NU,
                        kY = kqu + NU, kRed = kY + NU * NR,
-                       kEnd = kRed + kGroup * kRedN;
+                       kExt = kRed + kGroup * kRedN, kEnd = kExt + NE;
   static constexpr int kDx = kQxx, kDu = kDx + 2 * NX, kFan = kDu + 2 * NU;
   static_assert(kFan + 3 * kMaxFan <= kRed, "rollout / fan overflow");
   // Odd stride: the eight groups of a warp fall on different banks.
   static constexpr int kSize = kEnd | 1;
 };
 
-template <typename S, int NX, int NU, int NQ>
+template <typename S, int NX, int NU, int NJ, int NE = 0>
 struct TileView {
-  typedef GroupTile<NX, NU, NQ> G;
+  typedef GroupTile<NX, NU, NJ, NE> G;
   S* t;
   MPC_HD S& Pxx(int i, int j) const { return t[G::kPxx + i * NX + j]; }
   MPC_HD S& Pxv(int i, int l) const { return t[G::kPxv + i * NU + l]; }
@@ -113,26 +133,262 @@ struct TileView {
   MPC_HD S& dx(int buf, int i) const { return t[G::kDx + buf * NX + i]; }
   MPC_HD S& du(int buf, int l) const { return t[G::kDu + buf * NU + l]; }
   MPC_HD S& fan(int j, int v) const { return t[G::kFan + j * 3 + v]; }
+  MPC_HD S& ext(int e) const { return t[G::kExt + e]; }
 };
 
-// Which step policies run the group body: the arms under Euler.
+// ---- group step policies.  `GroupStep<S, Step>` is built from the step
+// policy, the arguments and the instance, and gives the body:
+//   NX, NU, Tile, View          sizes and the tile's layout;
+//   setup(l, T)                 lane l's share of what the tile holds for
+//                               the whole solve;
+//   linearize(l, k, xl, ul, T, Js, f)
+//                               lane l's share of stage k's Jacobian rows
+//                               into the tile (and Js where the rollout
+//                               reads them), and in f, every row, what
+//                               `inc` makes the increment F(x, u) - x at
+//                               (xl, ul) of;
+//   inc(fi)                     the increment from f's row: dt fi under
+//                               Euler, fi itself otherwise; formed where it
+//                               is used, so that a row picked at run time
+//                               rounds as in the one-thread body (dt fi
+//                               fused into the defect's add);
+//   At(T, c, v), Bt(T, l, v)    sum_t A[t][c] v(t) and sum_t B[t][l] v(t)
+//                               in the one-thread body's order;
+//   next_row(T, k, i, dx, du, Js, cks)
+//                               row i of the rollout's dx_{k+1} from dx_k
+//                               and du_k (functions of the index), as the
+//                               policy's `next_dx` forms it;
+//   value(T, xt, ut, vt)        the increment at a line-search trial point.
+template <typename S, typename Step> struct GroupStep;
+
+// Which step policies run the group body: the serial arms under every
+// integrator, and LTV at (8, 4).  LTV at (4, 2) and (4, 1) fits the split
+// but took 28-29 % longer on the group body than on the one-thread body on
+// the H100 (one or two of the four lanes own no control index, a warp
+// holds 8 instances, not 32; tools/time_fused_modes.py, PERF.md), and
+// (2, 1) does not fit it: they run the one-thread body, as the closed-form
+// models do.
 template <typename Step> struct GroupBody {
   static constexpr bool value = false;
 };
 template <typename S, int NQ> struct GroupBody<FastNq<S, ArmModel<S, NQ>>> {
   static constexpr bool value = true;
 };
-
 template <typename S, int NQ>
-MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
-                        long long b, const Group& g, S* tile) {
-  constexpr int NX = 2 * NQ, NU = NQ, NZ = NX + NU, NG = NX + 2 * NU,
+struct GroupBody<Generic<S, ArmModel<S, NQ>>> {
+  static constexpr bool value = true;
+};
+template <typename S, int NX, int NU> struct GroupBody<Ltv<S, NX, NU>> {
+  static constexpr bool value = NX == 8 && NU == 4;
+};
+
+// The arms under Euler: the folded linearization, structural zeros
+// skipped.
+template <typename S, int NQ>
+struct GroupStep<S, FastNq<S, ArmModel<S, NQ>>> {
+  static constexpr int NX = 2 * NQ, NU = NQ, NZ = NX + NU;
+  typedef GroupTile<NX, NU, NQ> Tile;
+  typedef TileView<S, NX, NU, NQ> View;
+  const ArmModel<S, NQ>& m;
+  S dt;
+  MPC_HD GroupStep(const FastNq<S, ArmModel<S, NQ>>& s, const FusedArgs<S>& a,
+                   long long)
+      : m(s.m), dt(a.dt) {}
+  MPC_HD void setup(int, const View&) const {}
+  MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
+                        const View& T, const Lane<S>& Js, S* f) const {
+    S L[NQ][NQ], qdd[NQ], col[NQ];
+    auto put = [&](int c) {
+      for (int i = 0; i < NQ; ++i) {
+        const S v = dt * col[i];
+        T.Jr(i, c) = v;
+        Js[(k * NQ + i) * NZ + c] = v;
+      }
+    };
+    if (l < NQ) {
+      arm_q_column(m.c, xl, xl + NQ, ul, l, L, qdd, col);
+      put(l);
+    } else {
+      arm_value(m.c, xl, xl + NQ, ul, L, qdd);
+    }
+#pragma unroll 1
+    for (int t = l < NQ ? l + kGroup : l; t < 3 * NQ; t += kGroup) {
+      if (t < 2 * NQ) {
+        arm_qd_column(m.c, xl, xl + NQ, t - NQ, L, col);
+      } else {
+        arm_u_column(L, t - 2 * NQ, col);
+      }
+      put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
+    }
+    for (int i = 0; i < NX; ++i) f[i] = i < NQ ? xl[NQ + i] : qdd[i - NQ];
+  }
+  MPC_HD S inc(S fi) const { return dt * fi; }
+  // A = [[I, dt I], [Jq, I + Jqd]] (Jr the stage's rows in the tile): the
+  // one-thread body's dense sum in its order, the zeros of the top rows
+  // skipped, so the same value.
+  template <typename V>
+  MPC_HD S At(const View& T, int c, const V& v) const {
+    S acc = c < NQ ? v(c) : v(c - NQ) * dt;
+    for (int s = 0; s < NQ; ++s)
+      acc = acc + (S(NQ + s == c ? 1 : 0) + T.Jr(s, c)) * v(NQ + s);
+    return acc;
+  }
+  template <typename V>
+  MPC_HD S Bt(const View& T, int l, const V& v) const {
+    S acc = T.Jr(0, NX + l) * v(NQ);
+    for (int s = 1; s < NQ; ++s) acc = acc + T.Jr(s, NX + l) * v(NQ + s);
+    return acc;
+  }
+  template <typename DX, typename DU>
+  MPC_HD S next_row(const View&, int k, int i, const DX& dx, const DU& du,
+                    const Lane<S>& Js, const Lane<S>& cks) const {
+    if (i < NQ) return (dx(i) + dt * dx(NQ + i)) + cks[k * NX + i];
+    const int base = (k * NQ + i - NQ) * NZ;
+    S acc = Js[base] * dx(0);
+    for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx(j);
+    for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du(j);
+    return (dx(i) + acc) + cks[k * NX + i];
+  }
+  MPC_HD void value(const View&, const S* xt, const S* ut, S* vt) const {
+    S fv[NX];
+    model_f(m, xt, ut, fv);
+    for (int i = 0; i < NX; ++i) vt[i] = fv[i] * dt;
+  }
+};
+
+// A dense step: the tile holds all NX rows [A - I | B] in Jr and A = I +
+// rows at the start of the policy's entries (then NE more of its own).
+template <typename S, int NX_, int NU_, int NE>
+struct GroupDense {
+  static constexpr int NX = NX_, NU = NU_, NZ = NX + NU;
+  typedef GroupTile<NX, NU, NX, NX * NX + NE> Tile;
+  typedef TileView<S, NX, NU, NX, NX * NX + NE> View;
+  MPC_HD static S& A(const View& T, int t, int c) { return T.ext(t * NX + c); }
+  MPC_HD S inc(S fi) const { return fi; }
+  template <typename V>
+  MPC_HD S At(const View& T, int c, const V& v) const {
+    S acc = A(T, 0, c) * v(0);
+    for (int t = 1; t < NX; ++t) acc = acc + A(T, t, c) * v(t);
+    return acc;
+  }
+  template <typename V>
+  MPC_HD S Bt(const View& T, int l, const V& v) const {
+    S acc = T.Jr(0, NX + l) * v(0);
+    for (int t = 1; t < NX; ++t) acc = acc + T.Jr(t, NX + l) * v(t);
+    return acc;
+  }
+};
+
+// Any integrator but Euler (`GroupBody` takes it for the serial arms): the
+// increment's rows by dual numbers, the tangent columns split over the
+// lanes.
+template <typename S, typename Model>
+struct GroupStep<S, Generic<S, Model>>
+    : GroupDense<S, Model::NX, Model::NU, 0> {
+  typedef GroupDense<S, Model::NX, Model::NU, 0> D;
+  using D::NX; using D::NU; using D::NZ;
+  typedef typename D::View View;
+  const Generic<S, Model>& st;
+  S dt;
+  MPC_HD GroupStep(const Generic<S, Model>& s, const FusedArgs<S>& a,
+                   long long)
+      : st(s), dt(a.dt) {}
+  MPC_HD void setup(int, const View&) const {}
+  // Column d of the rows from one dual pass seeded in direction d; every
+  // pass also gives the increment's value (the same in each).  A lane with
+  // no column (NZ < 4) forms the value alone.
+  MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
+                        const View& T, const Lane<S>& Js, S* f) const {
+    typedef Dual<S, 1> Dd;
+#pragma unroll 1
+    for (int d = l; d < NZ; d += kGroup) {
+      Dd xd[NX], ud[NU], out[NX];
+      seed<S, 1, NX, NU>(xl, ul, d, xd, ud);
+      model_increment(st.m, st.integ, dt, xd, ud, out);
+      for (int i = 0; i < NX; ++i) {
+        const S v = out[i].d[0];
+        f[i] = out[i].v;
+        T.Jr(i, d) = v;
+        Js[(k * NX + i) * NZ + d] = v;
+        if (d < NX) D::A(T, i, d) = S(i == d ? 1 : 0) + v;
+      }
+    }
+    if (l >= NZ) model_increment(st.m, st.integ, dt, xl, ul, f);
+  }
+  template <typename DX, typename DU>
+  MPC_HD S next_row(const View&, int k, int i, const DX& dx, const DU& du,
+                    const Lane<S>& Js, const Lane<S>& cks) const {
+    const int base = (k * NX + i) * NZ;
+    S acc = Js[base] * dx(0);
+    for (int j = 1; j < NX; ++j) acc = acc + Js[base + j] * dx(j);
+    for (int j = 0; j < NU; ++j) acc = acc + Js[base + NX + j] * du(j);
+    return (dx(i) + acc) + cks[k * NX + i];
+  }
+  MPC_HD void value(const View&, const S* xt, const S* ut, S* vt) const {
+    model_increment(st.m, st.integ, dt, xt, ut, vt);
+  }
+};
+
+// LTV: (Ad - I | Bd) in Jr, A = I + (Ad - I) and cd in the policy's
+// entries, loaded once a solve.
+template <typename S, int NX_, int NU_>
+struct GroupStep<S, Ltv<S, NX_, NU_>> : GroupDense<S, NX_, NU_, NX_> {
+  typedef GroupDense<S, NX_, NU_, NX_> D;
+  using D::NX; using D::NU;
+  typedef typename D::View View;
+  typename Ltv<S, NX_, NU_>::Bound st;
+  MPC_HD GroupStep(const Ltv<S, NX_, NU_>& s, const FusedArgs<S>& a,
+                   long long b)
+      : st(s.bind(a, b)) {}
+  MPC_HD static S& cd(const View& T, int i) { return T.ext(NX * NX + i); }
+  MPC_HD void setup(int l, const View& T) const {
+    for (int i = l; i < NX; i += kGroup) {
+      for (int j = 0; j < NX; ++j) {
+        const S v = st.AdI[i * NX + j];
+        T.Jr(i, j) = v;
+        D::A(T, i, j) = S(i == j ? 1 : 0) + v;
+      }
+      for (int j = 0; j < NU; ++j) T.Jr(i, NX + j) = st.Bd[i * NU + j];
+      cd(T, i) = st.cd[i];
+    }
+  }
+  // Row i of (Ad - I) x + Bd u, each dot product left to right.
+  MPC_HD static S row(const View& T, const S* x, const S* u, int i) {
+    S ax = T.Jr(i, 0) * x[0];
+    for (int j = 1; j < NX; ++j) ax = ax + T.Jr(i, j) * x[j];
+    S bu = T.Jr(i, NX) * u[0];
+    for (int j = 1; j < NU; ++j) bu = bu + T.Jr(i, NX + j) * u[j];
+    return ax + bu;
+  }
+  MPC_HD void linearize(int, int, const S* xl, const S* ul, const View& T,
+                        const Lane<S>&, S* f) const {
+    for (int i = 0; i < NX; ++i) f[i] = row(T, xl, ul, i) + cd(T, i);
+  }
+  template <typename DX, typename DU>
+  MPC_HD S next_row(const View& T, int k, int i, const DX& dx, const DU& du,
+                    const Lane<S>&, const Lane<S>& cks) const {
+    S ax = T.Jr(i, 0) * dx(0);
+    for (int j = 1; j < NX; ++j) ax = ax + T.Jr(i, j) * dx(j);
+    S bu = T.Jr(i, NX) * du(0);
+    for (int j = 1; j < NU; ++j) bu = bu + T.Jr(i, NX + j) * du(j);
+    return (dx(i) + (ax + bu)) + cks[k * NX + i];
+  }
+  MPC_HD void value(const View& T, const S* xt, const S* ut, S* vt) const {
+    for (int i = 0; i < NX; ++i) vt[i] = row(T, xt, ut, i) + cd(T, i);
+  }
+};
+
+template <typename S, typename Step>
+MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
+                        const Group& g, S* tile) {
+  typedef GroupStep<S, Step> GS;
+  constexpr int NX = GS::NX, NU = GS::NU, NZ = NX + NU, NG = NX + 2 * NU,
                 NR = NZ + 1, RPL = NX / kGroup, kRungs = kMaxFan / kGroup;
   static_assert(NX % kGroup == 0 && NU <= kGroup, "group split");
-  const TileView<S, NX, NU, NQ> T{tile};
+  const GS gs(step, a, b);
+  const typename GS::View T{tile};
   const long long B = a.B;
   const int N = a.N;
-  const S dt = a.dt;
   typedef Lane<const S> CL;
   typedef Lane<S> WL;
   const CL X0{a.X0 + b, B}, U0{a.U0 + b, B}, xdes{a.xdes + b, B};
@@ -175,15 +431,6 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
   auto load = [&](const auto& src, int base, int n, S* dst) {
     for (int i = 0; i < n; ++i) dst[i] = src[base + i];
   };
-  // sum_t A[t][c] v(t) for A = [[I, dt I], [Jq, I + Jqd]] (the stage's Jr
-  // in the tile): the one-thread body's dense sum in its order, with the
-  // structural zeros of the top rows skipped, so the same value.
-  auto At = [&](int c, const auto& v) -> S {
-    S acc = c < NQ ? v(c) : v(c - NQ) * dt;
-    for (int s = 0; s < NQ; ++s)
-      acc = acc + (S(NQ + s == c ? 1 : 0) + T.Jr(s, c)) * v(NQ + s);
-    return acc;
-  };
   // Max / min of the lanes' partials in the tile.
   auto max4 = [&](int v) {
     return nmax(nmax(nmax(T.red(0, v), T.red(1, v)), T.red(2, v)),
@@ -194,10 +441,12 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
                 T.red(3, v));
   };
 
-  // ---- warm start into the working (output) buffers
+  // ---- warm start into the working (output) buffers; what the tile holds
+  // for the whole solve
   g.phase([&](int l) {
     for (int e = l; e < (N + 1) * NX; e += kGroup) X[e] = X0[e];
     for (int e = l; e < N * NU; e += kGroup) U[e] = U0[e];
+    gs.setup(l, T);
   });
 
   const S inf = S(INFINITY);
@@ -261,40 +510,17 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
       const int kp = k >= 1 ? k - 1 : 0;
       const bool pinned = k < a.n_pin;
 
-      // ---- (A) folded linearization, defects, stage gradients, merit
-      // partials
+      // ---- (A) the lane's share of the linearization, defects, stage
+      // gradients, merit partials
       g.phase([&](int l) {
         Own& o = own[Group::slot(l)];
-        S xl[NX], ul[NU];
+        S xl[NX], ul[NU], f[NX];
         load(X, k * NX, NX, xl);
         load(U, k * NU, NU, ul);
-        S L[NQ][NQ], qdd[NQ], col[NQ];
-        auto put = [&](int c) {
-          for (int i = 0; i < NQ; ++i) {
-            const S v = dt * col[i];
-            T.Jr(i, c) = v;
-            Js[(k * NQ + i) * NZ + c] = v;
-          }
-        };
-        if (l < NQ) {
-          arm_q_column(m.c, xl, xl + NQ, ul, l, L, qdd, col);
-          put(l);
-        } else {
-          arm_value(m.c, xl, xl + NQ, ul, L, qdd);
-        }
-#pragma unroll 1
-        for (int t = l < NQ ? l + kGroup : l; t < 3 * NQ; t += kGroup) {
-          if (t < 2 * NQ) {
-            arm_qd_column(m.c, xl, xl + NQ, t - NQ, L, col);
-          } else {
-            arm_u_column(L, t - 2 * NQ, col);
-          }
-          put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
-        }
+        gs.linearize(l, k, xl, ul, T, Js, f);
         for (int rr = 0; rr < RPL; ++rr) {
           const int i = row(l, rr);
-          const S fi = i < NQ ? xl[NQ + i] : qdd[i - NQ];
-          const S cki = (xl[i] - X[(k + 1) * NX + i]) + dt * fi;
+          const S cki = (xl[i] - X[(k + 1) * NX + i]) + gs.inc(f[i]);
           T.ck(i) = cki;
           cks[k * NX + i] = cki;
           S gg, h;
@@ -321,8 +547,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
           for (int j = 0; j < NU; ++j)
             du[j] = ul[j] - (k == 0 ? uprev[j] : U[(k - 1) * NU + j]);
           for (int i = 0; i < NX; ++i) {
-            const S inc = dt * (i < NQ ? xl[NQ + i] : qdd[i - NQ]);
-            const S cki = (xl[i] - X[(k + 1) * NX + i]) + inc;
+            const S cki = (xl[i] - X[(k + 1) * NX + i]) + gs.inc(f[i]);
             o.feas = nmax(o.feas, m_abs(cki));
             o.cl1 = o.cl1 + m_abs(cki);
             e[i] = xl[i] - xdes[kp * NX + i];
@@ -330,8 +555,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
           o.cost = o.cost + stage_cost(xl, ul, du, e, tk, mu, rmag);
           S jr = rmag;
           for (int i = 0; i < NX; ++i) {
-            const S er = (xl[i] + dt * (i < NQ ? xl[NQ + i] : qdd[i - NQ]))
-                         - xdes[k * NX + i];
+            const S er = (xl[i] + gs.inc(f[i])) - xdes[k * NX + i];
             jr = jr + q[i] * (er * er);
           }
           o.jref = o.jref + jr;
@@ -352,41 +576,32 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
           const int j = row(l, rr);
           S v[NX];                                 // (Pxx A)[:, j]
           for (int i = 0; i < NX; ++i)
-            v[i] = At(j, [&](int t) { return T.Pxx(i, t); });
+            v[i] = gs.At(T, j, [&](int t) { return T.Pxx(i, t); });
           for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
-            const S acc = At(i, [&](int t) { return v[t]; });
+            const S acc = gs.At(T, i, [&](int t) { return v[t]; });
             T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
           }
-          o.qz[rr] = o.gzx[rr] + At(j, [&](int t) { return Prp[t]; });
+          o.qz[rr] = o.gzx[rr] + gs.At(T, j, [&](int t) { return Prp[t]; });
         }
         if (l < NU) {
           S pb[NX], m1[NX];                        // Pxx B[:, l], + Pxv
           for (int i = 0; i < NX; ++i) {
-            S acc = T.Pxx(i, NQ) * T.Jr(0, NX + l);
-            for (int s = 1; s < NQ; ++s)
-              acc = acc + T.Pxx(i, NQ + s) * T.Jr(s, NX + l);
-            pb[i] = acc;
-            m1[i] = acc + T.Pxv(i, l);
+            pb[i] = gs.Bt(T, l, [&](int t) { return T.Pxx(i, t); });
+            m1[i] = pb[i] + T.Pxv(i, l);
           }
           for (int i = 0; i < NX; ++i)             // Qxu[:, l] = A' m1
-            T.Qxu(i, l) = At(i, [&](int t) { return m1[t]; });
+            T.Qxu(i, l) = gs.At(T, i, [&](int t) { return m1[t]; });
           for (int mm = 0; mm < NU; ++mm) {        // Quu[:, l]
-            S bpb = T.Jr(0, NX + mm) * pb[NQ];
-            S bpv = T.Jr(0, NX + mm) * T.Pxv(NQ, l);
-            S bpv_t = T.Jr(0, NX + l) * T.Pxv(NQ, mm);
-            for (int s = 1; s < NQ; ++s) {
-              bpb = bpb + T.Jr(s, NX + mm) * pb[NQ + s];
-              bpv = bpv + T.Jr(s, NX + mm) * T.Pxv(NQ + s, l);
-              bpv_t = bpv_t + T.Jr(s, NX + l) * T.Pxv(NQ + s, mm);
-            }
+            const S bpb = gs.Bt(T, mm, [&](int t) { return pb[t]; });
+            const S bpv = gs.Bt(T, mm, [&](int t) { return T.Pxv(t, l); });
+            const S bpv_t = gs.Bt(T, l, [&](int t) { return T.Pxv(t, mm); });
             const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, l);
             T.Quu(mm, l) = mm == l ? quu + o.Du : quu;
           }
           S pv_acc = T.Pxv(0, l) * T.ck(0);        // pv + Pxv' ck
           for (int t = 1; t < NX; ++t) pv_acc = pv_acc + T.Pxv(t, l) * T.ck(t);
           const S prp_v = T.pv(l) + pv_acc;
-          S bp = T.Jr(0, NX + l) * Prp[NQ];         // (B' Prp)[l]
-          for (int s = 1; s < NQ; ++s) bp = bp + T.Jr(s, NX + l) * Prp[NQ + s];
+          const S bp = gs.Bt(T, l, [&](int t) { return Prp[t]; });
           o.qu = o.gu + (bp + prp_v);
           T.qu(l) = o.qu;
         }
@@ -539,18 +754,9 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
         }
         for (int rr = 0; rr < RPL; ++rr) {
           const int i = row(l, rr);
-          S dxn;
-          if (i < NQ) {
-            dxn = (T.dx(cur, i) + dt * T.dx(cur, NQ + i)) + cks[k * NX + i];
-          } else {
-            const int base = (k * NQ + i - NQ) * NZ;
-            S acc = Js[base] * T.dx(cur, 0);
-            for (int j = 1; j < NX; ++j)
-              acc = acc + Js[base + j] * T.dx(cur, j);
-            for (int j = 0; j < NU; ++j)
-              acc = acc + Js[base + NX + j] * T.du(nxt, j);
-            dxn = (T.dx(cur, i) + acc) + cks[k * NX + i];
-          }
+          const S dxn = gs.next_row(
+              T, k, i, [&](int j) { return T.dx(cur, j); },
+              [&](int j) { return T.du(nxt, j); }, Js, cks);
           T.dx(nxt, i) = dxn;
           dXs[(k + 1) * NX + i] = dxn;
           o.amax = ftb(X[(k + 1) * NX + i], dxn, xmin[i], xmax[i], o.amax);
@@ -610,7 +816,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
         for (int s = 0; s < kRungs; ++s) {
           if (l + kGroup * s >= a.n_fan) break;
           const S aj = al[s];
-          S xt[NX], ut[NU], dut[NU], et[NX], fv[NX];
+          S xt[NX], ut[NU], dut[NU], et[NX], vt[NX];
           for (int i = 0; i < NX; ++i) {
             xt[i] = xl[i] + aj * dxk[i];
             et[i] = xt[i] - xdes[kp * NX + i];
@@ -621,10 +827,10 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const ArmModel<S, NQ>& m,
           }
           S rmag;
           const S sc = stage_cost(xt, ut, dut, et, tk, mu, rmag);
-          model_f(m, xt, ut, fv);
+          gs.value(T, xt, ut, vt);
           S cl1 = o.cl1_t[s], jr = rmag;
           for (int i = 0; i < NX; ++i) {
-            const S inc = fv[i] * dt;
+            const S inc = vt[i];
             const S vi = xt[i] + inc;
             cl1 = cl1 + m_abs(((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i]))
                               + inc);

@@ -17,22 +17,24 @@
 // three times an iteration (~0.6 ms of HBM time a fixed-3 solve at
 // B=16384), far below the arithmetic.  Two bodies:
 //
-// - the arms under Euler (the main path, library `fused_sqp`): four threads
-//   an instance (fused_sqp_group.cuh: the folded arm Jacobian, the Riccati
-//   step split over the group on a shared-memory tile, the line-search rungs
-//   in parallel), 32 instances a 128-thread block, two blocks an SM (255
-//   registers a thread, ~no spills: at four blocks an SM, 128 registers,
-//   the dual-number pass spilled ~1.7 KB a thread and a fixed-3 solve took
-//   19 % longer on the H100, PERF.md);
-// - every other policy (`solve_instance`, fused_sqp.cuh): one thread an
-//   instance, 128 threads a block, the Riccati carries in registers; what
-//   does not fit spills to local memory.  The LTV step's Ad - I, Bd, cd are
-//   read where they are used rather than held.
+// - the group body (fused_sqp_group.cuh), for the policies `GroupBody`
+//   names: the serial arms under every integrator (libraries `fused_sqp`,
+//   the main path, and `fused_sqp_generic`) and LTV at (8, 4)
+//   (`fused_sqp_ltv`).  Four threads an instance, the Riccati step
+//   split over the group on a shared-memory tile, the line-search rungs in
+//   parallel, 32 instances a 128-thread block, two blocks an SM (255
+//   registers a thread, ~no spills on the Euler arm: at four blocks an SM,
+//   128 registers, the dual-number pass spilled ~1.7 KB a thread and a
+//   fixed-3 solve took 19 % longer on the H100, PERF.md);
+// - every other policy (`solve_instance`, fused_sqp.cuh: the closed-form
+//   models, LTV at (4, 2), (4, 1), (2, 1)): one thread an instance, 128
+//   threads a block, the Riccati carries in registers; what does not fit
+//   spills to local memory.
 //
 // A warp's load of one element of a batch-innermost array is one 128-byte
 // transaction (one thread an instance) or one 32-byte sector (a group: 8
 // instances a warp).  The adaptive mode's per-tile early exit of the Pallas
-// kernel becomes a per-instance loop exit.
+// kernel becomes a per-instance loop exit (the group leaves together).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,41 +54,56 @@ fused_sqp_kernel(mpc::FusedArgs<float> a, Step step) {
 constexpr int kGroupThreads = 128;
 constexpr int kGroupsPerBlock = kGroupThreads / mpc::kGroup;
 
+// Two blocks an SM (255 registers a thread) for every policy: at three,
+// Ltv<8, 4> took 168 registers, spilled 128 B and ran 23 % slower on the
+// H100 (PERF.md).
 constexpr int kGroupMinBlocks = 2;
 
-template <int NQ>
+template <typename Step>
 __global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
-fused_sqp_group_kernel(mpc::FusedArgs<float> a, mpc::ArmModel<float, NQ> m) {
+fused_sqp_group_kernel(mpc::FusedArgs<float> a, Step step) {
   extern __shared__ float tiles[];
-  typedef mpc::GroupTile<2 * NQ, NQ, NQ> Tile;
+  typedef typename mpc::GroupStep<float, Step>::Tile Tile;
   const int t = threadIdx.x, gi = t / mpc::kGroup;
   const long long b = (long long)blockIdx.x * kGroupsPerBlock + gi;
   if (b >= a.B) return;                 // the whole group leaves together
   const mpc::Group g{t % mpc::kGroup, 0xFu << (t & 28)};
-  mpc::solve_group<float, NQ>(a, m, b, g, tiles + gi * Tile::kSize);
+  mpc::solve_group<float>(a, step, b, g, tiles + gi * Tile::kSize);
 }
 
-template <int NQ>
-int launch_group(const mpc::FusedArgs<float>& a,
-                 const mpc::ArmModel<float, NQ>& m, cudaStream_t s) {
-  typedef mpc::GroupTile<2 * NQ, NQ, NQ> Tile;
-  const size_t smem = sizeof(float) * Tile::kSize * kGroupsPerBlock;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_sqp_group_kernel<NQ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+// Dynamic shared memory of a block of the group kernel for Step.
+template <typename Step>
+size_t group_smem() {
+  return sizeof(float) * mpc::GroupStep<float, Step>::Tile::kSize *
+         kGroupsPerBlock;
+}
+
+// Lets a kernel take `smem` bytes of dynamic shared memory (above the 48 KB
+// default).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename Step>
+int launch_group(const mpc::FusedArgs<float>& a, const Step& step,
+                 cudaStream_t s) {
+  const size_t smem = group_smem<Step>();
+  const cudaError_t e = allow_smem(fused_sqp_group_kernel<Step>, smem);
+  if (e != cudaSuccess) return (int)e;
   const unsigned grid =
       (unsigned)((a.B + kGroupsPerBlock - 1) / kGroupsPerBlock);
-  fused_sqp_group_kernel<NQ><<<grid, kGroupThreads, smem, s>>>(a, m);
+  fused_sqp_group_kernel<Step><<<grid, kGroupThreads, smem, s>>>(a, step);
   return (int)cudaGetLastError();
 }
 
 // Launch the instantiation of family mask kFamilies that serves (model, nx,
-// nu) on `stream` (the group body for the arms under Euler, the one-thread
-// body otherwise); does not synchronise.  Returns cudaGetLastError(), or -1
-// when this library holds no instantiation for the problem.
+// nu) on `stream` (the group body for the policies `GroupBody` names, the
+// one-thread body otherwise); does not synchronise.  Returns
+// cudaGetLastError(), or -1 when this library holds no instantiation for
+// the problem.
 template <int kFamilies>
 int launch_fused(long long B, int N, int model, int nx, int nu,
                  void* const* ptrs, const float* scal, const int* ints,
@@ -100,7 +117,7 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
         if constexpr (mpc::GroupBody<Step>::value) {
-          return launch_group(a, step.m, s);
+          return launch_group(a, step, s);
         } else {
           fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
           return (int)cudaGetLastError();
@@ -108,9 +125,39 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
       });
 }
 
-// The plain C interface of one library, for ctypes: device pointers in the
-// order of mpc::FusedArgs, host arrays of scalars, ints, fan rungs and model
-// constants (solver/fused.py `_run_library`).
+// Blocks of the kernel that serves (model, nx, nu) under `integ` and `ltv`
+// that fit on one SM at once (registers and shared memory); -1 when this
+// library holds no instantiation for it, or the CUDA error code negated.
+template <int kFamilies>
+int blocks_per_sm(int model, int nx, int nu, int integ, int ltv) {
+  mpc::FusedArgs<float> a{};
+  a.integ = integ;
+  a.ltv = ltv;
+  static const double consts[256] = {};   // the model's constants: unused
+  auto query = [](auto kernel, int threads, size_t smem) -> int {
+    cudaError_t e = allow_smem(kernel, smem);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                        smem);
+    return e == cudaSuccess ? n : -(int)e;
+  };
+  return mpc::dispatch<float, kFamilies>(
+      a, model, nx, nu, consts, [&](const auto& step) -> int {
+        typedef typename std::decay<decltype(step)>::type Step;
+        if constexpr (mpc::GroupBody<Step>::value) {
+          return query(fused_sqp_group_kernel<Step>, kGroupThreads,
+                       group_smem<Step>());
+        } else {
+          return query(fused_sqp_kernel<Step>, 128, 0);
+        }
+      });
+}
+
+// The plain C interface of one library, for ctypes: the launcher (device
+// pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
+// fan rungs and model constants; solver/fused.py `_run_library`) and the
+// occupancy of the kernel it would launch (chip_smoke.py).
 #define MPC_FUSED_LIBRARY(kFamilies)                                         \
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
@@ -118,4 +165,8 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
       const double* consts, void* stream) {                                  \
     return launch_fused<kFamilies>(B, N, model, nx, nu, ptrs, scal, ints,    \
                                    fan, consts, stream);                     \
+  }                                                                          \
+  extern "C" int mpc_fused_blocks_per_sm(int model, int nx, int nu,          \
+                                         int integ, int ltv) {               \
+    return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv);              \
   }

@@ -1,6 +1,9 @@
 // The fused SQP kernel in LTV mode (reference C8): the affine policy
-// Ltv<NX, NU> for the (nx, nu) of the registered models, (8, 4), (4, 2),
-// (4, 1) and (2, 1).  The kernel and its launcher: fused_sqp_launch.cuh.
+// Ltv<NX, NU> for the (nx, nu) of the registered models.  (8, 4) runs the
+// group body (fused_sqp_group.cuh, four threads an instance, the affine
+// step held in the group's tile); (4, 2), (4, 1) and (2, 1) run the
+// one-thread body (fused_sqp.cuh; `GroupBody` says why).
+// The kernels and the launcher: fused_sqp_launch.cuh.
 #include "fused_sqp_launch.cuh"
 
 MPC_FUSED_LIBRARY(mpc::kLtvShapes)

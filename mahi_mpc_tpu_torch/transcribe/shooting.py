@@ -67,8 +67,21 @@ def map_params(fn: Callable[[Tensor], Tensor], p: MPCParams) -> MPCParams:
                        else fn(f) for f in p])
 
 
+def check_device(device, who: str) -> None:
+    """Raise when ``device`` is a CUDA device and this process has none:
+    the port's entry points run on the card unless asked for the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} puts its tensors on a CUDA device by default and none "
+            "is available; pass device=\"cpu\" to run on the CPU")
+
+
 def default_params(mp: ModelParameters, dtype=torch.float32,
-                   device="cpu") -> MPCParams:
+                   device="cuda") -> MPCParams:
+    """The problem's default parameters on ``device``: the card unless the
+    caller asks for another device (``device="cpu"``); raises when the
+    card is asked for and there is none."""
+    check_device(device, "default_params")
     nx, nu, N = mp.num_x, mp.num_u, mp.num_shooting_nodes
     kw = dict(dtype=dtype, device=device)
     vec = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64), **kw)

@@ -60,7 +60,7 @@ def _setup(name, dtype, seed=0):
     p = p._replace(
         x0=jnp.asarray(sx * rng.standard_normal((B, dyn.nx)), jd),
         x_des=jnp.asarray(sd * rng.standard_normal((B, N, dyn.nx)), jd))
-    tp = params_from_numpy(jax.tree.map(np.asarray, p),
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), device="cpu",
                            dtype=getattr(torch, dtype))
     return jprob, prob, p, tp
 
@@ -170,7 +170,7 @@ def test_ltv_mode_matches_jax(kkt_backend):
                      jnp.float32)
     A, Bm, xd0 = jax.vmap(jprob.dynamics.linearize)(p.x0, u0)
     p = p._replace(u_prev=u0, lin=type(p.lin)(A, Bm, xd0, p.x0, u0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, p))
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
     okw = SETUPS["pendulum"][-1]
     rj = jax.tree.map(np.asarray, jb.solve_batch_lanes(
         jprob, p, opts=JaxSolverOptions(kkt_backend="riccati", **okw)))

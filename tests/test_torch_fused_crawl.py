@@ -45,7 +45,7 @@ def _draw(dtype):
                          u_max=[20.0] * dyn.nu, dynamics_name="mahi_arm")
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32).to(dtype)
-    p = default_params(mp, dtype=dtype)._replace(
+    p = default_params(mp, dtype=dtype, device="cpu")._replace(
         q=t([10.0] * 4 + [1.0] * 4), r=t([0.1] * 4), rm=t([0.01] * 4))
     ex = lambda a: a.expand((B,) + a.shape).clone()
     p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)

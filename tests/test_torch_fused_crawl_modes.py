@@ -75,7 +75,7 @@ def _draw(name, integrator, ltv, dtype):
                          integrator=integrator, is_linear=ltv)
     rng = np.random.default_rng(0)
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32).to(dtype)
-    p = default_params(mp, dtype=dtype)._replace(
+    p = default_params(mp, dtype=dtype, device="cpu")._replace(
         q=t([10.0] * nq + [1.0] * nq), r=t([0.1] * nu), rm=t([0.01] * nu))
     ex = lambda a: a.expand((B,) + a.shape).clone()
     p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
@@ -102,16 +102,20 @@ def answers():
             for c in CASES}
 
 
-@pytest.mark.parametrize("solver", ["plain", "thread"])
-@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("case, solver", [
+    pytest.param(c, s, id=f"{_ids(c)}-{s}")
+    for c in CASES for s in ("plain", "thread")
+] + [pytest.param(CASES[0], "group", id=f"{_ids(CASES[0])}-group")])
 def test_adaptive_cold_float32_ends_at_the_float64_answer(answers, case,
                                                           solver):
     """At most 2 of 1024 converged instances beyond |dU| 5e-3 of float64,
-    and mean iterations within 0.6 of float64's."""
+    and mean iterations within 0.6 of float64's: the plain version, the
+    one-thread body, and on LTV the group body the card runs."""
     answer = answers[case]
     r = (_cold(case, solve_batch_fused_plain, torch.float32)
          if solver == "plain"
-         else _cold(case, solve_batch_fused_cpu_kernel, torch.float32))
+         else _cold(case, solve_batch_fused_cpu_kernel, torch.float32,
+                    body=solver))
     both = (r.status == 0) & (answer.status == 0)
     assert float(both.float().mean()) >= 0.99
     du = (r.U.double() - answer.U).abs().amax(dim=(1, 2))[both]
@@ -200,7 +204,11 @@ def test_thread_body_operation_count(case):
     in each of its nz dual passes, so its minimum is lower in every kind.
     Under RK4 a stage's linearization takes nz dual passes of four stage
     evaluations each, so the generic body does more than the same model's
-    nq-row Euler body."""
+    nq-row Euler body.  Where the card runs the group body (LTV ``mahi_arm``,
+    ``mahi_arm`` under RK4), ``count_fused_ops(body="group")`` tallies
+    exactly three more Cholesky factorizations of Quu a stage (nu square
+    roots and nu reciprocals each) than the one-thread body, and its tally
+    is at or above the minimum in every kind."""
     name, integrator, ltv = case
     prob, p = _draw(name, integrator, ltv, torch.float32)
     n_b = 4
@@ -226,3 +234,11 @@ def test_thread_body_operation_count(case):
     if integrator == "rk4":
         euler, _ = _draw(name, "euler", False, torch.float32)
         assert total(one) > total(count(euler, 1))
+    assert one["card_body"] == ("thread" if name == "double_pendulum"
+                                else "group")
+    if one["card_body"] == "group":
+        group = count_fused_ops(prob, p, opts=OPTS, mu0=1e-5, n_iter=1,
+                                body="group")
+        assert (group["body"]["div_sqrt"] - body["div_sqrt"]
+                == 3 * 2 * prob.nu * N * n_b)
+        assert all(group["body"][k] >= least[k] for k in body)

@@ -44,7 +44,7 @@ def _problems(seed=0):
     pb = pb._replace(
         x0=jnp.asarray(0.2 * rng.standard_normal((B, 8)), f32),
         x_des=jnp.asarray(0.2 * rng.standard_normal((B, N, 8)), f32))
-    return jprob, pb, prob, params_from_numpy(jax.tree.map(np.asarray, pb))
+    return jprob, pb, prob, params_from_numpy(jax.tree.map(np.asarray, pb), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -5,15 +5,17 @@ generic nx-row path (midpoint, RK4) of every registered model.
 - The models' closed forms and integrators in ``csrc/model_dynamics.cuh``
   (the code the kernel runs, built with g++) against the PyTorch models
   and ``torch.func.jacfwd``.
-- The kernel body (``csrc/fused_sqp.cuh``, g++ build) against the plain
-  PyTorch version in every mode: float64 to roundoff, float32 at the bands
-  of tests/test_torch_kernel_cpu.py.
+- The kernel bodies (g++ builds: the one-thread ``csrc/fused_sqp.cuh`` in
+  every mode, and the group body ``csrc/fused_sqp_group.cuh`` where the
+  card runs it: LTV at (8, 4), the serial arms under midpoint and RK4) against the plain PyTorch version: float64 to roundoff, float32 at
+  the bands of tests/test_torch_kernel_cpu.py.
 - The generic path against the JAX package's lanes solver
   (tests/test_fused_kernel.py:182-213's pin, float32, atol 2e-5).
 """
 
 import ctypes
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +36,8 @@ from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.integrators import make_step
 from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _kernel_model,
-                                             _mode, fused_supported,
+                                             _mode, card_body,
+                                             fused_supported,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
@@ -101,7 +104,7 @@ def _problem(name, integrator, ltv, dtype, seed=0, dt=0.005, **bounds):
     prob = make_problem(mp, dyn)
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
-    p = default_params(mp, dtype=dtype)._replace(
+    p = default_params(mp, dtype=dtype, device="cpu")._replace(
         q=t([10.0] * nq + [1.0] * nq), r=t([0.1] * nu), rm=t([0.01] * nu))
     ex = lambda a: a.expand((B,) + a.shape).clone()
     p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
@@ -135,17 +138,31 @@ MODES = [
     ("double_pendulum", "euler", False), ("acrobot", "euler", False),
 ]
 _ids = lambda c: "-".join([c[0], c[1]] + (["ltv"] if c[2] else []))
+# The cases the card runs through the group body: LTV at (8, 4), the arms
+# under midpoint and RK4.
+GROUP_MODES = [MODES[0], MODES[5], ("mahi_arm", "midpoint", False),
+               MODES[6], ("two_link_arm", "rk4", False)]
+_with_body = lambda cases: [pytest.param(c, "thread", id=_ids(c))
+                            for c in cases]
+_group = lambda cases: [pytest.param(c, "group", id=_ids(c) + "-group")
+                        for c in cases]
 
 
-@pytest.mark.parametrize("case", MODES, ids=_ids)
-def test_kernel_body_matches_plain_f64(case):
+def _kernel(body):
+    return functools.partial(solve_batch_fused_cpu_kernel, body=body)
+
+
+@pytest.mark.parametrize("case, body",
+                         _with_body(MODES) + _group(GROUP_MODES))
+def test_kernel_body_matches_plain_f64(case, body):
     """float64: X and U at 1e-8, equal statuses and iterations, cold
     adaptive and warm fixed-3; every instance converges cold."""
     prob, p = _problem(*case, torch.float64)
     assert fused_supported(prob)
     assert _mode(prob) == ("ltv" if case[2] else
                            "fast" if case[1] == "euler" else "generic")
-    kernel = _cold_then_warm(prob, p, solve_batch_fused_cpu_kernel)
+    assert (card_body(prob) == "group") == (case in GROUP_MODES)
+    kernel = _cold_then_warm(prob, p, _kernel(body))
     for rk, rp in zip(kernel, _cold_then_warm(prob, p, solve_batch_fused)):
         np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), rtol=0,
                                    atol=1e-8)
@@ -156,14 +173,15 @@ def test_kernel_body_matches_plain_f64(case):
     assert bool((kernel[0].status == 0).all())
 
 
-@pytest.mark.parametrize("case", [MODES[1], MODES[7], MODES[11]],
-                         ids=_ids)
-def test_kernel_body_matches_plain_f32(case):
+@pytest.mark.parametrize("case, body",
+                         _with_body([MODES[1], MODES[7], MODES[11]])
+                         + _group([MODES[0], MODES[5], MODES[6]]))
+def test_kernel_body_matches_plain_f32(case, body):
     """float32 at the bands of the JAX parity tests: adaptive cold equal
     statuses, iterations within +-1, X and U at 1e-3; fixed-3 warm X and U
     at 2e-5, kkt and feas at 1e-5, equal statuses."""
     prob, p = _problem(*case, torch.float32)
-    (ck, wk) = _cold_then_warm(prob, p, solve_batch_fused_cpu_kernel)
+    (ck, wk) = _cold_then_warm(prob, p, _kernel(body))
     (cp, wp) = _cold_then_warm(prob, p, solve_batch_fused)
     np.testing.assert_array_equal(ck.status.numpy(), cp.status.numpy())
     assert np.abs(ck.iters.numpy() - cp.iters.numpy()).max() <= 1
@@ -240,18 +258,20 @@ def _jax_lanes_pair(name, dt, ulim, seed):
     pb2 = pb._replace(x0=pb.x0 + 0.01)
     rw = solve(pb2, r0.X, r0.U, jnp.asarray(jopts.warm_mu_factor * jopts.tol,
                                             f32))
-    tp2 = params_from_numpy(jax.tree.map(np.asarray, pb2))
+    tp2 = params_from_numpy(jax.tree.map(np.asarray, pb2), device="cpu")
     return prob, tp2, jax.tree.map(np.asarray, r0), jax.tree.map(np.asarray,
                                                                    rw)
 
 
 def _check_generic_warm(prob, tp2, X0, U0, rw_U):
     """Fixed-3 warm solves through the generic nx-row path (plain version
-    and kernel body) from a lanes cold plan: U at atol 2e-5 of the lanes
-    warm solve ``rw_U``, every instance converged."""
+    and kernel bodies: the one-thread body, and the group body where the
+    card runs it) from a lanes cold plan: U at atol 2e-5 of the lanes warm
+    solve ``rw_U``, every instance converged."""
     assert _mode(prob) == "generic"
     opts = SolverOptions(tol=1e-4, max_iter=40)
-    for solve in (solve_batch_fused, solve_batch_fused_cpu_kernel):
+    bodies = ["thread"] + (["group"] if card_body(prob) == "group" else [])
+    for solve in [solve_batch_fused] + [_kernel(b) for b in bodies]:
         rf = solve(prob, tp2, X0, U0, opts,
                    mu0=opts.warm_mu_factor * opts.tol, n_iter=3)
         np.testing.assert_allclose(rf.U.numpy(), rw_U, rtol=0, atol=2e-5)

@@ -1,12 +1,16 @@
 """The fused kernel's own arithmetic on the CPU: ``csrc/fused_sqp.cuh`` (the
 one-thread body) and ``csrc/fused_sqp_group.cuh`` (the group body the card
-runs for the arms under Euler), built with g++ and run against the plain
-PyTorch version — the port's analogue of Pallas interpret mode.  Every pin
-runs both bodies (``body``).  float64 pins the math to roundoff; float32
-holds the bands of the JAX parity tests."""
+runs for the serial arms under every integrator and for LTV at (8, 4)),
+built with g++ and run against the plain PyTorch version — the port's
+analogue of Pallas interpret mode.  The main path's pins (``mahi_arm``
+under Euler) run both bodies (``body``), and the group body also on the
+dense step policies it serves: LTV ``mahi_arm`` and ``mahi_arm`` under RK4
+and midpoint.  float64 pins the math to roundoff; float32 holds the bands
+of the JAX parity tests."""
 
 import ctypes
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +23,8 @@ from mahi_mpc_tpu_torch.solver.fused import (_acc_jacobian, _arm_flat,
                                              count_fused_ops,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
-from mahi_mpc_tpu_torch.transcribe.shooting import (MPCParams, default_params,
+from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
+                                                    default_params,
                                                     make_problem)
 
 torch.set_num_threads(1)
@@ -28,7 +33,8 @@ B, N = 8, 8
 TOL = 1e-4
 
 
-def _problem(dtype, name="mahi_arm", x_bounded=False, seed=0):
+def _problem(dtype, name="mahi_arm", x_bounded=False, seed=0,
+             integrator="euler", ltv=False):
     dyn = make_dynamics(name)
     nx, nu = dyn.nx, dyn.nu
     kw = {}
@@ -38,23 +44,34 @@ def _problem(dtype, name="mahi_arm", x_bounded=False, seed=0):
     ulim = 20.0 if name == "mahi_arm" else 60.0
     mp = ModelParameters("t", num_x=nx, num_u=nu, step_size=0.002,
                          num_shooting_nodes=N, u_min=[-ulim] * nu,
-                         u_max=[ulim] * nu, dynamics_name=name, **kw)
+                         u_max=[ulim] * nu, dynamics_name=name,
+                         integrator=integrator, is_linear=ltv, **kw)
     prob = make_problem(mp, dyn)
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
-    p = default_params(mp, dtype=dtype)._replace(
+    p = default_params(mp, dtype=dtype, device="cpu")._replace(
         q=t([10.0] * dyn.nq + [1.0] * dyn.nq), r=t([0.1] * nu),
         rm=t([0.01] * nu))
     ex = lambda a: a.expand((B,) + a.shape).clone()
     p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
                     else ex(f) for f in p])
     scale = 0.1 if x_bounded else 0.2
-    return prob, p._replace(
-        x0=t(scale * rng.standard_normal((B, nx))),
-        x_des=t(scale * rng.standard_normal((B, N, nx))))
+    p = p._replace(x0=t(scale * rng.standard_normal((B, nx))),
+                   x_des=t(scale * rng.standard_normal((B, N, nx))))
+    if ltv:                 # frozen at each instance's (x0, u_prev)
+        A, Bm, xd0 = torch.func.vmap(dyn.linearize)(p.x0, p.u_prev)
+        p = p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
+    return prob, p
 
 
 BODIES = ["thread", "group"]
+# The runs of the pins below: (body, integrator, LTV), the main path under
+# both bodies, then the dense step policies under the group body.
+RUNS = [("thread", "euler", False), ("group", "euler", False),
+        ("group", "euler", True), ("group", "rk4", False),
+        ("group", "midpoint", False)]
+_run_ids = lambda r: "-".join([r[0]] + (["ltv"] if r[2] else [])
+                              + ([r[1]] if r[1] != "euler" else []))
 
 
 def _solve_both(prob, p, opts, body, **kw):
@@ -79,18 +96,20 @@ def lib():
     return cpu_library()
 
 
-@pytest.fixture(scope="module", params=BODIES)
+@pytest.fixture(scope="module", params=RUNS, ids=_run_ids)
 def f64_runs(lib, request):
-    prob, p = _problem(torch.float64)
+    body, integrator, ltv = request.param
+    prob, p = _problem(torch.float64, integrator=integrator, ltv=ltv)
     return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30),
-                           request.param)
+                           body)
 
 
-@pytest.fixture(scope="module", params=BODIES)
+@pytest.fixture(scope="module", params=RUNS, ids=_run_ids)
 def f32_runs(lib, request):
-    prob, p = _problem(torch.float32)
+    body, integrator, ltv = request.param
+    prob, p = _problem(torch.float32, integrator=integrator, ltv=ltv)
     return _cold_then_warm(prob, p, SolverOptions(tol=TOL, max_iter=30),
-                           request.param)
+                           body)
 
 
 @pytest.mark.parametrize("name", ["mahi_arm", "two_link_arm"])
@@ -202,20 +221,34 @@ def test_kernel_matches_plain_f32_adaptive(f32_runs):
     assert float(rk.kkt.max()) < TOL and float(rk.feas.max()) < TOL
 
 
-@pytest.mark.parametrize("body", BODIES)
-@pytest.mark.parametrize("case", ["x_bounds", "head_pinning", "two_link_arm"])
+# two_link_arm in LTV (Ltv<4, 2>) runs the one-thread body on the card
+BRANCHES = [pytest.param(case, body, id=f"{case}-{body}")
+            for case in ("x_bounds", "head_pinning", "two_link_arm",
+                         "x_bounds-ltv", "head_pinning-ltv",
+                         "two_link_arm-ltv", "x_bounds-rk4",
+                         "head_pinning-rk4", "two_link_arm-rk4")
+            for body in BODIES
+            if (case, body) != ("two_link_arm-ltv", "group")]
+
+
+@pytest.mark.parametrize("case, body", BRANCHES)
 def test_kernel_branches_match_plain_f64(lib, case, body):
     """The kernel's other branches against the plain version, float64 at
     1e-8: active state bounds (barrier and fraction-to-boundary on x), head
     pinning (num_control_inputs_saved=2: pinned controls stay exactly at
-    the warm start), and the 2-joint arm instantiation."""
+    the warm start), and the 2-joint arm instantiation; under Euler, in LTV
+    (Ltv<8, 4>; two_link_arm Ltv<4, 2> one thread an instance) and under
+    RK4 (Generic<ArmModel>)."""
     opts = SolverOptions(tol=TOL, max_iter=30)
+    case, _, step = case.partition("-")
+    kw = dict(integrator="rk4" if step == "rk4" else "euler",
+              ltv=step == "ltv")
     if case == "x_bounds":
-        prob, p = _problem(torch.float64, x_bounded=True, seed=1)
+        prob, p = _problem(torch.float64, x_bounded=True, seed=1, **kw)
     elif case == "two_link_arm":
-        prob, p = _problem(torch.float64, name="two_link_arm", seed=2)
+        prob, p = _problem(torch.float64, name="two_link_arm", seed=2, **kw)
     else:
-        prob, p = _problem(torch.float64, seed=3)
+        prob, p = _problem(torch.float64, seed=3, **kw)
     cold = solve_batch_fused(prob, p, opts=opts, mu0=opts.mu_init,
                              adaptive=True)
     if case == "head_pinning":
@@ -246,13 +279,21 @@ def test_group_body_operation_count():
     function's minimum (the group body's tally less what its lanes repeat:
     three more value parts and a plain chain under each qd tangent, about
     a third of the tally) is below the tally in every kind, and a problem
-    the arms' Euler bodies do not serve raises."""
+    the arms' Euler bodies do not serve raises.  The group body of a dense
+    step (LTV ``mahi_arm``, ``mahi_arm`` under RK4) does the one-thread
+    body's work and what its lanes repeat: more adds and multiplies (Prp,
+    the Cholesky of Quu and the increment in each lane), exactly three more
+    Cholesky factorizations of Quu a stage (nu square roots and nu
+    reciprocals each) and no more transcendentals; its tally is at or
+    above the function's minimum in every kind."""
     prob, p = _problem(torch.float32)
     opts = SolverOptions(tol=TOL, max_iter=30)
     one, three = (count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=n)
                   for n in (1, 3))
-    assert set(one) == {"body", "minimum"}
-    assert set(one["body"]) == {"add", "mul", "div_sqrt", "transcendental"}
+    assert set(one) == {"body", "minimum", "card_body"}
+    assert one["card_body"] == "group"
+    kinds = ("add", "mul", "div_sqrt", "transcendental")
+    assert set(one["body"]) == set(kinds)
     assert min(one["body"].values()) > 0
     total = lambda c: sum(c.values())
     for part in ("body", "minimum"):
@@ -272,3 +313,68 @@ def test_group_body_operation_count():
     pend, pp = _problem(torch.float32, name="pendulum")
     with pytest.raises(ValueError):
         count_fused_ops(pend, pp, opts=opts, n_iter=1)
+    for kw in (dict(ltv=True), dict(integrator="rk4")):
+        prob, p = _problem(torch.float32, **kw)
+        count = lambda body: count_fused_ops(prob, p, opts=opts, mu0=1e-5,
+                                             n_iter=1, body=body)
+        group, thread = count("group"), count("thread")
+        assert group["card_body"] == thread["card_body"] == "group"
+        more = {k: group["body"][k] - thread["body"][k] for k in kinds}
+        assert more["add"] > 0 and more["mul"] > 0
+        assert more["div_sqrt"] == 3 * 2 * prob.nu * N * B
+        assert more["transcendental"] == 0
+        assert all(group["body"][k] >= n > 0 for k, n in
+                   group["minimum"].items() if k != "transcendental")
+        assert total(group["body"]) > total(group["minimum"])
+
+
+# The Euler group body's outputs from its g++ build at the commit before the
+# group body took the dense step policies (2e49681), written by
+# `_euler_group_runs` there; the main path's arithmetic must not move.
+EULER_REFERENCE = Path(__file__).with_name("euler_group_body_2e49681.npz")
+EULER_CASES = ("mahi_arm", "two_link_arm", "x_bounds", "head_pinning")
+EULER_FIELDS = ("X", "U", "status", "iters", "kkt", "feas", "obj")
+
+
+def _euler_group_runs() -> dict:
+    """The Euler group body (g++ build) in float32 and float64 on the cases
+    of ``test_kernel_branches_match_plain_f64``: an adaptive cold solve,
+    then fixed-3 and adaptive warm solves at x0 + 0.01 from its own cold
+    plan; {"<dtype>/<case>/<run>/<field>": array}."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for case in EULER_CASES:
+            seed = {"x_bounds": 1, "two_link_arm": 2, "head_pinning": 3}
+            prob, p = _problem(dtype, name="two_link_arm" if
+                               case == "two_link_arm" else "mahi_arm",
+                               x_bounded=case == "x_bounds",
+                               seed=seed.get(case, 0))
+            opts = SolverOptions(tol=TOL, max_iter=30)
+            solve = lambda *a, **kw: solve_batch_fused_cpu_kernel(
+                *a, body="group", **kw)
+            runs = {"cold": solve(prob, p, opts=opts, mu0=opts.mu_init,
+                                  adaptive=True)}
+            if case == "head_pinning":
+                opts = dataclasses.replace(opts, num_control_inputs_saved=2)
+            p2 = p._replace(x0=p.x0 + 0.01)
+            X0, U0 = runs["cold"].X, runs["cold"].U
+            runs["fixed3"] = solve(prob, p2, X0, U0, opts, n_iter=3)
+            runs["adaptive"] = solve(prob, p2, X0, U0, opts, adaptive=True)
+            bits = str(dtype).split(".")[-1]
+            for run, r in runs.items():
+                for field in EULER_FIELDS:
+                    out[f"{bits}/{case}/{run}/{field}"] = \
+                        getattr(r, field).numpy()
+    return out
+
+
+def test_euler_group_body_is_unchanged(lib):
+    """The Euler group body (the main path) now shares its phases with the
+    dense step policies' group bodies: its float32 and float64 outputs are
+    bitwise those of the body before that (``EULER_REFERENCE``)."""
+    want = dict(np.load(EULER_REFERENCE))
+    got = _euler_group_runs()
+    assert sorted(got) == sorted(want)
+    for key, a in got.items():
+        assert a.dtype == want[key].dtype, key
+        np.testing.assert_array_equal(a, want[key], err_msg=key)

@@ -27,8 +27,8 @@ def warm_start():
     prob = make_problem(mp, dyn)
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
-    p = default_params(mp)._replace(q=f32([10.0] * 4 + [1.0] * 4),
-                                    r=f32([0.1] * 4), rm=f32([0.01] * 4))
+    p = default_params(mp, device="cpu")._replace(
+        q=f32([10.0] * 4 + [1.0] * 4), r=f32([0.1] * 4), rm=f32([0.01] * 4))
     p = MPCParams(*[type(f)(*[a.expand((B,) + a.shape).clone() for a in f])
                     if isinstance(f, tuple) else f.expand((B,) + f.shape)
                     .clone() for f in p])

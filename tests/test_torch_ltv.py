@@ -1,10 +1,12 @@
 """LTV (successive-linearization) mode of the port against the JAX package:
 the exact discrete affine step ``_ltv_discrete``, the lanes solver in LTV
 mode (tests/test_batched_lanes.py's LTV setup), and the fused solve in LTV
-mode — its plain PyTorch version and its g++-built kernel body — against
-the JAX lanes solver on tests/test_fused_adaptive.py's LTV setup."""
+mode — its plain PyTorch version and the g++ builds of its kernel bodies,
+one-thread and group — against the JAX lanes solver on
+tests/test_fused_adaptive.py's LTV setup."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +56,7 @@ def _batch(jmp, jdyn, B, q, r, rm, x0, u0, x_des, dtype):
     p = p._replace(x0=x0, u_prev=u0, x_des=jnp.asarray(x_des, jd),
                    lin=JaxLinPoint(A.astype(jd), Bm.astype(jd),
                                    xd0.astype(jd), x0, u0))
-    return p, params_from_numpy(jax.tree.map(np.asarray, p),
+    return p, params_from_numpy(jax.tree.map(np.asarray, p), device="cpu",
                                 dtype=getattr(torch, dtype))
 
 
@@ -79,7 +81,8 @@ def test_ltv_discrete_matches_jax(integrator, dtype):
     p = p._replace(lin=JaxLinPoint(*[jnp.asarray(a, jd) for a in lin]))
     ref = jb._ltv_discrete(jprob, p)
     got = tb._ltv_discrete(prob, params_from_numpy(
-        jax.tree.map(np.asarray, p), dtype=getattr(torch, dtype)))
+        jax.tree.map(np.asarray, p), device="cpu",
+        dtype=getattr(torch, dtype)))
     tol = 1e-10 if dtype == "float64" else 1e-5
     for g, r in zip(got, ref):
         assert g.dtype == getattr(torch, dtype)
@@ -95,7 +98,7 @@ def test_ltv_discrete_checks_batch():
     from mahi_mpc_tpu_torch.transcribe.shooting import default_params
     p = default_params(ModelParameters(
         "ltv", num_x=2, num_u=1, step_size=0.05, num_shooting_nodes=4,
-        dynamics_name="pendulum", is_linear=True))
+        dynamics_name="pendulum", is_linear=True), device="cpu")
     p = p._replace(x0=p.x0.expand(3, 2), u_prev=p.u_prev.expand(3, 1))
     with pytest.raises(ValueError, match="lin"):
         tb._ltv_discrete(prob, p)
@@ -171,7 +174,9 @@ def test_lanes_ltv_defects_are_affine(lanes_pair):
 # ---------------------------------------------------------------------------
 
 FUSED_BODIES = {"plain": solve_batch_fused,
-                "kernel_body": solve_batch_fused_cpu_kernel}
+                "kernel_body": solve_batch_fused_cpu_kernel,
+                "group_body": functools.partial(solve_batch_fused_cpu_kernel,
+                                                body="group")}
 
 
 @pytest.fixture(scope="module")

@@ -54,8 +54,8 @@ def _batch_problem(B=16, N=10):
     mp = ModelParameters("shard_dp", **kw)
     prob = make_problem(mp, make_dynamics("double_pendulum"))
     f = lambda a: torch.tensor(np.asarray(a, dtype=np.float32))
-    p = default_params(mp)._replace(q=f([10.0, 1.0, 5.0, 5.0]),
-                                    r=f([0.5, 0.5]), rm=f([0.01, 0.01]))
+    p = default_params(mp, device="cpu")._replace(
+        q=f([10.0, 1.0, 5.0, 5.0]), r=f([0.5, 0.5]), rm=f([0.01, 0.01]))
     pb = map_params(lambda a: a.expand((B,) + a.shape).clone(), p)
     return prob, pb._replace(x0=f(x0), x_des=f(x_des))
 
@@ -181,7 +181,7 @@ def _arm_batch(B=16, N=8):
     prob = make_problem(mp, dyn)
     rng = np.random.default_rng(0)
     p = map_params(lambda a: a.expand((B,) + a.shape).clone(),
-                   default_params(mp))
+                   default_params(mp, device="cpu"))
     f = lambda a: torch.tensor(a, dtype=torch.float32)
     return prob, p._replace(
         x0=f(0.2 * rng.standard_normal((B, dyn.nx))),

@@ -156,7 +156,7 @@ def _dp(N=24, seed=1):
     mp = ModelParameters("pr_e2e", **kw)
     prob = make_problem(mp, make_double_pendulum())
     t = lambda v: torch.tensor(np.asarray(v, dtype=np.float64))
-    p = default_params(mp, dtype=torch.float64)._replace(
+    p = default_params(mp, dtype=torch.float64, device="cpu")._replace(
         q=t([10.0, 1.0, 5.0, 5.0]), r=t([5.0, 5.0]), rm=t([0.1, 0.1]),
         x_des=t(x_des), x0=t([0.1, -0.05, 0.0, 0.0]))
     jmp = JaxModelParameters("pr_e2e", **kw)

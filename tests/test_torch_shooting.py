@@ -2,6 +2,8 @@
 step, rollout, defects and cost of one instance, for each integrator, from
 the same numpy inputs in float64."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,8 @@ from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
 from mahi_mpc_tpu_torch import ModelParameters
 from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
-from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
+from mahi_mpc_tpu_torch.transcribe.shooting import (default_params,
+                                                    make_problem)
 
 torch.set_num_threads(1)
 
@@ -39,7 +42,8 @@ def _pair(integrator, seed=0):
         u_prev=jnp.asarray(rng.standard_normal(4), f64),
         qf=jnp.asarray(rng.uniform(0.0, 5.0, 8), f64),
         xf_des=jnp.asarray(0.1 * rng.standard_normal(8), f64))
-    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64)
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64,
+                           device="cpu")
     X = 0.2 * rng.standard_normal((N + 1, 8))
     U = rng.standard_normal((N, 4))
     return jprob, p, prob, tp, X, U
@@ -66,3 +70,21 @@ def test_shooting_matches_jax_f64(integrator):
     np.testing.assert_allclose(
         float(prob.cost(Xt, Ut, tp)),
         float(jprob.cost(jnp.asarray(X), jnp.asarray(U), p)), **tol)
+
+
+def test_params_default_to_the_card(monkeypatch):
+    """``default_params`` and ``params_from_numpy`` put their tensors on the
+    card unless asked for another device, as every entry point of the port
+    does; without a card the bare call raises rather than giving CPU
+    tensors, and ``device="cpu"`` still works."""
+    for fn in (default_params, params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    mp = ModelParameters("t", num_x=2, num_u=1, step_size=0.05,
+                         num_shooting_nodes=4, dynamics_name="pendulum")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        default_params(mp)
+    p = default_params(mp, device="cpu")
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        params_from_numpy(p)
+    assert params_from_numpy(p, device="cpu").x_des.device.type == "cpu"

@@ -89,7 +89,7 @@ def _case(name, dtype="float64", seed=0, batch=None):
                    rm=jnp.broadcast_to(jnp.asarray(rm), lead + (nu,)),
                    x_des=jnp.asarray(x_des), x0=jnp.asarray(x0))
     p = jax.tree.map(lambda a: a.astype(jd), p)
-    tp = params_from_numpy(jax.tree.map(np.asarray, p),
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), device="cpu",
                            dtype=getattr(torch, dtype))
     X0 = np.zeros(lead + (N + 1, nx))
     U0 = (np.full(lead + (N, nu), 0.7) if name == "pinned"

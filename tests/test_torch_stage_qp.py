@@ -71,7 +71,8 @@ def test_build_stage_qp_matches_jax(case):
         jprob, X, U, pp, mu, reg, lin=(A, Bm, c), n_pin=n_pin))(
         j["X"], j["U"], p, j["mu"], j["reg"], j["A"], j["Bm"], j["c"])
     t = {k: torch.tensor(v) for k, v in a.items()}
-    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64)
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64,
+                           device="cpu")
     got = build_stage_qp(prob, t["X"], t["U"], tp, t["mu"], t["reg"],
                          lin=(t["A"], t["Bm"], t["c"]), n_pin=n_pin)
     for name, g, r in zip(got._fields, got, ref):
@@ -94,7 +95,8 @@ def test_build_stage_qp_needs_lin(case):
     ref = jax.vmap(lambda X, U, pp, mu, reg: jsq.build_stage_qp(
         jprob, X, U, pp, mu, reg, n_pin=n_pin))(
         j["X"], j["U"], p, j["mu"], j["reg"])
-    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64)
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), dtype=torch.float64,
+                           device="cpu")
     t = {k: torch.tensor(v) for k, v in a.items()}
     got = build_stage_qp(prob, t["X"], t["U"], tp, t["mu"], t["reg"],
                          lin=None, n_pin=n_pin)

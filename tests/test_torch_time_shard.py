@@ -104,7 +104,7 @@ def test_time_shard_backend_reachable_from_solver_options():
     prob = make_problem(mp, make_double_pendulum())
     rng = np.random.default_rng(1)
     t = lambda v: torch.tensor(np.asarray(v, dtype=np.float64))
-    p = default_params(mp, dtype=torch.float64)._replace(
+    p = default_params(mp, dtype=torch.float64, device="cpu")._replace(
         q=t([10.0, 1.0, 5.0, 5.0]), r=t([5.0, 5.0]), rm=t([0.1, 0.1]),
         x_des=t(0.3 * rng.standard_normal((N, 4))),
         x0=t([0.1, -0.05, 0.0, 0.0]))

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Time the fused kernel's step modes on one CUDA card, for one checkout of
+the port: how two versions of the kernel are compared on the same card.
+
+    python3 tools/time_fused_modes.py [--root DIR] [--save FILE.npz]
+
+Imports ``mahi_mpc_tpu_torch`` from the checkout at DIR (default: the one
+this file is in), builds its fused kernel's CUDA libraries, and for each
+case of ``CASES`` (``chip_smoke.py``'s ``model_batch``: N=25, dt=2 ms,
+bench-shaped data from numpy seed 0) times with CUDA events the fixed-3
+warm solve (10 calls after one warm-up) and the adaptive cold solve (2
+calls), wrapper included, as ``chip_smoke.py``'s ``timing_fused_modes``
+does, and the kernel's own device time a fixed-3 launch
+(``torch.profiler``, 5 launches).  ``chip_smoke.py`` holds the same cases
+to the plain version.  ``--save`` writes each case's adaptive cold and
+fixed-3 warm X, U and iterations to an ``.npz``, so that two checkouts'
+outputs on the card can be compared bit for bit.  Prints one JSON line a
+case, the libraries' ``-Xptxas -v`` lines of the fused kernels, and the
+card's ``nvidia-smi`` name and power limit.  To compare two checkouts, run
+it for each in turns on the same card (parent, change, change, parent,
+...).  Exits 1 without a CUDA device.
+"""
+
+import argparse
+import concurrent.futures
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+# (model, integrator, LTV, batch): the main path, the policies of the group
+# body over a dense step at B=16384 (LTV at (8, 4); the 4-DOF arm under RK4
+# and midpoint, the 2-DOF arm under RK4), LTV at (4, 2) and (4, 1) (one
+# thread an instance: the group body was slower there) and LTV at B=1
+CASES = (("mahi_arm", "euler", False, 16384),
+         ("mahi_arm", "euler", True, 16384),
+         ("double_pendulum", "euler", True, 16384),
+         ("cartpole", "euler", True, 16384),
+         ("mahi_arm", "rk4", False, 16384),
+         ("mahi_arm", "midpoint", False, 16384),
+         ("two_link_arm", "rk4", False, 16384),
+         ("mahi_arm", "euler", True, 1))
+LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE),
+                    help="checkout whose mahi_mpc_tpu_torch is timed")
+    ap.add_argument("--save", default=None,
+                    help=".npz for the cases' outputs (X, U, iterations)")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_fused_modes: no CUDA device", file=sys.stderr)
+        return 1
+    import mahi_mpc_tpu_torch
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch._build import cuda_build
+    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
+                                                 _kernel_model,
+                                                 solve_batch_fused)
+
+    # chip_smoke.py of this checkout: its bench-shaped data and helpers
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    imported = Path(mahi_mpc_tpu_torch.__file__).resolve().parent.parent
+    assert imported == root, f"imported {imported}, not {root}"
+
+    label = str(root)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        libs = dict(zip(LIBRARIES, ex.map(cuda_build, LIBRARIES)))
+    build_s = time.perf_counter() - t0
+    for name, (_, report, _) in libs.items():
+        for k in smoke.ptxas_summary(report):
+            print(json.dumps(dict(label=label, library=name, **k)),
+                  flush=True)
+
+    dev = torch.device("cuda", 0)
+    opts = SolverOptions(tol=1e-4, max_iter=12)
+    opts_cold = SolverOptions(tol=1e-4, max_iter=30)
+    mu_warm = opts.warm_mu_factor * opts.tol
+
+    def timed(fn, reps):
+        out = fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / reps
+
+    saved = {}
+    for name, integrator, is_linear, batch in CASES:
+        _, prob, p = smoke.model_batch(dev, np.random.default_rng(0), name,
+                                       batch, integrator, is_linear)
+        cold = lambda: solve_batch_fused(prob, p, None, None, opts_cold,
+                                         mu0=opts_cold.mu_init,
+                                         adaptive=True)
+        ct, cold_ms = timed(cold, 2)
+        pw = p._replace(x0=p.x0 + 0.01)
+        warm = lambda: solve_batch_fused(prob, pw, ct.X, ct.U, opts,
+                                         mu0=mu_warm, n_iter=3)
+        wk, warm_ms = timed(warm, 10)
+        prof = smoke.profile_step(lambda: [warm() for _ in range(5)],
+                                  "fused_sqp")
+        kernels = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
+        # blocks an SM of the kernel that serves it (where the checkout's
+        # library reports it)
+        per_sm = getattr(libs[_cuda_library(prob)][0],
+                         "mpc_fused_blocks_per_sm", None)
+        model = -1 if is_linear else _kernel_model(prob.dynamics)[0]
+        line = dict(
+            label=label, model=name, integrator=integrator,
+            is_linear=is_linear, batch=batch,
+            fixed3_warm_ms=warm_ms, adaptive_cold_ms=cold_ms,
+            fixed3_kernel_device_ms=prof["kernel_device_ms"]
+            / max(prof["kernel_count"], 1),
+            kernel=kernels[0][0] if kernels else None,
+            kernel_count=prof["kernel_count"],
+            adaptive_cold_mean_iters=ct.iters.float().mean().item(),
+            adaptive_cold_converged=(ct.status == 0).float().mean().item(),
+            fixed3_converged=(wk.status == 0).float().mean().item(),
+            blocks_per_sm=None if per_sm is None else per_sm(
+                model, prob.nx, prob.nu, INTEGRATORS.index(integrator),
+                int(is_linear)),
+            build_s=build_s, nvidia_smi=smi)
+        print(json.dumps(line), flush=True)
+        key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
+               + f"-b{batch}")
+        for run, r in (("cold", ct), ("fixed3", wk)):
+            for field in ("X", "U", "iters"):
+                saved[f"{key}/{run}/{field}"] = \
+                    getattr(r, field).cpu().numpy()
+    if args.save:
+        np.savez_compressed(args.save, **saved)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
