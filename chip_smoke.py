@@ -14,9 +14,7 @@ line each, with the seconds since start in ``t``:
    ``flop_count.cpp`` beside them; registers and spill bytes of every
    kernel instantiation from ``-Xptxas -v``; then the main path's
    instantiation alone (``fused_sqp_group_kernel``, four threads an
-   instance): its ptxas line and blocks an SM; the group body over a dense
-   step, ``Ltv<8, 4>`` and ``Generic<ArmModel<4>>``: each one's ptxas
-   line (spills printed) and blocks an SM; and the Riccati kernel
+   instance): its ptxas line and blocks an SM; and the Riccati kernel
    (``riccati_group_kernel``, a group of 16 / 8 / 4 threads an instance) at
    each stage shape: its ptxas line, shared memory and blocks an SM (0 B of
    spill stores and >= 2 blocks an SM, or the phase fails);
@@ -58,11 +56,13 @@ line each, with the seconds since start in ``t``:
    path) and ``pendulum`` under Euler (the nq-row path of a closed-form
    model), with phase 3's rules;
 7. timing_fused_modes — kernel and plain version at B=16384, the batch of
-   the services: fixed-3 warm solves in LTV (``mahi_arm`` (8, 4), the
-   group body; ``double_pendulum`` (4, 2) and ``cartpole`` (4, 1), one
-   thread an instance), under RK4 (``double_pendulum``, one thread an
-   instance; ``mahi_arm`` and ``two_link_arm``, the group body) and under
-   midpoint (``mahi_arm``, the group body), timed (the wrapper by CUDA events, ``ms``, as earlier
+   the services, for each case of ``TIMED_MODES``: fixed-3 warm solves in
+   LTV at (8, 4), (4, 2), (4, 1) and (2, 1), under RK4 (``mahi_arm``,
+   ``two_link_arm`` and every closed form), under midpoint (``mahi_arm``)
+   and under Euler (``two_link_arm`` and every closed form), each on the
+   body ``card_body`` names (four lanes, two lanes or one thread; the
+   profiled kernel must be that body's) with its registers, spills and
+   blocks an SM, timed (the wrapper by CUDA events, ``ms``, as earlier
    runs timed it; the kernel's own device ms by the profiler,
    ``device_ms``: in LTV the per-solve discretization takes more than the
    kernel) and held to max|dX|, max|dU| <= 1e-4, each with its bound (the
@@ -135,6 +135,12 @@ line each, with the seconds since start in ``t``:
     ``start_calc`` with the native plan
     server under a 1 kHz ``control_at_time`` reader (``NativePacer``):
     no failure, no stale or placeholder serve, launches = solves - 1;
+    then runtime_default_example, the reference's default example
+    (``double_pendulum`` under Euler, dt = 2 ms, N = 25) as
+    ``examples/model_generate.py`` and ``model_control.py`` run it: 200
+    ``calc_u`` at B=1, warm p50 / p99 ms, one fused launch a warm call,
+    the B=1 solve held to its plain version, the kernel's device ms, the
+    plain version's ms and the bound at B=1;
 15. service_non_lanes — ``BatchModelControl`` over the arm written as a
     per-instance ``Dynamics`` (no lanes support), B=1024: the
     ``solve_batch`` route, 1 cold + 2 warm steps, converged_frac >= 0.9,
@@ -194,8 +200,9 @@ single PyTorch call computes either function); the fused kernel's
 by CUDA events, as earlier runs report it, and ``device_ms`` the kernel's
 by the profiler; the B=1 Euler entry's ``ms`` is the kernel's device
 time, as it has been since it was added), bound and share (``share`` of
-``ms``, ``device_share`` of ``device_ms``), the group bodies over a dense
-step also their registers, spills and blocks an SM; then the
+``ms``, ``device_share`` of ``device_ms``), and the timed modes also the
+body the card runs and its threads an instance (``card_body``), their
+registers, spills and blocks an SM; then the
 ``nvidia-smi`` line as it printed it, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -225,6 +232,7 @@ LANES_WARM_STEPS = 3
 LADDER = (4096, 16384, 65536)     # the fused kernel's batch ladder
 RUNTIME_WARM_CALLS = 200          # warm calc_u a warm shape, B=1
 RUNTIME_LTV_CALLS = 50
+DEFAULT_EXAMPLE_CALLS = 200       # calc_u of the default example, B=1
 THREAD_SECONDS = 1.0
 TRACK_BAND = 0.05                 # rad, |q - q_des| in the closed loops
 NON_LANES_BATCH = 1024
@@ -282,6 +290,46 @@ def ptxas_summary(report: str) -> list:
             "spill_store_bytes": int(spill.group(2)) if spill else None,
             "spill_load_bytes": int(spill.group(3)) if spill else None})
     return out
+
+
+# Marks of a fused instantiation in its kernel's mangled name: the step
+# policy (nq-row under Euler, generic otherwise, or LTV) and the model.
+MODEL_MARKS = {"mahi_arm": "ArmModelIfLi4E", "two_link_arm": "ArmModelIfLi2E",
+               "pendulum": "8PendulumIf", "cartpole": "8CartpoleIf",
+               "double_pendulum": "16TwoLinkPointMassIfLb1E",
+               "acrobot": "16TwoLinkPointMassIfLb0E"}
+
+
+def fused_instantiation(builds, prob) -> dict:
+    """The kernel the card launches for ``prob`` (``card_body``): its body
+    and threads an instance, its ``-Xptxas -v`` line (registers, spills)
+    from its library's build, and its blocks an SM."""
+    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
+                                                 _kernel_model, card_body)
+
+    body, width = card_body(prob)
+    lib = _cuda_library(prob)
+    if prob.is_linear:
+        marks = ("3Ltv", f"IfLi{prob.nx}ELi{prob.nu}E")
+        model = -1
+    else:
+        marks = ("6FastNq" if prob.integrator == "euler" else "7Generic",
+                 MODEL_MARKS[prob.dynamics.name])
+        model = _kernel_model(prob.dynamics)[0]
+    entry = "22fused_sqp_group_kernel" if body == "group" else \
+        "16fused_sqp_kernel"
+    found = [k for k in ptxas_summary(builds[lib][1])
+             if entry in k["kernel"] and all(m in k["kernel"] for m in marks)]
+    check(len(found) == 1, f"{lib}: {len(found)} kernels {entry} {marks}")
+    per_sm = builds[lib][0].mpc_fused_blocks_per_sm(
+        model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
+        int(prob.is_linear))
+    check(per_sm > 0, f"{lib} {marks}: {per_sm} blocks an SM")
+    return dict(card_body=[body, width], library=lib,
+                registers=found[0]["registers"],
+                spill_store_bytes=found[0]["spill_store_bytes"],
+                spill_load_bytes=found[0]["spill_load_bytes"],
+                blocks_per_sm=per_sm)
 
 
 def random_qp(B, N, nz, nu, seed, to):
@@ -814,12 +862,28 @@ def to_f64(p):
                      if isinstance(f, tuple) else f.double() for f in p])
 
 
-def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
+# Phase 7's cases (model, integrator, LTV) at B=16384: every instantiation
+# of the fused kernel but the main path's (timed in phase 3): LTV at every
+# (nx, nu) of the registered models, the generic path of the arms and of
+# every closed form under RK4 (and of the 4-DOF arm under midpoint), and
+# the nq-row path of the 2-DOF arm and of every closed form under Euler.
+TIMED_MODES = (("mahi_arm", "euler", True), ("double_pendulum", "rk4", False),
+               ("mahi_arm", "rk4", False), ("mahi_arm", "midpoint", False),
+               ("double_pendulum", "euler", True), ("cartpole", "euler", True),
+               ("pendulum", "euler", True), ("two_link_arm", "rk4", False),
+               ("two_link_arm", "euler", False),
+               *((name, integrator, False)
+                 for integrator in ("euler", "rk4")
+                 for name in ("pendulum", "cartpole", "double_pendulum",
+                              "acrobot")
+                 if (name, integrator) != ("double_pendulum", "rk4")))
+
+
+def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     """Phases 5-8: the fused kernel's LTV, generic and closed-form paths.
-    ``dense``: the group kernels' ptxas lines for LTV (8, 4) and the
-    generic 4-DOF arm, {"ltv" | "generic": {registers, spill_store_bytes,
-    blocks_per_sm, ...}}.  Returns the kernels line's entries for those
-    modes."""
+    ``builds``: the CUDA libraries and their ptxas reports.  Returns the
+    kernels line's entries for those modes, one a case of ``TIMED_MODES``
+    and the B=1024 nq-row parity."""
     import numpy as np
     import torch
 
@@ -926,14 +990,9 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
     # ---- timing_fused_modes at the service's batch
     Bt = SERVICE_BATCH
     times = {}
-    for name, integrator, is_linear in (("mahi_arm", "euler", True),
-                                        ("double_pendulum", "rk4", False),
-                                        ("mahi_arm", "rk4", False),
-                                        ("mahi_arm", "midpoint", False),
-                                        ("double_pendulum", "euler", True),
-                                        ("cartpole", "euler", True),
-                                        ("two_link_arm", "rk4", False)):
+    for name, integrator, is_linear in TIMED_MODES:
         _, prob, p = model_batch(dev, rng, name, Bt, integrator, is_linear)
+        kernel_of = fused_instantiation(builds, prob)
         ct, cold_ms = timed(lambda: cold(solve_batch_fused, prob, p), 2)
         wk, warm_ms = timed(lambda: warm3(solve_batch_fused, prob, p, ct),
                             10)
@@ -958,7 +1017,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
         S = COUNT_SAMPLE
         counted = count_fused_ops(prob, head(p._replace(x0=p.x0 + 0.01), S),
                                   ct.X[:S], ct.U[:S], opts, mu0=mu_warm,
-                                  n_iter=3, body=card_body(prob))
+                                  n_iter=3, body=card_body(prob)[0])
         ops, body_ops = counted["minimum"], counted["body"]
         nx, nu = prob.nx, prob.nu
         io = fused_io_bytes(p, ct.X, ct.U, Bt) + (
@@ -967,7 +1026,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
         body_bound = bound_ms(sum(body_ops.values()) / S * Bt, io)
         times[name, integrator, is_linear] = line = dict(
             phase="timing_fused_modes", model=name, integrator=integrator,
-            is_linear=is_linear, batch=Bt, card_body=counted["card_body"],
+            is_linear=is_linear, batch=Bt, **kernel_of,
             fixed3_warm_kernel_ms=warm_ms,
             fixed3_warm_plain_ms=plain_ms, fixed3_warm_max_abs_dxu=err,
             fixed3_warm_status_agree=frac(wk.status == wp.status),
@@ -991,7 +1050,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
                            f"{is_linear}: fixed-3 warm {err} > 1e-4")
         # the launcher's body is the one `card_body` names
         check(("fused_sqp_group_kernel" in line["kernel"])
-              == (line["card_body"] == "group"),
+              == (line["card_body"][0] == "group"),
               f"{name} {integrator} is_linear={is_linear}: launched "
               f"{line['kernel']}, card_body {line['card_body']}")
 
@@ -1098,31 +1157,32 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
     profiled["generic"] = service_profile("service_rk4_profile", svc,
                                           "Generic")
 
-    t_dp = times["double_pendulum", "rk4", False]
     g_pend = gen["pendulum", "euler"]
-    # what the kernels line says of a group body's kernel: its ptxas line
-    # and occupancy, and the service step it was profiled in
-    group_of = lambda key: dict(
-        registers=dense[key]["registers"],
-        spill_store_bytes=dense[key]["spill_store_bytes"],
-        blocks_per_sm=dense[key]["blocks_per_sm"],
+    # what the kernels line says of a group body's kernel profiled in a
+    # service step
+    profiled_in = lambda key: dict(
         profiled_kernel=profiled[key]["kernel"],
         profiled_kernel_device_ms=profiled[key]["kernel_device_ms"])
 
-    def timed_mode(key, mode, case, library, **kw):
+    def timed_mode(key, **kw):
         """A mode's entry from its timing line: ``ms`` the wrapper's
         fixed-3 warm time by CUDA events (as earlier runs report it),
         ``device_ms`` the kernel's own by the profiler, and the bound's
-        share of each; the source is the group body's where the card runs
-        it, else the library's."""
+        share of each; the body the card runs, its threads an instance,
+        registers, spills and blocks an SM; the source is the group body's
+        where the card runs it, else the library's."""
         t = times[key]
-        body = t["card_body"] == "group"
-        library = "mahi_mpc_tpu_torch/csrc/" + library
+        body, width = t["card_body"]
+        library = "mahi_mpc_tpu_torch/csrc/" + t["library"] + ".cu"
+        name, integrator, is_linear = key
         return dict(
-            mode=mode, source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh"
-            if body else library, library=library,
-            case=case + (" (group body)" if body else " (one thread an "
-                                                       "instance)"),
+            mode="ltv" if is_linear else "fast" if integrator == "euler"
+            else "generic",
+            source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh"
+            if body == "group" else library, library=library,
+            case=f"{name} {integrator}{' LTV' if is_linear else ''}, "
+                 f"fixed-3 warm ({t['kernel']})",
+            card_body=[body, width],
             max_abs_err=t["fixed3_warm_max_abs_dxu"],
             ms=t["fixed3_warm_kernel_ms"],
             device_ms=t["fixed3_warm_kernel_device_ms"],
@@ -1132,31 +1192,18 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, dense) -> list:
             share=t["fixed3_warm_roofline_share"],
             device_share=t["fixed3_warm_device_roofline_share"],
             body_bound_ms=t["fixed3_warm_body_bound_ms"],
+            registers=t["registers"],
+            spill_store_bytes=t["spill_store_bytes"],
+            blocks_per_sm=t["blocks_per_sm"],
             adaptive_cold_ms=t["adaptive_cold_kernel_ms"], **kw)
 
-    return [
-        timed_mode(("mahi_arm", "euler", True), "ltv",
-                   "mahi_arm LTV, fixed-3 warm, Ltv<8, 4>", "fused_sqp_ltv.cu",
-                   launches=ltv_launches, service_ms_per_warm_step=ms,
-                   relinearize_ms=relin_ms, **group_of("ltv")),
-        timed_mode(("double_pendulum", "rk4", False), "generic",
-                   "double_pendulum RK4, fixed-3 warm", "fused_sqp_models.cu"),
-        timed_mode(("mahi_arm", "rk4", False), "generic",
-                   "mahi_arm RK4, fixed-3 warm, Generic<ArmModel<4>>",
-                   "fused_sqp_generic.cu", launches=rk4_launches,
-                   service_ms_per_warm_step=ms_rk4, **group_of("generic")),
-        timed_mode(("mahi_arm", "midpoint", False), "generic",
-                   "mahi_arm midpoint, fixed-3 warm, Generic<ArmModel<4>>",
-                   "fused_sqp_generic.cu"),
-        timed_mode(("two_link_arm", "rk4", False), "generic",
-                   "two_link_arm RK4, fixed-3 warm, Generic<ArmModel<2>>",
-                   "fused_sqp_generic.cu"),
-        timed_mode(("double_pendulum", "euler", True), "ltv",
-                   "double_pendulum LTV, fixed-3 warm, Ltv<4, 2>",
-                   "fused_sqp_ltv.cu"),
-        timed_mode(("cartpole", "euler", True), "ltv",
-                   "cartpole LTV, fixed-3 warm, Ltv<4, 1>",
-                   "fused_sqp_ltv.cu"),
+    extra = {("mahi_arm", "euler", True): dict(
+                 launches=ltv_launches, service_ms_per_warm_step=ms,
+                 relinearize_ms=relin_ms, **profiled_in("ltv")),
+             ("mahi_arm", "rk4", False): dict(
+                 launches=rk4_launches, service_ms_per_warm_step=ms_rk4,
+                 **profiled_in("generic"))}
+    return [timed_mode(key, **extra.get(key, {})) for key in TIMED_MODES] + [
         dict(mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
              case="pendulum Euler, fixed-3 warm at B=1024",
              max_abs_err=g_pend["warm_max_abs_dxu"])]
@@ -1478,6 +1525,127 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def runtime_default_example(dev, timed) -> dict:
+    """Phase 14b, runtime_default_example: the reference's default example
+    as a user runs it, ``examples/model_generate.py`` at its defaults
+    (``double_pendulum``, Euler, dt = 2 ms, N = 25, no control bounds)
+    into a temporary directory, then ``examples/model_control.py``'s loop:
+    ``ModelControl`` with its options and weights (Q = [10, 1, 5, 5], R =
+    0.5, Rm = 0), ``warmup``, the RK4 plant from x = [0.3, 0, 0, 0] on its
+    sinusoid reference, a ``calc_u`` every 5th tick (the reference's
+    cadence), ``DEFAULT_EXAMPLE_CALLS`` in all.  Counted: one fused launch
+    a warm ``calc_u``, all on the nq-row path, every warm solve converged
+    or at its cap, none failed.  Then the B=1 warm solve held to its plain
+    version, the kernel's device ms a launch in 20 ``calc_u`` under the
+    profiler (the body ``card_body`` names, by name), the plain version's
+    ms and the bound at B=1.  Returns the kernels line's entry."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.examples import model_control, model_generate
+    from mahi_mpc_tpu_torch.runtime import ModelControl
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_plain)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_default_")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            model_generate.main(["--out", tmp, "--device", str(dev)])
+        gen_s = time.perf_counter() - t0
+        mc = ModelControl("double_pendulum", directory=tmp, device=dev,
+                          opts=SolverOptions(tol=1e-4, max_iter=40))
+        mp = mc.params
+        mc.update_weights(Q=[10.0, 1.0, 5.0, 5.0], R=[0.5] * mp.num_u,
+                          Rm=[0.0] * mp.num_u)
+        plant = model_control.plant_step(mc.dynamics, mp.step_size)
+        mc.warmup()
+        check(mc.warm_solver == "fused" and mp.integrator == "euler"
+              and mp.num_shooting_nodes == N_NODES and mp.step_size == 0.002,
+              f"default example: {mc.warm_solver}, {mp}")
+        x, u = np.array([0.3, 0.0, 0.0, 0.0]), np.zeros(mp.num_u)
+        plans = []
+        solve_batch_fused.launches = 0
+        solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+        for k in range(5 * DEFAULT_EXAMPLE_CALLS):
+            t = k * mp.step_size
+            if k % 5 == 0:
+                plans.append(mc.calc_u(t, x, u,
+                                       model_control.reference_traj(mp, t)))
+            u = mc.control_at_time(t)
+            x = plant(x, u)
+        launches = solve_batch_fused.launches
+        fast = solve_batch_fused.mode_launches["fast"]
+        warm = plans[1:]
+        lat = np.array([p.solve_time_s for p in warm]) * 1e3
+        st = np.array([p.status for p in warm])
+        body = card_body(mc.problem)
+        line = dict(generate_s=gen_s, card_body=list(body),
+                    cold_status=plans[0].status, cold_iters=plans[0].iters,
+                    cold_s=plans[0].solve_time_s, warm_calls=len(warm),
+                    launches=launches, launches_fast=fast,
+                    calc_u_p50_ms=float(np.percentile(lat, 50)),
+                    calc_u_p99_ms=float(np.percentile(lat, 99)),
+                    calc_u_mean_ms=float(lat.mean()),
+                    warm_converged=float((st == 0).mean()),
+                    warm_mean_iters=float(np.mean([p.iters for p in warm])),
+                    failures=mc.stats.summary()["failures"],
+                    final_state=x.tolist())
+        check(plans[0].status == 0 and launches == fast == len(warm)
+              and line["failures"] == 0 and bool((st != 2).all())
+              and bool(np.isfinite(x).all()),
+              f"default example: {line}")
+        # the B=1 warm solve (adaptive, as the example's options make it)
+        t_last = 5 * DEFAULT_EXAMPLE_CALLS * mp.step_size
+        x1, u1 = mc._X0[1].cpu().numpy(), mc._U0[0].cpu().numpy()
+        p1 = calc_u_params(mc, t_last, x1, u1)
+        err = held_b1(mc, p1, dict(adaptive=True))
+        X1, U1 = mc._X0[None], mc._U0[None]
+        warm1 = lambda solve: solve(mc.problem, p1, X1, U1, mc.opts,
+                                    mu0=mc._mu_warm, adaptive=True)
+        kernel = "fused_sqp_group_kernel" if body[0] == "group" else \
+            "fused_sqp_kernel"
+        ref = model_control.reference_traj(mp, t_last)
+        prof = profile_step(lambda: [mc.calc_u(t_last, x1, u1, ref)
+                                     for _ in range(20)], kernel)
+        check(prof["kernel_count"] == 20,
+              f"default example: {prof['kernel_count']} {kernel} launches "
+              f"for 20 calc_u: {prof['top_kernels']}")
+        kernel_ms = prof["kernel_device_ms"] / prof["kernel_count"]
+        _, plain_ms = timed(lambda: warm1(solve_batch_fused_plain), 3)
+        ops = count_fused_ops(mc.problem, p1, X1, U1, mc.opts,
+                              mu0=mc._mu_warm, adaptive=True, body=body[0])
+        bound = bound_ms(sum(ops["minimum"].values()),
+                         fused_io_bytes(p1, X1, U1, 1))
+        line.update(max_abs_dxu_b1=err, kernel_device_ms=kernel_ms,
+                    plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                    bound_by=bound["bound_by"],
+                    kernel_share_of_calc_u_p50=kernel_ms
+                    / line["calc_u_p50_ms"],
+                    kernel=prof["top_kernels"][0][0])
+        emit(phase="runtime_default_example", **line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh"
+        if body[0] == "group"
+        else "mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
+        library="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
+        case="ModelControl double_pendulum Euler (the reference's default "
+             f"example), B=1: {len(warm)} adaptive warm calc_u",
+        card_body=list(body), launches=launches, max_abs_err=err,
+        ms=kernel_ms, device_ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        calc_u_p50_ms=line["calc_u_p50_ms"],
+        calc_u_p99_ms=line["calc_u_p99_ms"])
 
 
 def service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng) -> None:
@@ -2110,8 +2278,7 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cpu_library, cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
-    from mahi_mpc_tpu_torch.solver.fused import (ARM_IDS, INTEGRATORS,
-                                                 count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (ARM_IDS, count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
@@ -2148,24 +2315,6 @@ def main() -> int:
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
           f"group kernel: {len(group)} instantiations, blocks/SM {per_sm}")
-    # the group body over a dense step: LTV (8, 4) and the generic arms;
-    # Ltv<8, 4> and Generic<ArmModel<4>>'s lines printed and kept for the
-    # kernels line (spills printed, not failed on)
-    dense = {}
-    for key, lib, marks, args in (
-            ("ltv", "fused_sqp_ltv", ("3Ltv", "Li8ELi4E"), (-1, 8, 4, 0, 1)),
-            ("generic", "fused_sqp_generic", ("7Generic", "ArmModelIfLi4E"),
-             (ARM_IDS[4], 8, 4, INTEGRATORS.index("rk4"), 0))):
-        found = [k for k in ptxas_summary(builds[lib][1])
-                 if "fused_sqp_group_kernel" in k["kernel"]]
-        mine = [k for k in found if all(m in k["kernel"] for m in marks)]
-        check(len(found) == {"ltv": 1, "generic": 2}[key] and len(mine) == 1,
-              f"{lib}: group kernels {[k['kernel'] for k in found]}")
-        dense[key] = dict(mine[0], blocks_per_sm=builds[lib][0]
-                          .mpc_fused_blocks_per_sm(*args))
-        emit(phase="group_kernel_dense", step=key, library=lib,
-             group_kernels=len(found), **dense[key])
-        check(dense[key]["blocks_per_sm"] > 0, f"{key}: {dense[key]}")
     # the Riccati kernel: a group of threads an instance, every stage shape
     ric_lib = builds["riccati"][0]
     ric_k = {tuple(k["template_args"]): k
@@ -2428,10 +2577,11 @@ def main() -> int:
     check(solve_lqr_kernel_batch.launches == 0,
           "the fused route launched the Riccati kernel")
 
-    modes = fused_mode_phases(dev, rng, timed, warm_schedule, dense)
+    modes = fused_mode_phases(dev, rng, timed, warm_schedule, builds)
     ric = lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule,
                        mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
-    modes[1]["launches"] = ric["dp_fused_launches"]
+    next(m for m in modes if m["case"].startswith("double_pendulum rk4,"))[
+        "launches"] = ric["dp_fused_launches"]
     modes.insert(0, dict(
         mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
         case="mahi_arm Euler, fixed-3 warm (group body)",
@@ -2444,6 +2594,8 @@ def main() -> int:
 
     b1 = runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed)
     launches += b1["launches"]
+    default_example = runtime_default_example(dev, timed)
+    launches += default_example["launches"]
     modes.append(dict(
         mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
         case="ModelControl mahi_arm Euler, B=1: 200 fixed-3 and 200 "
@@ -2463,6 +2615,7 @@ def main() -> int:
         bound_by=b1["ltv_bound_by_b1"],
         share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
         device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"]))
+    modes.append(default_example)
     service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
     traj = trajgen_phase(dev)
     scenario_launches = batch_scenarios_phase(dev)

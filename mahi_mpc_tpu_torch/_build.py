@@ -20,9 +20,10 @@ The libraries:
   for the serial arms under midpoint and RK4 (the generic nx-row path, the
   group body);
 - ``fused_sqp_models`` (``csrc/fused_sqp_models.cu``): the same kernel for
-  the closed-form models, every integrator (one thread an instance);
+  the closed-form models, every integrator (the group body on two lanes
+  or one thread an instance, by shape: ``GroupBody``);
 - ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
-  mode (the group body at (8, 4), (4, 2), (4, 1); one thread at (2, 1));
+  mode (the group body at (8, 4); one thread at (4, 2), (4, 1), (2, 1));
 - ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve (a
   group of threads an instance, ``csrc/riccati.cuh``).
 

@@ -1,10 +1,9 @@
 // The fused kernel's floating-point operations, counted: the group body
-// (fused_sqp_group.cuh) of the policies it serves (the arms under every
-// integrator, LTV at (8, 4)), or the one-thread body (fused_sqp.cuh) of any
+// (fused_sqp_group.cuh) or the one-thread body (fused_sqp.cuh) of any
 // instantiation, instantiated on a scalar that is a double and tallies every
 // add or subtract, multiply, divide or square root, and sine, cosine or log
 // done on it.  A body runs as it runs for the card (the host loop over the
-// group's four lanes does the lanes' work once each), so the tally is the
+// group's W lanes does the lanes' work once each), so the tally is the
 // work of the kernel's own code for the given inputs.  It also counts the
 // work that the body repeats and the function needs once: for the group body
 // what its lanes repeat (`group_repeats`), for the one-thread body what a
@@ -77,7 +76,7 @@ OpCount ops_of(const F& f) {
 // where the function needs it once:
 //  - the value part (kinematics, M, its Cholesky factor, qdd): every lane
 //    forms it, as the values of its q column's dual-number pass or by
-//    arm_value, so kGroup - 1 times more than once;
+//    arm_value, so G - 1 times more than once (G the group's 4 lanes);
 //  - the plain kinematics and RNEA values under each qd column's tangent;
 //  - in the Riccati step: Prp and the Cholesky of Quu, which every lane
 //    forms; B' Pxv and Qxu Kx, each entry formed twice; the mirrored
@@ -91,7 +90,8 @@ OpCount ops_of(const F& f) {
 // follows the loops of fused_sqp_group.cuh.
 template <int NQ>
 OpCount repeated_ops(const ArmConsts<Flop, NQ>& c, int n_fan, bool pinned) {
-  constexpr int NX = 2 * NQ, NU = NQ, G = kGroup;
+  constexpr int NX = 2 * NQ, NU = NQ,
+                G = GroupStep<Flop, FastNq<Flop, ArmModel<Flop, NQ>>>::W;
   Flop q[NQ], qd[NQ], u[NQ], L[NQ][NQ], M[NQ][NQ], h[NQ], qdd[NQ];
   for (int i = 0; i < NQ; ++i) q[i] = qd[i] = u[i] = Flop(0.1 * (i + 1));
   OpCount r;
@@ -176,12 +176,12 @@ inline double iterations(const FusedArgs<Flop>& a, long long b) {
 
 // What the group body repeats over the B instances, given its tally.  The
 // arms under Euler: `repeated_ops` a stage of each iteration (the folded
-// linearization is the group body's own method).  A dense step (LTV, the
-// generic arms): the group body computes the one-thread body's function
-// (the same linearization, the same Riccati step), whose minimum is the
-// one-thread body's tally less `linearize_repeats`; so that is counted by
-// running the one-thread body on the same inputs, and the group body
-// repeats the rest of its tally.
+// linearization is the group body's own method).  Every other policy (LTV,
+// the generic path, the closed forms under Euler): the group body computes
+// the one-thread body's function (the same linearization, the same Riccati
+// step), whose minimum is the one-thread body's tally less
+// `linearize_repeats`; so that is counted by running the one-thread body on
+// the same inputs, and the group body repeats the rest of its tally.
 template <int NQ>
 OpCount group_repeats(const FastNq<Flop, ArmModel<Flop, NQ>>& step,
                       const FusedArgs<Flop>& a, OpCount) {
@@ -213,16 +213,14 @@ OpCount group_repeats(const Step& step, const FusedArgs<Flop>& a,
 
 extern "C" {
 
-// Runs the group body (group = 1; the policies `GroupBody` names) or the
-// one-thread body (group = 0; every instantiation: the closed-form models
-// and the smaller LTV shapes the card runs it for, the others as the group
-// body replaced them) over the B instances given (the fused kernel's
+// Runs the group body (group = 1) or the one-thread body (group = 0) of the
+// instantiation that serves the problem (either body, whichever the card
+// runs) over the B instances given (the fused kernel's
 // arguments, every array float64) and adds its operations to counts[0..3]:
 // adds, multiplies, divides and square roots, transcendentals; and the part
 // of them that it repeats (`group_repeats` for the group body,
 // `linearize_repeats` a stage of each iteration for the one-thread body) to
-// counts[4..7].  Returns -1 when no instantiation of that body serves the
-// problem.
+// counts[4..7].  Returns -1 when no instantiation serves the problem.
 int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
                         void* const* ptrs, const double* scal,
                         const int* ints, const double* fan,
@@ -244,16 +242,12 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
     return 0;
   };
   auto grouped = [&](const auto& step) -> int {
-    typedef typename std::decay<decltype(step)>::type Step;
-    if constexpr (mpc::GroupBody<Step>::value) {
-      Flop tile[mpc::GroupStep<Flop, Step>::Tile::kSize];
-      for (long long b = 0; b < B; ++b)
-        mpc::solve_group<Flop>(a, step, b, mpc::Group{0, 0u}, tile);
-      repeated = mpc::group_repeats(step, a, mpc::g_ops);
-      return 0;
-    } else {
-      return -1;
-    }
+    typedef mpc::GroupStep<Flop, std::decay_t<decltype(step)>> GS;
+    Flop tile[GS::Tile::kSize];
+    for (long long b = 0; b < B; ++b)
+      mpc::solve_group<Flop>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
+    repeated = mpc::group_repeats(step, a, mpc::g_ops);
+    return 0;
   };
   const int rc = group
       ? mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
@@ -272,8 +266,9 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
 }
 
 // The body the card runs for (model, nx, nu) under integrator `integ` and
-// LTV flag `ltv`, as the launcher picks it (`GroupBody`): 1 the group body,
-// 0 the one-thread body, -1 no instantiation (solver/fused.py `card_body`).
+// LTV flag `ltv`, as the launcher picks it (`GroupBody`), as its threads an
+// instance: the group body's width W (4 or 2), 1 for the one-thread body,
+// -1 no instantiation (solver/fused.py `card_body`).
 int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv) {
   mpc::FusedArgs<mpc::Flop> a{};
   a.integ = integ;
@@ -281,8 +276,9 @@ int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv) {
   static const double consts[256] = {};   // the model's constants: unused
   return mpc::dispatch<mpc::Flop, mpc::kAllFamilies>(
       a, model, nx, nu, consts, [](const auto& step) -> int {
-        typedef typename std::decay<decltype(step)>::type Step;
-        return mpc::GroupBody<Step>::value ? 1 : 0;
+        typedef std::decay_t<decltype(step)> Step;
+        return mpc::GroupBody<Step>::value ? mpc::GroupStep<mpc::Flop, Step>::W
+                                           : 1;
       });
 }
 

@@ -24,9 +24,10 @@
 //   Ltv<NX, NU>     the frozen affine step, streamed in batch-innermost as
 //                   (Ad - I, Bd, cd) and read row by row where it is used:
 //                   no AD and no Jacobian scratch.
-// For the serial arms (FastNq and Generic) and LTV at (8, 4) the card
-// runs the group body of fused_sqp_group.cuh instead (`GroupBody`); the
-// tests run both.
+// For the policies `GroupBody` names (the serial arms, LTV at (8, 4), most
+// closed forms under midpoint and RK4, the double pendulum under Euler) the
+// card runs the group body of fused_sqp_group.cuh instead; the tests run
+// both bodies of every policy.
 // Every policy gives the increment F(x, u) - x, never F, and the body forms
 // each defect as (x - x') + increment: x and x' differ by about the
 // increment, so their float32 rounding (~ulp(x) a component) stays out of

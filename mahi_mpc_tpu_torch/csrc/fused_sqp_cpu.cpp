@@ -1,8 +1,8 @@
 // The fused kernel's bodies built for the CPU, for the tests only: the same
-// fused_sqp.cuh (one thread an instance, every instantiation family) and
-// fused_sqp_group.cuh (the arms under every integrator and LTV at (8, 4),
-// four lanes an instance run one after another) that nvcc compiles for the
-// card, looped over instances and built for float and double.  Built with
+// fused_sqp.cuh (one thread an instance) and fused_sqp_group.cuh (the W
+// lanes of an instance run one after another) that nvcc compiles for the
+// card, each for every instantiation family, looped over instances and
+// built for float and double.  Built with
 // `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
 // package's main path never loads it.
 #include "fused_sqp_group.cuh"
@@ -20,8 +20,10 @@ int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
       });
 }
 
-// The group body for the problems it serves (`GroupBody`: the serial arms
-// under every integrator, LTV at (8, 4)); -1 for any other.
+// The group body of any policy, at the policy's width (its W lanes run one
+// after another, phase by phase).  The tile is followed by guard entries
+// that no write may reach (-2 if one did: on the card that write would
+// land in the next group's tile).
 template <typename S>
 int solve_group(long long B, int N, int model, int nx, int nu,
                 void* const* ptrs, const S* scal, const int* ints,
@@ -29,15 +31,16 @@ int solve_group(long long B, int N, int model, int nx, int nu,
   const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
   return mpc::dispatch<S, mpc::kAllFamilies>(
       a, model, nx, nu, c, [&](const auto& step) -> int {
-        typedef typename std::decay<decltype(step)>::type Step;
-        if constexpr (mpc::GroupBody<Step>::value) {
-          S tile[mpc::GroupStep<S, Step>::Tile::kSize];
-          for (long long b = 0; b < B; ++b)
-            mpc::solve_group<S>(a, step, b, mpc::Group{0, 0u}, tile);
-          return 0;
-        } else {
-          return -1;
-        }
+        typedef mpc::GroupStep<S, std::decay_t<decltype(step)>> GS;
+        constexpr int kSize = GS::Tile::kSize, kGuard = 64;
+        const S mark = S(-1234.5);
+        S tile[kSize + kGuard];
+        for (int e = kSize; e < kSize + kGuard; ++e) tile[e] = mark;
+        for (long long b = 0; b < B; ++b)
+          mpc::solve_group<S>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
+        for (int e = kSize; e < kSize + kGuard; ++e)
+          if (!(tile[e] == mark)) return -2;
+        return 0;
       });
 }
 

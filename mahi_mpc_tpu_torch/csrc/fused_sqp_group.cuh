@@ -1,57 +1,65 @@
-// The fused SQP body with four threads (a "group") on one instance: the
-// body of the kernel that the card launches for the serial arms under every
-// integrator and for the LTV step at (8, 4) (fused_sqp_launch.cuh,
-// `GroupBody`), and, built by g++, of the tests' CPU build.  The other LTV
-// shapes and the closed-form models run the one-thread `solve_instance`
+// The fused SQP body with a group of W threads (lanes) on one instance: the
+// body of the kernel that the card launches for the step policies
+// `GroupBody` names (fused_sqp_launch.cuh), and, built by g++, of the tests'
+// CPU build for every policy.  The width W is a compile-time constant of
+// the group step policy: four lanes for the serial arms under every
+// integrator and for the LTV step at (8, 4), two for the closed-form
+// models and the LTV steps at (4, 2), (4, 1), (2, 1).  A policy the card
+// does not run on the group body runs the one-thread `solve_instance`
 // (fused_sqp.cuh).
 //
 // It computes what `solve_instance<Step>` computes, in the same iteration
 // modes and branches.  What depends on the step is a group step policy
-// (`GroupStep<S, Step>`, below): its share of a stage's linearization, the
-// products with A and B, the rollout's rows and a trial point's increment.
-// Three of them:
+// (`GroupStep<S, Step>`, below): its width, its share of a stage's
+// linearization, the products with A and B, the rollout's rows and a trial
+// point's increment.  Four of them:
 //
-// * the arms under Euler (`FastNq<ArmModel>`): the linearization is folded
-//   (arm_dynamics.cuh `arm_*_column`): of the 3 NQ columns of d qdd / d[q,
-//   qd, u], only the NQ q columns take a pass through the whole chain; a qd
-//   column is the RNEA alone and a u column two triangular solves.  Lane l
-//   takes the tasks l, l + 4, l + 8 of the list (q_0 .. q_{NQ-1}, qd_0 ..,
-//   u_0 ..).  The structural zeros of A = [[I, dt I], [Jq, I + Jqd]] and B
-//   = [[0], [Ju]] are skipped in the step's products (their zero terms add
-//   nothing, so the sums are the one-thread body's); only the folded
-//   Jacobian rounds differently.
-// * the arms under midpoint and RK4 (`Generic<ArmModel>`): the NZ tangent
-//   columns of the increment's rows [A - I | B] are split over the lanes
-//   (lane l takes columns l, l + 4, l + 8), one dual-number pass through
-//   the step each, so a lane's registers hold one pass as the one-thread
-//   body's do.  A stage's rows and A = I + rows go to the tile, where the
-//   Riccati step reads them, and the rows to global J as well, where the
-//   rollout reads them: the rollout runs after the whole backward sweep,
-//   when the tile holds only stage 0, and forming them again would cost the
-//   passes once more.
-// * LTV (`Ltv<NX, NU>`): the affine step (Ad - I, Bd, cd) and A = I + (Ad
-//   - I) go into the tile once a solve (lane l reads rows l and l + 4 of
-//   each, coalesced in the batch-innermost layout); no stage, rollout step
-//   or rung reads them from global memory again.
+// * the arms under Euler (`FastNq<ArmModel>`, W = 4): the linearization is
+//   folded (arm_dynamics.cuh `arm_*_column`): of the 3 NQ columns of d qdd
+//   / d[q, qd, u], only the NQ q columns take a pass through the whole
+//   chain; a qd column is the RNEA alone and a u column two triangular
+//   solves.  Lane l takes the tasks l, l + 4, l + 8 of the list (q_0 ..
+//   q_{NQ-1}, qd_0 .., u_0 ..).  The structural zeros of A = [[I, dt I],
+//   [Jq, I + Jqd]] and B = [[0], [Ju]] are skipped in the step's products
+//   (their zero terms add nothing, so the sums are the one-thread body's);
+//   only the folded Jacobian rounds differently.
+// * the closed forms under Euler (`FastNq<Model>`, W = 2): the NQ
+//   acceleration rows by one dual-number pass a tangent column, as
+//   `acc_rows` forms them, the NZ columns split over the lanes (lane l
+//   takes columns l, l + 2, ...); the products as for the arms.
+// * any model under midpoint and RK4 (`Generic<Model>`; W = 4 for the arms,
+//   2 for the closed forms): the NZ tangent columns of the increment's rows
+//   [A - I | B] are split over the lanes (lane l takes columns l, l + W,
+//   ...), one dual-number pass through the step each, so a lane's
+//   registers hold one pass as the one-thread body's do.  A stage's rows
+//   and A = I + rows go to the tile, where the Riccati step reads them, and
+//   the rows to global J as well, where the rollout reads them: the rollout
+//   runs after the whole backward sweep, when the tile holds only stage 0,
+//   and forming them again would cost the passes once more.
+// * LTV (`Ltv<NX, NU>`; W = 4 at (8, 4), 2 otherwise): the affine step (Ad
+//   - I, Bd, cd) and A = I + (Ad - I) go into the tile once a solve (lane l
+//   reads rows l, l + W, ... of each, coalesced in the batch-innermost
+//   layout); no stage, rollout step or rung reads them from global memory
+//   again.
 //
 // The block Riccati step is split over the lanes on a per-instance tile in
 // shared memory (`GroupTile`): lane l owns the state rows and columns l, l
-// + 4 (`row`), the control index l, and the right-hand-side columns l, l +
-// 4, l + 8, l + 12 of the gain solve.  Each sum keeps the one-thread body's
-// order, so with a dense A the step is the one-thread body's to the last
-// bit.  The line-search rungs run in parallel: lane l evaluates rungs l and
-// l + 4 over all stages; the first passing rung in fan order wins.
+// + W, ... (`row`), the control index l (NU <= W), and the right-hand-side
+// columns l, l + W, ... of the gain solve.  Each sum keeps the one-thread
+// body's order, so with a dense A the step is the one-thread body's to the
+// last bit.  The line-search rungs run in parallel: lane l evaluates rungs
+// l, l + W, ... over all stages; the first passing rung in fan order wins.
 //
-// The body is a sequence of phases.  On the device the four lanes run a
-// phase at once and meet at a `__syncwarp` of the group; on the host
-// (`kHostLanes` = 4) one thread runs the lanes of a phase one after another,
-// over a local array that stands in for the shared tile.  So the g++ build
-// runs the group body's own arithmetic.  What a lane keeps from one phase to
-// the next lives in its `Own` slot; what all lanes need goes through the
-// tile; code between phases is uniform (every lane computes the same from
-// the same tile values), so the group leaves the adaptive loop together.
-// Lane 0 also keeps the merit's sums (cost, l1 defect, reference cost,
-// directional derivative) in the one-thread body's order: the Armijo test
+// The body is a sequence of phases.  On the device the W lanes run a phase
+// at once and meet at a `__syncwarp` of the group; on the host one thread
+// runs the lanes of a phase one after another, over a local array that
+// stands in for the shared tile.  So the g++ build runs the group body's
+// own arithmetic.  What a lane keeps from one phase to the next lives in
+// its `Own` slot; what all lanes need goes through the tile; code between
+// phases is uniform (every lane computes the same from the same tile
+// values), so the group leaves the adaptive loop together.  Lane 0 also
+// keeps the merit's sums (cost, l1 defect, reference cost, directional
+// derivative) in the one-thread body's order, whatever W: the Armijo test
 // compares them with the rungs' sums, and float32 noise between the two
 // decides whether a near-converged step passes.
 #pragma once
@@ -60,16 +68,17 @@
 
 namespace mpc {
 
-constexpr int kGroup = 4;
-#if defined(__CUDA_ARCH__)
-constexpr int kHostLanes = 1;   // each thread holds its own lane's state
-#else
-constexpr int kHostLanes = kGroup;
-#endif
-
-// The lanes of one instance: `phase(f)` runs f(lane) for each lane and
-// then a group barrier.
+// The W lanes of one instance: `phase(f)` runs f(lane) for each lane and
+// then a group barrier.  On the host one thread runs all W lanes, and each
+// keeps its own state in slot l.
+template <int W_>
 struct Group {
+  static constexpr int W = W_;
+#if defined(__CUDA_ARCH__)
+  static constexpr int kHostLanes = 1;   // each thread holds its own lane
+#else
+  static constexpr int kHostLanes = W;
+#endif
   int lane;
   unsigned mask;
   template <typename F>
@@ -78,7 +87,7 @@ struct Group {
     f(lane);
     __syncwarp(mask);
 #else
-    for (int l = 0; l < kGroup; ++l) f(l);
+    for (int l = 0; l < W; ++l) f(l);
 #endif
   }
   // Index of lane l's private slot.
@@ -91,11 +100,13 @@ struct Group {
   }
 };
 
-// The per-instance tile: the Riccati carries, the stage's NJ Jacobian rows
-// and defect, the step's blocks and gains, the lanes' partial sums, and NE
-// entries of the step policy's own.  The rollout's double-buffered dx/du
-// and the rung results reuse the step's blocks, which are free then.
-template <int NX, int NU, int NJ, int NE = 0>
+// The per-instance tile of a group of W lanes: the Riccati carries, the
+// stage's NJ Jacobian rows and defect, the step's blocks and gains, the
+// lanes' partial sums, and NE entries of the step policy's own.  The
+// rollout's double-buffered dx/du and the rung results reuse the step's
+// blocks, which are free then; at small shapes ((4, 1), (2, 1)) those
+// blocks are too few, and the tile grows by what they lack.
+template <int NX, int NU, int NJ, int NE, int W>
 struct GroupTile {
   static constexpr int NZ = NX + NU, NR = NZ + 1, kRedN = 8;
   static constexpr int kPxx = 0, kPxv = kPxx + NX * NX,
@@ -103,17 +114,19 @@ struct GroupTile {
                        kpv = kpx + NX, kJr = kpv + NU, kck = kJr + NJ * NZ,
                        kQxx = kck + NX, kQxu = kQxx + NX * NX,
                        kQuu = kQxu + NX * NU, kqu = kQuu + NU * NU,
-                       kY = kqu + NU, kRed = kY + NU * NR,
-                       kExt = kRed + kGroup * kRedN, kEnd = kExt + NE;
-  static constexpr int kDx = kQxx, kDu = kDx + 2 * NX, kFan = kDu + 2 * NU;
-  static_assert(kFan + 3 * kMaxFan <= kRed, "rollout / fan overflow");
-  // Odd stride: the eight groups of a warp fall on different banks.
+                       kY = kqu + NU, kBlocksEnd = kY + NU * NR;
+  static constexpr int kDx = kQxx, kDu = kDx + 2 * NX, kFan = kDu + 2 * NU,
+                       kFanEnd = kFan + 3 * kMaxFan;
+  static constexpr int kRed = kFanEnd > kBlocksEnd ? kFanEnd : kBlocksEnd,
+                       kExt = kRed + W * kRedN, kEnd = kExt + NE;
+  static_assert(kFanEnd <= kRed, "rollout / fan overflow");
+  // Odd stride: the groups of a warp fall on different banks.
   static constexpr int kSize = kEnd | 1;
 };
 
-template <typename S, int NX, int NU, int NJ, int NE = 0>
+template <typename S, int NX, int NU, int NJ, int NE, int W>
 struct TileView {
-  typedef GroupTile<NX, NU, NJ, NE> G;
+  typedef GroupTile<NX, NU, NJ, NE, W> G;
   S* t;
   MPC_HD S& Pxx(int i, int j) const { return t[G::kPxx + i * NX + j]; }
   MPC_HD S& Pxv(int i, int l) const { return t[G::kPxv + i * NU + l]; }
@@ -138,7 +151,8 @@ struct TileView {
 
 // ---- group step policies.  `GroupStep<S, Step>` is built from the step
 // policy, the arguments and the instance, and gives the body:
-//   NX, NU, Tile, View          sizes and the tile's layout;
+//   W, NX, NU, Tile, View       the group's width, sizes and the tile's
+//                               layout;
 //   setup(l, T)                 lane l's share of what the tile holds for
 //                               the whole solve;
 //   linearize(l, k, xl, ul, T, Js, f)
@@ -161,71 +175,53 @@ struct TileView {
 //   value(T, xt, ut, vt)        the increment at a line-search trial point.
 template <typename S, typename Step> struct GroupStep;
 
-// Which step policies run the group body: the serial arms under every
-// integrator, and LTV at (8, 4).  LTV at (4, 2) and (4, 1) fits the split
-// but took 28-29 % longer on the group body than on the one-thread body on
-// the H100 (one or two of the four lanes own no control index, a warp
-// holds 8 instances, not 32; tools/time_fused_modes.py, PERF.md), and
-// (2, 1) does not fit it: they run the one-thread body, as the closed-form
-// models do.
+// Which step policies the card runs on the group body (the others on the
+// one-thread body), by the in-turn timing of the two bodies on the H100
+// (tools/time_fused_modes.py, fixed-3 warm at B=16384, PERF.md §6):
+// - four lanes: the serial arms under every integrator, LTV at (8, 4);
+// - two lanes: the generic path (midpoint and RK4) of the double
+//   pendulum, the acrobot and the cart-pole, whose tangent passes through
+//   the integrator's stages split over the lanes (1.08-1.26x), and the
+//   double pendulum under Euler (1.06x);
+// - one thread: where two lanes lost, the small shapes whose linearization
+//   is too cheap to pay for the lanes' barriers, the tile's round trips and
+//   the work every lane repeats: the pendulum under every integrator, the
+//   cart-pole and the acrobot under Euler, and LTV at (4, 2), (4, 1) and
+//   (2, 1) (0.50-0.96x).
 template <typename Step> struct GroupBody {
   static constexpr bool value = false;
 };
 template <typename S, int NQ> struct GroupBody<FastNq<S, ArmModel<S, NQ>>> {
   static constexpr bool value = true;
 };
-template <typename S, int NQ>
-struct GroupBody<Generic<S, ArmModel<S, NQ>>> {
+template <typename S, typename Model> struct GroupBody<Generic<S, Model>> {
+  static constexpr bool value = true;
+};
+template <typename S> struct GroupBody<Generic<S, Pendulum<S>>> {
+  static constexpr bool value = false;
+};
+template <typename S> struct GroupBody<FastNq<S, DoublePendulum<S>>> {
   static constexpr bool value = true;
 };
 template <typename S, int NX, int NU> struct GroupBody<Ltv<S, NX, NU>> {
   static constexpr bool value = NX == 8 && NU == 4;
 };
 
-// The arms under Euler: the folded linearization, structural zeros
-// skipped.
-template <typename S, int NQ>
-struct GroupStep<S, FastNq<S, ArmModel<S, NQ>>> {
-  static constexpr int NX = 2 * NQ, NU = NQ, NZ = NX + NU;
-  typedef GroupTile<NX, NU, NQ> Tile;
-  typedef TileView<S, NX, NU, NQ> View;
-  const ArmModel<S, NQ>& m;
+// The Euler step of a second-order model (the nq-row policy): the tile
+// holds the NQ dt-scaled acceleration rows in Jr; A = [[I, dt I], [Jq, I +
+// Jqd]] and B = [[0], [Ju]] are used with their structural zeros skipped.
+template <typename S, typename Model, int W_>
+struct GroupNq {
+  static constexpr int W = W_, NQ = Model::NQ, NX = Model::NX,
+                       NU = Model::NU, NZ = NX + NU;
+  typedef GroupTile<NX, NU, NQ, 0, W> Tile;
+  typedef TileView<S, NX, NU, NQ, 0, W> View;
+  const Model& m;
   S dt;
-  MPC_HD GroupStep(const FastNq<S, ArmModel<S, NQ>>& s, const FusedArgs<S>& a,
-                   long long)
-      : m(s.m), dt(a.dt) {}
   MPC_HD void setup(int, const View&) const {}
-  MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
-                        const View& T, const Lane<S>& Js, S* f) const {
-    S L[NQ][NQ], qdd[NQ], col[NQ];
-    auto put = [&](int c) {
-      for (int i = 0; i < NQ; ++i) {
-        const S v = dt * col[i];
-        T.Jr(i, c) = v;
-        Js[(k * NQ + i) * NZ + c] = v;
-      }
-    };
-    if (l < NQ) {
-      arm_q_column(m.c, xl, xl + NQ, ul, l, L, qdd, col);
-      put(l);
-    } else {
-      arm_value(m.c, xl, xl + NQ, ul, L, qdd);
-    }
-#pragma unroll 1
-    for (int t = l < NQ ? l + kGroup : l; t < 3 * NQ; t += kGroup) {
-      if (t < 2 * NQ) {
-        arm_qd_column(m.c, xl, xl + NQ, t - NQ, L, col);
-      } else {
-        arm_u_column(L, t - 2 * NQ, col);
-      }
-      put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
-    }
-    for (int i = 0; i < NX; ++i) f[i] = i < NQ ? xl[NQ + i] : qdd[i - NQ];
-  }
   MPC_HD S inc(S fi) const { return dt * fi; }
-  // A = [[I, dt I], [Jq, I + Jqd]] (Jr the stage's rows in the tile): the
-  // one-thread body's dense sum in its order, the zeros of the top rows
-  // skipped, so the same value.
+  // The one-thread body's dense sum in its order, the zeros of the top
+  // rows skipped, so the same value.
   template <typename V>
   MPC_HD S At(const View& T, int c, const V& v) const {
     S acc = c < NQ ? v(c) : v(c - NQ) * dt;
@@ -256,13 +252,83 @@ struct GroupStep<S, FastNq<S, ArmModel<S, NQ>>> {
   }
 };
 
+// The arms under Euler: the folded linearization, four lanes.
+template <typename S, int NQ_>
+struct GroupStep<S, FastNq<S, ArmModel<S, NQ_>>>
+    : GroupNq<S, ArmModel<S, NQ_>, 4> {
+  typedef GroupNq<S, ArmModel<S, NQ_>, 4> D;
+  using D::W; using D::NQ; using D::NX; using D::NZ;
+  typedef typename D::View View;
+  MPC_HD GroupStep(const FastNq<S, ArmModel<S, NQ>>& s, const FusedArgs<S>& a,
+                   long long)
+      : D{s.m, a.dt} {}
+  MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
+                        const View& T, const Lane<S>& Js, S* f) const {
+    S L[NQ][NQ], qdd[NQ], col[NQ];
+    auto put = [&](int c) {
+      for (int i = 0; i < NQ; ++i) {
+        const S v = this->dt * col[i];
+        T.Jr(i, c) = v;
+        Js[(k * NQ + i) * NZ + c] = v;
+      }
+    };
+    if (l < NQ) {
+      arm_q_column(this->m.c, xl, xl + NQ, ul, l, L, qdd, col);
+      put(l);
+    } else {
+      arm_value(this->m.c, xl, xl + NQ, ul, L, qdd);
+    }
+#pragma unroll 1
+    for (int t = l < NQ ? l + W : l; t < 3 * NQ; t += W) {
+      if (t < 2 * NQ) {
+        arm_qd_column(this->m.c, xl, xl + NQ, t - NQ, L, col);
+      } else {
+        arm_u_column(L, t - 2 * NQ, col);
+      }
+      put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
+    }
+    for (int i = 0; i < NX; ++i) f[i] = i < NQ ? xl[NQ + i] : qdd[i - NQ];
+  }
+};
+
+// The closed forms under Euler: the acceleration rows by dual numbers, one
+// pass a tangent column (`acc_rows`'s passes), the columns split over two
+// lanes; every pass also gives the accelerations (the same in each).
+template <typename S, typename Model>
+struct GroupStep<S, FastNq<S, Model>> : GroupNq<S, Model, 2> {
+  typedef GroupNq<S, Model, 2> D;
+  using D::W; using D::NQ; using D::NX; using D::NU; using D::NZ;
+  typedef typename D::View View;
+  static_assert(NZ >= W, "every lane takes a column");
+  MPC_HD GroupStep(const FastNq<S, Model>& s, const FusedArgs<S>& a,
+                   long long)
+      : D{s.m, a.dt} {}
+  MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
+                        const View& T, const Lane<S>& Js, S* f) const {
+    typedef Dual<S, 1> Dd;
+#pragma unroll 1
+    for (int d = l; d < NZ; d += W) {
+      Dd xd[NX], ud[NU], qdd[NQ];
+      seed<S, 1, NX, NU>(xl, ul, d, xd, ud);
+      this->m.acc(xd, ud, qdd);
+      for (int i = 0; i < NQ; ++i) {
+        const S v = this->dt * qdd[i].d[0];
+        f[NQ + i] = qdd[i].v;
+        T.Jr(i, d) = v;
+        Js[(k * NQ + i) * NZ + d] = v;
+      }
+    }
+    for (int i = 0; i < NQ; ++i) f[i] = xl[NQ + i];
+  }
+};
+
 // A dense step: the tile holds all NX rows [A - I | B] in Jr and A = I +
 // rows at the start of the policy's entries (then NE more of its own).
-template <typename S, int NX_, int NU_, int NE>
+template <typename S, int NX_, int NU_, int NE, int W_>
 struct GroupDense {
-  static constexpr int NX = NX_, NU = NU_, NZ = NX + NU;
-  typedef GroupTile<NX, NU, NX, NX * NX + NE> Tile;
-  typedef TileView<S, NX, NU, NX, NX * NX + NE> View;
+  static constexpr int W = W_, NX = NX_, NU = NU_, NZ = NX + NU;
+  typedef GroupTile<NX, NU, NX, NX * NX + NE, W> Tile;
+  typedef TileView<S, NX, NU, NX, NX * NX + NE, W> View;
   MPC_HD static S& A(const View& T, int t, int c) { return T.ext(t * NX + c); }
   MPC_HD S inc(S fi) const { return fi; }
   template <typename V>
@@ -279,14 +345,24 @@ struct GroupDense {
   }
 };
 
-// Any integrator but Euler (`GroupBody` takes it for the serial arms): the
-// increment's rows by dual numbers, the tangent columns split over the
-// lanes.
+// The generic policy's width: four lanes for the serial arms (12 tangent
+// columns under the 4-DOF arm, 3 a lane), two for the closed forms (at
+// most 6 columns, nx <= 4).
+template <typename Model> struct GenericWidth {
+  static constexpr int value = 2;
+};
+template <typename S, int NQ> struct GenericWidth<ArmModel<S, NQ>> {
+  static constexpr int value = 4;
+};
+
+// Any integrator but Euler: the increment's rows by dual numbers, the
+// tangent columns split over the lanes.
 template <typename S, typename Model>
 struct GroupStep<S, Generic<S, Model>>
-    : GroupDense<S, Model::NX, Model::NU, 0> {
-  typedef GroupDense<S, Model::NX, Model::NU, 0> D;
-  using D::NX; using D::NU; using D::NZ;
+    : GroupDense<S, Model::NX, Model::NU, 0, GenericWidth<Model>::value> {
+  typedef GroupDense<S, Model::NX, Model::NU, 0, GenericWidth<Model>::value>
+      D;
+  using D::W; using D::NX; using D::NU; using D::NZ;
   typedef typename D::View View;
   const Generic<S, Model>& st;
   S dt;
@@ -296,12 +372,12 @@ struct GroupStep<S, Generic<S, Model>>
   MPC_HD void setup(int, const View&) const {}
   // Column d of the rows from one dual pass seeded in direction d; every
   // pass also gives the increment's value (the same in each).  A lane with
-  // no column (NZ < 4) forms the value alone.
+  // no column (NZ < W) forms the value alone.
   MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
                         const View& T, const Lane<S>& Js, S* f) const {
     typedef Dual<S, 1> Dd;
 #pragma unroll 1
-    for (int d = l; d < NZ; d += kGroup) {
+    for (int d = l; d < NZ; d += W) {
       Dd xd[NX], ud[NU], out[NX];
       seed<S, 1, NX, NU>(xl, ul, d, xd, ud);
       model_increment(st.m, st.integ, dt, xd, ud, out);
@@ -330,11 +406,13 @@ struct GroupStep<S, Generic<S, Model>>
 };
 
 // LTV: (Ad - I | Bd) in Jr, A = I + (Ad - I) and cd in the policy's
-// entries, loaded once a solve.
+// entries, loaded once a solve; four lanes at (8, 4), two at the smaller
+// shapes (nx <= 4).
 template <typename S, int NX_, int NU_>
-struct GroupStep<S, Ltv<S, NX_, NU_>> : GroupDense<S, NX_, NU_, NX_> {
-  typedef GroupDense<S, NX_, NU_, NX_> D;
-  using D::NX; using D::NU;
+struct GroupStep<S, Ltv<S, NX_, NU_>>
+    : GroupDense<S, NX_, NU_, NX_, NX_ == 8 ? 4 : 2> {
+  typedef GroupDense<S, NX_, NU_, NX_, NX_ == 8 ? 4 : 2> D;
+  using D::W; using D::NX; using D::NU;
   typedef typename D::View View;
   typename Ltv<S, NX_, NU_>::Bound st;
   MPC_HD GroupStep(const Ltv<S, NX_, NU_>& s, const FusedArgs<S>& a,
@@ -342,7 +420,7 @@ struct GroupStep<S, Ltv<S, NX_, NU_>> : GroupDense<S, NX_, NU_, NX_> {
       : st(s.bind(a, b)) {}
   MPC_HD static S& cd(const View& T, int i) { return T.ext(NX * NX + i); }
   MPC_HD void setup(int l, const View& T) const {
-    for (int i = l; i < NX; i += kGroup) {
+    for (int i = l; i < NX; i += W) {
       for (int j = 0; j < NX; ++j) {
         const S v = st.AdI[i * NX + j];
         T.Jr(i, j) = v;
@@ -378,13 +456,46 @@ struct GroupStep<S, Ltv<S, NX_, NU_>> : GroupDense<S, NX_, NU_, NX_> {
   }
 };
 
+// Each shape's tile, in floats, and whether it grew past the step's
+// blocks: the four-lane shapes keep the layout they had before the width
+// was a parameter; at nx + nu = 5 and 3 the blocks are too few for the
+// rollout's dx / du buffers and the 8 rungs' results, and the tile grows by
+// what they lack.
+template <typename Step, int kFloats, bool kGrown>
+constexpr bool kTileIs =
+    GroupStep<float, Step>::Tile::kSize == kFloats &&
+    (GroupStep<float, Step>::Tile::kRed >
+     GroupStep<float, Step>::Tile::kBlocksEnd) == kGrown;
+static_assert(kTileIs<FastNq<float, ArmModel<float, 4>>, 381, false> &&
+              kTileIs<FastNq<float, ArmModel<float, 2>>, 127, false> &&
+              kTileIs<Generic<float, ArmModel<float, 4>>, 493, false> &&
+              kTileIs<Generic<float, ArmModel<float, 2>>, 155, false> &&
+              kTileIs<Ltv<float, 8, 4>, 501, false>,
+              "four lanes: the layout of the fixed width");
+static_assert(kTileIs<Ltv<float, 4, 2>, 143, false> &&
+              kTileIs<FastNq<float, DoublePendulum<float>>, 111, false> &&
+              kTileIs<Generic<float, DoublePendulum<float>>, 139, false>,
+              "two lanes at (4, 2): the step's blocks suffice");
+static_assert(kTileIs<Ltv<float, 4, 1>, 121, true> &&
+              kTileIs<FastNq<float, Acrobot<float>>, 91, true> &&
+              kTileIs<FastNq<float, Cartpole<float>>, 91, true> &&
+              kTileIs<Generic<float, Acrobot<float>>, 117, true> &&
+              kTileIs<Generic<float, Cartpole<float>>, 117, true>,
+              "two lanes at (4, 1): grown");
+static_assert(kTileIs<Ltv<float, 2, 1>, 71, true> &&
+              kTileIs<FastNq<float, Pendulum<float>>, 61, true> &&
+              kTileIs<Generic<float, Pendulum<float>>, 69, true>,
+              "two lanes at (2, 1): grown");
+
 template <typename S, typename Step>
 MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
-                        const Group& g, S* tile) {
+                        const Group<GroupStep<S, Step>::W>& g, S* tile) {
   typedef GroupStep<S, Step> GS;
-  constexpr int NX = GS::NX, NU = GS::NU, NZ = NX + NU, NG = NX + 2 * NU,
-                NR = NZ + 1, RPL = NX / kGroup, kRungs = kMaxFan / kGroup;
-  static_assert(NX % kGroup == 0 && NU <= kGroup, "group split");
+  constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NZ = NX + NU,
+                NG = NX + 2 * NU, NR = NZ + 1, RPL = NX / W,
+                kRungs = kMaxFan / W;
+  static_assert(NX % W == 0 && NU <= W && kMaxFan % W == 0, "group split");
+  typedef Group<W> G;
   const GS gs(step, a, b);
   const typename GS::View T{tile};
   const long long B = a.B;
@@ -399,9 +510,9 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
   const WL X{a.X + b, B}, U{a.U + b, B}, stats{a.stats + b, B};
   const WL Ks{a.K + b, B}, kffs{a.kff + b, B}, dXs{a.dX + b, B};
   const WL dUs{a.dU + b, B}, Gs{a.G + b, B}, Js{a.J + b, B}, cks{a.ck + b, B};
-  // State row r of lane l: l, l + 4, ... (each lane one position and one
-  // velocity row when NX = 8).
-  auto row = [](int l, int rr) { return l + kGroup * rr; };
+  // State row r of lane l: l, l + W, ... (each lane one position and one
+  // velocity row when NX = 2 W).
+  auto row = [](int l, int rr) { return l + W * rr; };
 
   // What a lane keeps between phases: its rows' and control's stage terms,
   // its partial sums, and its rungs' accumulators.
@@ -411,7 +522,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     S cost, jref, cl1, feas, pmax, ddir, amax, stepn;   // cost..ddir: lane 0
     S cost_t[kRungs], cl1_t[kRungs], jref_t[kRungs];
   };
-  Own own[kHostLanes];
+  Own own[G::kHostLanes];
 
   // Stage cost of a trial point (solve_instance's `stage_cost`).
   auto stage_cost = [&](const S* xl, const S* ul, const S* du, const S* e,
@@ -431,21 +542,23 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
   auto load = [&](const auto& src, int base, int n, S* dst) {
     for (int i = 0; i < n; ++i) dst[i] = src[base + i];
   };
-  // Max / min of the lanes' partials in the tile.
-  auto max4 = [&](int v) {
-    return nmax(nmax(nmax(T.red(0, v), T.red(1, v)), T.red(2, v)),
-                T.red(3, v));
+  // Max / min of the lanes' partials in the tile, in lane order.
+  auto lanes_max = [&](int v) {
+    S m = T.red(0, v);
+    for (int l = 1; l < W; ++l) m = nmax(m, T.red(l, v));
+    return m;
   };
-  auto min4 = [&](int v) {
-    return nmin(nmin(nmin(T.red(0, v), T.red(1, v)), T.red(2, v)),
-                T.red(3, v));
+  auto lanes_min = [&](int v) {
+    S m = T.red(0, v);
+    for (int l = 1; l < W; ++l) m = nmin(m, T.red(l, v));
+    return m;
   };
 
   // ---- warm start into the working (output) buffers; what the tile holds
   // for the whole solve
   g.phase([&](int l) {
-    for (int e = l; e < (N + 1) * NX; e += kGroup) X[e] = X0[e];
-    for (int e = l; e < N * NU; e += kGroup) U[e] = U0[e];
+    for (int e = l; e < (N + 1) * NX; e += W) X[e] = X0[e];
+    for (int e = l; e < N * NU; e += W) U[e] = U0[e];
     gs.setup(l, T);
   });
 
@@ -462,7 +575,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // terminal cost-to-go: lane l writes its rows of Pxx, Pxv, px and its
     // control's Pvv row and pv
     g.phase([&](int l) {
-      Own& o = own[Group::slot(l)];
+      Own& o = own[G::slot(l)];
       o.cost = S(0);
       o.jref = S(0);
       o.cl1 = S(0);
@@ -513,7 +626,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // ---- (A) the lane's share of the linearization, defects, stage
       // gradients, merit partials
       g.phase([&](int l) {
-        Own& o = own[Group::slot(l)];
+        Own& o = own[G::slot(l)];
         S xl[NX], ul[NU], f[NX];
         load(X, k * NX, NX, xl);
         load(U, k * NU, NU, ul);
@@ -565,7 +678,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // ---- (B) the step's blocks: the upper triangle of Qxx in columns,
       // Qxu and Quu columns, qz_x and qu
       g.phase([&](int l) {
-        Own& o = own[Group::slot(l)];
+        Own& o = own[G::slot(l)];
         S Prp[NX];                                 // px + Pxx ck
         for (int i = 0; i < NX; ++i) {
           S acc = T.Pxx(i, 0) * T.ck(0);
@@ -624,7 +737,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
           }
         }
 #pragma unroll 1
-        for (int c = l; c < NR; c += kGroup) {
+        for (int c = l; c < NR; c += W) {
           S y[NU];
           for (int mm = 0; mm < NU; ++mm)
             y[mm] = c < NX ? -T.Qxu(c, mm)
@@ -651,7 +764,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // of its terms (i, j) and (j, i) here), or Qxx where the head is
       // pinned; Pxv, Pvv columns; px, pv
       g.phase([&](int l) {
-        Own& o = own[Group::slot(l)];
+        Own& o = own[G::slot(l)];
         auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
           S acc = T.Qxu(i, 0) * T.Y(0, j);
           for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
@@ -702,7 +815,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
 
     // every lane's max|p| and lane 0's sums, through the tile
     g.phase([&](int l) {
-      const Own& o = own[Group::slot(l)];
+      const Own& o = own[G::slot(l)];
       T.red(l, 0) = o.pmax;
       if (l == 0) {
         T.red(0, 1) = o.cost;
@@ -712,7 +825,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       }
     });
     const S cost0 = T.red(0, 1), jref_old = T.red(0, 2), c_l1 = T.red(0, 3);
-    const S feas_i = T.red(0, 4), pmax = max4(0);
+    const S feas_i = T.red(0, 4), pmax = lanes_max(0);
     const S nu_pen_new = nmax(nu_pen, S(2) * pmax + S(1));
     const S m0 = cost0 + nu_pen_new * c_l1;
 
@@ -720,7 +833,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // dx / dv of stage k in buffer k & 1; du_k goes to the other buffer,
     // where it is the next stage's dv.
     g.phase([&](int l) {
-      Own& o = own[Group::slot(l)];
+      Own& o = own[G::slot(l)];
       for (int rr = 0; rr < RPL; ++rr) {
         T.dx(0, row(l, rr)) = S(0);
         dXs[row(l, rr)] = S(0);
@@ -743,7 +856,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
         T.du(nxt, l) = acc + kffs[k * NU + l];
       });
       g.phase([&](int l) {
-        Own& o = own[Group::slot(l)];
+        Own& o = own[G::slot(l)];
         if (l == 0) {                      // directional derivative, in order
           for (int i = 0; i < NX; ++i)
             o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
@@ -771,7 +884,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       });
     }
     g.phase([&](int l) {
-      Own& o = own[Group::slot(l)];
+      Own& o = own[G::slot(l)];
       if (l == 0) {
         for (int i = 0; i < NX; ++i)
           o.ddir = o.ddir + Gs[N * NG + i] * T.dx(N & 1, i);
@@ -781,15 +894,15 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       T.red(l, 7) = o.stepn;
     });
     const S ddir = T.red(0, 5) - nu_pen_new * c_l1;
-    const S amax = min4(6), stepn_i = max4(7);
+    const S amax = lanes_min(6), stepn_i = lanes_max(7);
 
-    // ============ line search: lane l takes rungs l and l + 4 ============
+    // =========== line search: lane l takes rungs l, l + W, ... ===========
     const S eps_m = S(kNoiseFloorMult) * Eps<S>::value * (S(1) + m_abs(m0));
     g.phase([&](int l) {
-      Own& o = own[Group::slot(l)];
+      Own& o = own[G::slot(l)];
       S al[kRungs];
       for (int s = 0; s < kRungs; ++s) {
-        al[s] = amax * a.fan[l + kGroup * s];
+        al[s] = amax * a.fan[l + W * s];
         o.cost_t[s] = S(0);
         o.cl1_t[s] = S(0);
         o.jref_t[s] = S(0);
@@ -814,7 +927,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
           load(dUs, (k - 1) * NU, NU, dukm1);
         }
         for (int s = 0; s < kRungs; ++s) {
-          if (l + kGroup * s >= a.n_fan) break;
+          if (l + W * s >= a.n_fan) break;
           const S aj = al[s];
           S xt[NX], ut[NU], dut[NU], et[NX], vt[NX];
           for (int i = 0; i < NX; ++i) {
@@ -847,7 +960,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       load(X, N * NX, NX, xN);
       load(dXs, N * NX, NX, dxN);
       for (int s = 0; s < kRungs; ++s) {
-        const int j = l + kGroup * s;
+        const int j = l + W * s;
         if (j >= a.n_fan) break;
         S xt[NX];
         S ct = o.cost_t[s], jr = o.jref_t[s];
@@ -879,9 +992,9 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // 0*inf-guarded update: a rejected direction may hold inf/NaN.
     if (alpha_new > S(0)) {
       g.phase([&](int l) {
-        for (int e = l; e < (N + 1) * NX; e += kGroup)
+        for (int e = l; e < (N + 1) * NX; e += W)
           X[e] = X[e] + alpha_new * dXs[e];
-        for (int e = l; e < N * NU; e += kGroup)
+        for (int e = l; e < N * NU; e += W)
           U[e] = U[e] + alpha_new * dUs[e];
       });
     }

@@ -18,23 +18,29 @@
 // B=16384), far below the arithmetic.  Two bodies:
 //
 // - the group body (fused_sqp_group.cuh), for the policies `GroupBody`
-//   names: the serial arms under every integrator (libraries `fused_sqp`,
-//   the main path, and `fused_sqp_generic`) and LTV at (8, 4)
-//   (`fused_sqp_ltv`).  Four threads an instance, the Riccati step
-//   split over the group on a shared-memory tile, the line-search rungs in
-//   parallel, 32 instances a 128-thread block, two blocks an SM (255
-//   registers a thread, ~no spills on the Euler arm: at four blocks an SM,
-//   128 registers, the dual-number pass spilled ~1.7 KB a thread and a
-//   fixed-3 solve took 19 % longer on the H100, PERF.md);
-// - every other policy (`solve_instance`, fused_sqp.cuh: the closed-form
-//   models, LTV at (4, 2), (4, 1), (2, 1)): one thread an instance, 128
+//   names: W threads an instance, the Riccati step split over the group on
+//   a shared-memory tile, the line-search rungs in parallel, 128 / W
+//   instances a 128-thread block.  Four lanes for the serial arms under
+//   every integrator (libraries `fused_sqp`, the main path, and
+//   `fused_sqp_generic`) and LTV at (8, 4) (`fused_sqp_ltv`), two blocks
+//   an SM (255 registers a thread, ~no spills on the Euler arm: at four
+//   blocks an SM, 128 registers, the dual-number pass spilled ~1.7 KB a
+//   thread and a fixed-3 solve took 19 % longer on the H100, PERF.md).
+//   Two lanes for the closed forms under midpoint and RK4 but the pendulum,
+//   and the double pendulum under Euler (`fused_sqp_models`): 64 instances
+//   a block, 256 blocks at B=16384, one wave at three blocks an SM (150-160
+//   registers, no spills);
+// - every other policy (`solve_instance`, fused_sqp.cuh: the pendulum, the
+//   cart-pole and the acrobot under Euler, the pendulum under midpoint and
+//   RK4, LTV at (4, 2), (4, 1), (2, 1)): one thread an instance, 128
 //   threads a block, the Riccati carries in registers; what does not fit
 //   spills to local memory.
 //
 // A warp's load of one element of a batch-innermost array is one 128-byte
-// transaction (one thread an instance) or one 32-byte sector (a group: 8
-// instances a warp).  The adaptive mode's per-tile early exit of the Pallas
-// kernel becomes a per-instance loop exit (the group leaves together).
+// transaction (one thread an instance) or one 32-byte sector (four lanes:
+// 8 instances a warp; two: 16).  The adaptive mode's per-tile early exit
+// of the Pallas kernel becomes a per-instance loop exit (the group leaves
+// together).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,33 +55,41 @@ fused_sqp_kernel(mpc::FusedArgs<float> a, Step step) {
   mpc::solve_instance<float>(a, step, b);
 }
 
-// Four consecutive threads of a warp an instance, 32 instances a block;
-// each group's tile in dynamic shared memory.
+// W consecutive threads of a warp an instance (the policy's width),
+// 128 / W instances a block; each group's tile in dynamic shared memory.
 constexpr int kGroupThreads = 128;
-constexpr int kGroupsPerBlock = kGroupThreads / mpc::kGroup;
+template <typename Step>
+constexpr int kGroupsPerBlock = kGroupThreads / mpc::GroupStep<float, Step>::W;
 
-// Two blocks an SM (255 registers a thread) for every policy: at three,
-// Ltv<8, 4> took 168 registers, spilled 128 B and ran 23 % slower on the
-// H100 (PERF.md).
-constexpr int kGroupMinBlocks = 2;
+// Blocks an SM that __launch_bounds__ asks registers for, by width.  Four
+// lanes: two (255 registers a thread) for every policy; at three, Ltv<8, 4>
+// took 168 registers, spilled 128 B and ran 23 % slower on the H100
+// (PERF.md).  Two lanes: three (170 registers a thread; the closed forms
+// take 150-160 and spill nothing, as at two; at four, 128 registers, they
+// spilled 40-140 B and the double pendulum under RK4 ran 7 % slower at
+// B=16384).
+template <int W> struct GroupMinBlocks { static constexpr int value = 2; };
+template <> struct GroupMinBlocks<2> { static constexpr int value = 3; };
 
 template <typename Step>
-__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+__global__ void __launch_bounds__(
+    kGroupThreads, GroupMinBlocks<mpc::GroupStep<float, Step>::W>::value)
 fused_sqp_group_kernel(mpc::FusedArgs<float> a, Step step) {
   extern __shared__ float tiles[];
-  typedef typename mpc::GroupStep<float, Step>::Tile Tile;
-  const int t = threadIdx.x, gi = t / mpc::kGroup;
-  const long long b = (long long)blockIdx.x * kGroupsPerBlock + gi;
+  typedef mpc::GroupStep<float, Step> GS;
+  constexpr int W = GS::W;
+  const int t = threadIdx.x, gi = t / W;
+  const long long b = (long long)blockIdx.x * kGroupsPerBlock<Step> + gi;
   if (b >= a.B) return;                 // the whole group leaves together
-  const mpc::Group g{t % mpc::kGroup, 0xFu << (t & 28)};
-  mpc::solve_group<float>(a, step, b, g, tiles + gi * Tile::kSize);
+  const mpc::Group<W> g{t % W, ((1u << W) - 1u) << (t & (32 - W))};
+  mpc::solve_group<float>(a, step, b, g, tiles + gi * GS::Tile::kSize);
 }
 
 // Dynamic shared memory of a block of the group kernel for Step.
 template <typename Step>
 size_t group_smem() {
   return sizeof(float) * mpc::GroupStep<float, Step>::Tile::kSize *
-         kGroupsPerBlock;
+         kGroupsPerBlock<Step>;
 }
 
 // Lets a kernel take `smem` bytes of dynamic shared memory (above the 48 KB
@@ -93,8 +107,8 @@ int launch_group(const mpc::FusedArgs<float>& a, const Step& step,
   const size_t smem = group_smem<Step>();
   const cudaError_t e = allow_smem(fused_sqp_group_kernel<Step>, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid =
-      (unsigned)((a.B + kGroupsPerBlock - 1) / kGroupsPerBlock);
+  constexpr int per_block = kGroupsPerBlock<Step>;
+  const unsigned grid = (unsigned)((a.B + per_block - 1) / per_block);
   fused_sqp_group_kernel<Step><<<grid, kGroupThreads, smem, s>>>(a, step);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // Ltv<NX, NU> for the (nx, nu) of the registered models.  (8, 4) runs the
 // group body (fused_sqp_group.cuh, four threads an instance, the affine
 // step held in the group's tile); (4, 2), (4, 1) and (2, 1) run the
-// one-thread body (fused_sqp.cuh; `GroupBody` says why).
+// one-thread body (fused_sqp.cuh): the group body lost there on four
+// lanes and on two (`GroupBody`).
 // The kernels and the launcher: fused_sqp_launch.cuh.
 #include "fused_sqp_launch.cuh"
 

@@ -135,21 +135,22 @@ def fused_supported(prob: ShootingProblem) -> bool:
     return dyn.supports_lanes and _kernel_model(dyn) is not None
 
 
-def card_body(prob: ShootingProblem) -> str:
-    """The kernel body the card runs for a problem the kernel serves:
-    ``"group"`` (four threads an instance, ``csrc/fused_sqp_group.cuh``) or
-    ``"thread"`` (one thread an instance).  The launcher's own rule
+def card_body(prob: ShootingProblem) -> tuple:
+    """The kernel body the card runs for a problem the kernel serves, and
+    its threads an instance: ``("group", 4)`` or ``("group", 2)`` (the group
+    body, ``csrc/fused_sqp_group.cuh``, at its step policy's width) or
+    ``("thread", 1)`` (one thread an instance).  The launcher's own rule
     (``GroupBody``) decides it, asked through the g++ build of
     ``csrc/flop_count.cpp``."""
     from .._build import cpu_library
     model = -1 if prob.is_linear else _kernel_model(prob.dynamics)[0]
-    rc = cpu_library("flop_count").mpc_fused_card_body(
+    width = cpu_library("flop_count").mpc_fused_card_body(
         model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
         int(prob.is_linear))
-    if rc < 0:
+    if width < 0:
         raise ValueError(f"the kernel holds no instantiation for model "
                          f"{model}, (nx, nu) = ({prob.nx}, {prob.nu})")
-    return "group" if rc else "thread"
+    return ("group" if width > 1 else "thread"), width
 
 
 # ---------------------------------------------------------------------------
@@ -789,10 +790,10 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
                                  body: str = "thread") -> SolveResult:
     """The kernel body built for the CPU by g++ (float32 or float64 CPU
     tensors): how the tests run the kernel's own arithmetic without a
-    card.  ``body="thread"``: the one-thread body (``solve_instance``) of
-    every policy; ``body="group"``: the group body
-    (``csrc/fused_sqp_group.cuh``) of the problems it serves, those for
-    which ``card_body`` names it (it raises for any other)."""
+    card.  ``body="thread"``: the one-thread body (``solve_instance``),
+    ``body="group"``: the group body (``csrc/fused_sqp_group.cuh``, at the
+    step policy's width), each of every policy, whichever the card runs
+    (``card_body``)."""
     from .._build import cpu_library
     lib = cpu_library("fused_sqp")
     name = {"thread": "mpc_fused_solve_cpu", "group":
@@ -814,18 +815,18 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     (``csrc/flop_count.cpp``), in float64 on CPU copies of the inputs.
     Returns {"body": the body's own tally, "minimum": the function's
     operations, each counted once: the tally less what the body repeats,
-    "card_body": the body the card runs (``card_body``)}, the minimum being
-    the numerator of the kernel's roofline bound.  ``body="group"``: the
-    group body of the problems it serves (it repeats work across its
-    lanes).  ``body="thread"``: the one-thread body of any problem the
-    kernel serves; it repeats the step's value in every dual pass of a
-    stage's linearization and adds A's identity entry by entry.  The group
-    body of a dense step (LTV, the generic arms) computes the one-thread
-    body's function, so both give the same minimum (``csrc/flop_count.cpp``
-    counts it by running the one-thread body).  For the arms under Euler
-    the group body linearizes by another method (the folded Jacobian):
-    there the one-thread body is the arithmetic it replaced, and its
-    minimum is None (the function's is ``body="group"``'s)."""
+    "card_body": the body the card runs and its width (``card_body``)}, the
+    minimum being the numerator of the kernel's roofline bound.
+    ``body="group"``: the group body (it repeats work across its lanes).
+    ``body="thread"``: the one-thread body; it repeats the step's value in
+    every dual pass of a stage's linearization and adds A's identity entry
+    by entry.  Either body of any problem the kernel serves.  The group
+    body computes the one-thread body's function except for the arms under
+    Euler, so both give the same minimum (``csrc/flop_count.cpp`` counts it
+    by running the one-thread body).  For the arms under Euler the group
+    body linearizes by another method (the folded Jacobian): there the
+    one-thread body is the arithmetic it replaced, and its minimum is None
+    (the function's is ``body="group"``'s)."""
     from .._build import cpu_library
     lib = cpu_library("flop_count")
     counts = torch.zeros(8, dtype=torch.float64)
@@ -841,7 +842,6 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     kinds = ("add", "mul", "div_sqrt", "transcendental")
     tally = dict(zip(kinds, counts[:4].tolist()))
     minimum = dict(zip(kinds, (counts[:4] - counts[4:]).tolist()))
-    card = card_body(prob)
-    folded = _mode(prob) == "fast" and card == "group"
+    folded = _mode(prob) == "fast" and _cuda_library(prob) == "fused_sqp"
     return dict(body=tally, minimum=None if folded and not group else minimum,
-                card_body=card)
+                card_body=card_body(prob))

@@ -58,6 +58,11 @@ OPTS = SolverOptions(tol=1e-4, max_iter=30)
 CASES = [("mahi_arm", "euler", True), ("double_pendulum", "rk4", False)]
 RK4_ARM = ("mahi_arm", "rk4", False)
 RK4_ARM_MAX_EXTRA_ITERS = 0.2   # F(x) - x' took +0.42 here, this +0.00
+# The body the card runs for each case and its threads an instance
+# (csrc/fused_sqp_group.cuh `GroupBody`; tests/test_torch_fused_modes.py
+# CARD_BODY has every mode).
+CARD_BODY = {CASES[0]: ("group", 4), CASES[1]: ("group", 2),
+             RK4_ARM: ("group", 4)}
 _ids = lambda c: f"{c[0]}-{c[1]}" + ("-ltv" if c[2] else "")
 
 
@@ -204,11 +209,12 @@ def test_thread_body_operation_count(case):
     in each of its nz dual passes, so its minimum is lower in every kind.
     Under RK4 a stage's linearization takes nz dual passes of four stage
     evaluations each, so the generic body does more than the same model's
-    nq-row Euler body.  Where the card runs the group body (LTV ``mahi_arm``,
-    ``mahi_arm`` under RK4), ``count_fused_ops(body="group")`` tallies
-    exactly three more Cholesky factorizations of Quu a stage (nu square
-    roots and nu reciprocals each) than the one-thread body, and its tally
-    is at or above the minimum in every kind."""
+    nq-row Euler body.  The group body (``count_fused_ops(body="group")``:
+    four lanes for LTV ``mahi_arm`` and ``mahi_arm`` under RK4, two for
+    ``double_pendulum``) tallies exactly W - 1 more Cholesky factorizations
+    of Quu a stage (nu square roots and nu reciprocals each) than the
+    one-thread body, and its tally is at or above the minimum in every
+    kind."""
     name, integrator, ltv = case
     prob, p = _draw(name, integrator, ltv, torch.float32)
     n_b = 4
@@ -234,11 +240,10 @@ def test_thread_body_operation_count(case):
     if integrator == "rk4":
         euler, _ = _draw(name, "euler", False, torch.float32)
         assert total(one) > total(count(euler, 1))
-    assert one["card_body"] == ("thread" if name == "double_pendulum"
-                                else "group")
-    if one["card_body"] == "group":
-        group = count_fused_ops(prob, p, opts=OPTS, mu0=1e-5, n_iter=1,
-                                body="group")
-        assert (group["body"]["div_sqrt"] - body["div_sqrt"]
-                == 3 * 2 * prob.nu * N * n_b)
-        assert all(group["body"][k] >= least[k] for k in body)
+    width = 4 if name == "mahi_arm" else 2
+    assert one["card_body"] == CARD_BODY[case]
+    group = count_fused_ops(prob, p, opts=OPTS, mu0=1e-5, n_iter=1,
+                            body="group")
+    assert (group["body"]["div_sqrt"] - body["div_sqrt"]
+            == (width - 1) * 2 * prob.nu * N * n_b)
+    assert all(group["body"][k] >= least[k] for k in body)

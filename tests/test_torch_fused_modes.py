@@ -5,10 +5,13 @@ generic nx-row path (midpoint, RK4) of every registered model.
 - The models' closed forms and integrators in ``csrc/model_dynamics.cuh``
   (the code the kernel runs, built with g++) against the PyTorch models
   and ``torch.func.jacfwd``.
-- The kernel bodies (g++ builds: the one-thread ``csrc/fused_sqp.cuh`` in
-  every mode, and the group body ``csrc/fused_sqp_group.cuh`` where the
-  card runs it: LTV at (8, 4), the serial arms under midpoint and RK4) against the plain PyTorch version: float64 to roundoff, float32 at
-  the bands of tests/test_torch_kernel_cpu.py.
+- The kernel bodies (g++ builds: the one-thread ``csrc/fused_sqp.cuh`` and
+  the group body ``csrc/fused_sqp_group.cuh``, four lanes for LTV at (8,
+  4) and the serial arms under midpoint and RK4, two lanes for the closed
+  forms and the smaller LTV shapes) against the plain PyTorch version:
+  float64 to roundoff, float32 at the bands of
+  tests/test_torch_kernel_cpu.py; the two bodies against each other, bit
+  for bit.
 - The generic path against the JAX package's lanes solver
   (tests/test_fused_kernel.py:182-213's pin, float32, atol 2e-5).
 """
@@ -138,10 +141,21 @@ MODES = [
     ("double_pendulum", "euler", False), ("acrobot", "euler", False),
 ]
 _ids = lambda c: "-".join([c[0], c[1]] + (["ltv"] if c[2] else []))
-# The cases the card runs through the group body: LTV at (8, 4), the arms
-# under midpoint and RK4.
-GROUP_MODES = [MODES[0], MODES[5], ("mahi_arm", "midpoint", False),
-               MODES[6], ("two_link_arm", "rk4", False)]
+# The cases of the group body: four lanes for LTV at (8, 4) and the arms
+# under midpoint and RK4, two lanes for every closed-form mode of MODES and
+# LTV at (4, 2), (4, 1) and (2, 1).
+GROUP_MODES = MODES + [("mahi_arm", "midpoint", False),
+                       ("two_link_arm", "rk4", False)]
+_four_lanes = lambda case: case[0] == "mahi_arm" or (
+    case[0] == "two_link_arm" and not case[2])
+# The body the card runs for each case and its threads an instance
+# (csrc/fused_sqp_group.cuh `GroupBody`, set by timing both bodies on the
+# H100, PERF.md §6): two lanes where they were faster, one thread where
+# they lost.
+TWO_LANES = [("double_pendulum", "rk4", False), ("cartpole", "midpoint", False),
+             ("acrobot", "rk4", False), ("double_pendulum", "euler", False)]
+CARD_BODY = {case: ("group", 4) if _four_lanes(case) else ("group", 2)
+             if case in TWO_LANES else ("thread", 1) for case in GROUP_MODES}
 _with_body = lambda cases: [pytest.param(c, "thread", id=_ids(c))
                             for c in cases]
 _group = lambda cases: [pytest.param(c, "group", id=_ids(c) + "-group")
@@ -161,7 +175,7 @@ def test_kernel_body_matches_plain_f64(case, body):
     assert fused_supported(prob)
     assert _mode(prob) == ("ltv" if case[2] else
                            "fast" if case[1] == "euler" else "generic")
-    assert (card_body(prob) == "group") == (case in GROUP_MODES)
+    assert card_body(prob) == CARD_BODY[case]
     kernel = _cold_then_warm(prob, p, _kernel(body))
     for rk, rp in zip(kernel, _cold_then_warm(prob, p, solve_batch_fused)):
         np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), rtol=0,
@@ -175,7 +189,7 @@ def test_kernel_body_matches_plain_f64(case, body):
 
 @pytest.mark.parametrize("case, body",
                          _with_body([MODES[1], MODES[7], MODES[11]])
-                         + _group([MODES[0], MODES[5], MODES[6]]))
+                         + _group(GROUP_MODES[:-2]))
 def test_kernel_body_matches_plain_f32(case, body):
     """float32 at the bands of the JAX parity tests: adaptive cold equal
     statuses, iterations within +-1, X and U at 1e-3; fixed-3 warm X and U
@@ -192,6 +206,67 @@ def test_kernel_body_matches_plain_f32(case, body):
     np.testing.assert_array_equal(wk.status.numpy(), wp.status.numpy())
     np.testing.assert_allclose(wk.kkt.numpy(), wp.kkt.numpy(), atol=1e-5)
     np.testing.assert_allclose(wk.feas.numpy(), wp.feas.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", GROUP_MODES, ids=_ids)
+def test_group_body_matches_thread_body_bitwise(case, dtype):
+    """The group body (g++ build, at its policy's width) against the
+    one-thread body, bit for bit: X, U, statuses, iterations and stats of
+    the adaptive cold and the fixed-3 warm solve.  Every sum of the group
+    body keeps the one-thread body's order (lane 0 the merit's sums, each
+    lane its rows' products with the dense A, B; the skipped zeros of the
+    nq-row policy's A add nothing), and its linearization is the same dual
+    passes: one tangent column a pass, as ``acc_rows`` and
+    ``increment_rows`` form them.  Where it cannot hold: the serial arms
+    under Euler, whose group body linearizes by the folded Jacobian, which
+    rounds differently (tests/test_torch_kernel_cpu.py holds that body to
+    its own earlier outputs)."""
+    prob, p = _problem(*case, dtype)
+    group = _cold_then_warm(prob, p, _kernel("group"))
+    thread = _cold_then_warm(prob, p, _kernel("thread"))
+    for rg, rt in zip(group, thread):
+        for field in ("X", "U", "status", "iters", "kkt", "feas", "obj"):
+            np.testing.assert_array_equal(getattr(rg, field).numpy(),
+                                          getattr(rt, field).numpy(),
+                                          err_msg=field)
+
+
+# The policies whose group tile grew: at nx + nu = 5 and 3 the step's blocks
+# in the tile are too few for the rollout's dx / du buffers and the results
+# of all 8 rungs (csrc/fused_sqp_group.cuh `GroupTile`).
+SMALL_TILES = [("cartpole", "euler", True), ("pendulum", "euler", True),
+               ("cartpole", "euler", False), ("pendulum", "euler", False)]
+
+
+@pytest.mark.parametrize("case", SMALL_TILES, ids=_ids)
+def test_group_tile_holds_the_full_fan(case):
+    """The two-lane group body at (4, 1) and (2, 1) with all 8 line-search
+    rungs in fixed mode (each lane evaluates 4 and writes their pass flags,
+    steps and reference costs to the tile) and in adaptive mode, against
+    the plain version in float64 at 1e-8 with equal statuses; the g++
+    build also fails (-2) if a write lands past the tile.  With the tile
+    of the step's blocks only, the 8 rungs' results at (2, 1) run over the
+    lanes' partial sums into A in LTV (wrong steps) and past the tile of
+    the nq-row policy (the guard): both cases fail.  At (4, 1) they would
+    reach only the lanes' partial sums, which are dead by then, so the
+    outputs cannot show it; `GroupTile`'s static_assert guards that."""
+    prob, p = _problem(*case, torch.float64)
+    opts = SolverOptions(tol=TOL, max_iter=30)
+    cold = solve_batch_fused(prob, p, opts=opts, mu0=opts.mu_init,
+                             adaptive=True)
+    p2 = p._replace(x0=p.x0 + 0.05)
+    fan = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
+    for kw in (dict(n_iter=3, ls_fan=fan), dict(adaptive=True)):
+        rk = solve_batch_fused_cpu_kernel(prob, p2, cold.X, cold.U, opts,
+                                          body="group", **kw)
+        rp = solve_batch_fused(prob, p2, cold.X, cold.U, opts, **kw)
+        np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), rtol=0,
+                                   atol=1e-8)
+        np.testing.assert_allclose(rk.U.numpy(), rp.U.numpy(), rtol=0,
+                                   atol=1e-8)
+        np.testing.assert_array_equal(rk.status.numpy(), rp.status.numpy())
 
 
 def test_ltv_state_bounds_and_pinning_f64():
@@ -265,13 +340,12 @@ def _jax_lanes_pair(name, dt, ulim, seed):
 
 def _check_generic_warm(prob, tp2, X0, U0, rw_U):
     """Fixed-3 warm solves through the generic nx-row path (plain version
-    and kernel bodies: the one-thread body, and the group body where the
-    card runs it) from a lanes cold plan: U at atol 2e-5 of the lanes warm
-    solve ``rw_U``, every instance converged."""
+    and both kernel bodies) from a lanes cold plan: U at atol 2e-5 of the
+    lanes warm solve ``rw_U``, every instance converged."""
     assert _mode(prob) == "generic"
     opts = SolverOptions(tol=1e-4, max_iter=40)
-    bodies = ["thread"] + (["group"] if card_body(prob) == "group" else [])
-    for solve in [solve_batch_fused] + [_kernel(b) for b in bodies]:
+    for solve in [solve_batch_fused] + [_kernel(b) for b in ("thread",
+                                                             "group")]:
         rf = solve(prob, tp2, X0, U0, opts,
                    mu0=opts.warm_mu_factor * opts.tol, n_iter=3)
         np.testing.assert_allclose(rf.U.numpy(), rw_U, rtol=0, atol=2e-5)

@@ -1,8 +1,8 @@
 """The fused kernel's own arithmetic on the CPU: ``csrc/fused_sqp.cuh`` (the
-one-thread body) and ``csrc/fused_sqp_group.cuh`` (the group body the card
-runs for the serial arms under every integrator and for LTV at (8, 4)),
-built with g++ and run against the plain PyTorch version — the port's
-analogue of Pallas interpret mode.  The main path's pins (``mahi_arm``
+one-thread body) and ``csrc/fused_sqp_group.cuh`` (the group body: four
+lanes for the serial arms under every integrator and for LTV at (8, 4),
+two lanes for the smaller shapes), built with g++ and run against the
+plain PyTorch version — the port's analogue of Pallas interpret mode.  The main path's pins (``mahi_arm``
 under Euler) run both bodies (``body``), and the group body also on the
 dense step policies it serves: LTV ``mahi_arm`` and ``mahi_arm`` under RK4
 and midpoint.  float64 pins the math to roundoff; float32 holds the bands
@@ -221,14 +221,12 @@ def test_kernel_matches_plain_f32_adaptive(f32_runs):
     assert float(rk.kkt.max()) < TOL and float(rk.feas.max()) < TOL
 
 
-# two_link_arm in LTV (Ltv<4, 2>) runs the one-thread body on the card
 BRANCHES = [pytest.param(case, body, id=f"{case}-{body}")
             for case in ("x_bounds", "head_pinning", "two_link_arm",
                          "x_bounds-ltv", "head_pinning-ltv",
                          "two_link_arm-ltv", "x_bounds-rk4",
                          "head_pinning-rk4", "two_link_arm-rk4")
-            for body in BODIES
-            if (case, body) != ("two_link_arm-ltv", "group")]
+            for body in BODIES]
 
 
 @pytest.mark.parametrize("case, body", BRANCHES)
@@ -237,8 +235,8 @@ def test_kernel_branches_match_plain_f64(lib, case, body):
     1e-8: active state bounds (barrier and fraction-to-boundary on x), head
     pinning (num_control_inputs_saved=2: pinned controls stay exactly at
     the warm start), and the 2-joint arm instantiation; under Euler, in LTV
-    (Ltv<8, 4>; two_link_arm Ltv<4, 2> one thread an instance) and under
-    RK4 (Generic<ArmModel>)."""
+    (Ltv<8, 4>; two_link_arm Ltv<4, 2>, whose group body has two lanes) and
+    under RK4 (Generic<ArmModel>)."""
     opts = SolverOptions(tol=TOL, max_iter=30)
     case, _, step = case.partition("-")
     kw = dict(integrator="rk4" if step == "rk4" else "euler",
@@ -278,8 +276,9 @@ def test_group_body_operation_count():
     Jacobian does less than the one-thread body's dual-number rows, the
     function's minimum (the group body's tally less what its lanes repeat:
     three more value parts and a plain chain under each qd tangent, about
-    a third of the tally) is below the tally in every kind, and a problem
-    the arms' Euler bodies do not serve raises.  The group body of a dense
+    a third of the tally) is below the tally in every kind, and the
+    pendulum's two-lane group body counts the one-thread body's minimum
+    (the same function) below its own tally.  The group body of a dense
     step (LTV ``mahi_arm``, ``mahi_arm`` under RK4) does the one-thread
     body's work and what its lanes repeat: more adds and multiplies (Prp,
     the Cholesky of Quu and the increment in each lane), exactly three more
@@ -291,7 +290,7 @@ def test_group_body_operation_count():
     one, three = (count_fused_ops(prob, p, opts=opts, mu0=1e-5, n_iter=n)
                   for n in (1, 3))
     assert set(one) == {"body", "minimum", "card_body"}
-    assert one["card_body"] == "group"
+    assert one["card_body"] == ("group", 4)
     kinds = ("add", "mul", "div_sqrt", "transcendental")
     assert set(one["body"]) == set(kinds)
     assert min(one["body"].values()) > 0
@@ -311,14 +310,17 @@ def test_group_body_operation_count():
     assert thread["minimum"] is None
     assert total(one["body"]) < total(thread["body"])
     pend, pp = _problem(torch.float32, name="pendulum")
-    with pytest.raises(ValueError):
-        count_fused_ops(pend, pp, opts=opts, n_iter=1)
+    two, one_thread = (count_fused_ops(pend, pp, opts=opts, mu0=1e-5,
+                                       n_iter=1, body=b)
+                       for b in ("group", "thread"))
+    assert two["minimum"] == one_thread["minimum"]
+    assert total(two["body"]) > total(two["minimum"])
     for kw in (dict(ltv=True), dict(integrator="rk4")):
         prob, p = _problem(torch.float32, **kw)
         count = lambda body: count_fused_ops(prob, p, opts=opts, mu0=1e-5,
                                              n_iter=1, body=body)
         group, thread = count("group"), count("thread")
-        assert group["card_body"] == thread["card_body"] == "group"
+        assert group["card_body"] == thread["card_body"] == ("group", 4)
         more = {k: group["body"][k] - thread["body"][k] for k in kinds}
         assert more["add"] > 0 and more["mul"] > 0
         assert more["div_sqrt"] == 3 * 2 * prob.nu * N * B

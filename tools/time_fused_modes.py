@@ -2,7 +2,8 @@
 """Time the fused kernel's step modes on one CUDA card, for one checkout of
 the port: how two versions of the kernel are compared on the same card.
 
-    python3 tools/time_fused_modes.py [--root DIR] [--save FILE.npz]
+    python3 tools/time_fused_modes.py [--root DIR] [--save FILE.json]
+        [--compare A.json B.json]
 
 Imports ``mahi_mpc_tpu_torch`` from the checkout at DIR (default: the one
 this file is in), builds its fused kernel's CUDA libraries, and for each
@@ -11,18 +12,22 @@ bench-shaped data from numpy seed 0) times with CUDA events the fixed-3
 warm solve (10 calls after one warm-up) and the adaptive cold solve (2
 calls), wrapper included, as ``chip_smoke.py``'s ``timing_fused_modes``
 does, and the kernel's own device time a fixed-3 launch
-(``torch.profiler``, 5 launches).  ``chip_smoke.py`` holds the same cases
-to the plain version.  ``--save`` writes each case's adaptive cold and
-fixed-3 warm X, U and iterations to an ``.npz``, so that two checkouts'
-outputs on the card can be compared bit for bit.  Prints one JSON line a
-case, the libraries' ``-Xptxas -v`` lines of the fused kernels, and the
-card's ``nvidia-smi`` name and power limit.  To compare two checkouts, run
-it for each in turns on the same card (parent, change, change, parent,
-...).  Exits 1 without a CUDA device.
+(``torch.profiler``, 5 launches); it holds the fixed-3 warm solve to the
+plain version on the same inputs (max |dX|, |dU|, the smoke's 1e-4).
+``--save`` writes the SHA-256 of each case's adaptive cold and fixed-3
+warm X, U and iterations (their bytes) to a JSON file, so that two
+checkouts' outputs on the card can be compared bit for bit: ``--compare
+A.json B.json`` prints, for each case and run, whether they are equal,
+and builds nothing.  Prints one JSON line a case, the libraries'
+``-Xptxas -v`` lines of the fused kernels, and the card's ``nvidia-smi``
+name and power limit.  To compare two checkouts, run it for each in turns
+on the same card (parent, change, change, parent, ...).  Exits 1 without a
+CUDA device, or when a case is beyond the band of its plain version.
 """
 
 import argparse
 import concurrent.futures
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -31,19 +36,42 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-# (model, integrator, LTV, batch): the main path, the policies of the group
-# body over a dense step at B=16384 (LTV at (8, 4); the 4-DOF arm under RK4
-# and midpoint, the 2-DOF arm under RK4), LTV at (4, 2) and (4, 1) (one
-# thread an instance: the group body was slower there) and LTV at B=1
+# (model, integrator, LTV, batch): the main path, the policies of the
+# four-lane group body over a dense step at B=16384 (LTV at (8, 4); the
+# 4-DOF arm under RK4 and midpoint, the 2-DOF arm under RK4), the small LTV
+# shapes (4, 2), (4, 1), (2, 1), the closed forms under Euler and RK4, the
+# double pendulum also at B=65536 (a higher rung of the JAX ladder) and
+# under Euler at B=1 (the reference's default example), and LTV at B=1
 CASES = (("mahi_arm", "euler", False, 16384),
          ("mahi_arm", "euler", True, 16384),
          ("double_pendulum", "euler", True, 16384),
          ("cartpole", "euler", True, 16384),
+         ("pendulum", "euler", True, 16384),
          ("mahi_arm", "rk4", False, 16384),
          ("mahi_arm", "midpoint", False, 16384),
          ("two_link_arm", "rk4", False, 16384),
+         *((name, integrator, False, 16384)
+           for name in ("pendulum", "cartpole", "double_pendulum", "acrobot")
+           for integrator in ("euler", "rk4")),
+         ("double_pendulum", "euler", False, 65536),
+         ("double_pendulum", "rk4", False, 65536),
+         ("double_pendulum", "euler", False, 1),
          ("mahi_arm", "euler", True, 1))
-LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic")
+LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic",
+             "fused_sqp_models")
+PLAIN_BAND = 1e-4
+
+
+def compare(a: str, b: str) -> int:
+    """Print, for each array of two ``--save`` files, whether its bytes
+    are equal in both; 0 when every array matches."""
+    A, B = (json.loads(Path(f).read_text()) for f in (a, b))
+    same = sorted(A) == sorted(B)
+    for key in sorted(set(A) & set(B)):
+        print(json.dumps(dict(key=key, bitwise_equal=A[key] == B[key])))
+        same &= A[key] == B[key]
+    print(json.dumps(dict(compared=[a, b], all_bitwise_equal=same)))
+    return 0 if same else 1
 
 
 def main() -> int:
@@ -51,8 +79,13 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose mahi_mpc_tpu_torch is timed")
     ap.add_argument("--save", default=None,
-                    help=".npz for the cases' outputs (X, U, iterations)")
+                    help="JSON file for the digests of the cases' outputs "
+                         "(X, U, iterations)")
+    ap.add_argument("--compare", nargs=2, default=None,
+                    help="two --save files to compare")
     args = ap.parse_args()
+    if args.compare:
+        return compare(*args.compare)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
 
@@ -67,7 +100,8 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cuda_build
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
                                                  _kernel_model,
-                                                 solve_batch_fused)
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_plain)
 
     # chip_smoke.py of this checkout: its bench-shaped data and helpers
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -108,7 +142,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / reps
 
-    saved = {}
+    saved, bad = {}, 0
     for name, integrator, is_linear, batch in CASES:
         _, prob, p = smoke.model_batch(dev, np.random.default_rng(0), name,
                                        batch, integrator, is_linear)
@@ -120,6 +154,11 @@ def main() -> int:
         warm = lambda: solve_batch_fused(prob, pw, ct.X, ct.U, opts,
                                          mu0=mu_warm, n_iter=3)
         wk, warm_ms = timed(warm, 10)
+        wp = solve_batch_fused_plain(prob, pw, ct.X, ct.U, opts,
+                                     mu0=mu_warm, n_iter=3)
+        err = max((wk.X - wp.X).abs().max().item(),
+                  (wk.U - wp.U).abs().max().item())
+        bad += not err <= PLAIN_BAND
         prof = smoke.profile_step(lambda: [warm() for _ in range(5)],
                                   "fused_sqp")
         kernels = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
@@ -139,6 +178,7 @@ def main() -> int:
             adaptive_cold_mean_iters=ct.iters.float().mean().item(),
             adaptive_cold_converged=(ct.status == 0).float().mean().item(),
             fixed3_converged=(wk.status == 0).float().mean().item(),
+            fixed3_max_abs_dxu_vs_plain=err,
             blocks_per_sm=None if per_sm is None else per_sm(
                 model, prob.nx, prob.nu, INTEGRATORS.index(integrator),
                 int(is_linear)),
@@ -148,12 +188,15 @@ def main() -> int:
                + f"-b{batch}")
         for run, r in (("cold", ct), ("fixed3", wk)):
             for field in ("X", "U", "iters"):
-                saved[f"{key}/{run}/{field}"] = \
-                    getattr(r, field).cpu().numpy()
+                saved[f"{key}/{run}/{field}"] = hashlib.sha256(
+                    getattr(r, field).cpu().numpy().tobytes()).hexdigest()
     if args.save:
-        np.savez_compressed(args.save, **saved)
+        Path(args.save).write_text(json.dumps(saved, indent=0))
     print(smi, flush=True)
-    return 0
+    if bad:
+        print(f"time_fused_modes: {bad} cases beyond {PLAIN_BAND} of the "
+              f"plain version", file=sys.stderr)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
