@@ -186,9 +186,30 @@ line each, with the seconds since start in ``t``:
     scan, pariccati and the Riccati kernel;
 22. time_shard — ``solve_lqr_time_sharded`` over the card repeated T = 2
     and 4 at N = 24 and 1000 against the scan, and one SQP ``solve`` with
-    the registered backend against ``"riccati"``.
+    the registered backend against ``"riccati"``;
+23. generated — the fused kernel's instantiations generated at first use
+    (``models/codegen.py``, ``solver/fused.py`` ``generated_unit``; their
+    nvcc builds start in phase 2 with the others, g++ builds their
+    operation counters beside them): user models written as a user writes
+    them (``user_dynamics``: a Van der Pol oscillator under RK4 and a
+    kinematic unicycle under Euler, first-order; the cart-pole's own f
+    with nq = 2 and no closed form, the nq-row step over a generated acc)
+    and LTV at (6, 3) and (12, 6), each through ``BatchModelControl`` at
+    B=16384 (1 cold + 3 warm steps, its library launched once a step),
+    then its fixed-3 warm solve held to the plain version (max|dX|,
+    max|dU| <= 1e-4; the user cart-pole also to the hand-written
+    FastNq<Cartpole> within 1e-5), timed (wrapper by CUDA events, kernel
+    by the profiler), with the bound from the generated build's own
+    operation count, its ptxas line, blocks an SM and nvcc seconds, and an
+    adaptive cold solve (converged share printed); then ``generate_model``
+    of the Van der Pol model (it must name the generated library) and 20
+    warm ``calc_u`` of ``ModelControl`` through it at B=1, the B=1 solve
+    held to its plain version.
 
-Then one line ``{"kernels": [...]}`` with each kernel's launches on the
+Then one line ``{"kernels": [...]}`` (the fused kernel, the Riccati kernel,
+and one ``fused_sqp_generated:<case>`` entry a phase-23 case, its
+launches those of its service and, for the Van der Pol model, of
+``ModelControl``) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
@@ -305,17 +326,18 @@ def fused_instantiation(builds, prob) -> dict:
     and threads an instance, its ``-Xptxas -v`` line (registers, spills)
     from its library's build, and its blocks an SM."""
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _kernel_model, card_body)
+                                                 _mode, _model_id, card_body,
+                                                 generated_unit)
 
     body, width = card_body(prob)
     lib = _cuda_library(prob)
+    model = _model_id(prob)[0]
     if prob.is_linear:
         marks = ("3Ltv", f"IfLi{prob.nx}ELi{prob.nu}E")
-        model = -1
     else:
-        marks = ("6FastNq" if prob.integrator == "euler" else "7Generic",
-                 MODEL_MARKS[prob.dynamics.name])
-        model = _kernel_model(prob.dynamics)[0]
+        marks = ("6FastNq" if _mode(prob) == "fast" else "7Generic",
+                 "3gen5ModelIf" if generated_unit(prob) is not None
+                 else MODEL_MARKS[prob.dynamics.name])
     entry = "22fused_sqp_group_kernel" if body == "group" else \
         "16fused_sqp_kernel"
     found = [k for k in ptxas_summary(builds[lib][1])
@@ -2267,6 +2289,325 @@ def time_shard_phase(dev) -> None:
           f"{int(ref.status)}, max|dU| {du}")
 
 
+# Phase 23's user models: Dynamics as a user writes them (a
+# lanes-polymorphic f and no CUDA form of their own), each served by a
+# fused-kernel instantiation generated from its traced f and built at
+# first use (models/codegen.py, solver/fused.py `generated_unit`), and the
+# LTV step at two shapes outside the four hand-written ones.
+GEN_WARM_STEPS = 3                # warm service steps a generated case
+GEN_B1_CALLS = 20                 # warm calc_u of the user model, B=1
+GEN_DT = 0.02
+VDP_MU = 1.0
+# The generated nq-row cart-pole against the hand-written FastNq<Cartpole>
+# on the same inputs: the same expression trees, so a difference is only
+# nvcc's contraction of either.
+GEN_HAND_BAND = 1e-5
+
+
+def user_dynamics() -> dict:
+    """Phase 23's cases: {name: (Dynamics, integrator, is_linear, |u|
+    bound)}.  A Van der Pol oscillator (first order, RK4), a kinematic
+    unicycle (first order, Euler), the cart-pole's own f given as a user
+    model with nq = 2 and no closed form (the nq-row step over a generated
+    acc), and LTV at (6, 3) and (12, 6): a chain of nq pendulums coupled
+    by springs, frozen at each instance's state."""
+    import torch
+
+    from mahi_mpc_tpu_torch.models import make_dynamics
+    from mahi_mpc_tpu_torch.models.base import Dynamics
+
+    def vdp(x, u):
+        return torch.stack([x[1], VDP_MU * (1.0 - x[0] * x[0]) * x[1] - x[0]
+                            + u[0]])
+
+    def unicycle(x, u):
+        return torch.stack([u[0] * torch.cos(x[2]), u[0] * torch.sin(x[2]),
+                            u[1]])
+
+    def chain(nq):
+        def f(x, u):
+            q, qd = x[:nq], x[nq:]
+            left = torch.cat([q[:1], q[:-1]])
+            right = torch.cat([q[1:], q[-1:]])
+            return torch.cat([qd, u - torch.sin(q) - 0.1 * qd
+                              + 0.5 * ((left - 2.0 * q) + right)])
+        return Dynamics(f"user_chain{nq}", 2 * nq, nq, f,
+                        supports_lanes=True, nq=nq)
+
+    return {
+        "user_vdp": (Dynamics("user_vdp", 2, 1, vdp, supports_lanes=True),
+                     "rk4", False, 5.0),
+        "user_unicycle": (Dynamics("user_unicycle", 3, 2, unicycle,
+                                   supports_lanes=True), "euler", False, 2.0),
+        "user_cartpole": (Dynamics("user_cartpole", 4, 1,
+                                   make_dynamics("cartpole").f,
+                                   supports_lanes=True, nq=2),
+                          "euler", False, 60.0),
+        "ltv_6x3": (chain(3), "euler", True, 20.0),
+        "ltv_12x6": (chain(6), "euler", True, 20.0)}
+
+
+def user_problem(name, dyn, integrator, is_linear, ulim):
+    """(ModelParameters, problem) of a phase-23 case at N=25, dt=20 ms."""
+    from mahi_mpc_tpu_torch import ModelParameters
+    from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
+
+    mp = ModelParameters(f"smoke_{name}", num_x=dyn.nx, num_u=dyn.nu,
+                         step_size=GEN_DT, num_shooting_nodes=N_NODES,
+                         u_min=[-ulim] * dyn.nu, u_max=[ulim] * dyn.nu,
+                         integrator=integrator, is_linear=is_linear)
+    return mp, make_problem(mp, dyn)
+
+
+def followable_reference(dyn, integrator, x0, rng, ulim):
+    """x_des (B, N, nx) that instance b can follow: the model's own
+    rollout from x0[b] (float64, on the host) under a smooth control,
+    a + 0.5 a sin(2 pi t + phase) with a ~ 0.3 N(0, 1) within |u| / 2."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch.models.integrators import make_step
+
+    B = x0.shape[0]
+    step = make_step(dyn.f, GEN_DT, integrator)
+    amp = np.clip(0.3 * rng.standard_normal((dyn.nu, B)), -ulim / 2,
+                  ulim / 2)
+    phase = rng.uniform(0.0, 2 * np.pi, (1, B))
+    x = torch.as_tensor(x0.T, dtype=torch.float64)
+    out = []
+    for k in range(N_NODES):
+        u = amp * (1.0 + 0.5 * np.sin(2 * np.pi * k * GEN_DT + phase))
+        x = step(x, torch.as_tensor(u, dtype=torch.float64))
+        out.append(x.T.numpy())
+    return np.stack(out, axis=1)
+
+
+def generated_libraries() -> dict:
+    """{case: generated library name} of phase 23, registered (traced and
+    lowered here) so that the build phase starts their nvcc with the
+    others."""
+    from mahi_mpc_tpu_torch.solver.fused import _cuda_library, generated_unit
+
+    names = {}
+    for name, (dyn, integrator, is_linear, ulim) in user_dynamics().items():
+        prob = user_problem(name, dyn, integrator, is_linear, ulim)[1]
+        check(generated_unit(prob) is not None,
+              f"{name}: a hand-written instantiation serves it")
+        names[name] = _cuda_library(prob)
+    return names
+
+
+def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
+    """Phase 23, generated: each user model (and LTV shape) of
+    ``user_dynamics`` through ``BatchModelControl`` at B=16384 (1 cold + 3
+    warm steps, its generated library's launches counted from 0), then
+    its fixed-3 warm solve held to the plain version within 1e-4 (the
+    user cart-pole also to the hand-written FastNq<Cartpole> within
+    1e-5), timed (wrapper by CUDA events, the kernel's device ms by the
+    profiler), with the bound (the generated build's own operation count,
+    ``mpc_fused_count_ops``), ptxas line, blocks an SM and nvcc seconds;
+    an adaptive cold solve, timed, its converged share printed; then
+    ``generate_model`` + ``ModelControl`` of the Van der Pol model at B=1
+    (20 warm ``calc_u`` through the generated kernel).  Returns the
+    kernels line's entries."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch._build import cuda_build
+    from mahi_mpc_tpu_torch.models import make_dynamics
+    from mahi_mpc_tpu_torch.models.integrators import rk4_step
+    from mahi_mpc_tpu_torch.runtime import (BatchModelControl, ModelControl,
+                                            generate_model)
+    from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
+                                                 count_fused_ops,
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
+
+    Bs = SERVICE_BATCH
+    opts = SolverOptions(tol=1e-4, max_iter=12)
+    opts_cold = SolverOptions(tol=1e-4, max_iter=30)
+    svc_opts = SolverOptions(tol=1e-4, max_iter=30, fixed_warm_iters=3)
+    mu_warm = opts.warm_mu_factor * opts.tol
+    frac = lambda m: m.float().mean().item()
+    launched = solve_batch_fused.library_launches
+    entries = []
+    for name, (dyn, integrator, is_linear, ulim) in user_dynamics().items():
+        mp, prob = user_problem(name, dyn, integrator, is_linear, ulim)
+        lib = _cuda_library(prob)
+        check(lib == gen_libs[name], f"{name}: library {lib}")
+        kernel_of = fused_instantiation(builds, prob)
+        nx, nu = dyn.nx, dyn.nu
+        Qw = [10.0] * nx
+        svc = BatchModelControl(mp, batch=Bs, dynamics=dyn, device=dev,
+                                opts=svc_opts, Q=Qw, R=[0.1] * nu,
+                                Rm=[0.01] * nu)
+        check(svc.warm_solver == "fused", f"{name}: {svc.warm_solver}")
+        # each instance tracks a path its model can follow, from near its
+        # start
+        x0 = 0.2 * rng.standard_normal((Bs, nx))
+        svc.set_references(followable_reference(dyn, integrator, x0, rng,
+                                                ulim))
+        svc.set_states(x0 + 0.02 * rng.standard_normal((Bs, nx)))
+        # the main path: the service's steps, counted from 0
+        launched.clear()
+        u = svc.step()
+        cold_m = svc.metrics()
+        for _ in range(GEN_WARM_STEPS):
+            svc.set_states(x0 + 0.02 * rng.standard_normal((Bs, nx)),
+                           u_prev=u)
+            u = svc.step()
+        torch.cuda.synchronize()
+        launches = dict(launched)
+        m = svc.metrics()
+        check(launches == {lib: 1 + GEN_WARM_STEPS},
+              f"{name}: launches {launches}")
+        check(tuple(u.shape) == (Bs, nu) and bool(torch.isfinite(u).all()),
+              f"{name}: non-finite or misshapen controls")
+        # the kernel against its plain version on the service's inputs (its
+        # last relinearization in LTV), from its plan
+        p, X, U = svc._p, svc._X, svc._U
+        p2 = p._replace(x0=p.x0 + 0.01)
+        warm3 = lambda solve: solve(prob, p2, X, U, opts, mu0=mu_warm,
+                                    n_iter=3)
+        cold = lambda: solve_batch_fused(prob, p, None, None, opts_cold,
+                                         mu0=opts_cold.mu_init, adaptive=True)
+        ct, cold_ms = timed(cold, 1)
+        wk, warm_ms = timed(lambda: warm3(solve_batch_fused), 10)
+        wp, plain_ms = timed(lambda: warm3(solve_batch_fused_plain), 1)
+        err = max((wk.X - wp.X).abs().max().item(),
+                  (wk.U - wp.U).abs().max().item())
+        prof = profile_step(lambda: [warm3(solve_batch_fused)
+                                     for _ in range(5)], "fused_sqp")
+        check(prof["kernel_count"] == 5,
+              f"{name}: {prof['kernel_count']} kernel launches for 5 solves")
+        device_ms = prof["kernel_device_ms"] / 5
+        S = COUNT_SAMPLE
+        counted = count_fused_ops(prob, head(p2, S), X[:S], U[:S], opts,
+                                  mu0=mu_warm, n_iter=3,
+                                  body=card_body(prob)[0])
+        ops = sum(counted["minimum"].values()) / S
+        io = fused_io_bytes(p, X, U, Bs) + (
+            4 * Bs * (nx * nx + nx * nu + nx) if is_linear else 0)
+        bound = bound_ms(ops * Bs, io)
+        line = dict(
+            phase="generated", case=name, integrator=integrator,
+            is_linear=is_linear, nx=nx, nu=nu, batch=Bs,
+            nvcc_s=builds[lib][2], **kernel_of,
+            service_launches=launches[lib],
+            service_cold_converged_frac=cold_m["converged_frac"],
+            service_warm_converged_frac=m["converged_frac"],
+            fixed3_warm_max_abs_dxu=err,
+            fixed3_warm_status_agree=frac(wk.status == wp.status),
+            fixed3_warm_kernel_ms=warm_ms,
+            fixed3_warm_kernel_device_ms=device_ms,
+            fixed3_warm_plain_ms=plain_ms,
+            fixed3_ops_per_instance=ops, io_mbytes=io / 1e6,
+            fixed3_warm_bound_ms=bound["bound_ms"],
+            fixed3_warm_bound_by=bound["bound_by"],
+            fixed3_warm_device_roofline_share=bound["bound_ms"] / device_ms,
+            adaptive_cold_kernel_ms=cold_ms,
+            adaptive_cold_converged=frac(ct.status == 0),
+            adaptive_cold_mean_iters=frac(ct.iters),
+            kernel=[k[0] for k in prof["top_kernels"]
+                    if "fused_sqp" in k[0]][0])
+        if name == "user_cartpole":
+            # the same problem through the hand-written FastNq<Cartpole>
+            hand = make_problem(mp, make_dynamics("cartpole"))
+            check(_cuda_library(hand) == "fused_sqp_models",
+                  f"cart-pole: {_cuda_library(hand)}")
+            wh = solve_batch_fused(hand, p2, X, U, opts, mu0=mu_warm,
+                                   n_iter=3)
+            torch.cuda.synchronize()
+            line.update(
+                hand_written_max_abs_dxu=max(
+                    (wh.X - wk.X).abs().max().item(),
+                    (wh.U - wk.U).abs().max().item()),
+                hand_written_bitwise=bool(torch.equal(wh.X, wk.X)
+                                          and torch.equal(wh.U, wk.U)))
+        emit(**line)
+        check(err <= 1e-4, f"{name}: fixed-3 warm {err} > 1e-4")
+        check(line["fixed3_warm_status_agree"] >= 0.99,
+              f"{name}: statuses agree on {line['fixed3_warm_status_agree']}")
+        if "hand_written_max_abs_dxu" in line:
+            check(line["hand_written_max_abs_dxu"] <= GEN_HAND_BAND,
+                  f"{name}: {line['hand_written_max_abs_dxu']} from "
+                  f"FastNq<Cartpole>")
+        body, width = line["card_body"]
+        entries.append(dict(
+            name=f"fused_sqp_generated:{name}", route="cuda",
+            source="mahi_mpc_tpu_torch/csrc/" + (
+                "fused_sqp_group.cuh" if body == "group" else "fused_sqp.cuh"),
+            generator="mahi_mpc_tpu_torch/models/codegen.py"
+            if not is_linear else "mahi_mpc_tpu_torch/solver/fused.py",
+            replaces="mahi_mpc_tpu/solver/fused.py:186",
+            launches=launches[lib], max_abs_err=err, ms=warm_ms,
+            device_ms=device_ms, plain_ms=plain_ms,
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            library_ms=None, library=lib, card_body=[body, width],
+            registers=line["registers"],
+            spill_store_bytes=line["spill_store_bytes"],
+            blocks_per_sm=line["blocks_per_sm"], nvcc_s=line["nvcc_s"],
+            batch=Bs, mode=f"fixed-3 warm, {name} {integrator}"
+            + (" LTV" if is_linear else ""),
+            adaptive_cold_converged=line["adaptive_cold_converged"]))
+
+    # ---- the single-instance runtime: generate_model builds the user
+    # model's library (the reference's gcc step), ModelControl loads it
+    dyn, integrator, _, ulim = user_dynamics()["user_vdp"]
+    mp, prob = user_problem("user_vdp", dyn, integrator, False, ulim)
+    mp = dataclasses.replace(mp, name="user_vdp")
+    lib = gen_libs["user_vdp"]
+    plant = rk4_step(dyn.f, mp.step_size)
+    with tempfile.TemporaryDirectory() as d:
+        man = json.loads(generate_model(mp, dynamics=dyn, directory=d,
+                                        opts=svc_opts, device=dev)
+                         .read_text())
+        check(man["warm_solver"] == "fused" and list(man["libraries"]) ==
+              [lib], f"user_vdp manifest: {man}")
+        mc = ModelControl("user_vdp", directory=d, dynamics=dyn, Q=[10.0] * 2,
+                          R=[0.1], Rm=[0.0], device=dev)
+        # the library generate_model built is the one ModelControl launches
+        check(mc.warm_solver == "fused" and _cuda_library(mc.problem) == lib
+              and cuda_build(lib)[0]._name == man["libraries"][lib],
+              f"ModelControl user_vdp: {mc.warm_solver}, {man}")
+        x, u = np.array([1.0, 0.0]), np.zeros(1)
+        traj = np.zeros((N_NODES, 2))
+        launched.clear()
+        plan = mc.calc_u(0.0, x, u, traj)
+        check(plan.status == 0, "user_vdp cold calc_u did not converge")
+        ms = []
+        for k in range(GEN_B1_CALLS):
+            u = plan.U[0]
+            x = plant(torch.as_tensor(x, dtype=torch.float64)[:, None],
+                      torch.as_tensor(u, dtype=torch.float64)[:, None]
+                      )[:, 0].numpy()
+            t0 = time.perf_counter()
+            plan = mc.calc_u((k + 1) * mp.step_size, x, u, traj)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        b1_launches = dict(launched)
+        check(b1_launches == {lib: GEN_B1_CALLS},
+              f"ModelControl user_vdp: launches {b1_launches}")
+        st = mc.stats.summary()
+        check(st["failures"] == 0, f"ModelControl user_vdp: {st}")
+        p1 = calc_u_params(mc, (GEN_B1_CALLS + 1) * mp.step_size, x, u)
+        p1 = p1._replace(x_des=torch.zeros_like(p1.x_des))
+        err_b1 = held_b1(mc, p1, dict(n_iter=3))
+        emit(phase="generated_model_control", case="user_vdp", library=lib,
+             warm_calls=GEN_B1_CALLS, launches=b1_launches[lib],
+             calc_u_p50_ms=float(np.percentile(ms, 50)),
+             calc_u_p99_ms=float(np.percentile(ms, 99)),
+             final_state=x.tolist(), max_abs_err_b1=err_b1, **st)
+    vdp = next(e for e in entries if e["name"].endswith(":user_vdp"))
+    vdp.update(launches=vdp["launches"] + b1_launches[lib],
+               model_control_launches=b1_launches[lib],
+               max_abs_err_b1=err_b1)
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2275,7 +2616,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
-    from mahi_mpc_tpu_torch._build import cpu_library, cuda_build_all
+    from mahi_mpc_tpu_torch._build import cpu_build_all, cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.fused import (ARM_IDS, count_fused_ops,
@@ -2296,12 +2637,18 @@ def main() -> int:
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- build: one nvcc per library, started together, and beside them
-    # g++'s operation counter (csrc/flop_count.cpp) for the bounds
+    # ---- build: one nvcc per library (phase 23's generated ones too),
+    # started together, and beside them g++'s operation counters
+    # (csrc/flop_count.cpp and each generated library's build) for the
+    # bounds
+    t_gen = time.perf_counter()
+    gen_libs = generated_libraries()
+    emit(phase="generate", seconds=time.perf_counter() - t_gen,
+         libraries=gen_libs)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        counter = ex.submit(cpu_library, "flop_count")
-        builds = cuda_build_all()
+        counter = ex.submit(cpu_build_all, ["flop_count", *gen_libs.values()])
+        builds = cuda_build_all(extra=gen_libs.values())
         counter.result()
     emit(phase="build", seconds=time.perf_counter() - t_build,
          seconds_each={name: b[2] for name, b in builds.items()},
@@ -2626,6 +2973,7 @@ def main() -> int:
     dist = distributed_phase()
     pariccati_phase(dev, timed)
     time_shard_phase(dev)
+    generated = generated_phase(dev, rng, timed, builds, gen_libs)
 
     emit(phase="done")
     print(json.dumps({"kernels": [{
@@ -2675,7 +3023,7 @@ def main() -> int:
         "trajgen_max_rel_err_n40": traj["max_rel_err_n40"],
         "ms_6x2": ric["ms_6x2"], "bound_ms_6x2": ric["bound_ms_6x2"],
         "design_bound_ms_6x2": ric["design_bound_ms_6x2"],
-        "ptxas": ric_ptxas}]}),
+        "ptxas": ric_ptxas}, *generated]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,18 @@ The libraries:
 The fused kernel's instantiations are split into four libraries only so
 that nvcc builds them in parallel; all four export the same launcher and
 occupancy query (``mpc_fused_blocks_per_sm``).
+
+A problem without a hand-written instantiation (a user's own dynamics, an
+LTV shape outside the four) gets a generated one
+(``solver/fused.py`` ``generated_unit``): ``register_generated(unit)``
+names it ``gen-<hash>``, the hash of the unit together with ``csrc/``,
+and ``cuda_build`` / ``cpu_library`` then build that name like any other
+library, from a source written into ``_build/`` beside the build: for the
+card the unit and the launcher (``fused_sqp_launch.cuh``, the same
+exports), for g++ the unit with ``fused_sqp_cpu.cpp`` and
+``flop_count.cpp`` (the CPU solve of both bodies, the operation count and
+the card-body query).  A failed build raises, naming its log; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -94,10 +106,11 @@ CPU_LIBRARIES = {
            for kind in ("eval", "fold")
            for bits, real in (("f32", ctypes.c_float),
                               ("f64", ctypes.c_double))},
-        "mpc_model_eval_cpu_f64": [_c_ll, _c_int, _c_int, _c_void_p,
-                                   _c_void_p, ctypes.c_double, _c_void_p,
-                                   _c_void_p, _c_void_p, _c_void_p,
-                                   _c_void_p],
+        **{f"mpc_model_eval_cpu_{bits}": [
+            _c_ll, _c_int, _c_int, _c_void_p, _c_void_p, real, _c_void_p,
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p]
+           for bits, real in (("f32", ctypes.c_float),
+                              ("f64", ctypes.c_double))},
         **{f"mpc_model_increment_cpu_{bits}": [
             _c_ll, _c_int, _c_int, _c_void_p, _c_void_p, real, _c_void_p,
             _c_void_p, _c_void_p]
@@ -113,6 +126,17 @@ CPU_LIBRARIES = {
         "mpc_fused_card_body": [_c_int] * 5,
     }),
 }
+
+
+# The exports of a generated g++ build: the fused solve's CPU bodies, the
+# generated model's evaluation, the operation count and the card's body.
+_GENERATED_CPU = {
+    k: v for k, v in {**CPU_LIBRARIES["fused_sqp"][1],
+                      **CPU_LIBRARIES["flop_count"][1]}.items()
+    if not k.startswith("mpc_arm_")}
+
+# Generated units by library name (``register_generated``).
+GENERATED: dict = {}
 
 
 def _source_hash() -> str:
@@ -150,10 +174,11 @@ def _compile_locked(cmd_prefix, source: Path, out: Path, log: Path):
         proc = subprocess.run(cmd_prefix + ["-o", tmp, str(source)],
                               capture_output=True, text=True,
                               cwd=source.parent)
+        log.write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"building {source.name} failed:\n{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+                f"building {source.name} failed (log: {log}):\n"
+                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -182,22 +207,68 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def register_generated(unit: str) -> str:
+    """The library name of a generated unit (``gen-`` and the hash of the
+    unit together with ``csrc/``), which ``cuda_build`` and
+    ``cpu_library`` then build."""
+    h = hashlib.sha256(unit.encode())
+    h.update(_source_hash().encode())
+    name = f"gen-{h.hexdigest()[:16]}"
+    GENERATED[name] = unit
+    return name
+
+
+def _generated_source(name: str, target: str) -> Path:
+    """Write the source of generated library ``name`` for ``target``
+    ("cuda" or "cpu") into ``_build/`` (once: the name is its hash)."""
+    unit = GENERATED[name]
+    if target == "cuda":
+        text = ("// A generated instantiation of the fused kernel "
+                "(_build.py).\n#include \"fused_sqp_launch.cuh\"\n\n"
+                f"{unit}\nMPC_FUSED_LIBRARY(mpc::kGenerated)\n")
+        suffix = ".cu"
+    else:
+        model = "#define MPC_GENERATED_MODEL 1\n" \
+            if "namespace gen" in unit else ""
+        text = ("// A generated instantiation of the fused kernel, built for "
+                "the CPU (_build.py).\n#include \"fused_sqp_group.cuh\"\n\n"
+                f"{unit}\n#define MPC_GENERATED 1\n{model}"
+                "#include \"fused_sqp_cpu.cpp\"\n#include \"flop_count.cpp\"\n")
+        suffix = ".cpp"
+    BUILD_DIR.mkdir(exist_ok=True)
+    path = BUILD_DIR / f"{name}{suffix}"
+    if not path.exists() or path.read_text() != text:
+        fd, tmp = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
 def cuda_build(name: str) -> tuple[ctypes.CDLL, str, float]:
-    """(library, ptxas report, build seconds) of the CUDA library ``name``;
-    the seconds are 0 when an earlier build of the same sources was
-    loaded."""
+    """(library, ptxas report, build seconds) of the CUDA library ``name``
+    (one of ``CUDA_LIBRARIES`` or a registered generated one); the seconds
+    are 0 when an earlier build of the same sources was loaded."""
+    if name in GENERATED:
+        path, report, secs = _compile(
+            [_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC)],
+            _generated_source(name, "cuda"), f"{name}_sm90a",
+            name.split("-", 1)[1])
+        return _load(path, _FUSED_LAUNCH), report, secs
     source, functions = CUDA_LIBRARIES[name]
     path, report, secs = _compile([_nvcc()] + NVCC_FLAGS, CSRC / source,
                                   f"{name}_sm90a")
     return _load(path, functions), report, secs
 
 
-def cuda_build_all() -> dict:
-    """Build every CUDA library, one nvcc each, all started together;
-    returns {name: (library, ptxas report, build seconds)}."""
-    with concurrent.futures.ThreadPoolExecutor(len(CUDA_LIBRARIES)) as ex:
-        futures = {name: ex.submit(cuda_build, name)
-                   for name in CUDA_LIBRARIES}
+def cuda_build_all(extra=()) -> dict:
+    """Build every CUDA library and the generated ones named in ``extra``,
+    one nvcc each, all started together; returns {name: (library, ptxas
+    report, build seconds)}."""
+    names = list(CUDA_LIBRARIES) + list(extra)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        futures = {name: ex.submit(cuda_build, name) for name in names}
         return {name: f.result() for name, f in futures.items()}
 
 
@@ -210,10 +281,25 @@ def _gxx() -> str:
 
 @functools.lru_cache(maxsize=None)
 def cpu_library(name: str = "fused_sqp") -> ctypes.CDLL:
-    """A kernel body built for the CPU (tests only)."""
+    """A kernel body built for the CPU (the tests; the operation count and
+    the card-body query): one of ``CPU_LIBRARIES`` or a registered
+    generated library."""
+    if name in GENERATED:
+        path, _, _ = _compile([_gxx()] + GXX_FLAGS + ["-I", str(CSRC)],
+                              _generated_source(name, "cpu"), f"{name}_cpu",
+                              name.split("-", 1)[1])
+        return _load(path, _GENERATED_CPU)
     source, functions = CPU_LIBRARIES[name]
     path, _, _ = _compile([_gxx()] + GXX_FLAGS, CSRC / source, f"{name}_cpu")
     return _load(path, functions)
+
+
+def cpu_build_all(names) -> dict:
+    """``cpu_library`` of each name, one g++ each, all started together."""
+    names = list(dict.fromkeys(names))
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as ex:
+        futures = {name: ex.submit(cpu_library, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -42,6 +42,19 @@ MPC_HD float m_log(float x) { return logf(x); }
 MPC_HD double m_log(double x) { return log(x); }
 MPC_HD float m_abs(float x) { return fabsf(x); }
 MPC_HD double m_abs(double x) { return fabs(x); }
+// The rest of what a generated model (models/codegen.py) emits.
+MPC_HD float m_tan(float x) { return tanf(x); }
+MPC_HD double m_tan(double x) { return tan(x); }
+MPC_HD float m_exp(float x) { return expf(x); }
+MPC_HD double m_exp(double x) { return exp(x); }
+MPC_HD float m_tanh(float x) { return tanhf(x); }
+MPC_HD double m_tanh(double x) { return tanh(x); }
+MPC_HD float m_pow(float x, float e) { return powf(x, e); }
+MPC_HD double m_pow(double x, double e) { return pow(x, e); }
+// The value part of a scalar (a dual number's overload below): what a
+// generated comparison reads.
+MPC_HD float m_value(float x) { return x; }
+MPC_HD double m_value(double x) { return x; }
 // False for +-inf and NaN (fabs(NaN) <= max is false).
 MPC_HD bool m_isfinite(float x) { return fabsf(x) <= 3.402823466e+38f; }
 MPC_HD bool m_isfinite(double x) { return fabs(x) <= 1.7976931348623157e+308; }
@@ -129,7 +142,67 @@ MPC_DUAL m_sqrt(const Dual<S, K>& a) {
   for (int k = 0; k < K; ++k) r.d[k] = h * a.d[k];
   return r;
 }
+// The generated models' other ops.  Each tangent is the derivative at the
+// value times the input's tangent, as torch.func.jvp forms it.
+MPC_DUAL m_log(const Dual<S, K>& a) {
+  Dual<S, K> r(m_log(a.v));
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] / a.v;
+  return r;
+}
+MPC_DUAL m_exp(const Dual<S, K>& a) {
+  Dual<S, K> r(m_exp(a.v));
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * r.v;
+  return r;
+}
+MPC_DUAL m_tan(const Dual<S, K>& a) {
+  Dual<S, K> r(m_tan(a.v));
+  const S g = S(1) + r.v * r.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * g;
+  return r;
+}
+MPC_DUAL m_tanh(const Dual<S, K>& a) {
+  Dual<S, K> r(m_tanh(a.v));
+  const S g = S(1) - r.v * r.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * g;
+  return r;
+}
+// |a|: the tangent times sign(a), 0 at 0.
+MPC_DUAL m_abs(const Dual<S, K>& a) {
+  Dual<S, K> r(m_abs(a.v));
+  const S sg = a.v > S(0) ? S(1) : (a.v < S(0) ? S(-1) : S(0));
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * sg;
+  return r;
+}
+// a^e for a constant e: the tangent times e a^(e - 1).
+MPC_DUAL m_pow(const Dual<S, K>& a, S e) {
+  Dual<S, K> r(m_pow(a.v, e));
+  const S g = e * m_pow(a.v, e - S(1));
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * g;
+  return r;
+}
+template <typename S, int K>
+MPC_HD S m_value(const Dual<S, K>& a) { return a.v; }
 #undef MPC_DUAL
+
+// minimum / maximum of two scalars of one type (plain or dual), NaN
+// propagating as torch.minimum / torch.maximum; a dual number keeps the
+// tangent of the operand it picks.
+template <typename T>
+MPC_HD T m_min(const T& a, const T& b) {
+  const auto av = m_value(a), bv = m_value(b);
+  return (av != av) ? a : ((bv != bv) ? b : (bv < av ? b : a));
+}
+template <typename T>
+MPC_HD T m_max(const T& a, const T& b) {
+  const auto av = m_value(a), bv = m_value(b);
+  return (av != av) ? a : ((bv != bv) ? b : (bv > av ? b : a));
+}
 
 // ---- chain constants, filled from models/arm.py:arm_constants
 template <typename S, int NQ>

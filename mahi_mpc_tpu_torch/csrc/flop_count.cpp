@@ -11,8 +11,18 @@
 // is the function's operations, the numerator of the kernel's roofline
 // bound (chip_smoke.py).  Built with g++ and loaded with ctypes
 // (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
-// are not counted.
+// are not counted.  A generated build includes it after its step policy,
+// with MPC_GENERATED defined, to count that policy (solver/fused.py
+// `generated_unit`).
 #include "fused_sqp_group.cuh"
+
+#if !defined(MPC_CPU_FAMILIES)
+#if defined(MPC_GENERATED)
+#define MPC_CPU_FAMILIES mpc::kGenerated
+#else
+#define MPC_CPU_FAMILIES mpc::kAllFamilies
+#endif
+#endif
 
 namespace mpc {
 
@@ -47,6 +57,14 @@ inline Flop m_sin(Flop x) { g_ops.transcendental += 1; return sin(x.v); }
 inline Flop m_cos(Flop x) { g_ops.transcendental += 1; return cos(x.v); }
 inline Flop m_log(Flop x) { g_ops.transcendental += 1; return log(x.v); }
 inline Flop m_abs(Flop x) { return fabs(x.v); }
+inline Flop m_tan(Flop x) { g_ops.transcendental += 1; return tan(x.v); }
+inline Flop m_exp(Flop x) { g_ops.transcendental += 1; return exp(x.v); }
+inline Flop m_tanh(Flop x) { g_ops.transcendental += 1; return tanh(x.v); }
+inline Flop m_pow(Flop x, Flop e) {
+  g_ops.transcendental += 1;
+  return pow(x.v, e.v);
+}
+inline Flop m_value(Flop x) { return x; }
 inline bool m_isfinite(Flop x) { return m_isfinite(x.v); }
 
 // The float32 epsilon: the counted run takes the card's noise floor.
@@ -220,7 +238,8 @@ extern "C" {
 // adds, multiplies, divides and square roots, transcendentals; and the part
 // of them that it repeats (`group_repeats` for the group body,
 // `linearize_repeats` a stage of each iteration for the one-thread body) to
-// counts[4..7].  Returns -1 when no instantiation serves the problem.
+// counts[4..7].  Returns -1 when no instantiation serves the problem, -3
+// when group = 1 and the policy's shape does not split over its group.
 int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
                         void* const* ptrs, const double* scal,
                         const int* ints, const double* fan,
@@ -242,18 +261,23 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
     return 0;
   };
   auto grouped = [&](const auto& step) -> int {
-    typedef mpc::GroupStep<Flop, std::decay_t<decltype(step)>> GS;
-    Flop tile[GS::Tile::kSize];
-    for (long long b = 0; b < B; ++b)
-      mpc::solve_group<Flop>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
-    repeated = mpc::group_repeats(step, a, mpc::g_ops);
-    return 0;
+    typedef std::decay_t<decltype(step)> Step;
+    typedef mpc::GroupStep<Flop, Step> GS;
+    if constexpr (!mpc::group_fits<Flop, Step>()) {
+      return -3;                 // no group body at this shape
+    } else {
+      Flop tile[GS::Tile::kSize];
+      for (long long b = 0; b < B; ++b)
+        mpc::solve_group<Flop>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
+      repeated = mpc::group_repeats(step, a, mpc::g_ops);
+      return 0;
+    }
   };
   const int rc = group
-      ? mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
-                                               grouped)
-      : mpc::dispatch<Flop, mpc::kAllFamilies>(a, model, nx, nu, consts,
-                                               thread);
+      ? mpc::dispatch<Flop, MPC_CPU_FAMILIES>(a, model, nx, nu, consts,
+                                              grouped)
+      : mpc::dispatch<Flop, MPC_CPU_FAMILIES>(a, model, nx, nu, consts,
+                                              thread);
   counts[0] += mpc::g_ops.add;
   counts[1] += mpc::g_ops.mul;
   counts[2] += mpc::g_ops.div_sqrt;
@@ -274,7 +298,7 @@ int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv) {
   a.integ = integ;
   a.ltv = ltv;
   static const double consts[256] = {};   // the model's constants: unused
-  return mpc::dispatch<mpc::Flop, mpc::kAllFamilies>(
+  return mpc::dispatch<mpc::Flop, MPC_CPU_FAMILIES>(
       a, model, nx, nu, consts, [](const auto& step) -> int {
         typedef std::decay_t<decltype(step)> Step;
         return mpc::GroupBody<Step>::value ? mpc::GroupStep<mpc::Flop, Step>::W

@@ -24,10 +24,16 @@
 //   Ltv<NX, NU>     the frozen affine step, streamed in batch-innermost as
 //                   (Ad - I, Bd, cd) and read row by row where it is used:
 //                   no AD and no Jacobian scratch.
+// The Model of FastNq and Generic is a hand-written one
+// (model_dynamics.cuh) or one generated from a user's traced f
+// (gen::Model<S>, models/codegen.py), and Ltv takes any shape: a generated
+// build instantiates the one policy it defines (`GeneratedStep`, family
+// kGenerated in `dispatch`).
 // For the policies `GroupBody` names (the serial arms, LTV at (8, 4), most
-// closed forms under midpoint and RK4, the double pendulum under Euler) the
-// card runs the group body of fused_sqp_group.cuh instead; the tests run
-// both bodies of every policy.
+// closed forms under midpoint and RK4, the double pendulum under Euler, a
+// generated model's generic step where its shape splits over two lanes)
+// the card runs the group body of fused_sqp_group.cuh instead; the tests
+// run both bodies of every policy whose shape splits over its group.
 // Every policy gives the increment F(x, u) - x, never F, and the body forms
 // each defect as (x - x') + increment: x and x' differ by about the
 // increment, so their float32 rounding (~ulp(x) a component) stays out of
@@ -802,17 +808,34 @@ MPC_HD void solve_instance(const FusedArgs<S>& a, const Step& step,
 
 // ---- instantiation: which step policy serves a problem.
 
-// Kernel-model ids (solver/fused.py ARM_IDS and CLOSED_FORM_IDS).
+// Kernel-model ids (solver/fused.py ARM_IDS, CLOSED_FORM_IDS and
+// GENERATED_ID: a model generated from its traced f, models/codegen.py).
 enum ModelId {
   kTwoLinkArm = 0, kMahiArm = 1, kPendulum = 2, kCartpole = 3,
-  kDoublePendulum = 4, kAcrobot = 5
+  kDoublePendulum = 4, kAcrobot = 5, kGeneratedModel = -2
 };
 
 // The instantiation families; a build holds the ones in its mask (one CUDA
 // library each, so nvcc builds them concurrently; the CPU test build holds
-// all of them).
+// all the hand-written ones).  kGenerated: the one step policy of a
+// generated build (solver/fused.py `generated_unit`), which defines
+// `GeneratedStep<S>::make(args)`: FastNq or Generic over a generated model
+// gen::Model<S>, or Ltv<S, NX, NU> at a shape outside kLtvShapes.
 enum Family { kArmFast = 1, kArmGeneric = 2, kModels = 4, kLtvShapes = 8,
-              kAllFamilies = 15 };
+              kAllFamilies = 15, kGenerated = 16 };
+
+template <typename S> struct GeneratedStep;
+
+template <typename Step> struct IsLtv { static constexpr bool value = false; };
+template <typename S, int NX, int NU> struct IsLtv<Ltv<S, NX, NU>> {
+  static constexpr bool value = true;
+};
+template <typename Step> struct IsFastNq {
+  static constexpr bool value = false;
+};
+template <typename S, typename M> struct IsFastNq<FastNq<S, M>> {
+  static constexpr bool value = true;
+};
 
 // Calls fn(step) with the policy that serves (model, nx, nu) under the
 // integrator and LTV flag of `a`, among the families of kFamilies; returns
@@ -824,6 +847,14 @@ int dispatch(const FusedArgs<S>& a, int model, int nx, int nu,
     typedef typename std::decay<decltype(step)>::type Step;
     return (Step::NX == nx && Step::NU == nu) ? fn(step) : -1;
   };
+  if constexpr ((kFamilies & kGenerated) != 0) {
+    // its own shape and mode only: the nq-row policy under Euler alone
+    typedef decltype(GeneratedStep<S>::make(a)) Step;
+    if (bool(a.ltv) != IsLtv<Step>::value ||
+        (IsFastNq<Step>::value && a.integ != kEuler))
+      return -1;
+    return serve(GeneratedStep<S>::make(a));
+  }
   if (a.ltv) {
     if constexpr ((kFamilies & kLtvShapes) != 0) {
       if (nx == 8 && nu == 4) return serve(Ltv<S, 8, 4>{});

@@ -4,8 +4,17 @@
 // card, each for every instantiation family, looped over instances and
 // built for float and double.  Built with
 // `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
-// package's main path never loads it.
+// package's main path never loads it.  A generated build (solver/fused.py
+// `generated_unit`) includes this file after its step policy with
+// MPC_GENERATED defined: it then holds that policy alone (and, with
+// MPC_GENERATED_MODEL, evaluates its model under model id kGeneratedModel).
 #include "fused_sqp_group.cuh"
+
+#if defined(MPC_GENERATED)
+#define MPC_CPU_FAMILIES mpc::kGenerated
+#else
+#define MPC_CPU_FAMILIES mpc::kAllFamilies
+#endif
 
 namespace {
 
@@ -13,7 +22,7 @@ template <typename S>
 int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
           const S* scal, const int* ints, const S* fan, const double* c) {
   const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
-  return mpc::dispatch<S, mpc::kAllFamilies>(
+  return mpc::dispatch<S, MPC_CPU_FAMILIES>(
       a, model, nx, nu, c, [&](const auto& step) -> int {
         for (long long b = 0; b < B; ++b) mpc::solve_instance<S>(a, step, b);
         return 0;
@@ -23,24 +32,30 @@ int solve(long long B, int N, int model, int nx, int nu, void* const* ptrs,
 // The group body of any policy, at the policy's width (its W lanes run one
 // after another, phase by phase).  The tile is followed by guard entries
 // that no write may reach (-2 if one did: on the card that write would
-// land in the next group's tile).
+// land in the next group's tile); -3 when the policy's shape does not
+// split over its group (`group_fits`: a generated shape).
 template <typename S>
 int solve_group(long long B, int N, int model, int nx, int nu,
                 void* const* ptrs, const S* scal, const int* ints,
                 const S* fan, const double* c) {
   const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
-  return mpc::dispatch<S, mpc::kAllFamilies>(
+  return mpc::dispatch<S, MPC_CPU_FAMILIES>(
       a, model, nx, nu, c, [&](const auto& step) -> int {
-        typedef mpc::GroupStep<S, std::decay_t<decltype(step)>> GS;
-        constexpr int kSize = GS::Tile::kSize, kGuard = 64;
-        const S mark = S(-1234.5);
-        S tile[kSize + kGuard];
-        for (int e = kSize; e < kSize + kGuard; ++e) tile[e] = mark;
-        for (long long b = 0; b < B; ++b)
-          mpc::solve_group<S>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
-        for (int e = kSize; e < kSize + kGuard; ++e)
-          if (!(tile[e] == mark)) return -2;
-        return 0;
+        typedef std::decay_t<decltype(step)> Step;
+        typedef mpc::GroupStep<S, Step> GS;
+        if constexpr (!mpc::group_fits<S, Step>()) {
+          return -3;
+        } else {
+          constexpr int kSize = GS::Tile::kSize, kGuard = 64;
+          const S mark = S(-1234.5);
+          S tile[kSize + kGuard];
+          for (int e = kSize; e < kSize + kGuard; ++e) tile[e] = mark;
+          for (long long b = 0; b < B; ++b)
+            mpc::solve_group<S>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
+          for (int e = kSize; e < kSize + kGuard; ++e)
+            if (!(tile[e] == mark)) return -2;
+          return 0;
+        }
       });
 }
 
@@ -91,9 +106,17 @@ void eval_increment(const Model& m, long long M, int integ, const S* x,
   }
 }
 
-// Runs fn on the registered model `model` built from the constants c.
+// Runs fn on the registered model `model` built from the constants c (in a
+// generated build, on its generated model alone).
 template <typename S, typename F>
 int with_model(int model, const double* c, const F& fn) {
+#if defined(MPC_GENERATED)
+  (void)c;
+#if defined(MPC_GENERATED_MODEL)
+  if (model == mpc::kGeneratedModel) return fn(mpc::gen::Model<S>{});
+#endif
+  return -1;
+#else
   switch (model) {
     case mpc::kTwoLinkArm:
       return fn(mpc::ArmModel<S, 2>{mpc::load_arm<S, double, 2>(c)});
@@ -105,6 +128,7 @@ int with_model(int model, const double* c, const F& fn) {
     case mpc::kAcrobot: return fn(mpc::Acrobot<S>::load(c));
     default: return -1;
   }
+#endif
 }
 
 template <typename S>
@@ -125,6 +149,7 @@ int increment(long long M, int model, int integ, const S* x, const S* u,
   });
 }
 
+#if !defined(MPC_GENERATED)
 // f(x, u) and the dt-scaled acceleration Jacobian rows of a serial arm for
 // M instances (the nq-row policy's `acc_rows`); x (nx, M), u (nu, M),
 // fval (nx, M), jrows (nq, nz, M): batch-innermost.
@@ -190,6 +215,7 @@ int arm_rows(long long M, int nq, int folded, const S* x, const S* u, S dt,
     default: return -1;
   }
 }
+#endif  // !MPC_GENERATED
 
 }  // namespace
 
@@ -225,6 +251,7 @@ int mpc_fused_solve_group_cpu_f64(long long B, int N, int model, int nx,
                              consts);
 }
 
+#if !defined(MPC_GENERATED)
 int mpc_arm_eval_cpu_f32(long long M, int nq, const float* x, const float* u,
                          float dt, const double* arm, float* fval,
                          float* jrows) {
@@ -248,6 +275,18 @@ int mpc_arm_fold_cpu_f64(long long M, int nq, const double* x,
                          const double* u, double dt, const double* arm,
                          double* fval, double* jrows) {
   return arm_rows<double>(M, nq, 1, x, u, dt, arm, fval, jrows);
+}
+
+#endif  // !MPC_GENERATED
+
+// f (nx, M) and its Jacobian (nx, nz, M), the step F = x + increment and
+// its Jacobian, through the dual-number code the kernel runs.
+int mpc_model_eval_cpu_f32(long long M, int model, int integ, const float* x,
+                           const float* u, float dt, const double* consts,
+                           float* fval, float* fjac, float* sval,
+                           float* sjac) {
+  return eval<float>(M, model, integ, x, u, dt, consts, fval, fjac, sval,
+                     sjac);
 }
 
 int mpc_model_eval_cpu_f64(long long M, int model, int integ,

@@ -4,8 +4,10 @@
 // CPU build for every policy.  The width W is a compile-time constant of
 // the group step policy: four lanes for the serial arms under every
 // integrator and for the LTV step at (8, 4), two for the closed-form
-// models and the LTV steps at (4, 2), (4, 1), (2, 1).  A policy the card
-// does not run on the group body runs the one-thread `solve_instance`
+// models, the generated models (models/codegen.py) and the other LTV
+// shapes; a shape that does not split over its group (`group_fits`: NX a
+// multiple of W, NU at most W) has no group body.  A policy the card does
+// not run on the group body runs the one-thread `solve_instance`
 // (fused_sqp.cuh).
 //
 // It computes what `solve_instance<Step>` computes, in the same iteration
@@ -188,14 +190,30 @@ template <typename S, typename Step> struct GroupStep;
 //   the work every lane repeats: the pendulum under every integrator, the
 //   cart-pole and the acrobot under Euler, and LTV at (4, 2), (4, 1) and
 //   (2, 1) (0.50-0.96x).
+// A generated step (models/codegen.py) takes the rule of its policy: a
+// generated model under midpoint and RK4 (and a first-order one under
+// Euler) the generic path's two lanes where its shape splits over them
+// (NX even, NU <= 2), one thread otherwise; a generated model's nq-row
+// policy and every LTV shape outside the four, one thread.
 template <typename Step> struct GroupBody {
   static constexpr bool value = false;
 };
 template <typename S, int NQ> struct GroupBody<FastNq<S, ArmModel<S, NQ>>> {
   static constexpr bool value = true;
 };
+// The generic policy's width: four lanes for the serial arms (12 tangent
+// columns under the 4-DOF arm, 3 a lane), two for the closed forms (at
+// most 6 columns, nx <= 4).
+template <typename Model> struct GenericWidth {
+  static constexpr int value = 2;
+};
+template <typename S, int NQ> struct GenericWidth<ArmModel<S, NQ>> {
+  static constexpr int value = 4;
+};
+
 template <typename S, typename Model> struct GroupBody<Generic<S, Model>> {
-  static constexpr bool value = true;
+  static constexpr int W = GenericWidth<Model>::value;
+  static constexpr bool value = Model::NX % W == 0 && Model::NU <= W;
 };
 template <typename S> struct GroupBody<Generic<S, Pendulum<S>>> {
   static constexpr bool value = false;
@@ -345,16 +363,6 @@ struct GroupDense {
   }
 };
 
-// The generic policy's width: four lanes for the serial arms (12 tangent
-// columns under the 4-DOF arm, 3 a lane), two for the closed forms (at
-// most 6 columns, nx <= 4).
-template <typename Model> struct GenericWidth {
-  static constexpr int value = 2;
-};
-template <typename S, int NQ> struct GenericWidth<ArmModel<S, NQ>> {
-  static constexpr int value = 4;
-};
-
 // Any integrator but Euler: the increment's rows by dual numbers, the
 // tangent columns split over the lanes.
 template <typename S, typename Model>
@@ -486,6 +494,14 @@ static_assert(kTileIs<Ltv<float, 2, 1>, 71, true> &&
               kTileIs<FastNq<float, Pendulum<float>>, 61, true> &&
               kTileIs<Generic<float, Pendulum<float>>, 69, true>,
               "two lanes at (2, 1): grown");
+
+// Whether a policy's shape splits over its group (`solve_group`'s rule):
+// the host builds run the group body of the policies where it does.
+template <typename S, typename Step>
+constexpr bool group_fits() {
+  typedef GroupStep<S, Step> GS;
+  return GS::NX % GS::W == 0 && GS::NU <= GS::W && kMaxFan % GS::W == 0;
+}
 
 template <typename S, typename Step>
 MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,

@@ -6,7 +6,11 @@
 // adaptive) and all three of its step modes: the Euler nq-row path, the
 // generic nx-row path (midpoint, RK4) and LTV.  Each CUDA library
 // (fused_sqp*.cu) instantiates one family of step policies through
-// `launch_fused`, so nvcc builds them in parallel.
+// `launch_fused`, so nvcc builds them in parallel; a generated library
+// (_build.py `register_generated`: a user's model emitted by
+// models/codegen.py, or an LTV shape outside the four) instantiates the
+// one policy it defines (family kGenerated, `GeneratedStep`) through the
+// same launcher and exports.
 //
 // What bounds it on this card: operations.  The work is a long FP32 program
 // per instance (N=25 stages x [linearization + a block Riccati step] + a

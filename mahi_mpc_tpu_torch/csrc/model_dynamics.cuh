@@ -8,7 +8,10 @@
 //
 // - ArmModel<S, NQ>: the serial arms (arm_dynamics.cuh, models/arm.py);
 // - Pendulum, Cartpole: models/pendulum.py;
-// - DoublePendulum, Acrobot: models/double_pendulum.py.
+// - DoublePendulum, Acrobot: models/double_pendulum.py;
+// - gen::Model<S>: a user's model, generated from its traced f at first use
+//   (models/codegen.py): `acc` as above, or, for a first-order model,
+//   NQ = 0 and all of `f(x, u, out)`.
 //
 // The closed forms follow the tensor `f` of the PyTorch models term by
 // term, with the constants that Python folds (m g l, m l^2, ...) computed
@@ -104,15 +107,20 @@ struct TwoLinkPointMass {
 template <typename S> using DoublePendulum = TwoLinkPointMass<S, true>;
 template <typename S> using Acrobot = TwoLinkPointMass<S, false>;
 
-// f(x, u) = [qd, acc(x, u)].
+// f(x, u) = [qd, acc(x, u)] for a second-order model; a first-order model
+// (NQ = 0, a generated one: models/codegen.py) gives all of f(x, u) itself.
 template <typename T, typename Model>
 MPC_HD void model_f(const Model& m, const T* x, const T* u, T* out) {
-  T qdd[Model::NQ];
-  m.acc(x, u, qdd);
+  if constexpr (Model::NQ == 0) {
+    m.f(x, u, out);
+  } else {
+    T qdd[Model::NQ];
+    m.acc(x, u, qdd);
 #pragma unroll
-  for (int i = 0; i < Model::NQ; ++i) {
-    out[i] = x[Model::NQ + i];
-    out[Model::NQ + i] = qdd[i];
+    for (int i = 0; i < Model::NQ; ++i) {
+      out[i] = x[Model::NQ + i];
+      out[Model::NQ + i] = qdd[i];
+    }
   }
 }
 

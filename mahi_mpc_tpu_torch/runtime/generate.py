@@ -13,7 +13,10 @@ package's artifact is:
 - the build of those libraries, which generation makes on the card (the
   reference compiled its ``.so`` at generation time) into the hash-named
   cache of ``_build.py``, where ``ModelControl`` loads it without
-  rebuilding.
+  rebuilding.  For a user's own ``Dynamics`` (no hand-written
+  instantiation) that library is generated: its model emitted as C++ from
+  the traced ``f`` (``models/codegen.py``) and compiled by nvcc here, as
+  the reference's gcc compiled the C that CasADi generated.
 
 ``ModelControl`` reads the manifest's options only when it is given none:
 the options passed at load time decide the warm solver, so an artifact
@@ -40,11 +43,11 @@ MANIFEST_FORMAT = 1
 
 def kernel_libraries(prob: ShootingProblem, opts: SolverOptions,
                      device) -> list:
-    """The CUDA libraries (``_build.CUDA_LIBRARIES``) that a
-    ``ModelControl`` of this problem launches under ``opts`` on
-    ``device``: the fused kernel's instantiation when warm solves resolve
-    to it, the Riccati kernel when ``kkt_backend="pallas"`` asks for it;
-    none off the card."""
+    """The CUDA libraries that a ``ModelControl`` of this problem launches
+    under ``opts`` on ``device``: the fused kernel's instantiation when warm
+    solves resolve to it (one of ``_build.CUDA_LIBRARIES``, or the
+    problem's generated library, ``gen-<hash>``), the Riccati kernel when
+    ``kkt_backend="pallas"`` asks for it; none off the card."""
     if torch.device(device).type != "cuda":
         return []
     from ..solver.fused import _cuda_library

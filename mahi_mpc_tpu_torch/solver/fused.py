@@ -32,19 +32,28 @@ directly, and every defect is formed as ``(x - x') + increment``
 
 Two implementations of the same function live here:
 
-- the CUDA kernel (``csrc/fused_sqp*.cu``, batch-innermost arrays; four
-  threads an instance for the serial arms under Euler, the main path, one
-  thread an instance otherwise), built with nvcc at first use
-  (``_build.py``), launched for CUDA tensors; it serves LTV for the
-  (nx, nu) in ``LTV_SHAPES`` and the nonlinear modes for the six
-  registered models (their dynamics written again in
-  ``csrc/model_dynamics.cuh``);
+- the CUDA kernel (``csrc/fused_sqp*.cu``, batch-innermost arrays), built
+  with nvcc at first use (``_build.py``), launched for CUDA tensors.  Its
+  body is the group body (``csrc/fused_sqp_group.cuh``: four threads an
+  instance for the serial arms under every integrator, the main path, and
+  LTV at (8, 4); two for most closed forms under midpoint and RK4, the
+  double pendulum under Euler and a generated model's generic step where
+  its shape splits over two lanes) or one thread an instance otherwise, as
+  the launcher's own rule (``GroupBody``) picks it: ``card_body`` asks it.
+  Hand-written instantiations serve LTV at the (nx, nu) in ``LTV_SHAPES``
+  and the nonlinear modes of the six registered models (their dynamics
+  written again in ``csrc/model_dynamics.cuh``); every other problem the
+  JAX rule fuses (any LTV shape, any lanes-polymorphic ``f`` that
+  ``models/codegen.py`` lowers) gets a generated instantiation, its model
+  emitted as C++ from the traced ``f`` and compiled at first use
+  (``generated_unit``);
 - ``_solve_batch_fused_plain``, the plain PyTorch version in batch-leading
   tensor form, used for CPU tensors and as the kernel's reference on the
   card.
 
 There is no fallback from one to the other: a problem the kernel does not
-serve raises on CUDA tensors (``fused_supported`` says which it serves).
+serve raises on CUDA tensors (``fused_supported`` says which it serves),
+and so does a failed build or launch.
 
 Line-search deviations from the JAX lanes solver follow the JAX fused
 kernel (a fan of rungs, and an l1 weight from max|p|); the one deliberate
@@ -64,6 +73,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..models.arm import arm_constants
+from ..models.codegen import lower, lowerable
 from ..models.integrators import make_increment
 from ..ops.linalg import chol_lanes
 from ..ops.precision import strict_fp32
@@ -91,6 +101,7 @@ CLOSED_FORM_IDS = {"pendulum": 2, "cartpole": 3, "double_pendulum": 4,
                    "acrobot": 5}
 INTEGRATORS = ("euler", "midpoint", "rk4")
 LTV_SHAPES = ((8, 4), (4, 2), (4, 1), (2, 1))
+GENERATED_ID = -2         # csrc/fused_sqp.cuh kGeneratedModel
 
 
 def _fast2(prob: ShootingProblem) -> bool:
@@ -122,17 +133,69 @@ def _kernel_model(dyn):
 
 
 def fused_supported(prob: ShootingProblem) -> bool:
-    """Whether the kernel serves this problem (the JAX rule,
-    ``fused.py:173-179``, on this kernel's instantiations): LTV for every
-    (nx, nu) in ``LTV_SHAPES``; nonlinear mode for lanes-polymorphic
-    dynamics that the kernel has in CUDA (the serial arms with nq 2 or 4
-    and the four closed-form models), under any of ``INTEGRATORS``."""
+    """Whether the kernel serves this problem: the JAX rule
+    (``fused.py:173-179``) under ``INTEGRATORS``.  Every LTV problem (any
+    (nx, nu)); every nonlinear problem whose dynamics are
+    lanes-polymorphic, when the kernel has them in CUDA (the serial arms
+    with nq 2 or 4 and the four closed-form models) or
+    ``models/codegen.py`` lowers their ``f`` (decided by tracing, before
+    anything is built)."""
     if prob.integrator not in INTEGRATORS:
         return False
     if prob.is_linear:
-        return (prob.nx, prob.nu) in LTV_SHAPES
+        return True
     dyn = prob.dynamics
-    return dyn.supports_lanes and _kernel_model(dyn) is not None
+    return dyn.supports_lanes and (_kernel_model(dyn) is not None
+                                   or lowerable(dyn))
+
+
+def generated_unit(prob: ShootingProblem) -> Optional[str]:
+    """The C++ of the instantiation a generated build holds for a problem
+    the kernel serves without a hand-written one, or None when one of those
+    serves it: the model ``mpc::gen::Model<S>`` emitted from the traced
+    ``f`` (``models/codegen.py``) and the step policy over it (the nq-row
+    ``FastNq`` under the ``_fast2`` rule, ``Generic`` otherwise), or the
+    ``Ltv<S, NX, NU>`` policy at an LTV shape outside ``LTV_SHAPES``, as
+    ``GeneratedStep<S>::make`` (``csrc/fused_sqp.cuh`` ``dispatch``).
+    ``_build`` wraps it into the CUDA library and the g++ build."""
+    if prob.is_linear:
+        if (prob.nx, prob.nu) in LTV_SHAPES:
+            return None
+        policy, model = f"Ltv<S, {prob.nx}, {prob.nu}>", ""
+        make = "{}"
+    else:
+        if _kernel_model(prob.dynamics) is not None:
+            return None
+        model = lower(prob.dynamics).source
+        fast = _fast2(prob)
+        policy = f"{'FastNq' if fast else 'Generic'}<S, gen::Model<S>>"
+        make = "{{}}" if fast else "{{}, a.integ}"
+    return "\n".join([
+        model + "namespace mpc {",
+        "template <typename S>",
+        "struct GeneratedStep {",
+        f"  static {policy} make(const FusedArgs<S>& a) {{",
+        "    (void)a;",
+        f"    return {make};",
+        "  }",
+        "};",
+        "}  // namespace mpc", ""])
+
+
+def _model_id(prob: ShootingProblem) -> tuple:
+    """(model id, constants) that the kernel's C interface takes."""
+    if prob.is_linear:
+        return -1, [0.0]
+    hand = _kernel_model(prob.dynamics)
+    return hand if hand is not None else (GENERATED_ID, [0.0])
+
+
+def _cpu_library(prob: ShootingProblem, name: str):
+    """The g++ build that holds this problem's instantiation: the
+    hand-written library ``name`` or the problem's generated one."""
+    from .._build import cpu_library, register_generated
+    unit = generated_unit(prob)
+    return cpu_library(name if unit is None else register_generated(unit))
 
 
 def card_body(prob: ShootingProblem) -> tuple:
@@ -141,10 +204,10 @@ def card_body(prob: ShootingProblem) -> tuple:
     body, ``csrc/fused_sqp_group.cuh``, at its step policy's width) or
     ``("thread", 1)`` (one thread an instance).  The launcher's own rule
     (``GroupBody``) decides it, asked through the g++ build of
-    ``csrc/flop_count.cpp``."""
-    from .._build import cpu_library
-    model = -1 if prob.is_linear else _kernel_model(prob.dynamics)[0]
-    width = cpu_library("flop_count").mpc_fused_card_body(
+    ``csrc/flop_count.cpp`` (the problem's generated build, for a generated
+    instantiation)."""
+    model = _model_id(prob)[0]
+    width = _cpu_library(prob, "flop_count").mpc_fused_card_body(
         model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
         int(prob.is_linear))
     if width < 0:
@@ -574,8 +637,14 @@ def _arm_flat(dyn) -> list:
 
 
 def _cuda_library(prob: ShootingProblem) -> str:
-    """The CUDA library (``_build.CUDA_LIBRARIES``) that holds the kernel's
-    instantiation for this problem."""
+    """The CUDA library that holds the kernel's instantiation for this
+    problem: one of ``_build.CUDA_LIBRARIES``, or the name of the
+    problem's generated library (``generated_unit``, registered with
+    ``_build.register_generated``)."""
+    unit = generated_unit(prob)
+    if unit is not None:
+        from .._build import register_generated
+        return register_generated(unit)
     if prob.is_linear:
         return "fused_sqp_ltv"
     if getattr(prob.dynamics, "chain", None) is not None:
@@ -629,8 +698,7 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                               INTEGRATORS.index(prob.integrator),
                               int(prob.is_linear))
     fan_c = (ctype * MAX_FAN)(*fan)
-    model, consts = (-1, [0.0]) if prob.is_linear else \
-        _kernel_model(prob.dynamics)
+    model, consts = _model_id(prob)
     consts_c = (ctypes.c_double * len(consts))(*consts)
     args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
     if stream is not None:
@@ -639,6 +707,9 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
                          f"model {model}, (nx, nu) = ({nx}, {nu}), {mode}")
+    if rc == -3:
+        raise ValueError(f"no group body at (nx, nu) = ({nx}, {nu}): the "
+                         f"shape does not split over the group's lanes")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
     back = lambda t: t.movedim(-1, 0).contiguous()
@@ -650,13 +721,16 @@ def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv):
     if X0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
     from .._build import cuda_build
-    fn = cuda_build(_cuda_library(prob))[0].mpc_fused_launch_f32
+    lib = _cuda_library(prob)
+    fn = cuda_build(lib)[0].mpc_fused_launch_f32
     with torch.cuda.device(X0.device):
         stream = torch.cuda.current_stream(X0.device).cuda_stream
         out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
                            fan, adaptive, ltv)
     solve_batch_fused.launches += 1
     solve_batch_fused.mode_launches[_mode(prob)] += 1
+    solve_batch_fused.library_launches[lib] = \
+        solve_batch_fused.library_launches.get(lib, 0) + 1
     return out
 
 
@@ -766,6 +840,8 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
 
 solve_batch_fused.launches = 0
 solve_batch_fused.mode_launches = {"fast": 0, "generic": 0, "ltv": 0}
+# launches by CUDA library (``_cuda_library``: generated ones by name)
+solve_batch_fused.library_launches = {}
 
 
 def solve_batch_fused_plain(prob: ShootingProblem, p: MPCParams,
@@ -793,9 +869,10 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     card.  ``body="thread"``: the one-thread body (``solve_instance``),
     ``body="group"``: the group body (``csrc/fused_sqp_group.cuh``, at the
     step policy's width), each of every policy, whichever the card runs
-    (``card_body``)."""
-    from .._build import cpu_library
-    lib = cpu_library("fused_sqp")
+    (``card_body``); a generated instantiation runs from the problem's
+    own g++ build.  The group body needs a shape that splits over its
+    lanes (NX a multiple of the width, NU at most the width)."""
+    lib = _cpu_library(prob, "fused_sqp")
     name = {"thread": "mpc_fused_solve_cpu", "group":
             "mpc_fused_solve_group_cpu"}[body]
     bits = "f32" if p.x0.dtype == torch.float32 else "f64"
@@ -827,8 +904,7 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     body linearizes by another method (the folded Jacobian): there the
     one-thread body is the arithmetic it replaced, and its minimum is None
     (the function's is ``body="group"``'s)."""
-    from .._build import cpu_library
-    lib = cpu_library("flop_count")
+    lib = _cpu_library(prob, "flop_count")
     counts = torch.zeros(8, dtype=torch.float64)
     group = {"thread": 0, "group": 1}[body]
     fn = lambda *args: lib.mpc_fused_count_ops(*args, group,

@@ -184,27 +184,38 @@ def test_auto_resolves_to_fused_on_cuda(name, integrator):
                                    "cpu") == "fused"
 
 
-def test_resolution_falls_back_for_unfusable():
-    """tests/test_fused_adaptive.py:199-216: an explicit 'fused' for a
-    problem the kernel cannot serve falls back, on the card and off it.
-    Three such problems: dynamics without lanes support, lanes dynamics the
-    kernel has no CUDA form of, and an LTV (nx, nu) it is not built for."""
+def _unfusable_cases():
+    """Three problems the kernel once could not serve: dynamics without
+    lanes support, lanes dynamics the kernel has no hand-written CUDA form
+    of, and an LTV (nx, nu) outside the hand-written instantiations."""
+    mp = ModelParameters("t", num_x=2, num_u=1, step_size=0.01,
+                         num_shooting_nodes=10)
     no_lanes = Dynamics("no_lanes", nx=2, nu=1,
                         f=lambda x, u: torch.stack([x[1], u[0]]),
                         supports_lanes=False)
     unknown = Dynamics("custom", nx=2, nu=1,
                        f=lambda x, u: torch.stack([x[1], u[0]]),
                        supports_lanes=True, nq=1)
-    mp = ModelParameters("t", num_x=2, num_u=1, step_size=0.01,
-                         num_shooting_nodes=10)
     wide = Dynamics("wide", nx=6, nu=3, f=lambda x, u: x,
                     supports_lanes=True)
-    probs = [make_problem(mp, no_lanes), make_problem(mp, unknown),
-             make_problem(ModelParameters("t", num_x=6, num_u=3,
-                                          step_size=0.01,
-                                          num_shooting_nodes=10,
-                                          is_linear=True), wide)]
-    for prob in probs:
+    return {"no_lanes": make_problem(mp, no_lanes),
+            "unknown": make_problem(mp, unknown),
+            "wide": make_problem(ModelParameters(
+                "t", num_x=6, num_u=3, step_size=0.01,
+                num_shooting_nodes=10, is_linear=True), wide)}
+
+
+@pytest.mark.parametrize("case", ["no_lanes", "unknown", "wide"])
+def test_resolution_falls_back_for_unfusable(case):
+    """tests/test_fused_adaptive.py:199-216: an explicit 'fused' for a
+    problem the kernel cannot serve falls back, on the card and off it;
+    that is dynamics without lanes support.  Lanes dynamics the kernel has
+    no hand-written form of (``unknown``) and an LTV shape outside the
+    hand-written four (``wide``) are served, as JAX's rule serves them
+    (``fused.py:173-179``), by instantiations generated at first use: they
+    resolve to the fused kernel on the card."""
+    prob = _unfusable_cases()[case]
+    if case == "no_lanes":
         assert not fused_supported(prob)
         for device in ("cuda", "cpu"):
             assert resolve_warm_solver(SolverOptions(), prob, device) == \
@@ -214,6 +225,13 @@ def test_resolution_falls_back_for_unfusable():
             assert resolve_warm_solver(
                 SolverOptions(warm_solver="fused", fixed_warm_iters=3), prob,
                 device) == "fixed"
+        return
+    assert fused_supported(prob)
+    assert resolve_warm_solver(SolverOptions(), prob, "cuda") == "fused"
+    assert resolve_warm_solver(SolverOptions(), prob, "cpu") == "adaptive"
+    for device in ("cuda", "cpu"):
+        assert resolve_warm_solver(SolverOptions(warm_solver="fused"), prob,
+                                   device) == "fused"
 
 
 def test_import_leaves_jax_out():
