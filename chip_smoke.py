@@ -121,13 +121,20 @@ line each, with the seconds since start in ``t``:
     in closed loop on the arm's Euler plant, started on a sinusoid
     reference (no failure, |q - q_des| < 0.05 rad over the last half), for
     the manifest's fixed-3 and for adaptive warm solves given at load
-    time: the fused kernel's launches rise by one a warm ``calc_u`` and
-    the Riccati kernel's not at all; ``calc_u`` p50 / p99 ms and the cold
+    time: the fused kernel's launches rise by one a warm ``calc_u``, every
+    one on the block body (``solve_batch_fused.body_launches``), and the
+    Riccati kernel's not at all; ``calc_u`` p50 / p99 ms and the cold
     solve's seconds.  Then the B=1 fused warm solve (fixed-3 and adaptive)
     held to its plain version on the same inputs (statuses equal, max|dX|,
-    |dU| <= 1e-4), the group kernel's device ms a launch at B=1 (profiler,
-    50 launches), the plain version's ms, the bound at B=1, and 20
-    ``calc_u`` under the profiler (host against kernel); an LTV
+    |dU| <= 1e-4), the block kernel's device ms a launch at B=1 (profiler,
+    50 launches, by its name, ``card_body``'s), the plain version's ms,
+    the bound at B=1 and the block body's dependency-chain bound (its
+    critical path's operations, ``count_block_path``, x 4 cycles at the
+    SM clock ``nvidia-smi`` reports), 20 ``calc_u`` under the profiler
+    (host against kernel: one block kernel a call) and a warm ``calc_u``
+    split by stage (``calc_u_split``: tensors, params, the batch-innermost
+    copies and ctypes set-up, the kernel, the layout back, the status
+    rules, the copy back; each ended by a synchronisation); an LTV
     ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, B=1 held to
     the plain version, the LTV solve's ms by CUDA events and the group
     kernel's device ms a launch by the profiler, the plain version's ms
@@ -138,9 +145,16 @@ line each, with the seconds since start in ``t``:
     then runtime_default_example, the reference's default example
     (``double_pendulum`` under Euler, dt = 2 ms, N = 25) as
     ``examples/model_generate.py`` and ``model_control.py`` run it: 200
-    ``calc_u`` at B=1, warm p50 / p99 ms, one fused launch a warm call,
-    the B=1 solve held to its plain version, the kernel's device ms, the
-    plain version's ms and the bound at B=1;
+    ``calc_u`` at B=1, warm p50 / p99 ms, one fused launch a warm call
+    (on the block body), the B=1 solve held to its plain version, the
+    block kernel's device ms, the plain version's ms, the bound and the
+    chain bound at B=1, and its ``calc_u`` split by stage; then
+    block_crossover (``block_crossover_phase``): the block body and the
+    group body of both policies at each B of ``CROSSOVER_LADDER`` and at
+    B=1 with N = 100 and 200, fixed-3 and adaptive warm solves held to the
+    plain version, device ms of each body in turns, the body the rule
+    picks, the block kernel's registers, spills, shared memory and blocks
+    an SM;
 15. service_non_lanes — ``BatchModelControl`` over the arm written as a
     per-instance ``Dynamics`` (no lanes support), B=1024: the
     ``solve_batch`` route, 1 cold + 2 warm steps, converged_frac >= 0.9,
@@ -206,21 +220,24 @@ line each, with the seconds since start in ``t``:
     warm ``calc_u`` of ``ModelControl`` through it at B=1, the B=1 solve
     held to its plain version.
 
-Then one line ``{"kernels": [...]}`` (the fused kernel, the Riccati kernel,
+Then one line ``{"kernels": [...]}`` (the fused kernel's group body at
+B=16384, its block body at B=1 (``fused_sqp_block``: launches of every
+warm ``calc_u`` of phase 14, its arm entry's times and bounds, both B=1
+modes and the crossover), the Riccati kernel,
 and one ``fused_sqp_generated:<case>`` entry a phase-23 case, its
 launches those of its service and, for the Van der Pol model, of
 ``ModelControl``) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
-both times (``ms_b1``, ``plain_ms_b1`` at B=1), its bound (``bound_ms``,
-``bound_by``; for the fused kernel also ``body_bound_ms``, the bound of
-its body's own tally, and ``bound_ms_b1``) and ``library_ms`` (null: no
+both times, its bound (``bound_ms``, ``bound_by``; for the fused kernel
+also ``body_bound_ms``, the bound of its body's own tally; for the block
+body ``chain_bound_ms``) and ``library_ms`` (null: no
 single PyTorch call computes either function); the fused kernel's
 ``modes`` give each mode's source, launches, times (``ms`` the wrapper's
 by CUDA events, as earlier runs report it, and ``device_ms`` the kernel's
-by the profiler; the B=1 Euler entry's ``ms`` is the kernel's device
-time, as it has been since it was added), bound and share (``share`` of
+by the profiler; the block body's B=1 entries' ``ms`` are the kernel's
+device time), bound and share (``share`` of
 ``ms``, ``device_share`` of ``device_ms``), and the timed modes also the
 body the card runs and its threads an instance (``card_body``), their
 registers, spills and blocks an SM; then the
@@ -321,10 +338,17 @@ MODEL_MARKS = {"mahi_arm": "ArmModelIfLi4E", "two_link_arm": "ArmModelIfLi2E",
                "acrobot": "16TwoLinkPointMassIfLb0E"}
 
 
+# The fused kernel's entry by the body it runs (``card_body``).
+FUSED_ENTRIES = {"block": "fused_sqp_block_kernel",
+                 "group": "fused_sqp_group_kernel",
+                 "thread": "fused_sqp_kernel"}
+
+
 def fused_instantiation(builds, prob) -> dict:
-    """The kernel the card launches for ``prob`` (``card_body``): its body
-    and threads an instance, its ``-Xptxas -v`` line (registers, spills)
-    from its library's build, and its blocks an SM."""
+    """The kernel the card launches for ``prob`` at full occupancy
+    (``card_body``): its body and threads an instance, its ``-Xptxas -v``
+    line (registers, spills) from its library's build, and its blocks an
+    SM."""
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
                                                  _mode, _model_id, card_body,
                                                  generated_unit)
@@ -338,8 +362,7 @@ def fused_instantiation(builds, prob) -> dict:
         marks = ("6FastNq" if _mode(prob) == "fast" else "7Generic",
                  "3gen5ModelIf" if generated_unit(prob) is not None
                  else MODEL_MARKS[prob.dynamics.name])
-    entry = "22fused_sqp_group_kernel" if body == "group" else \
-        "16fused_sqp_kernel"
+    entry = f"{len(FUSED_ENTRIES[body])}{FUSED_ENTRIES[body]}"
     found = [k for k in ptxas_summary(builds[lib][1])
              if entry in k["kernel"] and all(m in k["kernel"] for m in marks)]
     check(len(found) == 1, f"{lib}: {len(found)} kernels {entry} {marks}")
@@ -812,8 +835,9 @@ def lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule, mp, prob,
                 dp_fused_launches=dp["fused"][0], **bound)
 
 
-def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
-    """(ModelParameters, problem, params) of ``name`` at N=25, dt=2 ms with
+def model_batch(dev, rng, name, B, integrator="euler", is_linear=False,
+                N=N_NODES):
+    """(ModelParameters, problem, params) of ``name`` at N (25), dt=2 ms with
     bench-shaped data: |u| <= 20 for ``mahi_arm`` and 60 otherwise, Q =
     [10]*nq + [1]*nq, R = 0.1, Rm = 0.01, x0 and x_des ~ 0.2 N(0, 1); LTV
     problems frozen at each instance's (x0, u_prev)."""
@@ -832,7 +856,7 @@ def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
     nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
     ulim = 20.0 if name == "mahi_arm" else 60.0
     mp = ModelParameters(f"smoke_{name}", num_x=nx, num_u=nu,
-                         step_size=0.002, num_shooting_nodes=N_NODES,
+                         step_size=0.002, num_shooting_nodes=N,
                          u_min=[-ulim] * nu, u_max=[ulim] * nu,
                          dynamics_name=name, integrator=integrator,
                          is_linear=is_linear)
@@ -846,7 +870,7 @@ def model_batch(dev, rng, name, B, integrator="euler", is_linear=False):
     p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
                     else ex(f) for f in p])
     p = p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
-                   x_des=f32(0.2 * rng.standard_normal((B, N_NODES, nx))))
+                   x_des=f32(0.2 * rng.standard_normal((B, N, nx))))
     if is_linear:
         with strict_fp32():
             A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
@@ -1277,6 +1301,111 @@ def held_b1(mc, p1, kw):
     return err
 
 
+# Cycles an FP32 operation waits for the one it depends on (the dependent
+# issue latency of an FMA on Hopper): the factor of the block body's
+# dependency-chain bound.
+CHAIN_CYCLES = 4
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def chain_bound(prob, p1, X1, U1, opts, mu, kw, clock_mhz) -> dict:
+    """The block body's dependency-chain bound at B=1: the operations of
+    its critical path (``count_block_path``: the busiest thread of each
+    stretch between two block barriers, by g++ on a counting scalar, these
+    inputs) x ``CHAIN_CYCLES`` at the SM clock."""
+    from mahi_mpc_tpu_torch.solver.fused import count_block_path
+
+    path = count_block_path(prob, p1, X1, U1, opts, mu0=mu, **kw)
+    ops = sum(path.values())
+    return dict(chain_ops=ops, chain_ops_by_region=path,
+                chain_bound_ms=ops * CHAIN_CYCLES / (clock_mhz * 1e3),
+                sm_clock_mhz=clock_mhz)
+
+
+def calc_u_split(mc, t, x, u, traj, reps=50) -> dict:
+    """A warm ``mc.calc_u(t, x, u, traj)`` at B=1 split by stage, each
+    stage ended by a device synchronisation (mean ms over ``reps`` calls):
+    the tensors made from the host arrays, the params (``_replace``, the
+    batch of one, ``_solve``'s preparation up to ``_run_library``), the
+    batch-innermost copies and ctypes set-up in ``_run_library``, the
+    kernel, the layout back, the status rules (the rest of ``_solve``), and
+    the copy back to the host; and ``calc_u`` itself (p50 ms, no
+    synchronisation inside).  ``calc_u``'s own steps are done here as it
+    does them; the package is not changed.  Leaves ``mc``'s plan as it
+    was."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch.solver import fused as fused_mod
+
+    sync = torch.cuda.synchronize
+    names = ("tensors", "params", "copies_ctypes", "kernel", "layout_back",
+             "status", "copy_back")
+    acc = dict.fromkeys(names, 0.0)
+    last = [0.0]
+
+    def mark(name):
+        sync()
+        now = time.perf_counter()
+        acc[name] += (now - last[0]) * 1e3
+        last[0] = now
+
+    real = fused_mod._run_library
+
+    def run(fn, stream, *a):
+        mark("params")
+
+        def launch(*args):
+            mark("copies_ctypes")
+            rc = fn(*args)
+            mark("kernel")
+            return rc
+
+        out = real(launch, stream, *a)
+        mark("layout_back")
+        return out
+
+    X0, U0, mu = mc._X0, mc._U0, mc._mu_warm
+    fused_mod._run_library = run
+    try:
+        for _ in range(reps):
+            sync()
+            last[0] = time.perf_counter()
+            x0, u0 = mc._tensor(x), mc._tensor(u)
+            xd = mc._tensor(traj).reshape(mc.params.num_shooting_nodes,
+                                          mc.params.num_x)
+            mark("tensors")
+            p = mc._p._replace(x_des=xd, x0=x0, u_prev=u0)
+            res = mc._solve_warm(p, X0, U0, mu)
+            mark("status")
+            flat = torch.cat([res.X.reshape(-1), res.U.reshape(-1),
+                              torch.stack([res.iters.to(res.X.dtype),
+                                           res.status.to(res.X.dtype),
+                                           res.kkt, res.feas, res.obj])])
+            flat.to("cpu", torch.float64).numpy()
+            mark("copy_back")
+    finally:
+        fused_mod._run_library = real
+    split = {k: v / reps for k, v in acc.items()}
+    plan = mc._plan
+    lat = []
+    for _ in range(reps):
+        mc._X0, mc._U0 = X0, U0
+        lat.append(mc.calc_u(t, x, u, traj).solve_time_s * 1e3)
+    mc._X0, mc._U0, mc._plan = X0, U0, plan
+    return dict(split_ms=split, split_sum_ms=sum(split.values()),
+                calc_u_p50_ms=float(np.percentile(lat, 50)),
+                reps=reps)
+
+
 def closed_loop(mc, plant, x, n_warm, t0=0.0):
     """One cold and ``n_warm`` warm ``calc_u`` of ``mc`` in closed loop on
     ``plant``, one plan step a call: (cold plan, warm plans, final state,
@@ -1297,7 +1426,7 @@ def closed_loop(mc, plant, x, n_warm, t0=0.0):
     return plans[0], plans[1:], x, float(np.max(errs[len(errs) // 2:]))
 
 
-def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
+def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
     """Phase 14, runtime_control: the single-instance runtime of ``mp`` (the
     main path's 4-DOF arm) on the card.  Returns what the kernels line
     reports of the fused kernel at B=1."""
@@ -1311,7 +1440,7 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
     from mahi_mpc_tpu_torch.models import euler_step, make_dynamics
     from mahi_mpc_tpu_torch.runtime import ModelControl, generate_model
     from mahi_mpc_tpu_torch.runtime.native import NativePacer
-    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
@@ -1340,6 +1469,7 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
         def reset():
             solve_batch_fused.launches = 0
             solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+            solve_batch_fused.body_launches.update(thread=0, group=0, block=0)
             solve_lqr_kernel_batch.launches = 0
 
         def counts():
@@ -1360,6 +1490,7 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
             cold, warm, x, err = closed_loop(mc, plant, x_start,
                                              RUNTIME_WARM_CALLS)
             launches, modes, ric = counts()
+            bodies = dict(solve_batch_fused.body_launches)
             lat = np.array([p.solve_time_s for p in warm]) * 1e3
             st = np.array([p.status for p in warm])
             it = np.array([p.iters for p in warm])
@@ -1367,7 +1498,8 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
             line = dict(fixed_warm_iters=k, cold_status=cold.status,
                         cold_iters=cold.iters, cold_s=cold.solve_time_s,
                         warm_calls=len(warm), launches=launches,
-                        launches_fast=modes["fast"], riccati_launches=ric,
+                        launches_fast=modes["fast"], body_launches=bodies,
+                        riccati_launches=ric,
                         calc_u_p50_ms=float(np.percentile(lat, 50)),
                         calc_u_p99_ms=float(np.percentile(lat, 99)),
                         calc_u_mean_ms=float(lat.mean()),
@@ -1378,9 +1510,11 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
                         final_state_finite=bool(np.isfinite(x).all()))
             emit(phase="runtime_control", generate_s=gen_s, **line)
             check(cold.status == 0, f"cold calc_u status {cold.status}")
-            check(launches == len(warm) == modes["fast"] and ric == 0,
-                  f"{launches} fused launches ({modes}), {ric} Riccati, for "
-                  f"{len(warm)} warm calc_u")
+            check(launches == len(warm) == modes["fast"] == bodies["block"]
+                  and ric == 0,
+                  f"{launches} fused launches ({modes}, {bodies}), {ric} "
+                  f"Riccati, for {len(warm)} warm calc_u: every one on the "
+                  f"block body")
             check(summ["failures"] == 0 and bool((st != 2).all())
                   and np.isfinite(x).all() and err < TRACK_BAND,
                   f"runtime closed loop {line}")
@@ -1401,35 +1535,48 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
         warm1 = lambda solve: solve(mc.problem, p1, X1, U1, mc.opts,
                                     mu0=mu, n_iter=3)
         reps = 50
+        body = card_body(mc.problem, 1)
+        kernel = FUSED_ENTRIES[body[0]]
+        check(body[0] == "block", f"B=1 arm on {body}")
         prof = profile_step(lambda: [warm1(solve_batch_fused)
-                                     for _ in range(reps)],
-                            "fused_sqp_group_kernel")
+                                     for _ in range(reps)], kernel)
         check(prof["kernel_count"] == reps,
-              f"{prof['kernel_count']} group kernel launches for {reps}")
+              f"{prof['kernel_count']} {kernel} launches for {reps}")
         kernel_ms = prof["kernel_device_ms"] / prof["kernel_count"]
         _, wrapper_ms = timed(lambda: warm1(solve_batch_fused), reps)
         _, plain_ms = timed(lambda: warm1(solve_batch_fused_plain), 3)
+        ref_last = arm_reference(mp, t_last)
         prof_calc = profile_step(
-            lambda: [mc.calc_u(t_last, x_next, u_last,
-                               arm_reference(mp, t_last))
-                     for _ in range(20)], "fused_sqp_group_kernel")
+            lambda: [mc.calc_u(t_last, x_next, u_last, ref_last)
+                     for _ in range(20)], kernel)
+        check(prof_calc["kernel_count"] == 20,
+              f"{prof_calc['kernel_count']} {kernel} launches for 20 "
+              f"calc_u")
+        split = calc_u_split(mc, t_last, x_next, u_last, ref_last)
         ops = count_fused_ops(mc.problem, p1, X1, U1, mc.opts, mu0=mu,
                               n_iter=3)
         bound = bound_ms(sum(ops["minimum"].values()),
                          fused_io_bytes(p1, X1, U1, 1))
+        chain = chain_bound(mc.problem, p1, X1, U1, mc.opts, mu,
+                            dict(n_iter=3), clock_mhz)
         out.update(ms_b1=kernel_ms, plain_ms_b1=plain_ms,
                    max_abs_err_b1=max(b1.values()),
                    bound_ms_b1=bound["bound_ms"],
-                   bound_by_b1=bound["bound_by"])
-        emit(phase="runtime_fused_b1", max_abs_dxu_fixed3=b1["fixed3"],
+                   bound_by_b1=bound["bound_by"],
+                   chain_bound_ms_b1=chain["chain_bound_ms"],
+                   card_body_b1=list(body))
+        emit(phase="runtime_fused_b1", card_body=list(body), kernel=kernel,
+             max_abs_dxu_fixed3=b1["fixed3"],
              max_abs_dxu_adaptive=b1["adaptive"], kernel_device_ms=kernel_ms,
              wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], **chain,
              calc_u_p50_ms=line["calc_u_p50_ms"],
              kernel_share_of_calc_u_p50=kernel_ms / line["calc_u_p50_ms"],
              calc_u_profiled={k: prof_calc[k] for k in (
                  "wall_ms", "device_ms", "kernel_device_ms", "kernel_count",
                  "device_busy_share", "top_kernels")})
+        emit(phase="calc_u_split", model="mahi_arm", fixed_warm_iters=3,
+             **split)
 
         # -- the LTV flavour: a generated LTV model, cold + warm closed loop
         lmp = dataclasses.replace(mp, name=mp.name + "_ltv", is_linear=True)
@@ -1542,14 +1689,18 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed) -> dict:
               and tmc._calc_thread is None,
               f"solver thread: {summ}, {launches} launches")
         out["thread_launches"] = launches
-        out["launches"] = (runs[3][1]["launches"] + runs[0][1]["launches"]
-                           + out["ltv_launches"] + launches)
+        check(solve_batch_fused.body_launches["block"] == launches,
+              f"solver thread: {solve_batch_fused.body_launches} for "
+              f"{launches} launches")
+        out["block_launches"] = (runs[3][1]["launches"]
+                                 + runs[0][1]["launches"] + launches)
+        out["launches"] = out["block_launches"] + out["ltv_launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
-def runtime_default_example(dev, timed) -> dict:
+def runtime_default_example(dev, timed, clock_mhz) -> dict:
     """Phase 14b, runtime_default_example: the reference's default example
     as a user runs it, ``examples/model_generate.py`` at its defaults
     (``double_pendulum``, Euler, dt = 2 ms, N = 25, no control bounds)
@@ -1597,6 +1748,7 @@ def runtime_default_example(dev, timed) -> dict:
         plans = []
         solve_batch_fused.launches = 0
         solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
+        solve_batch_fused.body_launches.update(thread=0, group=0, block=0)
         for k in range(5 * DEFAULT_EXAMPLE_CALLS):
             t = k * mp.step_size
             if k % 5 == 0:
@@ -1606,11 +1758,13 @@ def runtime_default_example(dev, timed) -> dict:
             x = plant(x, u)
         launches = solve_batch_fused.launches
         fast = solve_batch_fused.mode_launches["fast"]
+        block = solve_batch_fused.body_launches["block"]
         warm = plans[1:]
         lat = np.array([p.solve_time_s for p in warm]) * 1e3
         st = np.array([p.status for p in warm])
-        body = card_body(mc.problem)
+        body = card_body(mc.problem, 1)
         line = dict(generate_s=gen_s, card_body=list(body),
+                    block_launches=block,
                     cold_status=plans[0].status, cold_iters=plans[0].iters,
                     cold_s=plans[0].solve_time_s, warm_calls=len(warm),
                     launches=launches, launches_fast=fast,
@@ -1622,6 +1776,7 @@ def runtime_default_example(dev, timed) -> dict:
                     failures=mc.stats.summary()["failures"],
                     final_state=x.tolist())
         check(plans[0].status == 0 and launches == fast == len(warm)
+              == block and body[0] == "block"
               and line["failures"] == 0 and bool((st != 2).all())
               and bool(np.isfinite(x).all()),
               f"default example: {line}")
@@ -1633,8 +1788,7 @@ def runtime_default_example(dev, timed) -> dict:
         X1, U1 = mc._X0[None], mc._U0[None]
         warm1 = lambda solve: solve(mc.problem, p1, X1, U1, mc.opts,
                                     mu0=mc._mu_warm, adaptive=True)
-        kernel = "fused_sqp_group_kernel" if body[0] == "group" else \
-            "fused_sqp_kernel"
+        kernel = FUSED_ENTRIES[body[0]]
         ref = model_control.reference_traj(mp, t_last)
         prof = profile_step(lambda: [mc.calc_u(t_last, x1, u1, ref)
                                      for _ in range(20)], kernel)
@@ -1643,13 +1797,19 @@ def runtime_default_example(dev, timed) -> dict:
               f"for 20 calc_u: {prof['top_kernels']}")
         kernel_ms = prof["kernel_device_ms"] / prof["kernel_count"]
         _, plain_ms = timed(lambda: warm1(solve_batch_fused_plain), 3)
+        # the block body computes the group body's function: its minimum
         ops = count_fused_ops(mc.problem, p1, X1, U1, mc.opts,
-                              mu0=mc._mu_warm, adaptive=True, body=body[0])
+                              mu0=mc._mu_warm, adaptive=True, body="group")
         bound = bound_ms(sum(ops["minimum"].values()),
                          fused_io_bytes(p1, X1, U1, 1))
+        chain = chain_bound(mc.problem, p1, X1, U1, mc.opts, mc._mu_warm,
+                            dict(adaptive=True), clock_mhz)
+        split = calc_u_split(mc, t_last, x1, u1, ref)
+        emit(phase="calc_u_split", model="double_pendulum", adaptive=True,
+             **split)
         line.update(max_abs_dxu_b1=err, kernel_device_ms=kernel_ms,
                     plain_ms=plain_ms, bound_ms=bound["bound_ms"],
-                    bound_by=bound["bound_by"],
+                    bound_by=bound["bound_by"], **chain,
                     kernel_share_of_calc_u_p50=kernel_ms
                     / line["calc_u_p50_ms"],
                     kernel=prof["top_kernels"][0][0])
@@ -1657,17 +1817,167 @@ def runtime_default_example(dev, timed) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(
-        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh"
-        if body[0] == "group"
-        else "mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
         library="mahi_mpc_tpu_torch/csrc/fused_sqp_models.cu",
         case="ModelControl double_pendulum Euler (the reference's default "
              f"example), B=1: {len(warm)} adaptive warm calc_u",
         card_body=list(body), launches=launches, max_abs_err=err,
         ms=kernel_ms, device_ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        chain_bound_ms=chain["chain_bound_ms"],
         calc_u_p50_ms=line["calc_u_p50_ms"],
-        calc_u_p99_ms=line["calc_u_p99_ms"])
+        calc_u_p99_ms=line["calc_u_p99_ms"],
+        calc_u_split_ms=split["split_ms"])
+
+
+# Phase 14c's batches: the ladder at which the block body and the group body
+# of the two small-batch policies are timed against each other (one SM, two,
+# a few, a quarter of the card, one and two waves of one block an SM, the
+# double pendulum's and the arm's thresholds, three and five waves, and
+# past them), and the horizons held at B=1 beyond N=25.
+CROSSOVER_LADDER = (1, 2, 8, 32, 132, 264, 396, 660, 1024)
+BLOCK_MODELS = ("mahi_arm", "double_pendulum")      # under Euler
+LONG_HORIZONS = (100, 200)
+
+
+def kernel_event_ms(call, reps=20) -> float:
+    """Device ms of one launch of the fused kernel that ``call()`` launches
+    once: inside that call, with its arguments ready, the launch is
+    repeated ``reps`` times back to back between two CUDA events on its
+    stream (each repeat reads the same inputs and writes the same
+    outputs), after one warm-up, then made once more as the call's own.
+    The host's preparation around the launch is not in the time, so small
+    batches are timed as the kernel runs, not as the host feeds it."""
+    import torch
+
+    from mahi_mpc_tpu_torch.solver import fused as fused_mod
+
+    real, got = fused_mod._run_library, []
+
+    def run(fn, stream, *a):
+        def timed(*args):
+            fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            got.append(start.elapsed_time(end) / reps)
+            return fn(*args)
+
+        return real(timed, stream, *a)
+
+    fused_mod._run_library = run
+    try:
+        call()
+    finally:
+        fused_mod._run_library = real
+    check(len(got) == 1, f"{len(got)} launches timed in one call")
+    return got[0]
+
+
+def block_kernel_info(builds, prob, N) -> dict:
+    """The block body's kernel for ``prob`` at horizon N: its ``-Xptxas
+    -v`` line (registers, spills), dynamic shared memory bytes and blocks
+    an SM."""
+    import ctypes
+
+    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
+                                                 _model_id)
+    lib = _cuda_library(prob)
+    found = [k for k in ptxas_summary(builds[lib][1])
+             if "22fused_sqp_block_kernel" in k["kernel"]
+             and MODEL_MARKS[prob.dynamics.name] in k["kernel"]]
+    check(len(found) == 1, f"{lib}: {len(found)} block kernels for "
+          f"{prob.dynamics.name}")
+    out = (ctypes.c_int * 2)()
+    rc = builds[lib][0].mpc_fused_block_info(
+        _model_id(prob)[0], prob.nx, prob.nu,
+        INTEGRATORS.index(prob.integrator), int(prob.is_linear), N, out)
+    check(rc == 0 and out[0] > 0, f"{lib} block kernel at N={N}: rc {rc}, "
+          f"{out[0]} blocks an SM")
+    return dict(registers=found[0]["registers"],
+                spill_store_bytes=found[0]["spill_store_bytes"],
+                spill_load_bytes=found[0]["spill_load_bytes"],
+                smem_bytes=out[1], blocks_per_sm=out[0])
+
+
+def block_crossover_phase(dev, builds) -> list:
+    """Phase 14c, block_crossover: the block body
+    (``csrc/fused_sqp_block.cuh``) of ``FastNq<ArmModel<4>>`` and
+    ``FastNq<DoublePendulum>`` (Euler, bench-shaped data of ``model_batch``)
+    at each B of ``CROSSOVER_LADDER`` (N=25) and at B=1 with N of
+    ``LONG_HORIZONS``: from the rule's adaptive cold plan, a fixed-3 and an
+    adaptive warm solve at x0 + 0.01 by each body
+    (``solve_batch_fused_body``) held to the plain version on the same
+    inputs (max |dX|, |dU| <= 1e-4; statuses equal on every instance at
+    B=1, on >= 99 % above), then each body's device ms a fixed-3 launch
+    (``kernel_event_ms``, in turns group, block, block, group), the body
+    the launcher's rule picks (``card_body``: it must not be more than 5 %
+    slower than the other), and each model's block kernel (registers,
+    spills, shared memory and blocks an SM at each N).  Returns the
+    lines."""
+    import numpy as np
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.solver.fused import (card_body,
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_body,
+                                                 solve_batch_fused_plain)
+
+    opts = SolverOptions(tol=1e-4, max_iter=12)
+    opts_cold = SolverOptions(tol=1e-4, max_iter=30)
+    mu_warm = opts.warm_mu_factor * opts.tol
+    lines = []
+    for name in BLOCK_MODELS:
+        cases = [(N_NODES, B) for B in CROSSOVER_LADDER] + \
+            [(N, 1) for N in LONG_HORIZONS]
+        for N, B in cases:
+            _, prob, p = model_batch(dev, np.random.default_rng(0), name, B,
+                                     N=N)
+            cold = solve_batch_fused(prob, p, None, None, opts_cold,
+                                     mu0=opts_cold.mu_init, adaptive=True)
+            pw = p._replace(x0=p.x0 + 0.01)
+            line = dict(phase="block_crossover", model=name, batch=B, N=N,
+                        rule=list(card_body(prob, B)))
+            for mode, kw in (("fixed3", dict(n_iter=3)),
+                             ("adaptive", dict(adaptive=True))):
+                rp = solve_batch_fused_plain(prob, pw, cold.X, cold.U, opts,
+                                             mu0=mu_warm, **kw)
+                for body in ("group", "block"):
+                    rk = solve_batch_fused_body(prob, pw, cold.X, cold.U,
+                                                opts, mu0=mu_warm, body=body,
+                                                **kw)
+                    err = max((rk.X - rp.X).abs().max().item(),
+                              (rk.U - rp.U).abs().max().item())
+                    same = (rk.status == rp.status).float().mean().item()
+                    line[f"{body}_{mode}_max_abs_dxu"] = err
+                    line[f"{body}_{mode}_status_agree"] = same
+                    check(err <= 1e-4 and (same == 1.0 if B == 1
+                                           else same >= 0.99),
+                          f"{name} B={B} N={N} {body} {mode}: max|dX|,|dU| "
+                          f"{err}, statuses agree on {same}")
+            ms = {"group": [], "block": []}
+            for body in ("group", "block", "block", "group"):
+                ms[body].append(kernel_event_ms(
+                    lambda: solve_batch_fused_body(
+                        prob, pw, cold.X, cold.U, opts, mu0=mu_warm,
+                        n_iter=3, body=body)))
+            ratio = sum(ms["block"]) / sum(ms["group"])
+            line.update(group_device_ms=ms["group"],
+                        block_device_ms=ms["block"], block_over_group=ratio)
+            # the rule's body is the faster one (a tie within 5 % passes:
+            # the arm's sixth wave at B=792 ties on the H100)
+            picked = ratio if line["rule"][0] == "block" else 1 / ratio
+            check(picked <= 1.05, f"{name} B={B} N={N}: the rule picks "
+                  f"{line['rule']}, {picked:.3f}x the other body's time")
+            if B == 1:
+                line["block_kernel"] = block_kernel_info(builds, prob, N)
+            emit(**line)
+            lines.append(line)
+    return lines
 
 
 def service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng) -> None:
@@ -2939,18 +3249,12 @@ def main() -> int:
         adaptive_cold_bound_ms=cold_bound["bound_ms"]))
     launches += sum(m.get("launches", 0) for m in modes[1:])
 
-    b1 = runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed)
-    launches += b1["launches"]
-    default_example = runtime_default_example(dev, timed)
-    launches += default_example["launches"]
-    modes.append(dict(
-        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
-        case="ModelControl mahi_arm Euler, B=1: 200 fixed-3 and 200 "
-             "adaptive warm calc_u, the solver thread",
-        launches=b1["launches"] - b1["ltv_launches"],
-        max_abs_err=b1["max_abs_err_b1"], ms=b1["ms_b1"],
-        device_ms=b1["ms_b1"], plain_ms=b1["plain_ms_b1"],
-        bound_ms=b1["bound_ms_b1"]))
+    clock_mhz = sm_clock_mhz()
+    b1 = runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz)
+    launches += b1["ltv_launches"]
+    default_example = runtime_default_example(dev, timed, clock_mhz)
+    block_launches = b1["block_launches"] + default_example["launches"]
+    check(block_launches > 0, "the main path launched no block kernel")
     modes.append(dict(
         mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
         library="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
@@ -2962,7 +3266,17 @@ def main() -> int:
         bound_by=b1["ltv_bound_by_b1"],
         share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
         device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"]))
-    modes.append(default_example)
+    block_modes = [dict(
+        mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
+        library="mahi_mpc_tpu_torch/csrc/fused_sqp.cu",
+        case="ModelControl mahi_arm Euler, B=1: 200 fixed-3 and 200 "
+             "adaptive warm calc_u, the solver thread",
+        card_body=b1["card_body_b1"], launches=b1["block_launches"],
+        max_abs_err=b1["max_abs_err_b1"], ms=b1["ms_b1"],
+        device_ms=b1["ms_b1"], plain_ms=b1["plain_ms_b1"],
+        bound_ms=b1["bound_ms_b1"], bound_by=b1["bound_by_b1"],
+        chain_bound_ms=b1["chain_bound_ms_b1"]), default_example]
+    crossover = block_crossover_phase(dev, builds)
     service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
     traj = trajgen_phase(dev)
     scenario_launches = batch_scenarios_phase(dev)
@@ -2976,6 +3290,7 @@ def main() -> int:
     generated = generated_phase(dev, rng, timed, builds, gen_libs)
 
     emit(phase="done")
+    arm_b1 = block_modes[0]
     print(json.dumps({"kernels": [{
         "name": "fused_sqp",
         "route": "cuda",
@@ -2992,15 +3307,29 @@ def main() -> int:
         "batch": SERVICE_BATCH,
         "mode": "fixed-3 warm, mahi_arm Euler (group body, nq-row path)",
         "adaptive_cold_max_abs_du_vs_f64": du_k64.max().item(),
-        "ms_b1": b1["ms_b1"],
-        "plain_ms_b1": b1["plain_ms_b1"],
-        "max_abs_err_b1": b1["max_abs_err_b1"],
-        "bound_ms_b1": b1["bound_ms_b1"],
         "batch_scenarios_launches": scenario_launches,
         "sharded_service_launches": sharded["launches"],
         "sharded_service_ms_median": sharded["ms_median"],
         "distributed_child_launches": dist["launches"],
         "modes": modes}, {
+        "name": "fused_sqp_block",
+        "route": "cuda",
+        "source": "mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
+        "replaces": "mahi_mpc_tpu/solver/fused.py:186",
+        "launches": block_launches,
+        "max_abs_err": max(m["max_abs_err"] for m in block_modes),
+        "ms": arm_b1["device_ms"],
+        "plain_ms": arm_b1["plain_ms"],
+        "bound_ms": arm_b1["bound_ms"],
+        "bound_by": arm_b1["bound_by"],
+        "library_ms": None,
+        "chain_bound_ms": arm_b1["chain_bound_ms"],
+        "batch": 1,
+        "mode": "fixed-3 warm, mahi_arm Euler at B=1 (block body)",
+        "modes": block_modes,
+        "crossover": [{k: c[k] for k in (
+            "model", "batch", "N", "rule", "group_device_ms",
+            "block_device_ms")} for c in crossover]}, {
         "name": "riccati",
         "route": "cuda",
         "source": "mahi_mpc_tpu_torch/csrc/riccati.cu",

@@ -15,13 +15,15 @@ named by a hash of that source.  Nothing is built or loaded at import.
 The libraries:
 
 - ``fused_sqp`` (``csrc/fused_sqp.cu``): the fused SQP solve for the
-  serial arms under Euler (the group body, four threads an instance);
+  serial arms under Euler (the group body, four threads an instance; the
+  4-DOF arm at small batch on the block body, a block an instance);
 - ``fused_sqp_generic`` (``csrc/fused_sqp_generic.cu``): the same kernel
   for the serial arms under midpoint and RK4 (the generic nx-row path, the
   group body);
 - ``fused_sqp_models`` (``csrc/fused_sqp_models.cu``): the same kernel for
   the closed-form models, every integrator (the group body on two lanes
-  or one thread an instance, by shape: ``GroupBody``);
+  or one thread an instance, by shape: ``GroupBody``; the double pendulum
+  under Euler at small batch on the block body: ``BlockBody``);
 - ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
   mode (the group body at (8, 4); one thread at (4, 2), (4, 1), (2, 1));
 - ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve (a
@@ -74,10 +76,14 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 
 # The fused kernel's C interface: B, N, model, nx, nu, pointers, scalars,
-# ints, fan rungs, model constants (and the stream on the card).
+# ints, fan rungs, model constants (and on the card the stream, the body to
+# launch, -1 for the launcher's rule, and where it writes the body it
+# launched).
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
-_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p],
+_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
+                                                        _c_void_p],
+                 "mpc_fused_block_info": [_c_int] * 6 + [_c_void_p],
                  "mpc_fused_blocks_per_sm": [_c_int] * 5}
 _ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
@@ -102,6 +108,8 @@ CPU_LIBRARIES = {
         "mpc_fused_solve_cpu_f64": _FUSED_ARGS,
         "mpc_fused_solve_group_cpu_f32": _FUSED_ARGS,
         "mpc_fused_solve_group_cpu_f64": _FUSED_ARGS,
+        "mpc_fused_solve_block_cpu_f32": _FUSED_ARGS,
+        "mpc_fused_solve_block_cpu_f64": _FUSED_ARGS,
         **{f"mpc_arm_{kind}_cpu_{bits}": _ARM_EVAL + [real] + [_c_void_p] * 3
            for kind in ("eval", "fold")
            for bits, real in (("f32", ctypes.c_float),
@@ -123,7 +131,8 @@ CPU_LIBRARIES = {
     }),
     "flop_count": ("flop_count.cpp", {
         "mpc_fused_count_ops": _FUSED_ARGS + [_c_int, _c_void_p],
-        "mpc_fused_card_body": [_c_int] * 5,
+        "mpc_fused_count_path": _FUSED_ARGS + [_c_void_p],
+        "mpc_fused_card_body": [_c_int] * 5 + [_c_ll, _c_int, _c_void_p],
     }),
 }
 

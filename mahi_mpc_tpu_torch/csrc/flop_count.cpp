@@ -14,7 +14,10 @@
 // are not counted.  A generated build includes it after its step policy,
 // with MPC_GENERATED defined, to count that policy (solver/fused.py
 // `generated_unit`).
-#include "fused_sqp_group.cuh"
+#include <algorithm>
+#include <vector>
+
+#include "fused_sqp_block.cuh"
 
 #if !defined(MPC_CPU_FAMILIES)
 #if defined(MPC_GENERATED)
@@ -227,6 +230,68 @@ OpCount group_repeats(const Step& step, const FusedArgs<Flop>& a,
   return tally;
 }
 
+// The block body's critical path: the operations of the busiest thread of
+// each stretch between two block barriers, summed over the stretches (the
+// threads of a stretch run at once; one stretch waits for the one before).
+// `PathBlock` stands in for `Block` on the host: `each` runs the tasks one
+// after another and keeps the largest task's count, `PathLanes` the group's
+// lanes and keeps the largest lane's count, summed over the group's phases
+// (each waits at the group barrier for the one before), and `on` counts its
+// thread's work; a stretch's path is the largest of the three (they run on
+// different threads at once), added to its region's tally at the barrier.
+struct PathTally {
+  double each = 0, lanes = 0, on = 0, region[kRegions] = {};
+};
+static PathTally g_path;
+
+inline double total(const OpCount& c) {
+  return c.add + c.mul + c.div_sqrt + c.transcendental;
+}
+
+template <int W_>
+struct PathLanes {
+  static constexpr int W = W_, kHostLanes = W;
+  template <typename F>
+  void phase(const F& f) const {
+    double most = 0;
+    for (int l = 0; l < W; ++l) {
+      const double before = total(g_ops);
+      f(l);
+      most = std::max(most, total(g_ops) - before);
+    }
+    g_path.lanes += most;
+  }
+  static int slot(int l) { return l; }
+};
+
+struct PathBlock {
+  template <int W> using Lanes = PathLanes<W>;
+  template <typename F>
+  void each(int n, const F& f) const {
+    double most = 0;
+    for (int i = 0; i < n; ++i) {
+      const double before = total(g_ops);
+      f(i);
+      most = std::max(most, total(g_ops) - before);
+    }
+    g_path.each += most;
+  }
+  void sync(Region r) const {
+    g_path.region[r] += std::max(g_path.each, std::max(g_path.lanes,
+                                                       g_path.on));
+    g_path.each = g_path.lanes = g_path.on = 0;
+  }
+  template <typename F>
+  void on(int, const F& f) const {
+    const double before = total(g_ops);
+    f();
+    g_path.on += total(g_ops) - before;
+  }
+  bool group(int) const { return true; }
+  template <int W>
+  PathLanes<W> lanes() const { return PathLanes<W>{}; }
+};
+
 }  // namespace mpc
 
 extern "C" {
@@ -289,20 +354,52 @@ int mpc_fused_count_ops(long long B, int N, int model, int nx, int nu,
   return rc;
 }
 
+// The block body's critical path for each instance given (the fused
+// kernel's arguments, every array float64), by region (`mpc::Region`):
+// adds to path[r] the operations of the busiest thread of each stretch of
+// region r (`PathBlock`), summed over the instances.  -4 when the policy
+// has no block body, -1 no instantiation.
+int mpc_fused_count_path(long long B, int N, int model, int nx, int nu,
+                         void* const* ptrs, const double* scal,
+                         const int* ints, const double* fan,
+                         const double* consts, double* path) {
+  using mpc::Flop;
+  const mpc::FusedArgs<Flop> a = mpc::make_args<Flop>(
+      B, N, ptrs, reinterpret_cast<const Flop*>(scal), ints,
+      reinterpret_cast<const Flop*>(fan));
+  mpc::g_path = mpc::PathTally();
+  const int rc = mpc::dispatch<Flop, MPC_CPU_FAMILIES>(
+      a, model, nx, nu, consts, [&](const auto& step) -> int {
+        typedef std::decay_t<decltype(step)> Step;
+        if constexpr (!mpc::BlockBody<Step>::value) {
+          return -4;
+        } else {
+          std::vector<Flop> sh(mpc::BlockLayout<Flop, Step>(N).end,
+                               Flop(0.0));
+          for (long long b = 0; b < B; ++b)
+            mpc::solve_block<Flop>(a, step, b, mpc::PathBlock{}, sh.data());
+          return 0;
+        }
+      });
+  for (int r = 0; r < mpc::kRegions; ++r) path[r] += mpc::g_path.region[r];
+  return rc;
+}
+
 // The body the card runs for (model, nx, nu) under integrator `integ` and
-// LTV flag `ltv`, as the launcher picks it (`GroupBody`), as its threads an
-// instance: the group body's width W (4 or 2), 1 for the one-thread body,
-// -1 no instantiation (solver/fused.py `card_body`).
-int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv) {
+// LTV flag `ltv`, B instances at horizon N, as the launcher's rule picks it
+// (`mpc::card_body`): 0 one thread an instance, 1 the group body, 2 the
+// block body, -1 no instantiation; its threads an instance in `threads`
+// (solver/fused.py `card_body`).
+int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv,
+                        long long B, int N, int* threads) {
   mpc::FusedArgs<mpc::Flop> a{};
   a.integ = integ;
   a.ltv = ltv;
   static const double consts[256] = {};   // the model's constants: unused
   return mpc::dispatch<mpc::Flop, MPC_CPU_FAMILIES>(
-      a, model, nx, nu, consts, [](const auto& step) -> int {
+      a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef std::decay_t<decltype(step)> Step;
-        return mpc::GroupBody<Step>::value ? mpc::GroupStep<mpc::Flop, Step>::W
-                                           : 1;
+        return mpc::card_body<Step>(B, N, threads);
       });
 }
 

@@ -1,14 +1,18 @@
 // The fused kernel's bodies built for the CPU, for the tests only: the same
-// fused_sqp.cuh (one thread an instance) and fused_sqp_group.cuh (the W
-// lanes of an instance run one after another) that nvcc compiles for the
-// card, each for every instantiation family, looped over instances and
-// built for float and double.  Built with
+// fused_sqp.cuh (one thread an instance), fused_sqp_group.cuh (the W lanes
+// of an instance run one after another) and fused_sqp_block.cuh (the
+// block's threads run one after another, phase by phase) that nvcc
+// compiles for the card, each for every instantiation family that has it,
+// looped over instances and built for float and double.  Built with
 // `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
 // package's main path never loads it.  A generated build (solver/fused.py
 // `generated_unit`) includes this file after its step policy with
 // MPC_GENERATED defined: it then holds that policy alone (and, with
 // MPC_GENERATED_MODEL, evaluates its model under model id kGeneratedModel).
-#include "fused_sqp_group.cuh"
+#include <limits>
+#include <vector>
+
+#include "fused_sqp_block.cuh"
 
 #if defined(MPC_GENERATED)
 #define MPC_CPU_FAMILIES mpc::kGenerated
@@ -54,6 +58,39 @@ int solve_group(long long B, int N, int model, int nx, int nu,
             mpc::solve_group<S>(a, step, b, mpc::Group<GS::W>{0, 0u}, tile);
           for (int e = kSize; e < kSize + kGuard; ++e)
             if (!(tile[e] == mark)) return -2;
+          return 0;
+        }
+      });
+}
+
+// The block body of a policy `BlockBody` names.  Every instance starts from
+// a buffer of NaN standing in for the block's shared memory, so a value
+// read before the body writes it shows in the outputs; guard entries
+// follow it (-2 if a write reached one).  -4 when the policy has no block
+// body.
+template <typename S>
+int solve_block(long long B, int N, int model, int nx, int nu,
+                void* const* ptrs, const S* scal, const int* ints,
+                const S* fan, const double* c) {
+  const mpc::FusedArgs<S> a = mpc::make_args<S>(B, N, ptrs, scal, ints, fan);
+  return mpc::dispatch<S, MPC_CPU_FAMILIES>(
+      a, model, nx, nu, c, [&](const auto& step) -> int {
+        typedef std::decay_t<decltype(step)> Step;
+        if constexpr (!mpc::BlockBody<Step>::value) {
+          return -4;
+        } else {
+          const int n = mpc::BlockLayout<S, Step>(N).end, kGuard = 64;
+          const S mark = S(-1234.5);
+          std::vector<S> sh(n + kGuard, mark);
+          for (long long b = 0; b < B; ++b) {
+            for (int e = 0; e < n; ++e)
+              sh[e] = std::numeric_limits<S>::quiet_NaN();
+            mpc::solve_block<S>(a, step, b,
+                                mpc::Block<mpc::kBlockThreads>{0},
+                                sh.data());
+          }
+          for (int e = n; e < n + kGuard; ++e)
+            if (!(sh[e] == mark)) return -2;
           return 0;
         }
       });
@@ -248,6 +285,22 @@ int mpc_fused_solve_group_cpu_f64(long long B, int N, int model, int nx,
                                   const double* scal, const int* ints,
                                   const double* fan, const double* consts) {
   return solve_group<double>(B, N, model, nx, nu, ptrs, scal, ints, fan,
+                             consts);
+}
+
+int mpc_fused_solve_block_cpu_f32(long long B, int N, int model, int nx,
+                                  int nu, void* const* ptrs,
+                                  const float* scal, const int* ints,
+                                  const float* fan, const double* consts) {
+  return solve_block<float>(B, N, model, nx, nu, ptrs, scal, ints, fan,
+                            consts);
+}
+
+int mpc_fused_solve_block_cpu_f64(long long B, int N, int model, int nx,
+                                  int nu, void* const* ptrs,
+                                  const double* scal, const int* ints,
+                                  const double* fan, const double* consts) {
+  return solve_block<double>(B, N, model, nx, nu, ptrs, scal, ints, fan,
                              consts);
 }
 

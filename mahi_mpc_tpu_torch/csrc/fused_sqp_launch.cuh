@@ -19,17 +19,27 @@
 // G, Jacobian rows J, defects ck: 13.7 KB at nx=8, nu=4, N=25 on the Euler
 // path, 18.5 KB on the generic one) through global memory, batch-innermost,
 // three times an iteration (~0.6 ms of HBM time a fixed-3 solve at
-// B=16384), far below the arithmetic.  Two bodies:
+// B=16384), far below the arithmetic.  Three bodies, picked by the rule
+// `mpc::card_body` (fused_sqp_block.cuh) from the policy, B and N:
 //
+// - the block body (fused_sqp_block.cuh), at small batch for the policies
+//   `BlockBody` names (`FastNq<ArmModel<4>>` in `fused_sqp`,
+//   `FastNq<DoublePendulum>` in `fused_sqp_models`), where B is at most
+//   the policy's kMaxBatch and the instance fits in a block's shared
+//   memory: one instance a block of 256 threads, one block an SM.  At
+//   B=1 one group of the group body runs its stages one after another on
+//   one SM with nothing to hide its latencies (2.90 ms for the arm); the
+//   block runs what does not depend on the previous stage across its
+//   threads (0.52 ms, PERF.md §6);
 // - the group body (fused_sqp_group.cuh), for the policies `GroupBody`
-//   names: W threads an instance, the Riccati step split over the group on
-//   a shared-memory tile, the line-search rungs in parallel, 128 / W
-//   instances a 128-thread block.  Four lanes for the serial arms under
-//   every integrator (libraries `fused_sqp`, the main path, and
-//   `fused_sqp_generic`) and LTV at (8, 4) (`fused_sqp_ltv`), two blocks
-//   an SM (255 registers a thread, ~no spills on the Euler arm: at four
-//   blocks an SM, 128 registers, the dual-number pass spilled ~1.7 KB a
-//   thread and a fixed-3 solve took 19 % longer on the H100, PERF.md).
+//   names at every other (B, N): W threads an instance, the Riccati step
+//   split over the group on a shared-memory tile, the line-search rungs in
+//   parallel, 128 / W instances a 128-thread block.  Four lanes for the
+//   serial arms under every integrator (libraries `fused_sqp`, the main
+//   path, and `fused_sqp_generic`) and LTV at (8, 4) (`fused_sqp_ltv`), two
+//   blocks an SM (255 registers a thread, ~no spills on the Euler arm: at
+//   four blocks an SM, 128 registers, the dual-number pass spilled ~1.7 KB
+//   a thread and a fixed-3 solve took 19 % longer on the H100, PERF.md).
 //   Two lanes for the closed forms under midpoint and RK4 but the pendulum,
 //   and the double pendulum under Euler (`fused_sqp_models`): 64 instances
 //   a block, 256 blocks at B=16384, one wave at three blocks an SM (150-160
@@ -49,7 +59,7 @@
 
 #include <cuda_runtime.h>
 
-#include "fused_sqp_group.cuh"
+#include "fused_sqp_block.cuh"
 
 template <typename Step>
 __global__ void __launch_bounds__(128)
@@ -117,15 +127,44 @@ int launch_group(const mpc::FusedArgs<float>& a, const Step& step,
   return (int)cudaGetLastError();
 }
 
+// The block body (fused_sqp_block.cuh): one instance a block of
+// kBlockThreads threads, the instance in dynamic shared memory; one block
+// an SM (the arm's chain pass takes the 255 registers a thread that a full
+// register file leaves 256 threads).
+template <typename Step>
+__global__ void __launch_bounds__(mpc::kBlockThreads, 1)
+fused_sqp_block_kernel(mpc::FusedArgs<float> a, Step step) {
+  extern __shared__ float instance[];
+  const mpc::Block<mpc::kBlockThreads> blk{(int)threadIdx.x};
+  mpc::solve_block<float>(a, step, (long long)blockIdx.x, blk, instance);
+}
+
+template <typename Step>
+int launch_block(const mpc::FusedArgs<float>& a, const Step& step,
+                 cudaStream_t s) {
+  const size_t smem = (size_t)mpc::block_smem_bytes<Step>(a.N);
+  const cudaError_t e = allow_smem(fused_sqp_block_kernel<Step>, smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_sqp_block_kernel<Step>
+      <<<(unsigned)a.B, mpc::kBlockThreads, smem, s>>>(a, step);
+  return (int)cudaGetLastError();
+}
+
 // Launch the instantiation of family mask kFamilies that serves (model, nx,
-// nu) on `stream` (the group body for the policies `GroupBody` names, the
-// one-thread body otherwise); does not synchronise.  Returns
-// cudaGetLastError(), or -1 when this library holds no instantiation for
-// the problem.
+// nu) on `stream`, on the body the rule picks (`mpc::card_body`: the block
+// body at small batch for the policies `BlockBody` names, else the group
+// body for the policies `GroupBody` names, else the one-thread body), or on
+// body `want` (an mpc::Body) when it is not negative: how the two bodies
+// are timed against each other (chip_smoke.py, tools/time_fused_modes.py).
+// Writes the body it launched to `body`; does not synchronise.  Returns
+// cudaGetLastError(), -1 when this library holds no instantiation for the
+// problem, -4 when the policy has no body `want`.
 template <int kFamilies>
 int launch_fused(long long B, int N, int model, int nx, int nu,
                  void* const* ptrs, const float* scal, const int* ints,
-                 const float* fan, const double* consts, void* stream) {
+                 const float* fan, const double* consts, void* stream,
+                 int want, int* body) {
+  *body = -1;
   if (B <= 0) return 0;
   const mpc::FusedArgs<float> a =
       mpc::make_args<float>(B, N, ptrs, scal, ints, fan);
@@ -134,12 +173,25 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
   return mpc::dispatch<float, kFamilies>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
-        if constexpr (mpc::GroupBody<Step>::value) {
-          return launch_group(a, step, s);
-        } else {
-          fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
-          return (int)cudaGetLastError();
+        const int pick = want >= 0 ? want
+                                   : mpc::card_body<Step>(B, N, nullptr);
+        *body = pick;
+        if (pick == mpc::kBlockBody) {
+          if constexpr (mpc::BlockBody<Step>::value) {
+            if (mpc::block_smem_bytes<Step>(N) > mpc::kBlockSmemMax)
+              return -4;
+            return launch_block(a, step, s);
+          }
+        } else if (pick == mpc::kGroupBody) {
+          if constexpr (mpc::GroupBody<Step>::value)
+            return launch_group(a, step, s);
+        } else if (pick == mpc::kThreadBody) {
+          if constexpr (!mpc::GroupBody<Step>::value) {
+            fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
+            return (int)cudaGetLastError();
+          }
         }
+        return -4;
       });
 }
 
@@ -172,17 +224,53 @@ int blocks_per_sm(int model, int nx, int nu, int integ, int ltv) {
       });
 }
 
+// The block body's kernel for (model, nx, nu) under `integ` and `ltv` at
+// horizon N: its blocks an SM in out[0] and its dynamic shared memory bytes
+// in out[1]; -4 when the policy has no block body, -1 no instantiation, or
+// the CUDA error code negated.
+template <int kFamilies>
+int block_info(int model, int nx, int nu, int integ, int ltv, int N,
+               int* out) {
+  mpc::FusedArgs<float> a{};
+  a.integ = integ;
+  a.ltv = ltv;
+  static const double consts[256] = {};   // the model's constants: unused
+  return mpc::dispatch<float, kFamilies>(
+      a, model, nx, nu, consts, [&](const auto& step) -> int {
+        typedef typename std::decay<decltype(step)>::type Step;
+        if constexpr (mpc::BlockBody<Step>::value) {
+          const size_t smem = (size_t)mpc::block_smem_bytes<Step>(N);
+          cudaError_t e = allow_smem(fused_sqp_block_kernel<Step>, smem);
+          int n = 0;
+          if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, fused_sqp_block_kernel<Step>, mpc::kBlockThreads, smem);
+          out[0] = n;
+          out[1] = (int)smem;
+          return e == cudaSuccess ? 0 : -(int)e;
+        } else {
+          return -4;
+        }
+      });
+}
+
 // The plain C interface of one library, for ctypes: the launcher (device
 // pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
-// fan rungs and model constants; solver/fused.py `_run_library`) and the
-// occupancy of the kernel it would launch (chip_smoke.py).
+// fan rungs and model constants, the stream, the body to launch (-1: the
+// rule's) and where to write the body it launched; solver/fused.py
+// `_run_library`), and the occupancy of the kernels it launches
+// (chip_smoke.py).
 #define MPC_FUSED_LIBRARY(kFamilies)                                         \
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
       const float* scal, const int* ints, const float* fan,                  \
-      const double* consts, void* stream) {                                  \
+      const double* consts, void* stream, int want, int* body) {             \
     return launch_fused<kFamilies>(B, N, model, nx, nu, ptrs, scal, ints,    \
-                                   fan, consts, stream);                     \
+                                   fan, consts, stream, want, body);         \
+  }                                                                          \
+  extern "C" int mpc_fused_block_info(int model, int nx, int nu, int integ,  \
+                                      int ltv, int N, int* out) {            \
+    return block_info<kFamilies>(model, nx, nu, integ, ltv, N, out);         \
   }                                                                          \
   extern "C" int mpc_fused_blocks_per_sm(int model, int nx, int nu,          \
                                          int integ, int ltv) {               \

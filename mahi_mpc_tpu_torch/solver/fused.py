@@ -34,12 +34,17 @@ Two implementations of the same function live here:
 
 - the CUDA kernel (``csrc/fused_sqp*.cu``, batch-innermost arrays), built
   with nvcc at first use (``_build.py``), launched for CUDA tensors.  Its
-  body is the group body (``csrc/fused_sqp_group.cuh``: four threads an
-  instance for the serial arms under every integrator, the main path, and
-  LTV at (8, 4); two for most closed forms under midpoint and RK4, the
-  double pendulum under Euler and a generated model's generic step where
-  its shape splits over two lanes) or one thread an instance otherwise, as
-  the launcher's own rule (``GroupBody``) picks it: ``card_body`` asks it.
+  body is the block body at small batch for the 4-DOF arm and the double
+  pendulum under Euler (``csrc/fused_sqp_block.cuh``: a thread block an
+  instance, the instance in shared memory: the single robot's warm
+  ``calc_u`` and the reference's default example), else the group body
+  (``csrc/fused_sqp_group.cuh``: four threads an instance for the serial
+  arms under every integrator, the main path, and LTV at (8, 4); two for
+  most closed forms under midpoint and RK4, the double pendulum under
+  Euler and a generated model's generic step where its shape splits over
+  two lanes) or one thread an instance otherwise, as the launcher's own
+  rule (``BlockBody``, ``GroupBody``: the policy, B and N) picks it:
+  ``card_body`` asks it.
   Hand-written instantiations serve LTV at the (nx, nu) in ``LTV_SHAPES``
   and the nonlinear modes of the six registered models (their dynamics
   written again in ``csrc/model_dynamics.cuh``); every other problem the
@@ -198,22 +203,33 @@ def _cpu_library(prob: ShootingProblem, name: str):
     return cpu_library(name if unit is None else register_generated(unit))
 
 
-def card_body(prob: ShootingProblem) -> tuple:
-    """The kernel body the card runs for a problem the kernel serves, and
-    its threads an instance: ``("group", 4)`` or ``("group", 2)`` (the group
-    body, ``csrc/fused_sqp_group.cuh``, at its step policy's width) or
-    ``("thread", 1)`` (one thread an instance).  The launcher's own rule
-    (``GroupBody``) decides it, asked through the g++ build of
+# The kernel's bodies by the launcher's code (csrc/fused_sqp_block.cuh
+# `Body`).
+BODIES = ("thread", "group", "block")
+
+
+def card_body(prob: ShootingProblem, B: Optional[int] = None) -> tuple:
+    """The kernel body the card runs for B instances of a problem the
+    kernel serves, and its threads an instance: ``("block", 256)`` (the
+    block body, ``csrc/fused_sqp_block.cuh``: one instance a block, at
+    small batch for the policies ``BlockBody`` names), ``("group", 4)`` or
+    ``("group", 2)`` (the group body, ``csrc/fused_sqp_group.cuh``, at its
+    step policy's width) or ``("thread", 1)`` (one thread an instance).
+    ``B=None``: the body at full occupancy, past every policy's block-body
+    threshold.  The launcher's own rule (``mpc::card_body``: the policy,
+    B and ``prob.N``) decides it, asked through the g++ build of
     ``csrc/flop_count.cpp`` (the problem's generated build, for a generated
     instantiation)."""
     model = _model_id(prob)[0]
-    width = _cpu_library(prob, "flop_count").mpc_fused_card_body(
+    threads = ctypes.c_int(0)
+    kind = _cpu_library(prob, "flop_count").mpc_fused_card_body(
         model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
-        int(prob.is_linear))
-    if width < 0:
+        int(prob.is_linear), 2 ** 62 if B is None else int(B), prob.N,
+        ctypes.byref(threads))
+    if kind < 0:
         raise ValueError(f"the kernel holds no instantiation for model "
                          f"{model}, (nx, nu) = ({prob.nx}, {prob.nu})")
-    return ("group" if width > 1 else "thread"), width
+    return BODIES[kind], threads.value
 
 
 # ---------------------------------------------------------------------------
@@ -654,10 +670,12 @@ def _cuda_library(prob: ShootingProblem) -> str:
 
 def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                  X0: Tensor, U0: Tensor, p: MPCParams, mu: Tensor,
-                 n_iter: int, fan: Sequence[float], adaptive: bool, ltv=None):
-    """Call a build of the kernel body (``fn``: the CUDA launcher when
-    ``stream`` is given, else the CPU test build) on batch-innermost copies
-    of the inputs; returns X, U, stats in batch-leading layout."""
+                 n_iter: int, fan: Sequence[float], adaptive: bool, ltv=None,
+                 tail=()):
+    """Call a build of the kernel body (``fn``: a CUDA launcher when
+    ``stream`` is given, followed by its own arguments ``tail``, else the
+    CPU test build) on batch-innermost copies of the inputs; returns X, U,
+    stats in batch-leading layout."""
     if not fused_supported(prob):
         raise ValueError(
             f"no instantiation of the fused kernel serves {prob.dynamics.name!r}"
@@ -702,7 +720,7 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
     consts_c = (ctypes.c_double * len(consts))(*consts)
     args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
     if stream is not None:
-        args.append(stream)
+        args += [stream, *tail]
     rc = fn(*args)
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
@@ -710,27 +728,37 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
     if rc == -3:
         raise ValueError(f"no group body at (nx, nu) = ({nx}, {nu}): the "
                          f"shape does not split over the group's lanes")
+    if rc == -4:
+        raise ValueError(f"the step policy of model {model}, (nx, nu) = "
+                         f"({nx}, {nu}), {mode} has no such body at N={N}")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
     back = lambda t: t.movedim(-1, 0).contiguous()
     return back(outs[0]), back(outs[1]), back(outs[2])
 
 
-def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv):
-    """Launch the CUDA kernel on the current stream of X0's device."""
+def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv,
+                 want=-1):
+    """Launch the CUDA kernel on the current stream of X0's device, on the
+    body the launcher's rule picks, counting the launch by mode, library
+    and body; or, for ``want`` >= 0, on that body (``BODIES``) uncounted."""
     if X0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
     from .._build import cuda_build
     lib = _cuda_library(prob)
     fn = cuda_build(lib)[0].mpc_fused_launch_f32
+    body = ctypes.c_int(-1)
     with torch.cuda.device(X0.device):
         stream = torch.cuda.current_stream(X0.device).cuda_stream
         out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
-                           fan, adaptive, ltv)
-    solve_batch_fused.launches += 1
-    solve_batch_fused.mode_launches[_mode(prob)] += 1
-    solve_batch_fused.library_launches[lib] = \
-        solve_batch_fused.library_launches.get(lib, 0) + 1
+                           fan, adaptive, ltv, (want, ctypes.byref(body)))
+    if want < 0:
+        solve_batch_fused.launches += 1
+        solve_batch_fused.mode_launches[_mode(prob)] += 1
+        solve_batch_fused.library_launches[lib] = \
+            solve_batch_fused.library_launches.get(lib, 0) + 1
+        if body.value >= 0:       # B = 0 launches nothing
+            solve_batch_fused.body_launches[BODIES[body.value]] += 1
     return out
 
 
@@ -824,9 +852,10 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
     ``n_iter`` the iteration cap (default ``opts.max_iter``); cold starts
     pass ``mu0 = opts.mu_init``.
 
-    On CUDA tensors this launches the kernel (float32) and counts the launch
-    in ``solve_batch_fused.launches``; on CPU tensors it runs the plain
-    PyTorch version.  Any other device raises.
+    On CUDA tensors this launches the kernel (float32) on the body the
+    launcher's rule picks (``card_body``) and counts the launch in
+    ``solve_batch_fused.launches`` (and by mode, library and body); on CPU
+    tensors it runs the plain PyTorch version.  Any other device raises.
     """
     kind = p.x0.device.type
     if kind == "cuda":
@@ -842,6 +871,8 @@ solve_batch_fused.launches = 0
 solve_batch_fused.mode_launches = {"fast": 0, "generic": 0, "ltv": 0}
 # launches by CUDA library (``_cuda_library``: generated ones by name)
 solve_batch_fused.library_launches = {}
+# launches by the body the launcher's rule picked (``card_body``)
+solve_batch_fused.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def solve_batch_fused_plain(prob: ShootingProblem, p: MPCParams,
@@ -869,16 +900,40 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     card.  ``body="thread"``: the one-thread body (``solve_instance``),
     ``body="group"``: the group body (``csrc/fused_sqp_group.cuh``, at the
     step policy's width), each of every policy, whichever the card runs
-    (``card_body``); a generated instantiation runs from the problem's
-    own g++ build.  The group body needs a shape that splits over its
-    lanes (NX a multiple of the width, NU at most the width)."""
+    (``card_body``); ``body="block"``: the block body
+    (``csrc/fused_sqp_block.cuh``) of the policies ``BlockBody`` names; a
+    generated instantiation runs from the problem's own g++ build.  The
+    group body needs a shape that splits over its lanes (NX a multiple of
+    the width, NU at most the width)."""
     lib = _cpu_library(prob, "fused_sqp")
     name = {"thread": "mpc_fused_solve_cpu", "group":
-            "mpc_fused_solve_group_cpu"}[body]
+            "mpc_fused_solve_group_cpu", "block":
+            "mpc_fused_solve_block_cpu"}[body]
     bits = "f32" if p.x0.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"{name}_{bits}")
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
                   functools.partial(_run_library, fn, None))
+
+
+def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
+                           X0: Optional[Tensor] = None,
+                           U0: Optional[Tensor] = None,
+                           opts: SolverOptions = SolverOptions(),
+                           mu0=None, n_iter: Optional[int] = None,
+                           ls_fan: Optional[Sequence[float]] = None,
+                           adaptive: bool = False,
+                           body: str = "group") -> SolveResult:
+    """The CUDA kernel on a given body (``BODIES``) whatever the launcher's
+    rule would pick, on CUDA float32 tensors: how the bodies are timed
+    against each other at one batch (``chip_smoke.py``,
+    ``tools/time_fused_modes.py``).  Not counted in
+    ``solve_batch_fused.launches``; ``solve_batch_fused`` never calls it.
+    Raises where the policy has no such body."""
+    if p.x0.device.type != "cuda":
+        raise ValueError("solve_batch_fused_body runs the CUDA kernel: "
+                         f"got tensors on {p.x0.device}")
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
+                  functools.partial(_launch_cuda, want=BODIES.index(body)))
 
 
 def count_fused_ops(prob: ShootingProblem, p: MPCParams,
@@ -921,3 +976,33 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     folded = _mode(prob) == "fast" and _cuda_library(prob) == "fused_sqp"
     return dict(body=tally, minimum=None if folded and not group else minimum,
                 card_body=card_body(prob))
+
+
+# The block body's regions between two block barriers
+# (csrc/fused_sqp_block.cuh `Region`).
+BLOCK_REGIONS = ("load", "linearize", "stage_terms", "sweep", "rollout",
+                 "rung_terms", "rung_sums", "update")
+
+
+def count_block_path(prob: ShootingProblem, p: MPCParams,
+                     X0: Optional[Tensor] = None, U0: Optional[Tensor] = None,
+                     opts: SolverOptions = SolverOptions(), mu0=None,
+                     n_iter: Optional[int] = None,
+                     adaptive: bool = False) -> dict:
+    """The block body's critical path on these inputs, in floating-point
+    operations by region (``BLOCK_REGIONS``), summed over the instances:
+    the operations of the busiest thread of each stretch between two block
+    barriers (the busiest task, lane or the thread beside the group), as
+    ``csrc/flop_count.cpp`` ``mpc_fused_count_path`` counts them on the
+    body run by g++ in float64.  The numerator of the block body's
+    dependency-chain bound (``chip_smoke.py``)."""
+    lib = _cpu_library(prob, "flop_count")
+    path = torch.zeros(len(BLOCK_REGIONS), dtype=torch.float64)
+    fn = lambda *args: lib.mpc_fused_count_path(*args, path.data_ptr())
+    host = lambda t: None if t is None else t.detach().to("cpu",
+                                                          torch.float64)
+    p64 = MPCParams(*[type(f)(*[host(a) for a in f]) if isinstance(f, tuple)
+                      else host(f) for f in p])
+    _solve(prob, p64, host(X0), host(U0), opts, mu0, n_iter, None, adaptive,
+           functools.partial(_run_library, fn, None))
+    return dict(zip(BLOCK_REGIONS, path.tolist()))

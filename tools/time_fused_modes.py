@@ -14,11 +14,18 @@ calls), wrapper included, as ``chip_smoke.py``'s ``timing_fused_modes``
 does, and the kernel's own device time a fixed-3 launch
 (``torch.profiler``, 5 launches); it holds the fixed-3 warm solve to the
 plain version on the same inputs (max |dX|, |dU|, the smoke's 1e-4).
-``--save`` writes the SHA-256 of each case's adaptive cold and fixed-3
-warm X, U and iterations (their bytes) to a JSON file, so that two
-checkouts' outputs on the card can be compared bit for bit: ``--compare
-A.json B.json`` prints, for each case and run, whether they are equal,
-and builds nothing.  Prints one JSON line a case, the libraries'
+Where the checkout has the block body (``solve_batch_fused_body``), each
+case at a batch of ``BLOCK_LADDER`` is also timed on both bodies, group
+and block (device ms a fixed-3 launch by CUDA events around 20 launches
+of the kernel alone, ``chip_smoke.py`` ``kernel_event_ms``, in turns
+group, block, block, group), each held to the plain version;
+the case's line names the body the launcher's rule picks.  ``--save``
+writes the SHA-256 of each case's adaptive cold and fixed-3 warm X, U and
+iterations (their bytes), and the body that computed them, to a JSON
+file, so that two checkouts' outputs on the card can be compared bit for
+bit: ``--compare A.json B.json`` prints, for each case and run, whether
+they are equal (a case whose bodies differ between the two is listed and
+not compared), and builds nothing.  Prints one JSON line a case, the libraries'
 ``-Xptxas -v`` lines of the fused kernels, and the card's ``nvidia-smi``
 name and power limit.  To compare two checkouts, run it for each in turns
 on the same card (parent, change, change, parent, ...).  Exits 1 without a
@@ -40,8 +47,11 @@ HERE = Path(__file__).resolve().parent.parent
 # four-lane group body over a dense step at B=16384 (LTV at (8, 4); the
 # 4-DOF arm under RK4 and midpoint, the 2-DOF arm under RK4), the small LTV
 # shapes (4, 2), (4, 1), (2, 1), the closed forms under Euler and RK4, the
-# double pendulum also at B=65536 (a higher rung of the JAX ladder) and
-# under Euler at B=1 (the reference's default example), and LTV at B=1
+# double pendulum also at B=65536 (a higher rung of the JAX ladder), LTV at
+# B=1, and the two policies with a block body (the arm and the double
+# pendulum under Euler: the single robot's warm calc_u and the reference's
+# default example) over the batches of BLOCK_LADDER
+BLOCK_LADDER = (1, 2, 8, 32, 132, 264, 396, 528, 660, 792, 1024)
 CASES = (("mahi_arm", "euler", False, 16384),
          ("mahi_arm", "euler", True, 16384),
          ("double_pendulum", "euler", True, 16384),
@@ -55,8 +65,10 @@ CASES = (("mahi_arm", "euler", False, 16384),
            for integrator in ("euler", "rk4")),
          ("double_pendulum", "euler", False, 65536),
          ("double_pendulum", "rk4", False, 65536),
-         ("double_pendulum", "euler", False, 1),
-         ("mahi_arm", "euler", True, 1))
+         ("mahi_arm", "euler", True, 1),
+         *((name, "euler", False, batch)
+           for name in ("mahi_arm", "double_pendulum")
+           for batch in BLOCK_LADDER))
 LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic",
              "fused_sqp_models")
 PLAIN_BAND = 1e-4
@@ -68,7 +80,16 @@ def compare(a: str, b: str) -> int:
     A, B = (json.loads(Path(f).read_text()) for f in (a, b))
     same = sorted(A) == sorted(B)
     for key in sorted(set(A) & set(B)):
-        print(json.dumps(dict(key=key, bitwise_equal=A[key] == B[key])))
+        if key.endswith("/body"):
+            continue
+        case = key.split("/")[0]
+        bodies = [D.get(f"{case}/body") for D in (A, B)]
+        if bodies[0] != bodies[1]:
+            print(json.dumps(dict(key=key, bitwise_equal=None,
+                                  bodies=bodies)))
+            continue
+        print(json.dumps(dict(key=key, bitwise_equal=A[key] == B[key],
+                              body=bodies[0])))
         same &= A[key] == B[key]
     print(json.dumps(dict(compared=[a, b], all_bitwise_equal=same)))
     return 0 if same else 1
@@ -95,13 +116,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_fused_modes: no CUDA device", file=sys.stderr)
         return 1
+    import inspect
+
     import mahi_mpc_tpu_torch
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch._build import cuda_build
+    from mahi_mpc_tpu_torch.solver import fused as fused_mod
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _kernel_model,
+                                                 _kernel_model, card_body,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
+    # the checkout's body at a batch (a checkout before the block body has
+    # one body a policy at every batch)
+    takes_batch = "B" in inspect.signature(card_body).parameters
+    body_at = lambda prob, batch: (card_body(prob, batch) if takes_batch
+                                   else card_body(prob))[0]
+    on_body = getattr(fused_mod, "solve_batch_fused_body", None)
 
     # chip_smoke.py of this checkout: its bench-shaped data and helpers
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -162,6 +192,19 @@ def main() -> int:
         prof = smoke.profile_step(lambda: [warm() for _ in range(5)],
                                   "fused_sqp")
         kernels = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
+        body = body_at(prob, batch)
+        bodies = {}
+        if on_body is not None and batch in BLOCK_LADDER and \
+                body_at(prob, 1) == "block":
+            for b in ("group", "block", "block", "group"):
+                solve_b = lambda: on_body(prob, pw, ct.X, ct.U, opts,
+                                          mu0=mu_warm, n_iter=3, body=b)
+                rb = solve_b()
+                err_b = max((rb.X - wp.X).abs().max().item(),
+                            (rb.U - wp.U).abs().max().item())
+                bad += not err_b <= PLAIN_BAND
+                bodies.setdefault(b, dict(device_ms=[], max_abs_dxu=err_b))
+                bodies[b]["device_ms"].append(smoke.kernel_event_ms(solve_b))
         # blocks an SM of the kernel that serves it (where the checkout's
         # library reports it)
         per_sm = getattr(libs[_cuda_library(prob)][0],
@@ -169,7 +212,7 @@ def main() -> int:
         model = -1 if is_linear else _kernel_model(prob.dynamics)[0]
         line = dict(
             label=label, model=name, integrator=integrator,
-            is_linear=is_linear, batch=batch,
+            is_linear=is_linear, batch=batch, body=body, bodies=bodies,
             fixed3_warm_ms=warm_ms, adaptive_cold_ms=cold_ms,
             fixed3_kernel_device_ms=prof["kernel_device_ms"]
             / max(prof["kernel_count"], 1),
@@ -186,6 +229,7 @@ def main() -> int:
         print(json.dumps(line), flush=True)
         key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
                + f"-b{batch}")
+        saved[f"{key}/body"] = body
         for run, r in (("cold", ct), ("fixed3", wk)):
             for field in ("X", "U", "iters"):
                 saved[f"{key}/{run}/{field}"] = hashlib.sha256(
