@@ -135,10 +135,12 @@ line each, with the seconds since start in ``t``:
     split by stage (``calc_u_split``: tensors, params, the batch-innermost
     copies and ctypes set-up, the kernel, the layout back, the status
     rules, the copy back; each ended by a synchronisation); an LTV
-    ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, B=1 held to
-    the plain version, the LTV solve's ms by CUDA events and the group
-    kernel's device ms a launch by the profiler, the plain version's ms
-    and the bound at B=1); and 1 s of
+    ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, every one on
+    the block body, ``Ltv<8, 4>``; runtime_ltv_b1: the body ``card_body``
+    names at B=1, the B=1 solve, fixed-3 and adaptive, held to the plain
+    version, the LTV solve's ms by CUDA events and the block kernel's
+    device ms a launch by the profiler, the plain version's ms, the bound
+    and the chain bound at B=1); and 1 s of
     ``start_calc`` with the native plan
     server under a 1 kHz ``control_at_time`` reader (``NativePacer``):
     no failure, no stale or placeholder serve, launches = solves - 1;
@@ -150,7 +152,10 @@ line each, with the seconds since start in ``t``:
     block kernel's device ms, the plain version's ms, the bound and the
     chain bound at B=1, and its ``calc_u`` split by stage; then
     block_crossover (``block_crossover_phase``): the block body and the
-    group body of both policies at each B of ``CROSSOVER_LADDER`` and at
+    group body of the three policies with a block body (the arm and the
+    double pendulum under Euler, LTV at (8, 4)) at each B of
+    ``CROSSOVER_LADDER`` (rungs of ``tools/time_fused_modes.py``'s
+    ``BLOCK_LADDER``) and at
     B=1 with N = 100 and 200, fixed-3 and adaptive warm solves held to the
     plain version, device ms of each body in turns, the body the rule
     picks, the block kernel's registers, spills, shared memory and blocks
@@ -215,15 +220,21 @@ line each, with the seconds since start in ``t``:
     FastNq<Cartpole> within 1e-5), timed (wrapper by CUDA events, kernel
     by the profiler), with the bound from the generated build's own
     operation count, its ptxas line, blocks an SM and nvcc seconds, and an
-    adaptive cold solve (converged share printed); then ``generate_model``
+    adaptive cold solve (converged share printed); the LTV shapes (more
+    controls than the group's lanes) also on both bodies, the group and
+    the one-thread body, each held to the plain version and timed in turns
+    (CUDA events around the kernel alone), with the other body's ptxas
+    line and blocks an SM and whether the two agree bit for bit; then
+    ``generate_model``
     of the Van der Pol model (it must name the generated library) and 20
     warm ``calc_u`` of ``ModelControl`` through it at B=1, the B=1 solve
     held to its plain version.
 
 Then one line ``{"kernels": [...]}`` (the fused kernel's group body at
 B=16384, its block body at B=1 (``fused_sqp_block``: launches of every
-warm ``calc_u`` of phase 14, its arm entry's times and bounds, both B=1
-modes and the crossover), the Riccati kernel,
+warm ``calc_u`` of phase 14, LTV's included, its arm entry's times and
+bounds, the B=1 modes (the arm, the default example, LTV) and the
+crossover), the Riccati kernel,
 and one ``fused_sqp_generated:<case>`` entry a phase-23 case, its
 launches those of its service and, for the Van der Pol model, of
 ``ModelControl``) with each kernel's launches on the
@@ -344,17 +355,24 @@ FUSED_ENTRIES = {"block": "fused_sqp_block_kernel",
                  "thread": "fused_sqp_kernel"}
 
 
-def fused_instantiation(builds, prob) -> dict:
+def fused_instantiation(builds, prob, body=None) -> dict:
     """The kernel the card launches for ``prob`` at full occupancy
-    (``card_body``): its body and threads an instance, its ``-Xptxas -v``
-    line (registers, spills) from its library's build, and its blocks an
-    SM."""
-    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _mode, _model_id, card_body,
+    (``card_body``), or its kernel on ``body`` ("group" or "thread", where
+    its library holds it: a generated LTV shape's timing build): its body
+    and threads an instance (None for a group the rule does not run), its
+    ``-Xptxas -v`` line (registers, spills) from its library's build, and
+    its blocks an SM."""
+    from mahi_mpc_tpu_torch.solver.fused import (BODIES, INTEGRATORS,
+                                                 _cuda_library, _mode,
+                                                 _model_id, card_body,
                                                  generated_unit)
 
-    body, width = card_body(prob)
-    lib = _cuda_library(prob)
+    rule, width = card_body(prob)
+    if body is None:
+        body = rule
+    elif body != rule:
+        width = 1 if body == "thread" else None
+    lib = _cuda_library(prob, both_bodies=body != rule)
     model = _model_id(prob)[0]
     if prob.is_linear:
         marks = ("3Ltv", f"IfLi{prob.nx}ELi{prob.nu}E")
@@ -368,7 +386,7 @@ def fused_instantiation(builds, prob) -> dict:
     check(len(found) == 1, f"{lib}: {len(found)} kernels {entry} {marks}")
     per_sm = builds[lib][0].mpc_fused_blocks_per_sm(
         model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
-        int(prob.is_linear))
+        int(prob.is_linear), BODIES.index(body))
     check(per_sm > 0, f"{lib} {marks}: {per_sm} blocks an SM")
     return dict(card_body=[body, width], library=lib,
                 registers=found[0]["registers"],
@@ -404,36 +422,65 @@ def random_qp(B, N, nz, nu, seed, to):
                                      gf)])
 
 
-def profile_step(step, kernel):
+PROFILE_TRIES = 3     # profiled calls when the trace lost a launch's record
+
+
+def profile_step(step, kernel, expect=None):
     """One call of ``step`` (a service step) under torch.profiler, after
     one profiled call that warms the profiler up: wall ms (profiler
     overhead included), device ms summed over kernels, the device ms of the
     kernels whose name holds ``kernel`` and their launches, and the
     host-only ms (wall minus device).  Device time 0 means the profiler saw
-    no kernel."""
+    no kernel.
+
+    ``expect``: the fused kernel's launches the call makes.  The wrapper's
+    count (``solve_batch_fused.launches``) must rise by that much, or the
+    phase fails.  Where it did but the trace holds fewer records of
+    ``kernel`` (on the H100 the trace has been seen to hold four records
+    of a call's five launches), the record was lost, not the launch:
+    the call is profiled again, up to PROFILE_TRIES times, and
+    ``profiler_short`` lists the counts the short traces held.  The caller
+    holds the last trace's count to ``expect``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from mahi_mpc_tpu_torch.solver.fused import solve_batch_fused
 
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         step()
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
+    short = []
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        before = solve_batch_fused.launches
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        mine = [e for e in kernels if kernel in e.key]
+        count = sum(e.count for e in mine)
+        if expect is None:
+            break
+        launched = solve_batch_fused.launches - before
+        check(launched == expect,
+              f"{kernel}: the wrapper counted {launched} launches in a "
+              f"profiled call that makes {expect}")
+        if count >= expect:
+            break
+        short.append(count)
     total = sum(dev_us(e) for e in kernels) / 1e3
-    mine = [e for e in kernels if kernel in e.key]
     ker = sum(dev_us(e) for e in mine) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
     return dict(wall_ms=wall_ms, device_ms=total, kernel=kernel,
-                kernel_device_ms=ker, kernel_count=sum(e.count for e in mine),
+                kernel_device_ms=ker, kernel_count=count,
+                profiler_short=short,
                 kernel_share_of_device=ker / total if total else None,
                 kernel_share_of_wall=ker / wall_ms,
                 host_only_ms=wall_ms - total,
@@ -950,7 +997,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     def service_profile(phase, svc, step_policy):
         """One more service step under the profiler: the group kernel of
         ``step_policy`` found by name, launched once, and its device ms."""
-        prof = profile_step(svc.step, "fused_sqp_group_kernel")
+        prof = profile_step(svc.step, "fused_sqp_group_kernel", 1)
         mine = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
         emit(phase=phase, batch=svc.batch, **prof)
         check(prof["kernel_count"] == 1 and prof["kernel_device_ms"] > 0
@@ -1050,7 +1097,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
         # wrapper: in LTV the per-solve discretization `_ltv_discrete`, a
         # vmapped jacfwd, takes more than the kernel)
         prof = profile_step(lambda: [warm3(solve_batch_fused, prob, p, ct)
-                                     for _ in range(5)], "fused_sqp")
+                                     for _ in range(5)], "fused_sqp", 5)
         check(prof["kernel_count"] == 5,
               f"{name} {integrator}: {prof['kernel_count']} kernel launches "
               f"for 5 solves")
@@ -1539,7 +1586,7 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
         kernel = FUSED_ENTRIES[body[0]]
         check(body[0] == "block", f"B=1 arm on {body}")
         prof = profile_step(lambda: [warm1(solve_batch_fused)
-                                     for _ in range(reps)], kernel)
+                                     for _ in range(reps)], kernel, reps)
         check(prof["kernel_count"] == reps,
               f"{prof['kernel_count']} {kernel} launches for {reps}")
         kernel_ms = prof["kernel_device_ms"] / prof["kernel_count"]
@@ -1548,7 +1595,7 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
         ref_last = arm_reference(mp, t_last)
         prof_calc = profile_step(
             lambda: [mc.calc_u(t_last, x_next, u_last, ref_last)
-                     for _ in range(20)], kernel)
+                     for _ in range(20)], kernel, 20)
         check(prof_calc["kernel_count"] == 20,
               f"{prof_calc['kernel_count']} {kernel} launches for 20 "
               f"calc_u")
@@ -1587,36 +1634,44 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
         cold, warm, x, err = closed_loop(lmc, plant, x_start,
                                          RUNTIME_LTV_CALLS)
         launches, modes, ric = counts()
+        ltv_bodies = dict(solve_batch_fused.body_launches)
         st = np.array([p.status for p in warm])
         lat = np.array([p.solve_time_s for p in warm]) * 1e3
         emit(phase="runtime_control_ltv", cold_status=cold.status,
              cold_iters=cold.iters, cold_s=cold.solve_time_s,
              warm_calls=len(warm), launches=launches,
-             launches_ltv=modes["ltv"],
+             launches_ltv=modes["ltv"], body_launches=ltv_bodies,
              calc_u_p50_ms=float(np.percentile(lat, 50)),
              calc_u_p99_ms=float(np.percentile(lat, 99)),
              warm_converged=float((st == 0).mean()),
              max_track_err_last_half=err)
         check(cold.status == 0 and launches == len(warm) == modes["ltv"]
-              and bool((st != 2).all()) and np.isfinite(x).all(),
+              == ltv_bodies["block"] and bool((st != 2).all())
+              and np.isfinite(x).all(),
               f"LTV runtime: cold {cold.status}, {launches} launches "
-              f"({modes}) for {len(warm)}, statuses {np.unique(st)}")
+              f"({modes}, {ltv_bodies}) for {len(warm)}, statuses "
+              f"{np.unique(st)}: every one on the block body")
         out["ltv_launches"] = launches
-        # the LTV warm solve at B=1: held to its plain version, the group
-        # kernel's device ms a launch (profiler, by name), its bound
+        # the LTV warm solve at B=1 (Ltv<8, 4> on the block body): held to
+        # its plain version, the block kernel's device ms a launch
+        # (profiler, by name), its bound and chain bound
         pl = calc_u_params(lmc, RUNTIME_LTV_CALLS * mp.step_size,
                            lmc._X0[1].cpu().numpy(),
                            lmc._U0[0].cpu().numpy())
-        out["ltv_max_abs_err_b1"] = held_b1(lmc, pl, dict(n_iter=3))
+        out["ltv_max_abs_err_b1"] = max(
+            held_b1(lmc, pl, kw) for kw in (dict(n_iter=3),
+                                            dict(adaptive=True)))
         XL, UL = lmc._X0[None], lmc._U0[None]
         warm_l = lambda solve: solve(lmc.problem, pl, XL, UL, lmc.opts,
                                      mu0=lmc._mu_warm, n_iter=3)
+        body_l = card_body(lmc.problem, 1)
+        check(body_l[0] == "block", f"B=1 LTV arm on {body_l}")
         prof_l = profile_step(lambda: [warm_l(solve_batch_fused)
                                        for _ in range(reps)],
-                              "fused_sqp_group_kernel")
+                              FUSED_ENTRIES[body_l[0]], reps)
         check(prof_l["kernel_count"] == reps
               and any("Ltv" in k[0] for k in prof_l["top_kernels"]),
-              f"LTV B=1: {prof_l['kernel_count']} group kernel launches "
+              f"LTV B=1: {prof_l['kernel_count']} block kernel launches "
               f"for {reps}: {prof_l['top_kernels']}")
         _, ltv_wrapper_ms = timed(lambda: warm_l(solve_batch_fused), reps)
         _, ltv_plain_ms = timed(lambda: warm_l(solve_batch_fused_plain), 3)
@@ -1626,15 +1681,21 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
         bound_l = bound_ms(sum(ops_l["minimum"].values()),
                            fused_io_bytes(pl, XL, UL, 1)
                            + 4 * (nxl * nxl + nxl * nul + nxl))
+        chain_l = chain_bound(lmc.problem, pl, XL, UL, lmc.opts,
+                              lmc._mu_warm, dict(n_iter=3), clock_mhz)
         out.update(ltv_ms_b1=ltv_wrapper_ms,
                    ltv_device_ms_b1=prof_l["kernel_device_ms"] / reps,
                    ltv_plain_ms_b1=ltv_plain_ms,
                    ltv_bound_ms_b1=bound_l["bound_ms"],
-                   ltv_bound_by_b1=bound_l["bound_by"])
-        emit(phase="runtime_ltv_b1", max_abs_dxu_fixed3=out[
-                 "ltv_max_abs_err_b1"], wrapper_ms=ltv_wrapper_ms,
-             kernel_device_ms=out["ltv_device_ms_b1"], plain_ms=ltv_plain_ms, bound_ms=bound_l["bound_ms"],
-             bound_by=bound_l["bound_by"],
+                   ltv_bound_by_b1=bound_l["bound_by"],
+                   ltv_chain_bound_ms_b1=chain_l["chain_bound_ms"],
+                   ltv_card_body_b1=list(body_l))
+        emit(phase="runtime_ltv_b1", card_body=list(body_l),
+             max_abs_dxu=out["ltv_max_abs_err_b1"],
+             wrapper_ms=ltv_wrapper_ms,
+             kernel_device_ms=out["ltv_device_ms_b1"], plain_ms=ltv_plain_ms,
+             bound_ms=bound_l["bound_ms"], bound_by=bound_l["bound_by"],
+             **chain_l, calc_u_p50_ms=float(np.percentile(lat, 50)),
              kernel=prof_l["top_kernels"][0][0])
 
         # -- the solver thread: 1 s of start_calc under a 1 kHz
@@ -1694,7 +1755,6 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
               f"{launches} launches")
         out["block_launches"] = (runs[3][1]["launches"]
                                  + runs[0][1]["launches"] + launches)
-        out["launches"] = out["block_launches"] + out["ltv_launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -1791,7 +1851,7 @@ def runtime_default_example(dev, timed, clock_mhz) -> dict:
         kernel = FUSED_ENTRIES[body[0]]
         ref = model_control.reference_traj(mp, t_last)
         prof = profile_step(lambda: [mc.calc_u(t_last, x1, u1, ref)
-                                     for _ in range(20)], kernel)
+                                     for _ in range(20)], kernel, 20)
         check(prof["kernel_count"] == 20,
               f"default example: {prof['kernel_count']} {kernel} launches "
               f"for 20 calc_u: {prof['top_kernels']}")
@@ -1836,7 +1896,9 @@ def runtime_default_example(dev, timed, clock_mhz) -> dict:
 # double pendulum's and the arm's thresholds, three and five waves, and
 # past them), and the horizons held at B=1 beyond N=25.
 CROSSOVER_LADDER = (1, 2, 8, 32, 132, 264, 396, 660, 1024)
-BLOCK_MODELS = ("mahi_arm", "double_pendulum")      # under Euler
+# The policies with a block body: (model, LTV), under Euler.
+BLOCK_MODELS = (("mahi_arm", False), ("double_pendulum", False),
+                ("mahi_arm", True))
 LONG_HORIZONS = (100, 200)
 
 
@@ -1887,9 +1949,11 @@ def block_kernel_info(builds, prob, N) -> dict:
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
                                                  _model_id)
     lib = _cuda_library(prob)
+    marks = ((f"3LtvIfLi{prob.nx}ELi{prob.nu}E",) if prob.is_linear
+             else (MODEL_MARKS[prob.dynamics.name],))
     found = [k for k in ptxas_summary(builds[lib][1])
              if "22fused_sqp_block_kernel" in k["kernel"]
-             and MODEL_MARKS[prob.dynamics.name] in k["kernel"]]
+             and all(m in k["kernel"] for m in marks)]
     check(len(found) == 1, f"{lib}: {len(found)} block kernels for "
           f"{prob.dynamics.name}")
     out = (ctypes.c_int * 2)()
@@ -1906,9 +1970,10 @@ def block_kernel_info(builds, prob, N) -> dict:
 
 def block_crossover_phase(dev, builds) -> list:
     """Phase 14c, block_crossover: the block body
-    (``csrc/fused_sqp_block.cuh``) of ``FastNq<ArmModel<4>>`` and
-    ``FastNq<DoublePendulum>`` (Euler, bench-shaped data of ``model_batch``)
-    at each B of ``CROSSOVER_LADDER`` (N=25) and at B=1 with N of
+    (``csrc/fused_sqp_block.cuh``) of ``FastNq<ArmModel<4>>``,
+    ``FastNq<DoublePendulum>`` and ``Ltv<8, 4>`` (``BLOCK_MODELS``: Euler,
+    bench-shaped data of ``model_batch``) at each B of
+    ``CROSSOVER_LADDER`` (N=25) and at B=1 with N of
     ``LONG_HORIZONS``: from the rule's adaptive cold plan, a fixed-3 and an
     adaptive warm solve at x0 + 0.01 by each body
     (``solve_batch_fused_body``) held to the plain version on the same
@@ -1931,16 +1996,17 @@ def block_crossover_phase(dev, builds) -> list:
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
     mu_warm = opts.warm_mu_factor * opts.tol
     lines = []
-    for name in BLOCK_MODELS:
+    for name, ltv in BLOCK_MODELS:
         cases = [(N_NODES, B) for B in CROSSOVER_LADDER] + \
             [(N, 1) for N in LONG_HORIZONS]
         for N, B in cases:
             _, prob, p = model_batch(dev, np.random.default_rng(0), name, B,
-                                     N=N)
+                                     is_linear=ltv, N=N)
             cold = solve_batch_fused(prob, p, None, None, opts_cold,
                                      mu0=opts_cold.mu_init, adaptive=True)
             pw = p._replace(x0=p.x0 + 0.01)
-            line = dict(phase="block_crossover", model=name, batch=B, N=N,
+            line = dict(phase="block_crossover",
+                        model=name + (" LTV" if ltv else ""), batch=B, N=N,
                         rule=list(card_body(prob, B)))
             for mode, kw in (("fixed3", dict(n_iter=3)),
                              ("adaptive", dict(adaptive=True))):
@@ -2692,19 +2758,21 @@ def followable_reference(dyn, integrator, x0, rng, ulim):
     return np.stack(out, axis=1)
 
 
-def generated_libraries() -> dict:
-    """{case: generated library name} of phase 23, registered (traced and
-    lowered here) so that the build phase starts their nvcc with the
-    others."""
+def generated_libraries() -> tuple:
+    """({case: generated library name}, {LTV case: its timing build's
+    name}) of phase 23, registered (traced and lowered here) so that the
+    build phase starts their nvcc with the others."""
     from mahi_mpc_tpu_torch.solver.fused import _cuda_library, generated_unit
 
-    names = {}
+    names, timing = {}, {}
     for name, (dyn, integrator, is_linear, ulim) in user_dynamics().items():
         prob = user_problem(name, dyn, integrator, is_linear, ulim)[1]
         check(generated_unit(prob) is not None,
               f"{name}: a hand-written instantiation serves it")
         names[name] = _cuda_library(prob)
-    return names
+        if is_linear:
+            timing[name] = _cuda_library(prob, both_bodies=True)
+    return names, timing
 
 
 def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
@@ -2734,6 +2802,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
     from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
                                                  count_fused_ops,
                                                  solve_batch_fused,
+                                                 solve_batch_fused_body,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
 
@@ -2791,7 +2860,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
         err = max((wk.X - wp.X).abs().max().item(),
                   (wk.U - wp.U).abs().max().item())
         prof = profile_step(lambda: [warm3(solve_batch_fused)
-                                     for _ in range(5)], "fused_sqp")
+                                     for _ in range(5)], "fused_sqp", 5)
         check(prof["kernel_count"] == 5,
               f"{name}: {prof['kernel_count']} kernel launches for 5 solves")
         device_ms = prof["kernel_device_ms"] / 5
@@ -2824,6 +2893,33 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
             adaptive_cold_mean_iters=frac(ct.iters),
             kernel=[k[0] for k in prof["top_kernels"]
                     if "fused_sqp" in k[0]][0])
+        if is_linear:
+            # the LTV shapes whose controls outnumber the group's lanes:
+            # the group body and the one-thread body (the shape's timing
+            # build holds both where the shape splits over its group),
+            # device ms a fixed-3 launch in turns (CUDA events around the
+            # kernel alone), each held to the plain version, and whether
+            # the two agree bit for bit
+            ms_b, out_b = {"thread": [], "group": []}, {}
+            for b in ("thread", "group", "group", "thread"):
+                solve_b = lambda: solve_batch_fused_body(
+                    prob, p2, X, U, opts, mu0=mu_warm, n_iter=3, body=b)
+                out_b[b] = solve_b()
+                ms_b[b].append(kernel_event_ms(solve_b))
+            err_b = {b: max((r.X - wp.X).abs().max().item(),
+                            (r.U - wp.U).abs().max().item())
+                     for b, r in out_b.items()}
+            line.update(
+                bodies_device_ms=ms_b, bodies_max_abs_dxu=err_b,
+                group_over_thread=sum(ms_b["group"]) / sum(ms_b["thread"]),
+                bodies_bitwise_equal=bool(
+                    torch.equal(out_b["group"].X, out_b["thread"].X)
+                    and torch.equal(out_b["group"].U, out_b["thread"].U)),
+                other_body=fused_instantiation(
+                    builds, prob, "thread" if kernel_of["card_body"][0]
+                    == "group" else "group"))
+            check(max(err_b.values()) <= 1e-4,
+                  f"{name}: bodies against the plain version {err_b}")
         if name == "user_cartpole":
             # the same problem through the hand-written FastNq<Cartpole>
             hand = make_problem(mp, make_dynamics("cartpole"))
@@ -2863,7 +2959,9 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
             blocks_per_sm=line["blocks_per_sm"], nvcc_s=line["nvcc_s"],
             batch=Bs, mode=f"fixed-3 warm, {name} {integrator}"
             + (" LTV" if is_linear else ""),
-            adaptive_cold_converged=line["adaptive_cold_converged"]))
+            adaptive_cold_converged=line["adaptive_cold_converged"],
+            **{k: line[k] for k in ("bodies_device_ms", "group_over_thread",
+                                    "bodies_bitwise_equal") if k in line}))
 
     # ---- the single-instance runtime: generate_model builds the user
     # model's library (the reference's gcc step), ModelControl loads it
@@ -2952,13 +3050,14 @@ def main() -> int:
     # (csrc/flop_count.cpp and each generated library's build) for the
     # bounds
     t_gen = time.perf_counter()
-    gen_libs = generated_libraries()
+    gen_libs, timing_libs = generated_libraries()
     emit(phase="generate", seconds=time.perf_counter() - t_gen,
-         libraries=gen_libs)
+         libraries=gen_libs, timing_libraries=timing_libs)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         counter = ex.submit(cpu_build_all, ["flop_count", *gen_libs.values()])
-        builds = cuda_build_all(extra=gen_libs.values())
+        builds = cuda_build_all(extra=[*gen_libs.values(),
+                                       *timing_libs.values()])
         counter.result()
     emit(phase="build", seconds=time.perf_counter() - t_build,
          seconds_each={name: b[2] for name, b in builds.items()},
@@ -2967,7 +3066,7 @@ def main() -> int:
     group = [k for k in ptxas_summary(builds["fused_sqp"][1])
              if "fused_sqp_group_kernel" in k["kernel"]]
     per_sm = {nq: builds["fused_sqp"][0].mpc_fused_blocks_per_sm(
-        ARM_IDS[nq], 2 * nq, nq, 0, 0) for nq in (2, 4)}
+        ARM_IDS[nq], 2 * nq, nq, 0, 0, -1) for nq in (2, 4)}
     emit(phase="group_kernel", threads_per_instance=4, instances_per_block=32,
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
@@ -3217,7 +3316,7 @@ def main() -> int:
     # fixed-3 steps under the profiler: the kernel's device time within a
     # step, its share of the unprofiled step (CUDA events above), and that
     # the main path ran the group kernel by its name
-    prof = profile_step(svc3.step, "fused_sqp_group_kernel")
+    prof = profile_step(svc3.step, "fused_sqp_group_kernel", 1)
     emit(phase="service_profile", fixed_warm_iters=3, batch=SERVICE_BATCH,
          ms_per_warm_step=step_ms,
          kernel_share_of_step=prof["kernel_device_ms"] / step_ms,
@@ -3251,21 +3350,10 @@ def main() -> int:
 
     clock_mhz = sm_clock_mhz()
     b1 = runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz)
-    launches += b1["ltv_launches"]
     default_example = runtime_default_example(dev, timed, clock_mhz)
-    block_launches = b1["block_launches"] + default_example["launches"]
+    block_launches = (b1["block_launches"] + b1["ltv_launches"]
+                      + default_example["launches"])
     check(block_launches > 0, "the main path launched no block kernel")
-    modes.append(dict(
-        mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_group.cuh",
-        library="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
-        case="ModelControl LTV mahi_arm, B=1: 50 fixed-3 warm calc_u "
-             "(group body, Ltv<8, 4>)",
-        launches=b1["ltv_launches"], max_abs_err=b1["ltv_max_abs_err_b1"],
-        ms=b1["ltv_ms_b1"], device_ms=b1["ltv_device_ms_b1"],
-        plain_ms=b1["ltv_plain_ms_b1"], bound_ms=b1["ltv_bound_ms_b1"],
-        bound_by=b1["ltv_bound_by_b1"],
-        share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
-        device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"]))
     block_modes = [dict(
         mode="fast", source="mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
         library="mahi_mpc_tpu_torch/csrc/fused_sqp.cu",
@@ -3275,7 +3363,18 @@ def main() -> int:
         max_abs_err=b1["max_abs_err_b1"], ms=b1["ms_b1"],
         device_ms=b1["ms_b1"], plain_ms=b1["plain_ms_b1"],
         bound_ms=b1["bound_ms_b1"], bound_by=b1["bound_by_b1"],
-        chain_bound_ms=b1["chain_bound_ms_b1"]), default_example]
+        chain_bound_ms=b1["chain_bound_ms_b1"]), default_example, dict(
+        mode="ltv", source="mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
+        library="mahi_mpc_tpu_torch/csrc/fused_sqp_ltv.cu",
+        case="ModelControl LTV mahi_arm, B=1: 50 fixed-3 warm calc_u "
+             "(block body, Ltv<8, 4>)",
+        card_body=b1["ltv_card_body_b1"], launches=b1["ltv_launches"],
+        max_abs_err=b1["ltv_max_abs_err_b1"], ms=b1["ltv_ms_b1"],
+        device_ms=b1["ltv_device_ms_b1"], plain_ms=b1["ltv_plain_ms_b1"],
+        bound_ms=b1["ltv_bound_ms_b1"], bound_by=b1["ltv_bound_by_b1"],
+        chain_bound_ms=b1["ltv_chain_bound_ms_b1"],
+        share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
+        device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"])]
     crossover = block_crossover_phase(dev, builds)
     service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
     traj = trajgen_phase(dev)

@@ -25,7 +25,8 @@ The libraries:
   or one thread an instance, by shape: ``GroupBody``; the double pendulum
   under Euler at small batch on the block body: ``BlockBody``);
 - ``fused_sqp_ltv`` (``csrc/fused_sqp_ltv.cu``): the same kernel in LTV
-  mode (the group body at (8, 4); one thread at (4, 2), (4, 1), (2, 1));
+  mode (the group body at (8, 4), and at small batch the block body; one
+  thread at (4, 2), (4, 1), (2, 1));
 - ``riccati`` (``csrc/riccati.cu``): the lanes SQP's Riccati KKT solve (a
   group of threads an instance, ``csrc/riccati.cuh``).
 
@@ -42,7 +43,9 @@ library, from a source written into ``_build/`` beside the build: for the
 card the unit and the launcher (``fused_sqp_launch.cuh``, the same
 exports), for g++ the unit with ``fused_sqp_cpu.cpp`` and
 ``flop_count.cpp`` (the CPU solve of both bodies, the operation count and
-the card-body query).  A failed build raises, naming its log; nothing
+the card-body query).  ``register_generated(unit, both_bodies=True)``
+names a timing build of an LTV unit, a library apart whose CUDA build
+also holds the body the launcher's rule does not pick.  A failed build raises, naming its log; nothing
 falls back.
 """
 
@@ -84,7 +87,7 @@ _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
 _FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
                                                         _c_void_p],
                  "mpc_fused_block_info": [_c_int] * 6 + [_c_void_p],
-                 "mpc_fused_blocks_per_sm": [_c_int] * 5}
+                 "mpc_fused_blocks_per_sm": [_c_int] * 6}
 _ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
 # name -> (CUDA source, {launcher: argtypes})
@@ -144,7 +147,8 @@ _GENERATED_CPU = {
                       **CPU_LIBRARIES["flop_count"][1]}.items()
     if not k.startswith("mpc_arm_")}
 
-# Generated units by library name (``register_generated``).
+# Generated units by library name (``register_generated``): (unit, whether
+# it is a timing build that holds both bodies).
 GENERATED: dict = {}
 
 
@@ -216,25 +220,33 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def register_generated(unit: str) -> str:
+def register_generated(unit: str, both_bodies: bool = False) -> str:
     """The library name of a generated unit (``gen-`` and the hash of the
     unit together with ``csrc/``), which ``cuda_build`` and
-    ``cpu_library`` then build."""
+    ``cpu_library`` then build.  ``both_bodies``: a timing build, whose CUDA
+    library also holds the body the launcher's rule does not pick for an
+    LTV shape that splits over its group (``fused_sqp_launch.cuh``
+    ``kBothBodiesBuild``), so the two can be timed against each other; the
+    library a problem runs holds the rule's body alone."""
     h = hashlib.sha256(unit.encode())
     h.update(_source_hash().encode())
+    if both_bodies:
+        h.update(b"both bodies")
     name = f"gen-{h.hexdigest()[:16]}"
-    GENERATED[name] = unit
+    GENERATED[name] = (unit, both_bodies)
     return name
 
 
 def _generated_source(name: str, target: str) -> Path:
     """Write the source of generated library ``name`` for ``target``
     ("cuda" or "cpu") into ``_build/`` (once: the name is its hash)."""
-    unit = GENERATED[name]
+    unit, both_bodies = GENERATED[name]
     if target == "cuda":
+        families = "mpc::kGenerated" + (" | kBothBodiesBuild"
+                                        if both_bodies else "")
         text = ("// A generated instantiation of the fused kernel "
                 "(_build.py).\n#include \"fused_sqp_launch.cuh\"\n\n"
-                f"{unit}\nMPC_FUSED_LIBRARY(mpc::kGenerated)\n")
+                f"{unit}\nMPC_FUSED_LIBRARY({families})\n")
         suffix = ".cu"
     else:
         model = "#define MPC_GENERATED_MODEL 1\n" \

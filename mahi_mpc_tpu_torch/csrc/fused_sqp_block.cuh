@@ -19,15 +19,16 @@
 //   the NQ q columns, each a pass through the whole chain, then the NQ qd
 //   columns, the RNEA alone, and the NQ u columns, two triangular solves,
 //   which read the stage's Cholesky factor from the first; the closed
-//   forms: the NZ dual-number columns), then one task a stage forms its
-//   defects, gradients, barrier diagonal and merit partials;
+//   forms: the NZ dual-number columns; LTV has none: its step stays in the
+//   tile), then one task a stage forms its defects, gradients, barrier
+//   diagonal and merit partials;
 // * the Riccati sweep alone stays serial: the group body's phases (B),
-//   (C), (D) (`GroupPhases`, below) on the W lanes of warp 0, with the
-//   group body's lane ownership of rows, reading the stage's rows and defects
-//   from shared memory; beside it one thread of warp 1 sums the merit's
-//   partials in the group body's order (stage N-1 down to 0, a stage's
-//   components in order), so the Armijo test's float32 sums are the group
-//   body's;
+//   (C), (D) (`GroupPhases`, fused_sqp_group.cuh) on the W lanes of warp
+//   0, with the group body's lane ownership of rows, reading the stage's
+//   rows and defects from shared memory; beside it one thread of warp 1
+//   sums the merit's partials in the group body's order (stage N-1 down to
+//   0, a stage's components in order), so the Armijo test's float32 sums
+//   are the group body's;
 // * the rollout of dX stays serial on the same W lanes
 //   (`GroupPhases::rollout_du`, `rollout_dx`);
 // * the line search runs rung x stage tasks across the block, storing each
@@ -53,350 +54,6 @@
 #include "fused_sqp_group.cuh"
 
 namespace mpc {
-
-// The group body's phases, as the block body runs them on the instance it
-// holds in shared memory: the terminal cost-to-go, the Riccati step's
-// phases (B), (C), (D), the rollout's two phases a stage, a line-search
-// rung's stage terms and its terminal test.  Each is lane l's share of one
-// phase of `solve_group` (fused_sqp_group.cuh), the same arithmetic in the
-// same order; the caller runs it under its group's `phase`.  `solve_group`
-// keeps its own inline copy: calling these moved nvcc's code for it and
-// cost its kernel 1.0 % (the Euler arm) and 1.8 % (Ltv<8, 4>) at B=16384 on
-// the H100 (tools/time_fused_modes.py in turns, PERF.md §6), so
-// tests/test_torch_fused_block.py holds the two bodies to the same bits
-// instead.  `Lane` views (L, CL, WL) may lie in
-// global memory, batch-innermost, or in shared memory with stride 1.
-template <typename S, typename GS>
-struct GroupPhases {
-  static constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NZ = NX + NU,
-                       NG = NX + 2 * NU, NR = NZ + 1, RPL = NX / W,
-                       kRungs = kMaxFan / W;
-  typedef typename GS::View View;
-  // State row r of lane l: l, l + W, ... (each lane one position and one
-  // velocity row when NX = 2 W).
-  MPC_HD static int row(int l, int rr) { return l + W * rr; }
-
-  // What a lane keeps between phases: its rows' and control's stage terms,
-  // its partial sums, and its rungs' accumulators.
-  struct Own {
-    S gzx[RPL], Dx[RPL], qz[RPL];
-    S gzv, gu, Du, qu;
-    S cost, jref, cl1, feas, pmax, ddir, amax, stepn;   // cost..ddir: lane 0
-    S cost_t[kRungs], cl1_t[kRungs], jref_t[kRungs];
-  };
-
-  // Stage cost of a point (solve_instance's `stage_cost`).
-  template <typename P>
-  MPC_HD static S stage_cost(const P& p, const S* xl, const S* ul,
-                             const S* du, const S* e, bool tk, S mu,
-                             S& rate_mag) {
-    S c = S(0);
-    for (int i = 0; i < NX; ++i) c = c + (tk ? p.q[i] * (e[i] * e[i]) : S(0));
-    rate_mag = S(0);
-    for (int k = 0; k < NU; ++k) {
-      rate_mag = rate_mag + p.r[k] * (du[k] * du[k]);
-      rate_mag = rate_mag + p.rm[k] * (ul[k] * ul[k]);
-    }
-    const S bx = bar_value(xl, p.xmin, p.xmax, NX, mu);
-    c = c + (tk ? bx : S(0));
-    c = c + bar_value(ul, p.umin, p.umax, NU, mu);
-    return c + rate_mag;
-  }
-
-  // Terminal cost-to-go: lane l's rows of Pxx, Pxv, px and its control's
-  // Pvv row and pv.
-  template <typename P, typename L, typename WL>
-  MPC_HD static void terminal(const View& T, int l, Own& o, const P& p,
-                              const L& X, const WL& Gs, int N, S mu) {
-    for (int rr = 0; rr < RPL; ++rr) {
-      const int i = row(l, rr);
-      const S xN = X[N * NX + i];
-      const S eN = xN - p.xdes[(N - 1) * NX + i], eF = xN - p.xfdes[i];
-      S gg, h;
-      bar_terms(xN, p.xmin[i], p.xmax[i], mu, gg, h);
-      for (int j = 0; j < NX; ++j) T.Pxx(i, j) = S(0);
-      T.Pxx(i, i) = (S(2) * p.q[i] + S(2) * p.qf[i]) + h;
-      const S pxi = (S(2) * p.q[i] * eN + S(2) * p.qf[i] * eF) + gg;
-      T.px(i) = pxi;
-      Gs[N * NG + i] = pxi;
-      for (int k = 0; k < NU; ++k) T.Pxv(i, k) = S(0);
-      o.pmax = nmax(o.pmax, m_abs(pxi));
-    }
-    if (l < NU) {
-      T.pv(l) = S(0);
-      for (int k = 0; k < NU; ++k) T.Pvv(l, k) = S(0);
-      Gs[N * NG + NX + l] = S(0);
-      Gs[N * NG + NX + NU + l] = S(0);
-    }
-  }
-
-  // The terminal merit terms (cost, reference cost) at xN, in order.
-  template <typename P>
-  MPC_HD static void terminal_merit(const P& p, const S* xN, int N, S mu,
-                                    S& cost, S& jref) {
-    cost = bar_value(xN, p.xmin, p.xmax, NX, mu);
-    for (int i = 0; i < NX; ++i) {
-      const S eN = xN[i] - p.xdes[(N - 1) * NX + i], eF = xN[i] - p.xfdes[i];
-      cost = cost + p.q[i] * (eN * eN);
-      cost = cost + p.qf[i] * (eF * eF);
-    }
-    jref = S(0);
-    for (int i = 0; i < NX; ++i) {
-      const S eF = xN[i] - p.xfdes[i];
-      jref = jref + p.qf[i] * (eF * eF);
-    }
-  }
-
-  // ---- (B) the step's blocks: the upper triangle of Qxx in columns, Qxu
-  // and Quu columns, qz_x and qu
-  MPC_HD static void blocks(const GS& gs, const View& T, int l, Own& o) {
-    S Prp[NX];                                 // px + Pxx ck
-    for (int i = 0; i < NX; ++i) {
-      S acc = T.Pxx(i, 0) * T.ck(0);
-      for (int t = 1; t < NX; ++t) acc = acc + T.Pxx(i, t) * T.ck(t);
-      Prp[i] = T.px(i) + acc;
-    }
-    for (int rr = 0; rr < RPL; ++rr) {
-      const int j = row(l, rr);
-      S v[NX];                                 // (Pxx A)[:, j]
-      for (int i = 0; i < NX; ++i)
-        v[i] = gs.At(T, j, [&](int t) { return T.Pxx(i, t); });
-      for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
-        const S acc = gs.At(T, i, [&](int t) { return v[t]; });
-        T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
-      }
-      o.qz[rr] = o.gzx[rr] + gs.At(T, j, [&](int t) { return Prp[t]; });
-    }
-    if (l < NU) {
-      S pb[NX], m1[NX];                        // Pxx B[:, l], + Pxv
-      for (int i = 0; i < NX; ++i) {
-        pb[i] = gs.Bt(T, l, [&](int t) { return T.Pxx(i, t); });
-        m1[i] = pb[i] + T.Pxv(i, l);
-      }
-      for (int i = 0; i < NX; ++i)             // Qxu[:, l] = A' m1
-        T.Qxu(i, l) = gs.At(T, i, [&](int t) { return m1[t]; });
-      for (int mm = 0; mm < NU; ++mm) {        // Quu[:, l]
-        const S bpb = gs.Bt(T, mm, [&](int t) { return pb[t]; });
-        const S bpv = gs.Bt(T, mm, [&](int t) { return T.Pxv(t, l); });
-        const S bpv_t = gs.Bt(T, l, [&](int t) { return T.Pxv(t, mm); });
-        const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, l);
-        T.Quu(mm, l) = mm == l ? quu + o.Du : quu;
-      }
-      S pv_acc = T.Pxv(0, l) * T.ck(0);        // pv + Pxv' ck
-      for (int t = 1; t < NX; ++t) pv_acc = pv_acc + T.Pxv(t, l) * T.ck(t);
-      const S prp_v = T.pv(l) + pv_acc;
-      const S bp = gs.Bt(T, l, [&](int t) { return Prp[t]; });
-      o.qu = o.gu + (bp + prp_v);
-      T.qu(l) = o.qu;
-    }
-  }
-
-  // ---- (C) Cholesky of Quu (every lane; ops/elem.py chol order) and the
-  // solves of the right-hand-side columns [ -Qxu' | 2R | -qu ]
-  template <typename CL, typename WL>
-  MPC_HD static void gains(const View& T, int l, const CL& r, const WL& Ks,
-                           const WL& kffs, int k, bool pinned) {
-    S Lc[NU][NU], Linv[NU];
-    for (int j = 0; j < NU; ++j) {
-      S s = T.Quu(j, j);
-      for (int t = 0; t < j; ++t) s = s - Lc[j][t] * Lc[j][t];
-      const S d = m_sqrt(s);
-      Lc[j][j] = d;
-      Linv[j] = S(1) / d;
-      for (int i = j + 1; i < NU; ++i) {
-        S t2 = T.Quu(i, j);
-        for (int t = 0; t < j; ++t) t2 = t2 - Lc[i][t] * Lc[j][t];
-        Lc[i][j] = t2 * Linv[j];
-      }
-    }
-#pragma unroll 1
-    for (int c = l; c < NR; c += W) {
-      S y[NU];
-      for (int mm = 0; mm < NU; ++mm)
-        y[mm] = c < NX ? -T.Qxu(c, mm)
-                : c < NZ ? (mm == c - NX ? S(2) * r[mm] : S(0))
-                         : -T.qu(mm);
-      for (int i = 0; i < NU; ++i) {           // L y = rhs
-        for (int t = 0; t < i; ++t) y[i] = y[i] - Lc[i][t] * y[t];
-        y[i] = y[i] * Linv[i];
-      }
-      for (int i = NU - 1; i >= 0; --i) {      // L' x = y
-        for (int t = i + 1; t < NU; ++t) y[i] = y[i] - Lc[t][i] * y[t];
-        y[i] = y[i] * Linv[i];
-      }
-      for (int mm = 0; mm < NU; ++mm) {
-        const S v = pinned ? S(0) : y[mm];
-        T.Y(mm, c) = v;
-        if (c < NZ) Ks[(k * NU + mm) * NZ + c] = v;
-        else kffs[k * NU + mm] = v;
-      }
-    }
-  }
-
-  // ---- (D) the new carries: Pxx = sym(Qxx + Qxu Kx) in columns (both of
-  // its terms (i, j) and (j, i) here), or Qxx where the head is pinned;
-  // Pxv, Pvv columns; px, pv
-  template <typename CL>
-  MPC_HD static void carries(const View& T, int l, Own& o, const CL& r,
-                             bool pinned) {
-    auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
-      S acc = T.Qxu(i, 0) * T.Y(0, j);
-      for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
-      return acc;
-    };
-    for (int rr = 0; rr < RPL; ++rr) {
-      const int j = row(l, rr);
-      for (int i = 0; i < NX; ++i) {
-        const S qxx = i <= j ? T.Qxx(i, j) : T.Qxx(j, i);
-        T.Pxx(i, j) = pinned ? qxx
-            : S(0.5) * ((qxx + qkx(i, j)) + (qxx + qkx(j, i)));
-      }
-      S pxj = o.qz[rr];
-      if (!pinned) {
-        S acc = T.Qxu(j, 0) * T.Y(0, NZ);
-        for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(j, t) * T.Y(t, NZ);
-        pxj = pxj + acc;
-      }
-      T.px(j) = pxj;
-      o.pmax = nmax(o.pmax, m_abs(pxj));
-    }
-    if (l < NU) {
-      const S r2l = S(2) * r[l];
-      S pvl = o.gzv;
-      if (pinned) {
-        for (int i = 0; i < NX; ++i) T.Pxv(i, l) = S(0);
-        for (int mm = 0; mm < NU; ++mm)
-          T.Pvv(mm, l) = mm == l ? r2l : S(0);
-      } else {
-        for (int i = 0; i < NX; ++i) {
-          S acc = T.Qxu(i, 0) * T.Y(0, NX + l);
-          for (int t = 1; t < NU; ++t)
-            acc = acc + T.Qxu(i, t) * T.Y(t, NX + l);
-          T.Pxv(i, l) = S(0.5) * (acc + -(r2l * T.Y(l, i)));
-        }
-        for (int mm = 0; mm < NU; ++mm) {
-          const S pvv = S(-0.5) * (S(2) * r[mm] * T.Y(mm, NX + l)
-                                   + r2l * T.Y(l, NX + mm));
-          T.Pvv(mm, l) = mm == l ? pvv + r2l : pvv;
-        }
-        pvl = pvl - r2l * T.Y(l, NZ);
-      }
-      T.pv(l) = pvl;
-      o.pmax = nmax(o.pmax, m_abs(pvl));
-    }
-  }
-
-  // ---- the rollout's first phase of stage k: du_k of lane l's control
-  // into the other buffer
-  template <typename WL>
-  MPC_HD static void rollout_du(const View& T, int l, int k, const WL& Ks,
-                                const WL& kffs) {
-    if (l >= NU) return;
-    const int cur = k & 1, nxt = cur ^ 1;
-    const int base = (k * NU + l) * NZ;
-    S acc = Ks[base] * T.dx(cur, 0);
-    for (int j = 1; j < NX; ++j) acc = acc + Ks[base + j] * T.dx(cur, j);
-    for (int j = 0; j < NU; ++j) acc = acc + Ks[base + NX + j] * T.du(cur, j);
-    T.du(nxt, l) = acc + kffs[k * NU + l];
-  }
-
-  // ---- its second: lane 0's directional derivative (in order), lane l's
-  // rows of dx_{k+1}, its fraction-to-boundary cap and step norm
-  template <typename P, typename L, typename WL>
-  MPC_HD static void rollout_dx(const GS& gs, const View& T, int l, int k,
-                                Own& o, const P& p, const L& X, const L& U,
-                                const WL& Gs, const WL& Js, const WL& cks,
-                                const WL& dXs, const WL& dUs) {
-    const int cur = k & 1, nxt = cur ^ 1;
-    if (l == 0) {
-      for (int i = 0; i < NX; ++i)
-        o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
-      for (int j = 0; j < NU; ++j) {
-        o.ddir = o.ddir + Gs[k * NG + NX + j] * T.du(cur, j);
-        o.ddir = o.ddir + Gs[k * NG + NX + NU + j] * T.du(nxt, j);
-      }
-    }
-    for (int rr = 0; rr < RPL; ++rr) {
-      const int i = row(l, rr);
-      const S dxn = gs.next_row(
-          T, k, i, [&](int j) { return T.dx(cur, j); },
-          [&](int j) { return T.du(nxt, j); }, Js, cks);
-      T.dx(nxt, i) = dxn;
-      dXs[(k + 1) * NX + i] = dxn;
-      o.amax = ftb(X[(k + 1) * NX + i], dxn, p.xmin[i], p.xmax[i], o.amax);
-      o.stepn = nmax(o.stepn, m_abs(dxn));
-    }
-    if (l < NU) {
-      const S dul = T.du(nxt, l);
-      o.amax = ftb(U[k * NU + l], dul, p.umin[l], p.umax[l], o.amax);
-      o.stepn = nmax(o.stepn, m_abs(dul));
-      dUs[k * NU + l] = dul;
-    }
-  }
-
-  // A rung's terms at stage k, step aj: its stage cost (returned), its
-  // reference cost `jr`, and each state row's |defect| in `ad`.  xl, ul,
-  // xn1: x_k, u_k, x_{k+1}; dxk, duk, dxk1: their steps; ukm1, dukm1: u_{k-1}
-  // and its step.
-  template <typename P>
-  MPC_HD static S rung_terms(const GS& gs, const View& T, const P& p, int k,
-                             S aj, S mu, const S* xl, const S* ul,
-                             const S* xn1, const S* dxk, const S* duk,
-                             const S* dxk1, const S* ukm1, const S* dukm1,
-                             S& jr, S* ad) {
-    const bool tk = k >= 1;
-    const int kp = k >= 1 ? k - 1 : 0;
-    S xt[NX], ut[NU], dut[NU], et[NX], vt[NX];
-    for (int i = 0; i < NX; ++i) {
-      xt[i] = xl[i] + aj * dxk[i];
-      et[i] = xt[i] - p.xdes[kp * NX + i];
-    }
-    for (int j = 0; j < NU; ++j) {
-      ut[j] = ul[j] + aj * duk[j];
-      dut[j] = ut[j] - (ukm1[j] + aj * dukm1[j]);
-    }
-    S rmag;
-    const S sc = stage_cost(p, xt, ut, dut, et, tk, mu, rmag);
-    gs.value(T, xt, ut, vt);
-    jr = rmag;
-    for (int i = 0; i < NX; ++i) {
-      const S inc = vt[i];
-      const S vi = xt[i] + inc;
-      ad[i] = m_abs(((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i])) + inc);
-      const S er = vi - p.xdes[k * NX + i];
-      jr = jr + p.q[i] * (er * er);
-    }
-    return sc;
-  }
-
-  // A rung's terminal terms at step aj from its sums, and the Armijo test:
-  // whether it passes, and its reference cost in `jr`.
-  template <typename P>
-  MPC_HD static bool rung_test(const P& p, const S* xN, const S* dxN, int N,
-                               S aj, S mu, S cost_t, S cl1_t, S jref_t,
-                               S nu_pen, S m0, S ddir, S eps_m, S& jr) {
-    S xt[NX];
-    S ct = cost_t;
-    jr = jref_t;
-    for (int i = 0; i < NX; ++i) {
-      xt[i] = xN[i] + aj * dxN[i];
-      const S eN = xt[i] - p.xdes[(N - 1) * NX + i];
-      const S eF = xt[i] - p.xfdes[i];
-      ct = (ct + p.q[i] * eN * eN) + p.qf[i] * eF * eF;
-      jr = jr + p.qf[i] * eF * eF;
-    }
-    ct = ct + bar_value(xt, p.xmin, p.xmax, NX, mu);
-    const S mj = ct + nu_pen * cl1_t;
-    return m_isfinite(mj)
-        && mj <= (m0 + S(kArmijoSlope) * aj * ddir) + eps_m;
-  }
-};
-
-// One instance's parameters, as `Lane` views.
-template <typename L>
-struct InstanceParams {
-  L xdes, q, r, rm, uprev, umin, umax, xmin, xmax, qf, xfdes;
-};
 
 constexpr int kBlockThreads = 256;
 // The thread that sums the merit's partials during the sweep: the first of
@@ -465,7 +122,9 @@ struct Block {
 // stage's NJ dt-scaled acceleration rows to J (NJ x NZ), the stage's f
 // (what `GroupStep::inc` makes the increment of) to F, and NE values of
 // its own that a later pass reads to E.  Each task is the arithmetic of the
-// group step's `linearize` for its column.
+// group step's `linearize` for its column.  A policy with no passes (LTV)
+// keeps its step in the tile for the whole solve, and f is formed from it
+// a row a task.
 template <typename S, typename Step> struct BlockStep;
 
 // The arms under Euler, folded: pass 0 the q columns (the q_0 task also
@@ -534,6 +193,18 @@ struct BlockStep<S, FastNq<S, Model>> {
   }
 };
 
+// LTV: no linearization.  The affine step (Ad - I | Bd), A = I + (Ad - I)
+// and cd go into the tile once a solve (`GroupStep<Ltv>::setup`), and stay
+// there: no stage rows to J (NJ = 0); f = (Ad - I) x + Bd u + cd formed
+// from the tile a row a task (`solve_block`).
+template <typename S, int NX_, int NU_>
+struct BlockStep<S, Ltv<S, NX_, NU_>> {
+  static constexpr int NJ = 0, NE = 0, kPasses = 0;
+  MPC_HD BlockStep(const Ltv<S, NX_, NU_>&, const FusedArgs<S>&) {}
+  MPC_HD static int tasks(int) { return 0; }
+  MPC_HD void task(int, int, const S*, const S*, S*, S*, S*) const {}
+};
+
 // Which step policies the card runs on the block body, and up to which
 // batch (the launcher's rule, `use_block`).  kMaxBatch is where the block
 // body stops beating the group body: the two bodies timed in turns on the
@@ -547,7 +218,10 @@ struct BlockStep<S, FastNq<S, Model>> {
 //   waves), a tie at 792, group from 1024;
 // - the double pendulum: block 0.244-0.248 ms to 132, 0.490 at 264, 0.733
 //   at 396, 0.974 at 528; group 0.680-0.906: block through 396 (three
-//   waves), group from 528.
+//   waves), group from 528;
+// - LTV at (8, 4): block 0.467-0.471 ms to 132, 0.940 at 264, 1.409 at
+//   396; group 0.869-1.060 to 264, 1.102 at 396: block through 264 (two
+//   waves), group from 396.
 template <typename Step> struct BlockBody {
   static constexpr bool value = false;
 };
@@ -558,6 +232,10 @@ template <typename S> struct BlockBody<FastNq<S, ArmModel<S, 4>>> {
 template <typename S> struct BlockBody<FastNq<S, DoublePendulum<S>>> {
   static constexpr bool value = true;
   static constexpr long long kMaxBatch = 396;
+};
+template <typename S> struct BlockBody<Ltv<S, 8, 4>> {
+  static constexpr bool value = true;
+  static constexpr long long kMaxBatch = 264;
 };
 
 // Where each array of one instance lies in the block's shared memory, in
@@ -637,9 +315,6 @@ MPC_HD long long block_smem_bytes(int N) {
          BlockLayout<typename StepScalar<Step>::type, Step>(N).end;
 }
 
-// A block's dynamic shared memory on the H100 (227 KB).
-constexpr long long kBlockSmemMax = 227 * 1024;
-
 // The launcher's rule: the block body for a policy `BlockBody` names, at a
 // batch up to its kMaxBatch and a horizon whose instance fits in one
 // block's shared memory; the policy's body at full occupancy (the group
@@ -686,6 +361,7 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
   typedef BlockStep<S, Step> BS;
   constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NG = NX + 2 * NU,
                 NZ = NX + NU, NJ = BS::NJ, NE = BS::NE, RPL = NX / W;
+  // a lane owns one control at most (the policies `BlockBody` names)
   static_assert(NX % W == 0 && NU <= W, "group split");
   typedef typename Blk::template Lanes<W> G;
   const GS gs(step, a, b);
@@ -779,6 +455,18 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
       });
       blk.sync(kLinearize);
     }
+    if constexpr (BS::kPasses == 0) {
+      // LTV: no linearization; row i of stage k's f = (Ad - I) x + Bd u +
+      // cd, a task a row, from the step in the tile (`GroupStep<Ltv>`)
+      blk.each(N * NX, [&](int e) {
+        const int k = e / NX, i = e - k * NX;
+        S xl[NX], ul[NU];
+        load(X, k * NX, NX, xl);
+        load(U, k * NU, NU, ul);
+        Fs[e] = GS::row(T, xl, ul, i) + GS::cd(T, i);
+      });
+      blk.sync(kLinearize);
+    }
     // defects, stage gradients, barrier diagonal and merit partials, one
     // task a stage (the group body's phase (A))
     blk.each(N, [&](int k) {
@@ -835,9 +523,9 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
             o.Dx[rr] = Dxs[k * NX + i];
           }
           if (l < NU) {
-            o.gzv = Gs[k * NG + NX + l];
-            o.gu = Gs[k * NG + NX + NU + l];
-            o.Du = Dus[k * NU + l];
+            o.gzv[0] = Gs[k * NG + NX + l];
+            o.gu[0] = Gs[k * NG + NX + NU + l];
+            o.Du[0] = Dus[k * NU + l];
           }
           Ph::blocks(gs, T, l, o);
         });

@@ -3,11 +3,11 @@
 // `GroupBody` names (fused_sqp_launch.cuh), and, built by g++, of the tests'
 // CPU build for every policy.  The width W is a compile-time constant of
 // the group step policy: four lanes for the serial arms under every
-// integrator and for the LTV step at (8, 4), two for the closed-form
-// models, the generated models (models/codegen.py) and the other LTV
-// shapes; a shape that does not split over its group (`group_fits`: NX a
-// multiple of W, NU at most W) has no group body.  A policy the card does
-// not run on the group body runs the one-thread `solve_instance`
+// integrator and for the LTV step where NX is a multiple of 4 from 8 up,
+// two for the closed-form models, the generated models (models/codegen.py)
+// and the other LTV shapes; a shape that does not split over its group
+// (`group_fits`: NX a multiple of W) has no group body.  A policy the card
+// does not run on the group body runs the one-thread `solve_instance`
 // (fused_sqp.cuh).
 //
 // It computes what `solve_instance<Step>` computes, in the same iteration
@@ -38,19 +38,21 @@
 //   the rows to global J as well, where the rollout reads them: the rollout
 //   runs after the whole backward sweep, when the tile holds only stage 0,
 //   and forming them again would cost the passes once more.
-// * LTV (`Ltv<NX, NU>`; W = 4 at (8, 4), 2 otherwise): the affine step (Ad
-//   - I, Bd, cd) and A = I + (Ad - I) go into the tile once a solve (lane l
-//   reads rows l, l + W, ... of each, coalesced in the batch-innermost
-//   layout); no stage, rollout step or rung reads them from global memory
-//   again.
+// * LTV (`Ltv<NX, NU>`; `LtvWidth`: W = 4 where NX is a multiple of 4 from
+//   8 up, 2 otherwise): the affine step (Ad - I, Bd, cd) and A = I + (Ad -
+//   I) go into the tile once a solve (lane l reads rows l, l + W, ... of
+//   each, coalesced in the batch-innermost layout); no stage, rollout step
+//   or rung reads them from global memory again.
 //
 // The block Riccati step is split over the lanes on a per-instance tile in
 // shared memory (`GroupTile`): lane l owns the state rows and columns l, l
-// + W, ... (`row`), the control index l (NU <= W), and the right-hand-side
-// columns l, l + W, ... of the gain solve.  Each sum keeps the one-thread
-// body's order, so with a dense A the step is the one-thread body's to the
-// last bit.  The line-search rungs run in parallel: lane l evaluates rungs
-// l, l + W, ... over all stages; the first passing rung in fan order wins.
+// + W, ... (`row`), the controls l, l + W, ... (where NU <= W one at most,
+// and the code of the phases is the one-control code it always was: CPL,
+// `GroupPhases`), and the right-hand-side columns l, l + W, ... of the
+// gain solve.  Each sum keeps the one-thread body's order, so with a dense
+// A the step is the one-thread body's to the last bit.  The line-search
+// rungs run in parallel: lane l evaluates rungs l, l + W, ... over all
+// stages; the first passing rung in fan order wins.
 //
 // The body is a sequence of phases.  On the device the W lanes run a phase
 // at once and meet at a `__syncwarp` of the group; on the host one thread
@@ -180,7 +182,8 @@ template <typename S, typename Step> struct GroupStep;
 // Which step policies the card runs on the group body (the others on the
 // one-thread body), by the in-turn timing of the two bodies on the H100
 // (tools/time_fused_modes.py, fixed-3 warm at B=16384, PERF.md §6):
-// - four lanes: the serial arms under every integrator, LTV at (8, 4);
+// - four lanes: the serial arms under every integrator; LTV where NX is a
+//   multiple of 4 from 8 up (`GroupBody<Ltv>`, below the LTV step);
 // - two lanes: the generic path (midpoint and RK4) of the double
 //   pendulum, the acrobot and the cart-pole, whose tangent passes through
 //   the integrator's stages split over the lanes (1.08-1.26x), and the
@@ -194,7 +197,7 @@ template <typename S, typename Step> struct GroupStep;
 // generated model under midpoint and RK4 (and a first-order one under
 // Euler) the generic path's two lanes where its shape splits over them
 // (NX even, NU <= 2), one thread otherwise; a generated model's nq-row
-// policy and every LTV shape outside the four, one thread.
+// policy one thread; an LTV shape the LTV rule.
 template <typename Step> struct GroupBody {
   static constexpr bool value = false;
 };
@@ -220,9 +223,6 @@ template <typename S> struct GroupBody<Generic<S, Pendulum<S>>> {
 };
 template <typename S> struct GroupBody<FastNq<S, DoublePendulum<S>>> {
   static constexpr bool value = true;
-};
-template <typename S, int NX, int NU> struct GroupBody<Ltv<S, NX, NU>> {
-  static constexpr bool value = NX == 8 && NU == 4;
 };
 
 // The Euler step of a second-order model (the nq-row policy): the tile
@@ -413,13 +413,18 @@ struct GroupStep<S, Generic<S, Model>>
   }
 };
 
+// The LTV step's width: four lanes where NX is a multiple of 4 from 8 up
+// ((8, 4), the generated (12, 6)), two otherwise.
+template <int NX> struct LtvWidth {
+  static constexpr int value = NX % 4 == 0 && NX >= 8 ? 4 : 2;
+};
+
 // LTV: (Ad - I | Bd) in Jr, A = I + (Ad - I) and cd in the policy's
-// entries, loaded once a solve; four lanes at (8, 4), two at the smaller
-// shapes (nx <= 4).
+// entries, loaded once a solve.
 template <typename S, int NX_, int NU_>
 struct GroupStep<S, Ltv<S, NX_, NU_>>
-    : GroupDense<S, NX_, NU_, NX_, NX_ == 8 ? 4 : 2> {
-  typedef GroupDense<S, NX_, NU_, NX_, NX_ == 8 ? 4 : 2> D;
+    : GroupDense<S, NX_, NU_, NX_, LtvWidth<NX_>::value> {
+  typedef GroupDense<S, NX_, NU_, NX_, LtvWidth<NX_>::value> D;
   using D::W; using D::NX; using D::NU;
   typedef typename D::View View;
   typename Ltv<S, NX_, NU_>::Bound st;
@@ -464,6 +469,28 @@ struct GroupStep<S, Ltv<S, NX_, NU_>>
   }
 };
 
+// Threads of a block of the group kernel (fused_sqp_launch.cuh), and the
+// shared memory one block may take on the H100 (227 KB).
+constexpr int kGroupThreads = 128;
+constexpr long long kBlockSmemMax = 227 * 1024;
+
+// Where the card runs LTV on the group body: on four lanes (NX a multiple
+// of 4 from 8 up: (8, 4), the generated (12, 6)) where a block's 32 tiles
+// fit in its shared memory.  Lane l owns controls l, l + W, ..., so NU may
+// exceed W.  Timed against the one-thread body in turns on the H100
+// (tools/time_fused_modes.py, fixed-3 warm at B=16384, PERF.md §6): (12, 6)
+// 11.38 ms on four lanes against 22.80 on one thread (which spills 8172
+// B); two lanes lost everywhere they were timed, so every other shape runs
+// one thread: (6, 3) 2.33 ms on two lanes against 1.81-1.85 (the lanes at
+// 168 registers spill 160 B), and (4, 2), (4, 1), (2, 1) (timed before).
+template <typename S, int NX, int NU> struct GroupBody<Ltv<S, NX, NU>> {
+  typedef GroupStep<float, Ltv<float, NX, NU>> GS;
+  static constexpr bool value =
+      GS::W == 4 &&
+      (long long)sizeof(float) * GS::Tile::kSize * (kGroupThreads / GS::W) <=
+          kBlockSmemMax;
+};
+
 // Each shape's tile, in floats, and whether it grew past the step's
 // blocks: the four-lane shapes keep the layout they had before the width
 // was a parameter; at nx + nu = 5 and 3 the blocks are too few for the
@@ -500,8 +527,363 @@ static_assert(kTileIs<Ltv<float, 2, 1>, 71, true> &&
 template <typename S, typename Step>
 constexpr bool group_fits() {
   typedef GroupStep<S, Step> GS;
-  return GS::NX % GS::W == 0 && GS::NU <= GS::W && kMaxFan % GS::W == 0;
+  return GS::NX % GS::W == 0 && kMaxFan % GS::W == 0;
 }
+
+// The group body's phases: the terminal cost-to-go, the Riccati step's
+// phases (B), (C), (D), the rollout's two phases a stage, a line-search
+// rung's stage terms and its terminal test.  Each is lane l's share of one
+// phase of `solve_group`, the same arithmetic in the same order; the
+// caller runs it under its group's `phase`.  The block body
+// (fused_sqp_block.cuh) runs them on the instance it holds in shared
+// memory; `solve_group` runs them where a lane owns more than one control
+// (CPL > 1) and keeps its own inline copy otherwise: calling these moved
+// nvcc's code for it and cost its kernel 1.0 % (the Euler arm) and 1.8 %
+// (Ltv<8, 4>) at B=16384 on the H100 (tools/time_fused_modes.py in turns,
+// PERF.md §6), so tests/test_torch_fused_block.py holds the two bodies to
+// the same bits instead.  Lane l owns controls l, l + W, ... (CPL of them
+// at most) and loops over them; where NU <= W the loop takes one trip or
+// none, the sums in the order of the one-control code it replaced.  `Lane`
+// views (L, CL, WL) may lie in global memory, batch-innermost, or in shared
+// memory with stride 1.
+template <typename S, typename GS>
+struct GroupPhases {
+  static constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NZ = NX + NU,
+                       NG = NX + 2 * NU, NR = NZ + 1, RPL = NX / W,
+                       CPL = (NU + W - 1) / W, kRungs = kMaxFan / W;
+  typedef typename GS::View View;
+  // State row r of lane l: l, l + W, ... (each lane one position and one
+  // velocity row when NX = 2 W); control cc of lane l the same, l + W cc.
+  MPC_HD static int row(int l, int rr) { return l + W * rr; }
+
+  // What a lane keeps between phases: its rows' and controls' stage terms,
+  // its partial sums, and its rungs' accumulators.
+  struct Own {
+    S gzx[RPL], Dx[RPL], qz[RPL];
+    S gzv[CPL], gu[CPL], Du[CPL], qu[CPL];
+    S cost, jref, cl1, feas, pmax, ddir, amax, stepn;   // cost..ddir: lane 0
+    S cost_t[kRungs], cl1_t[kRungs], jref_t[kRungs];
+  };
+
+  // Stage cost of a point (solve_instance's `stage_cost`).
+  template <typename P>
+  MPC_HD static S stage_cost(const P& p, const S* xl, const S* ul,
+                             const S* du, const S* e, bool tk, S mu,
+                             S& rate_mag) {
+    S c = S(0);
+    for (int i = 0; i < NX; ++i) c = c + (tk ? p.q[i] * (e[i] * e[i]) : S(0));
+    rate_mag = S(0);
+    for (int k = 0; k < NU; ++k) {
+      rate_mag = rate_mag + p.r[k] * (du[k] * du[k]);
+      rate_mag = rate_mag + p.rm[k] * (ul[k] * ul[k]);
+    }
+    const S bx = bar_value(xl, p.xmin, p.xmax, NX, mu);
+    c = c + (tk ? bx : S(0));
+    c = c + bar_value(ul, p.umin, p.umax, NU, mu);
+    return c + rate_mag;
+  }
+
+  // Terminal cost-to-go: lane l's rows of Pxx, Pxv, px and its controls'
+  // Pvv rows and pv.
+  template <typename P, typename L, typename WL>
+  MPC_HD static void terminal(const View& T, int l, Own& o, const P& p,
+                              const L& X, const WL& Gs, int N, S mu) {
+    for (int rr = 0; rr < RPL; ++rr) {
+      const int i = row(l, rr);
+      const S xN = X[N * NX + i];
+      const S eN = xN - p.xdes[(N - 1) * NX + i], eF = xN - p.xfdes[i];
+      S gg, h;
+      bar_terms(xN, p.xmin[i], p.xmax[i], mu, gg, h);
+      for (int j = 0; j < NX; ++j) T.Pxx(i, j) = S(0);
+      T.Pxx(i, i) = (S(2) * p.q[i] + S(2) * p.qf[i]) + h;
+      const S pxi = (S(2) * p.q[i] * eN + S(2) * p.qf[i] * eF) + gg;
+      T.px(i) = pxi;
+      Gs[N * NG + i] = pxi;
+      for (int k = 0; k < NU; ++k) T.Pxv(i, k) = S(0);
+      o.pmax = nmax(o.pmax, m_abs(pxi));
+    }
+    for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+      const int c = row(l, cc);
+      T.pv(c) = S(0);
+      for (int k = 0; k < NU; ++k) T.Pvv(c, k) = S(0);
+      Gs[N * NG + NX + c] = S(0);
+      Gs[N * NG + NX + NU + c] = S(0);
+    }
+  }
+
+  // The terminal merit terms (cost, reference cost) at xN, in order.
+  template <typename P>
+  MPC_HD static void terminal_merit(const P& p, const S* xN, int N, S mu,
+                                    S& cost, S& jref) {
+    cost = bar_value(xN, p.xmin, p.xmax, NX, mu);
+    for (int i = 0; i < NX; ++i) {
+      const S eN = xN[i] - p.xdes[(N - 1) * NX + i], eF = xN[i] - p.xfdes[i];
+      cost = cost + p.q[i] * (eN * eN);
+      cost = cost + p.qf[i] * (eF * eF);
+    }
+    jref = S(0);
+    for (int i = 0; i < NX; ++i) {
+      const S eF = xN[i] - p.xfdes[i];
+      jref = jref + p.qf[i] * (eF * eF);
+    }
+  }
+
+  // ---- (B) the step's blocks: the upper triangle of Qxx in columns, Qxu
+  // and Quu columns, qz_x and qu
+  MPC_HD static void blocks(const GS& gs, const View& T, int l, Own& o) {
+    S Prp[NX];                                 // px + Pxx ck
+    for (int i = 0; i < NX; ++i) {
+      S acc = T.Pxx(i, 0) * T.ck(0);
+      for (int t = 1; t < NX; ++t) acc = acc + T.Pxx(i, t) * T.ck(t);
+      Prp[i] = T.px(i) + acc;
+    }
+    for (int rr = 0; rr < RPL; ++rr) {
+      const int j = row(l, rr);
+      S v[NX];                                 // (Pxx A)[:, j]
+      for (int i = 0; i < NX; ++i)
+        v[i] = gs.At(T, j, [&](int t) { return T.Pxx(i, t); });
+      for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
+        const S acc = gs.At(T, i, [&](int t) { return v[t]; });
+        T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
+      }
+      o.qz[rr] = o.gzx[rr] + gs.At(T, j, [&](int t) { return Prp[t]; });
+    }
+    for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+      const int c = row(l, cc);
+      S pb[NX], m1[NX];                        // Pxx B[:, c], + Pxv
+      for (int i = 0; i < NX; ++i) {
+        pb[i] = gs.Bt(T, c, [&](int t) { return T.Pxx(i, t); });
+        m1[i] = pb[i] + T.Pxv(i, c);
+      }
+      for (int i = 0; i < NX; ++i)             // Qxu[:, c] = A' m1
+        T.Qxu(i, c) = gs.At(T, i, [&](int t) { return m1[t]; });
+      for (int mm = 0; mm < NU; ++mm) {        // Quu[:, c]
+        const S bpb = gs.Bt(T, mm, [&](int t) { return pb[t]; });
+        const S bpv = gs.Bt(T, mm, [&](int t) { return T.Pxv(t, c); });
+        const S bpv_t = gs.Bt(T, c, [&](int t) { return T.Pxv(t, mm); });
+        const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, c);
+        T.Quu(mm, c) = mm == c ? quu + o.Du[cc] : quu;
+      }
+      S pv_acc = T.Pxv(0, c) * T.ck(0);        // pv + Pxv' ck
+      for (int t = 1; t < NX; ++t) pv_acc = pv_acc + T.Pxv(t, c) * T.ck(t);
+      const S prp_v = T.pv(c) + pv_acc;
+      const S bp = gs.Bt(T, c, [&](int t) { return Prp[t]; });
+      o.qu[cc] = o.gu[cc] + (bp + prp_v);
+      T.qu(c) = o.qu[cc];
+    }
+  }
+
+  // ---- (C) Cholesky of Quu (every lane; ops/elem.py chol order) and the
+  // solves of the right-hand-side columns [ -Qxu' | 2R | -qu ]
+  template <typename CL, typename WL>
+  MPC_HD static void gains(const View& T, int l, const CL& r, const WL& Ks,
+                           const WL& kffs, int k, bool pinned) {
+    S Lc[NU][NU], Linv[NU];
+    for (int j = 0; j < NU; ++j) {
+      S s = T.Quu(j, j);
+      for (int t = 0; t < j; ++t) s = s - Lc[j][t] * Lc[j][t];
+      const S d = m_sqrt(s);
+      Lc[j][j] = d;
+      Linv[j] = S(1) / d;
+      for (int i = j + 1; i < NU; ++i) {
+        S t2 = T.Quu(i, j);
+        for (int t = 0; t < j; ++t) t2 = t2 - Lc[i][t] * Lc[j][t];
+        Lc[i][j] = t2 * Linv[j];
+      }
+    }
+#pragma unroll 1
+    for (int c = l; c < NR; c += W) {
+      S y[NU];
+      for (int mm = 0; mm < NU; ++mm)
+        y[mm] = c < NX ? -T.Qxu(c, mm)
+                : c < NZ ? (mm == c - NX ? S(2) * r[mm] : S(0))
+                         : -T.qu(mm);
+      for (int i = 0; i < NU; ++i) {           // L y = rhs
+        for (int t = 0; t < i; ++t) y[i] = y[i] - Lc[i][t] * y[t];
+        y[i] = y[i] * Linv[i];
+      }
+      for (int i = NU - 1; i >= 0; --i) {      // L' x = y
+        for (int t = i + 1; t < NU; ++t) y[i] = y[i] - Lc[t][i] * y[t];
+        y[i] = y[i] * Linv[i];
+      }
+      for (int mm = 0; mm < NU; ++mm) {
+        const S v = pinned ? S(0) : y[mm];
+        T.Y(mm, c) = v;
+        if (c < NZ) Ks[(k * NU + mm) * NZ + c] = v;
+        else kffs[k * NU + mm] = v;
+      }
+    }
+  }
+
+  // ---- (D) the new carries: Pxx = sym(Qxx + Qxu Kx) in columns (both of
+  // its terms (i, j) and (j, i) here), or Qxx where the head is pinned;
+  // Pxv, Pvv columns; px, pv
+  template <typename CL>
+  MPC_HD static void carries(const View& T, int l, Own& o, const CL& r,
+                             bool pinned) {
+    auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
+      S acc = T.Qxu(i, 0) * T.Y(0, j);
+      for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
+      return acc;
+    };
+    for (int rr = 0; rr < RPL; ++rr) {
+      const int j = row(l, rr);
+      for (int i = 0; i < NX; ++i) {
+        const S qxx = i <= j ? T.Qxx(i, j) : T.Qxx(j, i);
+        T.Pxx(i, j) = pinned ? qxx
+            : S(0.5) * ((qxx + qkx(i, j)) + (qxx + qkx(j, i)));
+      }
+      S pxj = o.qz[rr];
+      if (!pinned) {
+        S acc = T.Qxu(j, 0) * T.Y(0, NZ);
+        for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(j, t) * T.Y(t, NZ);
+        pxj = pxj + acc;
+      }
+      T.px(j) = pxj;
+      o.pmax = nmax(o.pmax, m_abs(pxj));
+    }
+    for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+      const int c = row(l, cc);
+      const S r2l = S(2) * r[c];
+      S pvl = o.gzv[cc];
+      if (pinned) {
+        for (int i = 0; i < NX; ++i) T.Pxv(i, c) = S(0);
+        for (int mm = 0; mm < NU; ++mm)
+          T.Pvv(mm, c) = mm == c ? r2l : S(0);
+      } else {
+        for (int i = 0; i < NX; ++i) {
+          S acc = T.Qxu(i, 0) * T.Y(0, NX + c);
+          for (int t = 1; t < NU; ++t)
+            acc = acc + T.Qxu(i, t) * T.Y(t, NX + c);
+          T.Pxv(i, c) = S(0.5) * (acc + -(r2l * T.Y(c, i)));
+        }
+        for (int mm = 0; mm < NU; ++mm) {
+          const S pvv = S(-0.5) * (S(2) * r[mm] * T.Y(mm, NX + c)
+                                   + r2l * T.Y(c, NX + mm));
+          T.Pvv(mm, c) = mm == c ? pvv + r2l : pvv;
+        }
+        pvl = pvl - r2l * T.Y(c, NZ);
+      }
+      T.pv(c) = pvl;
+      o.pmax = nmax(o.pmax, m_abs(pvl));
+    }
+  }
+
+  // ---- the rollout's first phase of stage k: du_k of lane l's controls
+  // into the other buffer
+  template <typename WL>
+  MPC_HD static void rollout_du(const View& T, int l, int k, const WL& Ks,
+                                const WL& kffs) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+      const int c = row(l, cc), base = (k * NU + c) * NZ;
+      S acc = Ks[base] * T.dx(cur, 0);
+      for (int j = 1; j < NX; ++j) acc = acc + Ks[base + j] * T.dx(cur, j);
+      for (int j = 0; j < NU; ++j)
+        acc = acc + Ks[base + NX + j] * T.du(cur, j);
+      T.du(nxt, c) = acc + kffs[k * NU + c];
+    }
+  }
+
+  // ---- its second: lane 0's directional derivative (in order), lane l's
+  // rows of dx_{k+1}, its fraction-to-boundary cap and step norm over its
+  // rows and controls
+  template <typename P, typename L, typename WL>
+  MPC_HD static void rollout_dx(const GS& gs, const View& T, int l, int k,
+                                Own& o, const P& p, const L& X, const L& U,
+                                const WL& Gs, const WL& Js, const WL& cks,
+                                const WL& dXs, const WL& dUs) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    if (l == 0) {
+      for (int i = 0; i < NX; ++i)
+        o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
+      for (int j = 0; j < NU; ++j) {
+        o.ddir = o.ddir + Gs[k * NG + NX + j] * T.du(cur, j);
+        o.ddir = o.ddir + Gs[k * NG + NX + NU + j] * T.du(nxt, j);
+      }
+    }
+    for (int rr = 0; rr < RPL; ++rr) {
+      const int i = row(l, rr);
+      const S dxn = gs.next_row(
+          T, k, i, [&](int j) { return T.dx(cur, j); },
+          [&](int j) { return T.du(nxt, j); }, Js, cks);
+      T.dx(nxt, i) = dxn;
+      dXs[(k + 1) * NX + i] = dxn;
+      o.amax = ftb(X[(k + 1) * NX + i], dxn, p.xmin[i], p.xmax[i], o.amax);
+      o.stepn = nmax(o.stepn, m_abs(dxn));
+    }
+    for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+      const int c = row(l, cc);
+      const S dul = T.du(nxt, c);
+      o.amax = ftb(U[k * NU + c], dul, p.umin[c], p.umax[c], o.amax);
+      o.stepn = nmax(o.stepn, m_abs(dul));
+      dUs[k * NU + c] = dul;
+    }
+  }
+
+  // A rung's terms at stage k, step aj: its stage cost (returned), its
+  // reference cost `jr`, and each state row's |defect| in `ad`.  xl, ul,
+  // xn1: x_k, u_k, x_{k+1}; dxk, duk, dxk1: their steps; ukm1, dukm1: u_{k-1}
+  // and its step.
+  template <typename P>
+  MPC_HD static S rung_terms(const GS& gs, const View& T, const P& p, int k,
+                             S aj, S mu, const S* xl, const S* ul,
+                             const S* xn1, const S* dxk, const S* duk,
+                             const S* dxk1, const S* ukm1, const S* dukm1,
+                             S& jr, S* ad) {
+    const bool tk = k >= 1;
+    const int kp = k >= 1 ? k - 1 : 0;
+    S xt[NX], ut[NU], dut[NU], et[NX], vt[NX];
+    for (int i = 0; i < NX; ++i) {
+      xt[i] = xl[i] + aj * dxk[i];
+      et[i] = xt[i] - p.xdes[kp * NX + i];
+    }
+    for (int j = 0; j < NU; ++j) {
+      ut[j] = ul[j] + aj * duk[j];
+      dut[j] = ut[j] - (ukm1[j] + aj * dukm1[j]);
+    }
+    S rmag;
+    const S sc = stage_cost(p, xt, ut, dut, et, tk, mu, rmag);
+    gs.value(T, xt, ut, vt);
+    jr = rmag;
+    for (int i = 0; i < NX; ++i) {
+      const S inc = vt[i];
+      const S vi = xt[i] + inc;
+      ad[i] = m_abs(((xl[i] - xn1[i]) + aj * (dxk[i] - dxk1[i])) + inc);
+      const S er = vi - p.xdes[k * NX + i];
+      jr = jr + p.q[i] * (er * er);
+    }
+    return sc;
+  }
+
+  // A rung's terminal terms at step aj from its sums, and the Armijo test:
+  // whether it passes, and its reference cost in `jr`.
+  template <typename P>
+  MPC_HD static bool rung_test(const P& p, const S* xN, const S* dxN, int N,
+                               S aj, S mu, S cost_t, S cl1_t, S jref_t,
+                               S nu_pen, S m0, S ddir, S eps_m, S& jr) {
+    S xt[NX];
+    S ct = cost_t;
+    jr = jref_t;
+    for (int i = 0; i < NX; ++i) {
+      xt[i] = xN[i] + aj * dxN[i];
+      const S eN = xt[i] - p.xdes[(N - 1) * NX + i];
+      const S eF = xt[i] - p.xfdes[i];
+      ct = (ct + p.q[i] * eN * eN) + p.qf[i] * eF * eF;
+      jr = jr + p.qf[i] * eF * eF;
+    }
+    ct = ct + bar_value(xt, p.xmin, p.xmax, NX, mu);
+    const S mj = ct + nu_pen * cl1_t;
+    return m_isfinite(mj)
+        && mj <= (m0 + S(kArmijoSlope) * aj * ddir) + eps_m;
+  }
+};
+
+// One instance's parameters, as `Lane` views.
+template <typename L>
+struct InstanceParams {
+  L xdes, q, r, rm, uprev, umin, umax, xmin, xmax, qf, xfdes;
+};
 
 template <typename S, typename Step>
 MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
@@ -509,9 +891,13 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
   typedef GroupStep<S, Step> GS;
   constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NZ = NX + NU,
                 NG = NX + 2 * NU, NR = NZ + 1, RPL = NX / W,
-                kRungs = kMaxFan / W;
-  static_assert(NX % W == 0 && NU <= W && kMaxFan % W == 0, "group split");
+                CPL = (NU + W - 1) / W, kRungs = kMaxFan / W;
+  static_assert(NX % W == 0 && kMaxFan % W == 0, "group split");
   typedef Group<W> G;
+  // Where a lane owns more than one control (CPL > 1) the phases that
+  // depend on it are `GroupPhases`'; with one at most, the inline code
+  // below (see GroupPhases).
+  typedef GroupPhases<S, GS> Ph;
   const GS gs(step, a, b);
   const typename GS::View T{tile};
   const long long B = a.B;
@@ -538,7 +924,12 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     S cost, jref, cl1, feas, pmax, ddir, amax, stepn;   // cost..ddir: lane 0
     S cost_t[kRungs], cl1_t[kRungs], jref_t[kRungs];
   };
-  Own own[G::kHostLanes];
+  typedef std::conditional_t<CPL == 1, Own, typename Ph::Own> LaneOwn;
+  LaneOwn own[G::kHostLanes];
+  auto params = [&] {
+    return InstanceParams<CL>{xdes, q,    r,    rm, uprev, umin,
+                              umax, xmin, xmax, qf, xfdes};
+  };
 
   // Stage cost of a trial point (solve_instance's `stage_cost`).
   auto stage_cost = [&](const S* xl, const S* ul, const S* du, const S* e,
@@ -591,25 +982,29 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // terminal cost-to-go: lane l writes its rows of Pxx, Pxv, px and its
     // control's Pvv row and pv
     g.phase([&](int l) {
-      Own& o = own[G::slot(l)];
+      auto& o = own[G::slot(l)];
       o.cost = S(0);
       o.jref = S(0);
       o.cl1 = S(0);
       o.feas = S(0);
       o.pmax = S(0);
-      for (int rr = 0; rr < RPL; ++rr) {
-        const int i = row(l, rr);
-        const S xN = X[N * NX + i];
-        const S eN = xN - xdes[(N - 1) * NX + i], eF = xN - xfdes[i];
-        S gg, h;
-        bar_terms(xN, xmin[i], xmax[i], mu, gg, h);
-        for (int j = 0; j < NX; ++j) T.Pxx(i, j) = S(0);
-        T.Pxx(i, i) = (S(2) * q[i] + S(2) * qf[i]) + h;
-        const S pxi = (S(2) * q[i] * eN + S(2) * qf[i] * eF) + gg;
-        T.px(i) = pxi;
-        Gs[N * NG + i] = pxi;
-        for (int k = 0; k < NU; ++k) T.Pxv(i, k) = S(0);
-        o.pmax = nmax(o.pmax, m_abs(pxi));
+      if constexpr (CPL == 1) {
+        for (int rr = 0; rr < RPL; ++rr) {
+          const int i = row(l, rr);
+          const S xN = X[N * NX + i];
+          const S eN = xN - xdes[(N - 1) * NX + i], eF = xN - xfdes[i];
+          S gg, h;
+          bar_terms(xN, xmin[i], xmax[i], mu, gg, h);
+          for (int j = 0; j < NX; ++j) T.Pxx(i, j) = S(0);
+          T.Pxx(i, i) = (S(2) * q[i] + S(2) * qf[i]) + h;
+          const S pxi = (S(2) * q[i] * eN + S(2) * qf[i] * eF) + gg;
+          T.px(i) = pxi;
+          Gs[N * NG + i] = pxi;
+          for (int k = 0; k < NU; ++k) T.Pxv(i, k) = S(0);
+          o.pmax = nmax(o.pmax, m_abs(pxi));
+        }
+      } else {
+        Ph::terminal(T, l, o, params(), X, Gs, N, mu);
       }
       if (l == 0) {                      // the terminal merit terms
         S xN[NX];
@@ -625,11 +1020,13 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
           o.jref = o.jref + qf[i] * (eF * eF);
         }
       }
-      if (l < NU) {
-        T.pv(l) = S(0);
-        for (int k = 0; k < NU; ++k) T.Pvv(l, k) = S(0);
-        Gs[N * NG + NX + l] = S(0);
-        Gs[N * NG + NX + NU + l] = S(0);
+      if constexpr (CPL == 1) {
+        if (l < NU) {
+          T.pv(l) = S(0);
+          for (int k = 0; k < NU; ++k) T.Pvv(l, k) = S(0);
+          Gs[N * NG + NX + l] = S(0);
+          Gs[N * NG + NX + NU + l] = S(0);
+        }
       }
     });
 
@@ -642,7 +1039,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // ---- (A) the lane's share of the linearization, defects, stage
       // gradients, merit partials
       g.phase([&](int l) {
-        Own& o = own[G::slot(l)];
+        auto& o = own[G::slot(l)];
         S xl[NX], ul[NU], f[NX];
         load(X, k * NX, NX, xl);
         load(U, k * NU, NU, ul);
@@ -659,17 +1056,33 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
           o.Dx[rr] = tk ? S(2) * q[i] + h : S(0);
           Gs[k * NG + i] = o.gzx[rr];
         }
-        if (l < NU) {
-          const S ukm1 = k == 0 ? uprev[l] : U[(k - 1) * NU + l];
-          const S r2 = S(2) * r[l], rm2 = S(2) * rm[l];
-          const S du = ul[l] - ukm1;
-          S gg, h;
-          bar_terms(ul[l], umin[l], umax[l], mu, gg, h);
-          o.gzv = -(r2 * du);
-          o.gu = (r2 * du + rm2 * ul[l]) + gg;
-          o.Du = (r2 + rm2) + (h + reg);
-          Gs[k * NG + NX + l] = o.gzv;
-          Gs[k * NG + NX + NU + l] = o.gu;
+        if constexpr (CPL == 1) {
+          if (l < NU) {
+            const S ukm1 = k == 0 ? uprev[l] : U[(k - 1) * NU + l];
+            const S r2 = S(2) * r[l], rm2 = S(2) * rm[l];
+            const S du = ul[l] - ukm1;
+            S gg, h;
+            bar_terms(ul[l], umin[l], umax[l], mu, gg, h);
+            o.gzv = -(r2 * du);
+            o.gu = (r2 * du + rm2 * ul[l]) + gg;
+            o.Du = (r2 + rm2) + (h + reg);
+            Gs[k * NG + NX + l] = o.gzv;
+            Gs[k * NG + NX + NU + l] = o.gu;
+          }
+        } else {
+          for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc) {
+            const int c = row(l, cc);
+            const S ukm1 = k == 0 ? uprev[c] : U[(k - 1) * NU + c];
+            const S r2 = S(2) * r[c], rm2 = S(2) * rm[c];
+            const S du = ul[c] - ukm1;
+            S gg, h;
+            bar_terms(ul[c], umin[c], umax[c], mu, gg, h);
+            o.gzv[cc] = -(r2 * du);
+            o.gu[cc] = (r2 * du + rm2 * ul[c]) + gg;
+            o.Du[cc] = (r2 + rm2) + (h + reg);
+            Gs[k * NG + NX + c] = o.gzv[cc];
+            Gs[k * NG + NX + NU + c] = o.gu[cc];
+          }
         }
         if (l == 0) {           // merit sums over the whole stage, in order
           S du[NU], e[NX], rmag;
@@ -694,45 +1107,50 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // ---- (B) the step's blocks: the upper triangle of Qxx in columns,
       // Qxu and Quu columns, qz_x and qu
       g.phase([&](int l) {
-        Own& o = own[G::slot(l)];
-        S Prp[NX];                                 // px + Pxx ck
-        for (int i = 0; i < NX; ++i) {
-          S acc = T.Pxx(i, 0) * T.ck(0);
-          for (int t = 1; t < NX; ++t) acc = acc + T.Pxx(i, t) * T.ck(t);
-          Prp[i] = T.px(i) + acc;
-        }
-        for (int rr = 0; rr < RPL; ++rr) {
-          const int j = row(l, rr);
-          S v[NX];                                 // (Pxx A)[:, j]
-          for (int i = 0; i < NX; ++i)
-            v[i] = gs.At(T, j, [&](int t) { return T.Pxx(i, t); });
-          for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
-            const S acc = gs.At(T, i, [&](int t) { return v[t]; });
-            T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
-          }
-          o.qz[rr] = o.gzx[rr] + gs.At(T, j, [&](int t) { return Prp[t]; });
-        }
-        if (l < NU) {
-          S pb[NX], m1[NX];                        // Pxx B[:, l], + Pxv
+        auto& o = own[G::slot(l)];
+        if constexpr (CPL == 1) {
+          S Prp[NX];                                 // px + Pxx ck
           for (int i = 0; i < NX; ++i) {
-            pb[i] = gs.Bt(T, l, [&](int t) { return T.Pxx(i, t); });
-            m1[i] = pb[i] + T.Pxv(i, l);
+            S acc = T.Pxx(i, 0) * T.ck(0);
+            for (int t = 1; t < NX; ++t) acc = acc + T.Pxx(i, t) * T.ck(t);
+            Prp[i] = T.px(i) + acc;
           }
-          for (int i = 0; i < NX; ++i)             // Qxu[:, l] = A' m1
-            T.Qxu(i, l) = gs.At(T, i, [&](int t) { return m1[t]; });
-          for (int mm = 0; mm < NU; ++mm) {        // Quu[:, l]
-            const S bpb = gs.Bt(T, mm, [&](int t) { return pb[t]; });
-            const S bpv = gs.Bt(T, mm, [&](int t) { return T.Pxv(t, l); });
-            const S bpv_t = gs.Bt(T, l, [&](int t) { return T.Pxv(t, mm); });
-            const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, l);
-            T.Quu(mm, l) = mm == l ? quu + o.Du : quu;
+          for (int rr = 0; rr < RPL; ++rr) {
+            const int j = row(l, rr);
+            S v[NX];                                 // (Pxx A)[:, j]
+            for (int i = 0; i < NX; ++i)
+              v[i] = gs.At(T, j, [&](int t) { return T.Pxx(i, t); });
+            for (int i = 0; i <= j; ++i) {           // (A' Pxx A)[i <= j, j]
+              const S acc = gs.At(T, i, [&](int t) { return v[t]; });
+              T.Qxx(i, j) = i == j ? acc + o.Dx[rr] : acc;
+            }
+            o.qz[rr] = o.gzx[rr] + gs.At(T, j, [&](int t) { return Prp[t]; });
           }
-          S pv_acc = T.Pxv(0, l) * T.ck(0);        // pv + Pxv' ck
-          for (int t = 1; t < NX; ++t) pv_acc = pv_acc + T.Pxv(t, l) * T.ck(t);
-          const S prp_v = T.pv(l) + pv_acc;
-          const S bp = gs.Bt(T, l, [&](int t) { return Prp[t]; });
-          o.qu = o.gu + (bp + prp_v);
-          T.qu(l) = o.qu;
+          if (l < NU) {
+            S pb[NX], m1[NX];                        // Pxx B[:, l], + Pxv
+            for (int i = 0; i < NX; ++i) {
+              pb[i] = gs.Bt(T, l, [&](int t) { return T.Pxx(i, t); });
+              m1[i] = pb[i] + T.Pxv(i, l);
+            }
+            for (int i = 0; i < NX; ++i)             // Qxu[:, l] = A' m1
+              T.Qxu(i, l) = gs.At(T, i, [&](int t) { return m1[t]; });
+            for (int mm = 0; mm < NU; ++mm) {        // Quu[:, l]
+              const S bpb = gs.Bt(T, mm, [&](int t) { return pb[t]; });
+              const S bpv = gs.Bt(T, mm, [&](int t) { return T.Pxv(t, l); });
+              const S bpv_t = gs.Bt(T, l, [&](int t) { return T.Pxv(t, mm); });
+              const S quu = (bpb + (bpv + bpv_t)) + T.Pvv(mm, l);
+              T.Quu(mm, l) = mm == l ? quu + o.Du : quu;
+            }
+            S pv_acc = T.Pxv(0, l) * T.ck(0);        // pv + Pxv' ck
+            for (int t = 1; t < NX; ++t)
+              pv_acc = pv_acc + T.Pxv(t, l) * T.ck(t);
+            const S prp_v = T.pv(l) + pv_acc;
+            const S bp = gs.Bt(T, l, [&](int t) { return Prp[t]; });
+            o.qu = o.gu + (bp + prp_v);
+            T.qu(l) = o.qu;
+          }
+        } else {
+          Ph::blocks(gs, T, l, o);
         }
       });
 
@@ -780,58 +1198,63 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
       // of its terms (i, j) and (j, i) here), or Qxx where the head is
       // pinned; Pxv, Pvv columns; px, pv
       g.phase([&](int l) {
-        Own& o = own[G::slot(l)];
-        auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
-          S acc = T.Qxu(i, 0) * T.Y(0, j);
-          for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
-          return acc;
-        };
-        for (int rr = 0; rr < RPL; ++rr) {
-          const int j = row(l, rr);
-          for (int i = 0; i < NX; ++i) {
-            const S qxx = i <= j ? T.Qxx(i, j) : T.Qxx(j, i);
-            T.Pxx(i, j) = pinned ? qxx
-                : S(0.5) * ((qxx + qkx(i, j)) + (qxx + qkx(j, i)));
-          }
-          S pxj = o.qz[rr];
-          if (!pinned) {
-            S acc = T.Qxu(j, 0) * T.Y(0, NZ);
-            for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(j, t) * T.Y(t, NZ);
-            pxj = pxj + acc;
-          }
-          T.px(j) = pxj;
-          o.pmax = nmax(o.pmax, m_abs(pxj));
-        }
-        if (l < NU) {
-          const S r2l = S(2) * r[l];
-          S pvl = o.gzv;
-          if (pinned) {
-            for (int i = 0; i < NX; ++i) T.Pxv(i, l) = S(0);
-            for (int mm = 0; mm < NU; ++mm)
-              T.Pvv(mm, l) = mm == l ? r2l : S(0);
-          } else {
+        auto& o = own[G::slot(l)];
+        if constexpr (CPL == 1) {
+          auto qkx = [&](int i, int j) {             // (Qxu Kx)[i][j]
+            S acc = T.Qxu(i, 0) * T.Y(0, j);
+            for (int t = 1; t < NU; ++t) acc = acc + T.Qxu(i, t) * T.Y(t, j);
+            return acc;
+          };
+          for (int rr = 0; rr < RPL; ++rr) {
+            const int j = row(l, rr);
             for (int i = 0; i < NX; ++i) {
-              S acc = T.Qxu(i, 0) * T.Y(0, NX + l);
+              const S qxx = i <= j ? T.Qxx(i, j) : T.Qxx(j, i);
+              T.Pxx(i, j) = pinned ? qxx
+                  : S(0.5) * ((qxx + qkx(i, j)) + (qxx + qkx(j, i)));
+            }
+            S pxj = o.qz[rr];
+            if (!pinned) {
+              S acc = T.Qxu(j, 0) * T.Y(0, NZ);
               for (int t = 1; t < NU; ++t)
-                acc = acc + T.Qxu(i, t) * T.Y(t, NX + l);
-              T.Pxv(i, l) = S(0.5) * (acc + -(r2l * T.Y(l, i)));
+                acc = acc + T.Qxu(j, t) * T.Y(t, NZ);
+              pxj = pxj + acc;
             }
-            for (int mm = 0; mm < NU; ++mm) {
-              const S pvv = S(-0.5) * (S(2) * r[mm] * T.Y(mm, NX + l)
-                                       + r2l * T.Y(l, NX + mm));
-              T.Pvv(mm, l) = mm == l ? pvv + r2l : pvv;
-            }
-            pvl = pvl - r2l * T.Y(l, NZ);
+            T.px(j) = pxj;
+            o.pmax = nmax(o.pmax, m_abs(pxj));
           }
-          T.pv(l) = pvl;
-          o.pmax = nmax(o.pmax, m_abs(pvl));
+          if (l < NU) {
+            const S r2l = S(2) * r[l];
+            S pvl = o.gzv;
+            if (pinned) {
+              for (int i = 0; i < NX; ++i) T.Pxv(i, l) = S(0);
+              for (int mm = 0; mm < NU; ++mm)
+                T.Pvv(mm, l) = mm == l ? r2l : S(0);
+            } else {
+              for (int i = 0; i < NX; ++i) {
+                S acc = T.Qxu(i, 0) * T.Y(0, NX + l);
+                for (int t = 1; t < NU; ++t)
+                  acc = acc + T.Qxu(i, t) * T.Y(t, NX + l);
+                T.Pxv(i, l) = S(0.5) * (acc + -(r2l * T.Y(l, i)));
+              }
+              for (int mm = 0; mm < NU; ++mm) {
+                const S pvv = S(-0.5) * (S(2) * r[mm] * T.Y(mm, NX + l)
+                                         + r2l * T.Y(l, NX + mm));
+                T.Pvv(mm, l) = mm == l ? pvv + r2l : pvv;
+              }
+              pvl = pvl - r2l * T.Y(l, NZ);
+            }
+            T.pv(l) = pvl;
+            o.pmax = nmax(o.pmax, m_abs(pvl));
+          }
+        } else {
+          Ph::carries(T, l, o, r, pinned);
         }
       });
     }
 
     // every lane's max|p| and lane 0's sums, through the tile
     g.phase([&](int l) {
-      const Own& o = own[G::slot(l)];
+      const auto& o = own[G::slot(l)];
       T.red(l, 0) = o.pmax;
       if (l == 0) {
         T.red(0, 1) = o.cost;
@@ -849,12 +1272,17 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // dx / dv of stage k in buffer k & 1; du_k goes to the other buffer,
     // where it is the next stage's dv.
     g.phase([&](int l) {
-      Own& o = own[G::slot(l)];
+      auto& o = own[G::slot(l)];
       for (int rr = 0; rr < RPL; ++rr) {
         T.dx(0, row(l, rr)) = S(0);
         dXs[row(l, rr)] = S(0);
       }
-      if (l < NU) T.du(0, l) = S(0);
+      if constexpr (CPL == 1) {
+        if (l < NU) T.du(0, l) = S(0);
+      } else {
+        for (int cc = 0; cc < CPL && row(l, cc) < NU; ++cc)
+          T.du(0, row(l, cc)) = S(0);
+      }
       o.ddir = S(0);
       o.amax = S(1);
       o.stepn = S(0);
@@ -863,44 +1291,54 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     for (int k = 0; k < N; ++k) {
       const int cur = k & 1, nxt = cur ^ 1;
       g.phase([&](int l) {
-        if (l >= NU) return;
-        const int base = (k * NU + l) * NZ;
-        S acc = Ks[base] * T.dx(cur, 0);
-        for (int j = 1; j < NX; ++j) acc = acc + Ks[base + j] * T.dx(cur, j);
-        for (int j = 0; j < NU; ++j)
-          acc = acc + Ks[base + NX + j] * T.du(cur, j);
-        T.du(nxt, l) = acc + kffs[k * NU + l];
+        if constexpr (CPL == 1) {
+          if (l >= NU) return;
+          const int base = (k * NU + l) * NZ;
+          S acc = Ks[base] * T.dx(cur, 0);
+          for (int j = 1; j < NX; ++j)
+            acc = acc + Ks[base + j] * T.dx(cur, j);
+          for (int j = 0; j < NU; ++j)
+            acc = acc + Ks[base + NX + j] * T.du(cur, j);
+          T.du(nxt, l) = acc + kffs[k * NU + l];
+        } else {
+          Ph::rollout_du(T, l, k, Ks, kffs);
+        }
       });
       g.phase([&](int l) {
-        Own& o = own[G::slot(l)];
-        if (l == 0) {                      // directional derivative, in order
-          for (int i = 0; i < NX; ++i)
-            o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
-          for (int j = 0; j < NU; ++j) {
-            o.ddir = o.ddir + Gs[k * NG + NX + j] * T.du(cur, j);
-            o.ddir = o.ddir + Gs[k * NG + NX + NU + j] * T.du(nxt, j);
+        auto& o = own[G::slot(l)];
+        if constexpr (CPL == 1) {
+          if (l == 0) {                  // directional derivative, in order
+            for (int i = 0; i < NX; ++i)
+              o.ddir = o.ddir + Gs[k * NG + i] * T.dx(cur, i);
+            for (int j = 0; j < NU; ++j) {
+              o.ddir = o.ddir + Gs[k * NG + NX + j] * T.du(cur, j);
+              o.ddir = o.ddir + Gs[k * NG + NX + NU + j] * T.du(nxt, j);
+            }
           }
-        }
-        for (int rr = 0; rr < RPL; ++rr) {
-          const int i = row(l, rr);
-          const S dxn = gs.next_row(
-              T, k, i, [&](int j) { return T.dx(cur, j); },
-              [&](int j) { return T.du(nxt, j); }, Js, cks);
-          T.dx(nxt, i) = dxn;
-          dXs[(k + 1) * NX + i] = dxn;
-          o.amax = ftb(X[(k + 1) * NX + i], dxn, xmin[i], xmax[i], o.amax);
-          o.stepn = nmax(o.stepn, m_abs(dxn));
-        }
-        if (l < NU) {
-          const S dul = T.du(nxt, l);
-          o.amax = ftb(U[k * NU + l], dul, umin[l], umax[l], o.amax);
-          o.stepn = nmax(o.stepn, m_abs(dul));
-          dUs[k * NU + l] = dul;
+          for (int rr = 0; rr < RPL; ++rr) {
+            const int i = row(l, rr);
+            const S dxn = gs.next_row(
+                T, k, i, [&](int j) { return T.dx(cur, j); },
+                [&](int j) { return T.du(nxt, j); }, Js, cks);
+            T.dx(nxt, i) = dxn;
+            dXs[(k + 1) * NX + i] = dxn;
+            o.amax = ftb(X[(k + 1) * NX + i], dxn, xmin[i], xmax[i], o.amax);
+            o.stepn = nmax(o.stepn, m_abs(dxn));
+          }
+          if (l < NU) {
+            const S dul = T.du(nxt, l);
+            o.amax = ftb(U[k * NU + l], dul, umin[l], umax[l], o.amax);
+            o.stepn = nmax(o.stepn, m_abs(dul));
+            dUs[k * NU + l] = dul;
+          }
+        } else {
+          Ph::rollout_dx(gs, T, l, k, o, params(), X, U, Gs, Js, cks, dXs,
+                         dUs);
         }
       });
     }
     g.phase([&](int l) {
-      Own& o = own[G::slot(l)];
+      auto& o = own[G::slot(l)];
       if (l == 0) {
         for (int i = 0; i < NX; ++i)
           o.ddir = o.ddir + Gs[N * NG + i] * T.dx(N & 1, i);
@@ -915,7 +1353,7 @@ MPC_HD void solve_group(const FusedArgs<S>& a, const Step& step, long long b,
     // =========== line search: lane l takes rungs l, l + W, ... ===========
     const S eps_m = S(kNoiseFloorMult) * Eps<S>::value * (S(1) + m_abs(m0));
     g.phase([&](int l) {
-      Own& o = own[G::slot(l)];
+      auto& o = own[G::slot(l)];
       S al[kRungs];
       for (int s = 0; s < kRungs; ++s) {
         al[s] = amax * a.fan[l + W * s];

@@ -24,19 +24,22 @@
 //
 // - the block body (fused_sqp_block.cuh), at small batch for the policies
 //   `BlockBody` names (`FastNq<ArmModel<4>>` in `fused_sqp`,
-//   `FastNq<DoublePendulum>` in `fused_sqp_models`), where B is at most
-//   the policy's kMaxBatch and the instance fits in a block's shared
-//   memory: one instance a block of 256 threads, one block an SM.  At
-//   B=1 one group of the group body runs its stages one after another on
-//   one SM with nothing to hide its latencies (2.90 ms for the arm); the
-//   block runs what does not depend on the previous stage across its
-//   threads (0.52 ms, PERF.md §6);
+//   `FastNq<DoublePendulum>` in `fused_sqp_models`, `Ltv<8, 4>` in
+//   `fused_sqp_ltv`), where B is at most the policy's kMaxBatch and the
+//   instance fits in a block's shared memory: one instance a block of 256
+//   threads, one block an SM.  At B=1 one group of the group body runs its
+//   stages one after another on one SM with nothing to hide its latencies
+//   (2.90 ms for the arm, 0.87 for `Ltv<8, 4>`); the block runs what does
+//   not depend on the previous stage across its threads (0.52 ms, 0.47;
+//   PERF.md §6);
 // - the group body (fused_sqp_group.cuh), for the policies `GroupBody`
 //   names at every other (B, N): W threads an instance, the Riccati step
 //   split over the group on a shared-memory tile, the line-search rungs in
 //   parallel, 128 / W instances a 128-thread block.  Four lanes for the
 //   serial arms under every integrator (libraries `fused_sqp`, the main
-//   path, and `fused_sqp_generic`) and LTV at (8, 4) (`fused_sqp_ltv`), two
+//   path, and `fused_sqp_generic`) and LTV where NX is a multiple of 4 from
+//   8 up ((8, 4) in `fused_sqp_ltv`; a generated (12, 6), whose 32 tiles
+//   take 135 KB of shared memory: one block an SM): two
 //   blocks an SM (255 registers a thread, ~no spills on the Euler arm: at
 //   four blocks an SM, 128 registers, the dual-number pass spilled ~1.7 KB
 //   a thread and a fixed-3 solve took 19 % longer on the H100, PERF.md).
@@ -46,7 +49,8 @@
 //   registers, no spills);
 // - every other policy (`solve_instance`, fused_sqp.cuh: the pendulum, the
 //   cart-pole and the acrobot under Euler, the pendulum under midpoint and
-//   RK4, LTV at (4, 2), (4, 1), (2, 1)): one thread an instance, 128
+//   RK4, every other LTV shape: (4, 2), (4, 1), (2, 1), a generated (6,
+//   3)): one thread an instance, 128
 //   threads a block, the Riccati carries in registers; what does not fit
 //   spills to local memory.
 //
@@ -70,8 +74,9 @@ fused_sqp_kernel(mpc::FusedArgs<float> a, Step step) {
 }
 
 // W consecutive threads of a warp an instance (the policy's width),
-// 128 / W instances a block; each group's tile in dynamic shared memory.
-constexpr int kGroupThreads = 128;
+// mpc::kGroupThreads / W instances a block; each group's tile in dynamic
+// shared memory.
+using mpc::kGroupThreads;
 template <typename Step>
 constexpr int kGroupsPerBlock = kGroupThreads / mpc::GroupStep<float, Step>::W;
 
@@ -150,6 +155,24 @@ int launch_block(const mpc::FusedArgs<float>& a, const Step& step,
   return (int)cudaGetLastError();
 }
 
+// A flag beside the families of a build's mask: the timing build of a
+// generated LTV shape (_build.py `register_generated(unit, both_bodies=
+// True)`), which holds the group body and the one-thread body where the
+// shape splits over its group, so that the two can be timed against each
+// other (solver/fused.py `solve_batch_fused_body`).  The library a problem
+// runs holds the rule's body alone (`mpc::GroupBody`).
+constexpr int kBothBodiesBuild = 1 << 8;
+template <int kFamilies, typename Step>
+constexpr bool kBothBodies = (kFamilies & kBothBodiesBuild) != 0 &&
+                             mpc::IsLtv<Step>::value &&
+                             mpc::group_fits<float, Step>();
+template <int kFamilies, typename Step>
+constexpr bool kHasGroup = mpc::GroupBody<Step>::value ||
+                           kBothBodies<kFamilies, Step>;
+template <int kFamilies, typename Step>
+constexpr bool kHasThread = !mpc::GroupBody<Step>::value ||
+                            kBothBodies<kFamilies, Step>;
+
 // Launch the instantiation of family mask kFamilies that serves (model, nx,
 // nu) on `stream`, on the body the rule picks (`mpc::card_body`: the block
 // body at small batch for the policies `BlockBody` names, else the group
@@ -183,10 +206,10 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
             return launch_block(a, step, s);
           }
         } else if (pick == mpc::kGroupBody) {
-          if constexpr (mpc::GroupBody<Step>::value)
+          if constexpr (kHasGroup<kFamilies, Step>)
             return launch_group(a, step, s);
         } else if (pick == mpc::kThreadBody) {
-          if constexpr (!mpc::GroupBody<Step>::value) {
+          if constexpr (kHasThread<kFamilies, Step>) {
             fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
             return (int)cudaGetLastError();
           }
@@ -196,10 +219,13 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
 }
 
 // Blocks of the kernel that serves (model, nx, nu) under `integ` and `ltv`
-// that fit on one SM at once (registers and shared memory); -1 when this
-// library holds no instantiation for it, or the CUDA error code negated.
+// at full occupancy (the group or one-thread body, as `mpc::card_body`
+// picks it; or body `want`, an mpc::Body, when it is not negative) that fit
+// on one SM at once (registers and shared memory); -1 when this library
+// holds no instantiation for it, -4 when it holds no body `want`, or the
+// CUDA error code negated.
 template <int kFamilies>
-int blocks_per_sm(int model, int nx, int nu, int integ, int ltv) {
+int blocks_per_sm(int model, int nx, int nu, int integ, int ltv, int want) {
   mpc::FusedArgs<float> a{};
   a.integ = integ;
   a.ltv = ltv;
@@ -215,12 +241,18 @@ int blocks_per_sm(int model, int nx, int nu, int integ, int ltv) {
   return mpc::dispatch<float, kFamilies>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
-        if constexpr (mpc::GroupBody<Step>::value) {
-          return query(fused_sqp_group_kernel<Step>, kGroupThreads,
-                       group_smem<Step>());
-        } else {
-          return query(fused_sqp_kernel<Step>, 128, 0);
+        const int body = want >= 0 ? want
+            : mpc::GroupBody<Step>::value ? mpc::kGroupBody
+                                          : mpc::kThreadBody;
+        if (body == mpc::kGroupBody) {
+          if constexpr (kHasGroup<kFamilies, Step>)
+            return query(fused_sqp_group_kernel<Step>, kGroupThreads,
+                         group_smem<Step>());
+        } else if (body == mpc::kThreadBody) {
+          if constexpr (kHasThread<kFamilies, Step>)
+            return query(fused_sqp_kernel<Step>, 128, 0);
         }
+        return -4;
       });
 }
 
@@ -273,6 +305,6 @@ int block_info(int model, int nx, int nu, int integ, int ltv, int N,
     return block_info<kFamilies>(model, nx, nu, integ, ltv, N, out);         \
   }                                                                          \
   extern "C" int mpc_fused_blocks_per_sm(int model, int nx, int nu,          \
-                                         int integ, int ltv) {               \
-    return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv);              \
+                                         int integ, int ltv, int want) {     \
+    return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv, want);        \
   }

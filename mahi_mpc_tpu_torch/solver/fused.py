@@ -35,16 +35,17 @@ Two implementations of the same function live here:
 - the CUDA kernel (``csrc/fused_sqp*.cu``, batch-innermost arrays), built
   with nvcc at first use (``_build.py``), launched for CUDA tensors.  Its
   body is the block body at small batch for the 4-DOF arm and the double
-  pendulum under Euler (``csrc/fused_sqp_block.cuh``: a thread block an
-  instance, the instance in shared memory: the single robot's warm
-  ``calc_u`` and the reference's default example), else the group body
-  (``csrc/fused_sqp_group.cuh``: four threads an instance for the serial
-  arms under every integrator, the main path, and LTV at (8, 4); two for
-  most closed forms under midpoint and RK4, the double pendulum under
-  Euler and a generated model's generic step where its shape splits over
-  two lanes) or one thread an instance otherwise, as the launcher's own
-  rule (``BlockBody``, ``GroupBody``: the policy, B and N) picks it:
-  ``card_body`` asks it.
+  pendulum under Euler and for LTV at (8, 4) (``csrc/fused_sqp_block.cuh``:
+  a thread block an instance, the instance in shared memory: the single
+  robot's warm ``calc_u``, LTV or not, and the reference's default
+  example), else the group body (``csrc/fused_sqp_group.cuh``: four
+  threads an instance for the serial arms under every integrator, the main
+  path, and LTV where nx is a multiple of 4 from 8 up, (8, 4) and any
+  generated shape such as (12, 6), whatever nu; two for most closed forms
+  under midpoint and RK4, the double pendulum under Euler and a generated
+  model's generic step where its shape splits over two lanes) or one
+  thread an instance otherwise, as the launcher's own rule (``BlockBody``,
+  ``GroupBody``: the policy, B and N) picks it: ``card_body`` asks it.
   Hand-written instantiations serve LTV at the (nx, nu) in ``LTV_SHAPES``
   and the nonlinear modes of the six registered models (their dynamics
   written again in ``csrc/model_dynamics.cuh``); every other problem the
@@ -219,7 +220,9 @@ def card_body(prob: ShootingProblem, B: Optional[int] = None) -> tuple:
     threshold.  The launcher's own rule (``mpc::card_body``: the policy,
     B and ``prob.N``) decides it, asked through the g++ build of
     ``csrc/flop_count.cpp`` (the problem's generated build, for a generated
-    instantiation)."""
+    instantiation).  In LTV: the block body at (8, 4) up to B=264, four
+    lanes where nx is a multiple of 4 from 8 up and a block's 32 tiles fit
+    in its shared memory, one thread otherwise."""
     model = _model_id(prob)[0]
     threads = ctypes.c_int(0)
     kind = _cpu_library(prob, "flop_count").mpc_fused_card_body(
@@ -652,15 +655,17 @@ def _arm_flat(dyn) -> list:
     return out + [c["damping"]]
 
 
-def _cuda_library(prob: ShootingProblem) -> str:
+def _cuda_library(prob: ShootingProblem, both_bodies: bool = False) -> str:
     """The CUDA library that holds the kernel's instantiation for this
     problem: one of ``_build.CUDA_LIBRARIES``, or the name of the
     problem's generated library (``generated_unit``, registered with
-    ``_build.register_generated``)."""
+    ``_build.register_generated``).  ``both_bodies``: for a generated LTV
+    shape, its timing build, which also holds the body the rule does not
+    pick (``solve_batch_fused_body``)."""
     unit = generated_unit(prob)
     if unit is not None:
         from .._build import register_generated
-        return register_generated(unit)
+        return register_generated(unit, both_bodies and prob.is_linear)
     if prob.is_linear:
         return "fused_sqp_ltv"
     if getattr(prob.dynamics, "chain", None) is not None:
@@ -745,7 +750,7 @@ def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv,
     if X0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
     from .._build import cuda_build
-    lib = _cuda_library(prob)
+    lib = _cuda_library(prob, both_bodies=want >= 0)
     fn = cuda_build(lib)[0].mpc_fused_launch_f32
     body = ctypes.c_int(-1)
     with torch.cuda.device(X0.device):
@@ -904,7 +909,7 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     (``csrc/fused_sqp_block.cuh``) of the policies ``BlockBody`` names; a
     generated instantiation runs from the problem's own g++ build.  The
     group body needs a shape that splits over its lanes (NX a multiple of
-    the width, NU at most the width)."""
+    the width; a lane owns controls l, l + W, ..., so any NU)."""
     lib = _cpu_library(prob, "fused_sqp")
     name = {"thread": "mpc_fused_solve_cpu", "group":
             "mpc_fused_solve_group_cpu", "block":
@@ -926,9 +931,12 @@ def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
     """The CUDA kernel on a given body (``BODIES``) whatever the launcher's
     rule would pick, on CUDA float32 tensors: how the bodies are timed
     against each other at one batch (``chip_smoke.py``,
-    ``tools/time_fused_modes.py``).  Not counted in
-    ``solve_batch_fused.launches``; ``solve_batch_fused`` never calls it.
-    Raises where the policy has no such body."""
+    ``tools/time_fused_modes.py``; a generated LTV shape runs from its
+    timing build, ``_cuda_library(prob, both_bodies=True)``, which holds
+    both the group and the one-thread body where the shape splits over a
+    group).  Not counted in ``solve_batch_fused.launches``;
+    ``solve_batch_fused`` never calls it.  Raises where the library holds
+    no such body."""
     if p.x0.device.type != "cuda":
         raise ValueError("solve_batch_fused_body runs the CUDA kernel: "
                          f"got tensors on {p.x0.device}")

@@ -1,10 +1,12 @@
 """The fused kernel's block body (``csrc/fused_sqp_block.cuh``: one
 instance a thread block, the instance in shared memory, the linearization
 and the line search across the block) on the CPU, through its g++ build
-(``mpc_fused_solve_block_cpu_f32`` / ``_f64``), for the two step policies
-the card runs on it at small batch: ``FastNq<ArmModel<4>>`` (``mahi_arm``
-under Euler, the single robot's warm ``calc_u``) and
-``FastNq<DoublePendulum>`` (the reference's default example).
+(``mpc_fused_solve_block_cpu_f32`` / ``_f64``), for the three step
+policies the card runs on it at small batch: ``FastNq<ArmModel<4>>``
+(``mahi_arm`` under Euler, the single robot's warm ``calc_u``),
+``FastNq<DoublePendulum>`` (the reference's default example) and
+``Ltv<8, 4>`` (``mahi_arm_ltv``: the arm frozen at each instance's state,
+the LTV single robot's warm ``calc_u``).
 
 - Against the group body's g++ build: bitwise, float32 and float64, fixed-3
   and adaptive, B = 1 and 3, N = 25 and 60 (the block body sums in the
@@ -28,11 +30,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import vmap
 
 from mahi_mpc_tpu import ModelParameters as JaxModelParameters
 from mahi_mpc_tpu import SolverOptions as JaxSolverOptions
 from mahi_mpc_tpu.models import make_dynamics as jax_make_dynamics
 from mahi_mpc_tpu.solver.fused import solve_batch_fused as jax_solve_fused
+from mahi_mpc_tpu.transcribe.shooting import LinPoint as JaxLinPoint
 from mahi_mpc_tpu.transcribe.shooting import default_params as jax_default_params
 from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
@@ -46,25 +50,34 @@ from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
 torch.set_num_threads(1)
 
 TOL = 1e-4
-MODELS = ("mahi_arm", "double_pendulum")
+# "mahi_arm_ltv": the LTV step of mahi_arm, frozen at each instance's
+# (x0, u_prev).
+MODELS = ("mahi_arm", "double_pendulum", "mahi_arm_ltv")
 SHAPES = ((1, 25), (3, 25), (1, 60), (3, 60))        # (B, N)
 MODES = {"fixed3": dict(n_iter=3), "adaptive": dict(adaptive=True)}
 FIELDS = ("X", "U", "status", "iters", "kkt", "feas", "obj")
 # The launcher's threshold (csrc/fused_sqp_block.cuh `BlockBody`): the
 # largest batch the block body serves, and the group body's width.
-BLOCK_MAX_BATCH = {"mahi_arm": 660, "double_pendulum": 396}
-GROUP_WIDTH = {"mahi_arm": 4, "double_pendulum": 2}
+BLOCK_MAX_BATCH = {"mahi_arm": 660, "double_pendulum": 396,
+                   "mahi_arm_ltv": 264}
+GROUP_WIDTH = {"mahi_arm": 4, "double_pendulum": 2, "mahi_arm_ltv": 4}
 
 
 # Bounds that the branch tests' solutions reach: about half the largest
 # |u| of the unbounded solutions (0.97 on the arm, 2.39 on the double
 # pendulum), and |q| <= 0.1 against a reference of 0.1 N(0, 1).
-U_TIGHT = {"mahi_arm": 0.5, "double_pendulum": 1.2}
+U_TIGHT = {"mahi_arm": 0.5, "double_pendulum": 1.2, "mahi_arm_ltv": 0.5}
 Q_BOUND = 0.1
 # The state-bound case's start: q at this fraction of the bound, moving
 # toward it at this speed (rad/s); faster, the double pendulum's cold plan
 # crosses the bound by ~1e-9 before the barrier holds it.
-X_START = {"mahi_arm": (0.8, 1.0), "double_pendulum": (0.6, 0.8)}
+X_START = {"mahi_arm": (0.8, 1.0), "double_pendulum": (0.6, 0.8),
+           "mahi_arm_ltv": (0.8, 1.0)}
+
+
+def _model(name):
+    """(registered dynamics, is_linear) of a case of MODELS."""
+    return name.removesuffix("_ltv"), name.endswith("_ltv")
 
 
 def _kw(name, N, x_bounded=False, u_tight=False):
@@ -72,10 +85,11 @@ def _kw(name, N, x_bounded=False, u_tight=False):
     default example's unbounded controls on the double pendulum; with
     ``u_tight`` |u| <= ``U_TIGHT``, with ``x_bounded`` |q| <= ``Q_BOUND``
     (both active)."""
-    nx, nu = (8, 4) if name == "mahi_arm" else (4, 2)
+    dyn, ltv = _model(name)
+    nx, nu = (8, 4) if dyn == "mahi_arm" else (4, 2)
     kw = dict(num_x=nx, num_u=nu, step_size=0.002, num_shooting_nodes=N,
-              dynamics_name=name)
-    if name == "mahi_arm" or u_tight:
+              dynamics_name=dyn, is_linear=ltv)
+    if dyn == "mahi_arm" or u_tight:
         ulim = U_TIGHT[name] if u_tight else 20.0
         kw.update(u_min=[-ulim] * nu, u_max=[ulim] * nu)
     if x_bounded:
@@ -87,12 +101,14 @@ def _kw(name, N, x_bounded=False, u_tight=False):
 
 def _problems(name, B, N, dtype=np.float32, seed=0, **bounds):
     """The same problem in both packages from one numpy seed: (jax problem,
-    jax params, port problem, port params in ``dtype``)."""
+    jax params, port problem, port params in ``dtype``); an LTV case frozen
+    at each instance's (x0, u_prev), the same arrays in both."""
     kw = _kw(name, N, **bounds)
     nx, nu = kw["num_x"], kw["num_u"]
+    dyn, ltv = _model(name)
     jmp = JaxModelParameters("t", **kw)
-    jprob = jax_make_problem(jmp, jax_make_dynamics(name))
-    prob = make_problem(ModelParameters("t", **kw), make_dynamics(name))
+    jprob = jax_make_problem(jmp, jax_make_dynamics(dyn))
+    prob = make_problem(ModelParameters("t", **kw), make_dynamics(dyn))
     rng = np.random.default_rng(seed)
     nq = nx // 2
     x0 = 0.2 * rng.standard_normal((B, nx))
@@ -111,6 +127,13 @@ def _problems(name, B, N, dtype=np.float32, seed=0, **bounds):
     pb = pb._replace(
         x0=jnp.asarray(x0, f32),
         x_des=jnp.asarray(ref_scale * rng.standard_normal((B, N, nx)), f32))
+    if ltv:
+        # one linearization for both packages: the port's (the JAX model's
+        # eager jacfwd of the arm takes tens of seconds a call)
+        lin = vmap(make_dynamics(dyn).linearize)(
+            *[torch.as_tensor(np.asarray(a)) for a in (pb.x0, pb.u_prev)])
+        pb = pb._replace(lin=JaxLinPoint(
+            *[jnp.asarray(a.numpy()) for a in lin], pb.x0, pb.u_prev))
     tp = params_from_numpy(jax.tree.map(np.asarray, pb), device="cpu")
     if dtype == np.float64:
         tp = type(tp)(*[type(f)(*[a.double() for a in f])

@@ -9,8 +9,11 @@ ones), run through their g++ builds, the kernel bodies' own arithmetic.
 - Against JAX: a Van der Pol oscillator (RK4) and a kinematic unicycle
   (Euler), written once in ``jnp`` and once in torch, through the JAX
   Pallas kernel in interpret mode and the generated g++ build; LTV at
-  (6, 3) the same way.
-- LTV at (3, 2) and (12, 6) against the plain version.
+  (6, 3) and (12, 6) the same way, on the group body (more controls than
+  lanes).
+- LTV at (3, 2) and (12, 6) against the plain version; at (12, 6) and
+  (6, 3) the group body bitwise the one-thread body; the body the rule
+  picks, and the timing build that holds both bodies for the card.
 - ``generate_model`` -> ``ModelControl`` with a user ``Dynamics`` on the
   CPU, and the library it names for the card.
 """
@@ -34,7 +37,7 @@ from mahi_mpc_tpu.transcribe.shooting import LinPoint as JaxLinPoint
 from mahi_mpc_tpu.transcribe.shooting import default_params as jax_default_params
 from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
-from mahi_mpc_tpu_torch._build import cpu_build_all
+from mahi_mpc_tpu_torch._build import _generated_source, cpu_build_all
 from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.base import Dynamics
@@ -150,6 +153,14 @@ def _mp(dyn, integrator, is_linear=False, ulim=20.0, dt=0.02):
 HAND = [(name, integrator) for name in CLOSED_FORMS
         for integrator in ("euler", "rk4")]
 LTV_PLAIN = [(3, 2), (12, 6)]
+# LTV shapes with more controls than their group has lanes, and the body
+# the card runs them on (csrc/fused_sqp_group.cuh `GroupBody<Ltv>`).
+LTV_WIDE = [(12, 6), (6, 3)]
+WIDE_BODY = {(12, 6): ("group", 4), (6, 3): ("thread", 1)}
+# More shapes the rule decides: (8, 2) on four lanes (nx a multiple of 4
+# from 8 up, whatever nu); (16, 8), whose 32 tiles a block would take 234
+# KB of shared memory, on one thread.
+LTV_RULE = {(8, 2): ("group", 4), (16, 8): ("thread", 1)}
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +169,8 @@ def builds():
     call (the hand-written build beside them)."""
     probs = [make_problem(_mp(_user(n), i), _user(n)) for n, i in HAND]
     probs += [make_problem(_mp(_ltv_torch(*s), "euler", True),
-                           _ltv_torch(*s)) for s in LTV_PLAIN + [(6, 3)]]
+                           _ltv_torch(*s))
+              for s in LTV_PLAIN + LTV_WIDE + list(LTV_RULE)]
     probs += [make_problem(_mp(d, i), d) for d, i in (
         (Dynamics("vdp", 2, 1, _vdp_torch, supports_lanes=True), "rk4"),
         (Dynamics("unicycle", 3, 2, _unicycle_torch, supports_lanes=True),
@@ -210,6 +222,7 @@ JAX_CASES = {
     "vdp": (2, 1, "rk4", _vdp_jax, _vdp_torch, 5.0),
     "unicycle": (3, 2, "euler", _unicycle_jax, _unicycle_torch, 2.0),
     "ltv_6x3": (6, 3, "euler", _chain_jax(3), _chain_torch(3), 20.0),
+    "ltv_12x6": (12, 6, "euler", _chain_jax(6), _chain_torch(6), 20.0),
 }
 
 
@@ -283,18 +296,20 @@ def test_generated_matches_jax(jax_pairs, key, n_iter):
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("shape", LTV_PLAIN, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_generated_ltv_matches_plain(builds, shape, dtype):
-    """The generated Ltv<S, NX, NU> (the one-thread body: these shapes do
-    not split over a group) against the plain version: the adaptive cold
-    and fixed-3 warm solves, X and U at 1e-8 in float64 and 2e-5 in
-    float32, equal statuses; every instance converges cold."""
+    """The generated Ltv<S, NX, NU> on the body the card runs (one thread
+    at (3, 2), whose odd NX does not split over a group; the four-lane
+    group at (12, 6)) against the plain version: the adaptive cold and
+    fixed-3 warm solves, X and U at 1e-8 in float64 and 2e-5 in float32,
+    equal statuses; every instance converges cold."""
     dyn = _ltv_torch(*shape)
     mp = _mp(dyn, "euler", True)
     prob = make_problem(mp, dyn)
     assert fused_supported(prob) and generated_unit(prob) is not None
-    assert card_body(prob) == ("thread", 1)
+    assert card_body(prob) == WIDE_BODY.get(shape, ("thread", 1))
     p = _params(mp, dyn, dtype)
     atol = 1e-8 if dtype == torch.float64 else 2e-5
-    kernel = _cold_then_warm(prob, p, solve_batch_fused_cpu_kernel)
+    kernel = _cold_then_warm(prob, p, functools.partial(
+        solve_batch_fused_cpu_kernel, body=card_body(prob)[0]))
     for rk, rp in zip(kernel, _cold_then_warm(prob, p, solve_batch_fused)):
         np.testing.assert_allclose(rk.X.numpy(), rp.X.numpy(), rtol=0,
                                    atol=atol)
@@ -302,6 +317,63 @@ def test_generated_ltv_matches_plain(builds, shape, dtype):
                                    atol=atol)
         np.testing.assert_array_equal(rk.status.numpy(), rp.status.numpy())
     assert bool((kernel[0].status == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", LTV_WIDE, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_generated_ltv_group_body_matches_thread_body_bitwise(builds, shape,
+                                                              dtype):
+    """LTV with more controls than lanes ((12, 6) on four lanes, the card's
+    body; (6, 3) on two, which the card leaves on one thread, where two
+    lanes lost: lane l owns controls l, l + W, ...), the group body against
+    the one-thread body, both g++ builds: the adaptive cold and fixed-3 warm
+    solves, every output bitwise equal (the group body keeps the one-thread
+    body's order in every sum)."""
+    dyn = _ltv_torch(*shape)
+    mp = _mp(dyn, "euler", True)
+    prob = make_problem(mp, dyn)
+    assert card_body(prob) == WIDE_BODY[shape]
+    assert card_body(prob, 1) == WIDE_BODY[shape]       # no block body
+    p = _params(mp, dyn, dtype)
+    runs = {body: _cold_then_warm(prob, p, functools.partial(
+        solve_batch_fused_cpu_kernel, body=body))
+        for body in ("group", "thread")}
+    for rg, rt in zip(runs["group"], runs["thread"]):
+        for field in ("X", "U", "status", "iters", "kkt", "feas", "obj"):
+            np.testing.assert_array_equal(getattr(rg, field).numpy(),
+                                          getattr(rt, field).numpy(),
+                                          err_msg=f"{shape} {field}")
+    assert bool((runs["group"][0].status == 0).all())
+
+
+@pytest.mark.parametrize("shape", list(LTV_RULE),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ltv_card_body_rule(builds, shape):
+    """The body the card runs a generated LTV shape on (``card_body``, the
+    launcher's rule, at full occupancy and at B=1: no block body)."""
+    dyn = _ltv_torch(*shape)
+    prob = make_problem(_mp(dyn, "euler", True), dyn)
+    assert card_body(prob) == LTV_RULE[shape] == card_body(prob, 1)
+
+
+@pytest.mark.parametrize("shape", LTV_WIDE, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ltv_timing_build_is_a_library_apart(shape):
+    """The library a generated LTV shape runs (``_cuda_library``) holds the
+    rule's body alone; its timing build (``both_bodies``), which
+    ``solve_batch_fused_body`` loads to time the two bodies against each
+    other, is another library whose CUDA source differs only in the flag
+    ``kBothBodiesBuild``."""
+    dyn = _ltv_torch(*shape)
+    prob = make_problem(_mp(dyn, "euler", True), dyn)
+    lib, timing = _cuda_library(prob), _cuda_library(prob, both_bodies=True)
+    assert lib != timing and lib.startswith("gen-") and \
+        timing.startswith("gen-")
+    src = {n: _generated_source(n, "cuda").read_text() for n in (lib, timing)}
+    flag = "MPC_FUSED_LIBRARY(mpc::kGenerated | kBothBodiesBuild)"
+    assert "kBothBodiesBuild" not in src[lib] and flag in src[timing]
+    assert src[timing].replace(flag, "MPC_FUSED_LIBRARY(mpc::kGenerated)") \
+        == src[lib]
 
 
 # ---- the runtime with a user Dynamics ----------------------------------------

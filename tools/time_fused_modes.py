@@ -3,7 +3,7 @@
 the port: how two versions of the kernel are compared on the same card.
 
     python3 tools/time_fused_modes.py [--root DIR] [--save FILE.json]
-        [--compare A.json B.json]
+        [--match REGEX] [--compare A.json B.json]
 
 Imports ``mahi_mpc_tpu_torch`` from the checkout at DIR (default: the one
 this file is in), builds its fused kernel's CUDA libraries, and for each
@@ -15,11 +15,19 @@ does, and the kernel's own device time a fixed-3 launch
 (``torch.profiler``, 5 launches); it holds the fixed-3 warm solve to the
 plain version on the same inputs (max |dX|, |dU|, the smoke's 1e-4).
 Where the checkout has the block body (``solve_batch_fused_body``), each
-case at a batch of ``BLOCK_LADDER`` is also timed on both bodies, group
-and block (device ms a fixed-3 launch by CUDA events around 20 launches
-of the kernel alone, ``chip_smoke.py`` ``kernel_event_ms``, in turns
-group, block, block, group), each held to the plain version;
-the case's line names the body the launcher's rule picks.  ``--save``
+case at a batch of ``BLOCK_LADDER`` whose policy has a block body is also
+timed on both bodies, group and block (device ms a fixed-3 launch by CUDA
+events around 20 launches of the kernel alone, ``chip_smoke.py``
+``kernel_event_ms``, in turns group, block, block, group), each held to
+the plain version; and each case of ``GENERATED`` (``chip_smoke.py``
+phase 23's LTV chains, generated instantiations) on the one-thread body
+and the group body where the checkout has a timing build that holds both
+(``_cuda_library(prob, both_bodies=True)``; in turns thread, group, group,
+thread), with whether the two bodies' fixed-3 outputs are equal bit for
+bit; the case's line names the body the launcher's rule picks.
+``--match REGEX`` keeps the cases whose key (``mahi_arm-euler-ltv-b1``,
+as ``--save`` names them) it finds, to repeat a few cases in turns.
+``--save``
 writes the SHA-256 of each case's adaptive cold and fixed-3 warm X, U and
 iterations (their bytes), and the body that computed them, to a JSON
 file, so that two checkouts' outputs on the card can be compared bit for
@@ -37,6 +45,7 @@ import concurrent.futures
 import hashlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,10 +56,11 @@ HERE = Path(__file__).resolve().parent.parent
 # four-lane group body over a dense step at B=16384 (LTV at (8, 4); the
 # 4-DOF arm under RK4 and midpoint, the 2-DOF arm under RK4), the small LTV
 # shapes (4, 2), (4, 1), (2, 1), the closed forms under Euler and RK4, the
-# double pendulum also at B=65536 (a higher rung of the JAX ladder), LTV at
-# B=1, and the two policies with a block body (the arm and the double
+# double pendulum also at B=65536 (a higher rung of the JAX ladder), and
+# the three policies with a block body (the arm and the double
 # pendulum under Euler: the single robot's warm calc_u and the reference's
-# default example) over the batches of BLOCK_LADDER
+# default example; LTV at (8, 4): the LTV single robot) over the batches of
+# BLOCK_LADDER
 BLOCK_LADDER = (1, 2, 8, 32, 132, 264, 396, 528, 660, 792, 1024)
 CASES = (("mahi_arm", "euler", False, 16384),
          ("mahi_arm", "euler", True, 16384),
@@ -65,13 +75,46 @@ CASES = (("mahi_arm", "euler", False, 16384),
            for integrator in ("euler", "rk4")),
          ("double_pendulum", "euler", False, 65536),
          ("double_pendulum", "rk4", False, 65536),
-         ("mahi_arm", "euler", True, 1),
-         *((name, "euler", False, batch)
-           for name in ("mahi_arm", "double_pendulum")
+         *((name, "euler", ltv, batch)
+           for name, ltv in (("mahi_arm", False), ("double_pendulum", False),
+                             ("mahi_arm", True))
            for batch in BLOCK_LADDER))
+# Generated LTV instantiations (chip_smoke.py `user_dynamics`), at B=16384:
+# the shapes whose controls outnumber their group's lanes.
+GENERATED = (("ltv_12x6", 16384), ("ltv_6x3", 16384))
 LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic",
              "fused_sqp_models")
 PLAIN_BAND = 1e-4
+
+
+def generated_batch(smoke, dev, rng, name, B):
+    """(problem, params) of a case of ``GENERATED``: ``chip_smoke.py``'s
+    user model and problem (N=25, dt=20 ms), with ``model_batch``'s
+    bench-shaped data: Q = 10, R = 0.1, Rm = 0.01, x0 and x_des ~ 0.2
+    N(0, 1), frozen at each instance's (x0, u_prev)."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+    from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
+                                                        default_params)
+
+    dyn, integrator, is_linear, ulim = smoke.user_dynamics()[name]
+    mp, prob = smoke.user_problem(name, dyn, integrator, is_linear, ulim)
+    nx, nu, N = dyn.nx, dyn.nu, mp.num_shooting_nodes
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    p = default_params(mp, device=dev)._replace(
+        q=f32([10.0] * nx), r=f32([0.1] * nu), rm=f32([0.01] * nu))
+    ex = lambda a: a.expand((B,) + a.shape).clone()
+    p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
+                    else ex(f) for f in p])
+    p = p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
+                   x_des=f32(0.2 * rng.standard_normal((B, N, nx))))
+    with strict_fp32():
+        A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
+    return prob, p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
 
 
 def compare(a: str, b: str) -> int:
@@ -104,6 +147,8 @@ def main() -> int:
                          "(X, U, iterations)")
     ap.add_argument("--compare", nargs=2, default=None,
                     help="two --save files to compare")
+    ap.add_argument("--match", default=None,
+                    help="time only the cases whose key this regex finds")
     args = ap.parse_args()
     if args.compare:
         return compare(*args.compare)
@@ -146,16 +191,26 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    generated = {name: generated_batch(smoke, dev, np.random.default_rng(0),
+                                       name, batch)
+                 for name, batch in GENERATED}
+    # the generated libraries, and their timing builds where the checkout
+    # has them (both bodies of an LTV shape)
+    timing = "both_bodies" in inspect.signature(_cuda_library).parameters
+    names = list(LIBRARIES) + [
+        lib for prob, _ in generated.values()
+        for lib in ([_cuda_library(prob)] + ([_cuda_library(
+            prob, both_bodies=True)] if timing else []))]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as ex:
-        libs = dict(zip(LIBRARIES, ex.map(cuda_build, LIBRARIES)))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(zip(names, ex.map(cuda_build, names)))
     build_s = time.perf_counter() - t0
     for name, (_, report, _) in libs.items():
         for k in smoke.ptxas_summary(report):
             print(json.dumps(dict(label=label, library=name, **k)),
                   flush=True)
 
-    dev = torch.device("cuda", 0)
     opts = SolverOptions(tol=1e-4, max_iter=12)
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
     mu_warm = opts.warm_mu_factor * opts.tol
@@ -172,10 +227,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / reps
 
+    def held(r, ref):
+        """max |dX|, |dU| of r from ref."""
+        return max((r.X - ref.X).abs().max().item(),
+                   (r.U - ref.U).abs().max().item())
+
     saved, bad = {}, 0
-    for name, integrator, is_linear, batch in CASES:
-        _, prob, p = smoke.model_batch(dev, np.random.default_rng(0), name,
-                                       batch, integrator, is_linear)
+    cases = list(CASES) + [(name, "euler", True, batch)
+                           for name, batch in GENERATED]
+    for name, integrator, is_linear, batch in cases:
+        key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
+               + f"-b{batch}")
+        if args.match and not re.search(args.match, key):
+            continue
+        if name in generated:
+            prob, p = generated[name]
+        else:
+            _, prob, p = smoke.model_batch(dev, np.random.default_rng(0),
+                                           name, batch, integrator,
+                                           is_linear)
         cold = lambda: solve_batch_fused(prob, p, None, None, opts_cold,
                                          mu0=opts_cold.mu_init,
                                          adaptive=True)
@@ -186,29 +256,43 @@ def main() -> int:
         wk, warm_ms = timed(warm, 10)
         wp = solve_batch_fused_plain(prob, pw, ct.X, ct.U, opts,
                                      mu0=mu_warm, n_iter=3)
-        err = max((wk.X - wp.X).abs().max().item(),
-                  (wk.U - wp.U).abs().max().item())
+        err = held(wk, wp)
         bad += not err <= PLAIN_BAND
         prof = smoke.profile_step(lambda: [warm() for _ in range(5)],
                                   "fused_sqp")
         kernels = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
         body = body_at(prob, batch)
-        bodies = {}
+        bodies, outs, turns = {}, {}, ()
         if on_body is not None and batch in BLOCK_LADDER and \
                 body_at(prob, 1) == "block":
-            for b in ("group", "block", "block", "group"):
-                solve_b = lambda: on_body(prob, pw, ct.X, ct.U, opts,
-                                          mu0=mu_warm, n_iter=3, body=b)
+            turns = ("group", "block", "block", "group")
+        elif on_body is not None and name in generated:
+            turns = ("thread", "group", "group", "thread")
+        for b in turns:
+            solve_b = lambda: on_body(prob, pw, ct.X, ct.U, opts,
+                                      mu0=mu_warm, n_iter=3, body=b)
+            try:
                 rb = solve_b()
-                err_b = max((rb.X - wp.X).abs().max().item(),
-                            (rb.U - wp.U).abs().max().item())
-                bad += not err_b <= PLAIN_BAND
-                bodies.setdefault(b, dict(device_ms=[], max_abs_dxu=err_b))
-                bodies[b]["device_ms"].append(smoke.kernel_event_ms(solve_b))
+            except ValueError as e:      # the checkout has no such body
+                bodies[b] = dict(error=str(e))
+                continue
+            outs[b] = rb
+            err_b = held(rb, wp)
+            bad += not err_b <= PLAIN_BAND
+            bodies.setdefault(b, dict(device_ms=[], max_abs_dxu=err_b))
+            bodies[b]["device_ms"].append(smoke.kernel_event_ms(solve_b))
+        if len(outs) == 2:
+            a, b = outs.values()
+            bodies["bitwise_equal"] = bool(torch.equal(a.X, b.X)
+                                           and torch.equal(a.U, b.U))
         # blocks an SM of the kernel that serves it (where the checkout's
-        # library reports it)
+        # library reports it; a checkout before the body argument takes
+        # five)
         per_sm = getattr(libs[_cuda_library(prob)][0],
                          "mpc_fused_blocks_per_sm", None)
+        if per_sm is not None:
+            occupancy = per_sm
+            per_sm = lambda *a: occupancy(*a[:len(occupancy.argtypes)])
         model = -1 if is_linear else _kernel_model(prob.dynamics)[0]
         line = dict(
             label=label, model=name, integrator=integrator,
@@ -224,11 +308,9 @@ def main() -> int:
             fixed3_max_abs_dxu_vs_plain=err,
             blocks_per_sm=None if per_sm is None else per_sm(
                 model, prob.nx, prob.nu, INTEGRATORS.index(integrator),
-                int(is_linear)),
+                int(is_linear), -1),
             build_s=build_s, nvidia_smi=smi)
         print(json.dumps(line), flush=True)
-        key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
-               + f"-b{batch}")
         saved[f"{key}/body"] = body
         for run, r in (("cold", ct), ("fixed3", wk)):
             for field in ("X", "U", "iters"):
