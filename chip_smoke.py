@@ -152,14 +152,16 @@ line each, with the seconds since start in ``t``:
     block kernel's device ms, the plain version's ms, the bound and the
     chain bound at B=1, and its ``calc_u`` split by stage; then
     block_crossover (``block_crossover_phase``): the block body and the
-    group body of the three policies with a block body (the arm and the
-    double pendulum under Euler, LTV at (8, 4)) at each B of
+    group body of the three hand-written policies with a block body (the
+    arm and the double pendulum under Euler, LTV at (8, 4)) at each B of
     ``CROSSOVER_LADDER`` (rungs of ``tools/time_fused_modes.py``'s
-    ``BLOCK_LADDER``) and at
-    B=1 with N = 100 and 200, fixed-3 and adaptive warm solves held to the
-    plain version, device ms of each body in turns, the body the rule
-    picks, the block kernel's registers, spills, shared memory and blocks
-    an SM;
+    ``BLOCK_LADDER``) and at B=1 with N = 100 and 200, and of a user's own
+    model under each generated policy (Van der Pol under RK4 against the
+    group body; the cart-pole's own f and the 4-DOF chain under Euler
+    against one thread) at B=1 and at its policy's threshold, fixed-3 and
+    adaptive warm solves held to the plain version, device ms of each body
+    in turns, the body the rule picks, the block kernel's registers,
+    spills, shared memory and blocks an SM;
 15. service_non_lanes — ``BatchModelControl`` over the arm written as a
     per-instance ``Dynamics`` (no lanes support), B=1024: the
     ``solve_batch`` route, 1 cold + 2 warm steps, converged_frac >= 0.9,
@@ -212,8 +214,10 @@ line each, with the seconds since start in ``t``:
     operation counters beside them): user models written as a user writes
     them (``user_dynamics``: a Van der Pol oscillator under RK4 and a
     kinematic unicycle under Euler, first-order; the cart-pole's own f
-    with nq = 2 and no closed form, the nq-row step over a generated acc)
-    and LTV at (6, 3) and (12, 6), each through ``BatchModelControl`` at
+    with nq = 2 and no closed form, the nq-row step over a generated acc;
+    a 4-DOF chain of pendulums coupled by springs, nx = 8, nu = 4, the
+    nq-row step with two controls a lane) and LTV at (6, 3) and (12, 6),
+    each through ``BatchModelControl`` at
     B=16384 (1 cold + 3 warm steps, its library launched once a step),
     then its fixed-3 warm solve held to the plain version (max|dX|,
     max|dU| <= 1e-4; the user cart-pole also to the hand-written
@@ -225,19 +229,25 @@ line each, with the seconds since start in ``t``:
     the one-thread body, each held to the plain version and timed in turns
     (CUDA events around the kernel alone), with the other body's ptxas
     line and blocks an SM and whether the two agree bit for bit; then
-    ``generate_model``
-    of the Van der Pol model (it must name the generated library) and 20
-    warm ``calc_u`` of ``ModelControl`` through it at B=1, the B=1 solve
-    held to its plain version.
+    ``generate_model`` of the Van der Pol model and of the 4-DOF chain (it
+    must name the generated library), and ``ModelControl`` through it at
+    B=1 on the block body (``card_body`` must name it): a cold and 20 (Van
+    der Pol) or 200 (the chain, tracking a sinusoid on its own Euler step)
+    warm ``calc_u``, one block launch each, no failure, ``calc_u`` p50 /
+    p99 ms; the B=1 solve (fixed-3 and adaptive) held to its plain
+    version, the block kernel's device ms in turns with the body the
+    model ran on before (group or one thread, CUDA events) and under the
+    profiler, the plain version's ms, the bound and the chain bound.
 
 Then one line ``{"kernels": [...]}`` (the fused kernel's group body at
 B=16384, its block body at B=1 (``fused_sqp_block``: launches of every
 warm ``calc_u`` of phase 14, LTV's included, its arm entry's times and
 bounds, the B=1 modes (the arm, the default example, LTV) and the
 crossover), the Riccati kernel,
-and one ``fused_sqp_generated:<case>`` entry a phase-23 case, its
-launches those of its service and, for the Van der Pol model, of
-``ModelControl``) with each kernel's launches on the
+one ``fused_sqp_generated:<case>`` entry a phase-23 case, its launches
+those of its service, and one ``fused_sqp_generated_block:<case>`` entry
+for the block body of each user model ``ModelControl`` runs at B=1, its
+launches those warm ``calc_u``) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
@@ -1947,10 +1957,16 @@ def block_kernel_info(builds, prob, N) -> dict:
     import ctypes
 
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _model_id)
+                                                 _mode, _model_id,
+                                                 generated_unit)
     lib = _cuda_library(prob)
-    marks = ((f"3LtvIfLi{prob.nx}ELi{prob.nu}E",) if prob.is_linear
-             else (MODEL_MARKS[prob.dynamics.name],))
+    if prob.is_linear:
+        marks = (f"3LtvIfLi{prob.nx}ELi{prob.nu}E",)
+    elif generated_unit(prob) is not None:
+        marks = ("6FastNq" if _mode(prob) == "fast" else "7Generic",
+                 "3gen5ModelIf")
+    else:
+        marks = (MODEL_MARKS[prob.dynamics.name],)
     found = [k for k in ptxas_summary(builds[lib][1])
              if "22fused_sqp_block_kernel" in k["kernel"]
              and all(m in k["kernel"] for m in marks)]
@@ -1968,22 +1984,48 @@ def block_kernel_info(builds, prob, N) -> dict:
                 smem_bytes=out[1], blocks_per_sm=out[0])
 
 
+def block_max_batch(prob) -> int:
+    """The largest batch at which the launcher's rule (``card_body``) runs
+    ``prob`` on the block body (its policy's kMaxBatch at this horizon), 0
+    where it never does."""
+    from mahi_mpc_tpu_torch.solver.fused import card_body
+
+    lo, hi = 0, 1 << 20
+    while lo < hi:                     # the rule is block up to a batch
+        mid = (lo + hi + 1) // 2
+        if card_body(prob, mid)[0] == "block":
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+# Phase 14c's user models (phase 23's cases with a block body): Van der
+# Pol under RK4 (`Generic<gen::Model>`, the two-lane group body at full
+# occupancy), the cart-pole's own f and the 4-DOF chain (`FastNq<gen::Model>`,
+# one thread at full occupancy).
+BLOCK_USER_MODELS = ("user_vdp", "user_cartpole", "user_chain4")
+
+
 def block_crossover_phase(dev, builds) -> list:
     """Phase 14c, block_crossover: the block body
     (``csrc/fused_sqp_block.cuh``) of ``FastNq<ArmModel<4>>``,
     ``FastNq<DoublePendulum>`` and ``Ltv<8, 4>`` (``BLOCK_MODELS``: Euler,
     bench-shaped data of ``model_batch``) at each B of
     ``CROSSOVER_LADDER`` (N=25) and at B=1 with N of
-    ``LONG_HORIZONS``: from the rule's adaptive cold plan, a fixed-3 and an
-    adaptive warm solve at x0 + 0.01 by each body
-    (``solve_batch_fused_body``) held to the plain version on the same
-    inputs (max |dX|, |dU| <= 1e-4; statuses equal on every instance at
-    B=1, on >= 99 % above), then each body's device ms a fixed-3 launch
-    (``kernel_event_ms``, in turns group, block, block, group), the body
-    the launcher's rule picks (``card_body``: it must not be more than 5 %
-    slower than the other), and each model's block kernel (registers,
-    spills, shared memory and blocks an SM at each N).  Returns the
-    lines."""
+    ``LONG_HORIZONS``, and of a user's own model under each generated
+    policy (``BLOCK_USER_MODELS``, data of ``generated_batch``) at B=1 and
+    at its policy's threshold (``block_max_batch``): from the rule's
+    adaptive cold plan, a fixed-3 and an adaptive warm solve at x0 + 0.01
+    by each body (``solve_batch_fused_body``: the block body and the body
+    at full occupancy, group or one thread) held to the plain version on
+    the same inputs (max |dX|, |dU| <= 1e-4; statuses equal on every
+    instance at B=1, on >= 99 % above), then each body's device ms a
+    fixed-3 launch (``kernel_event_ms``, in turns other, block, block,
+    other), the body the launcher's rule picks (``card_body``: it must not
+    be more than 5 % slower than the other), and each model's block kernel
+    (registers, spills, shared memory and blocks an SM at each N).
+    Returns the lines."""
     import numpy as np
 
     from mahi_mpc_tpu_torch import SolverOptions
@@ -1995,54 +2037,62 @@ def block_crossover_phase(dev, builds) -> list:
     opts = SolverOptions(tol=1e-4, max_iter=12)
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
     mu_warm = opts.warm_mu_factor * opts.tol
+    cases = [(name + (" LTV" if ltv else ""), N, B, lambda B, N, name=name,
+              ltv=ltv: model_batch(dev, np.random.default_rng(0), name, B,
+                                   is_linear=ltv, N=N)[1:])
+             for name, ltv in BLOCK_MODELS
+             for N, B in [(N_NODES, B) for B in CROSSOVER_LADDER]
+             + [(N, 1) for N in LONG_HORIZONS]]
+    for name in BLOCK_USER_MODELS:
+        make = lambda B, N, name=name: generated_batch(
+            dev, np.random.default_rng(0), name, B)
+        top = block_max_batch(make(1, N_NODES)[0])
+        check(top >= 1, f"{name}: no block body at B=1")
+        cases += [(name, N_NODES, B, make) for B in (1, top)]
     lines = []
-    for name, ltv in BLOCK_MODELS:
-        cases = [(N_NODES, B) for B in CROSSOVER_LADDER] + \
-            [(N, 1) for N in LONG_HORIZONS]
-        for N, B in cases:
-            _, prob, p = model_batch(dev, np.random.default_rng(0), name, B,
-                                     is_linear=ltv, N=N)
-            cold = solve_batch_fused(prob, p, None, None, opts_cold,
-                                     mu0=opts_cold.mu_init, adaptive=True)
-            pw = p._replace(x0=p.x0 + 0.01)
-            line = dict(phase="block_crossover",
-                        model=name + (" LTV" if ltv else ""), batch=B, N=N,
-                        rule=list(card_body(prob, B)))
-            for mode, kw in (("fixed3", dict(n_iter=3)),
-                             ("adaptive", dict(adaptive=True))):
-                rp = solve_batch_fused_plain(prob, pw, cold.X, cold.U, opts,
-                                             mu0=mu_warm, **kw)
-                for body in ("group", "block"):
-                    rk = solve_batch_fused_body(prob, pw, cold.X, cold.U,
-                                                opts, mu0=mu_warm, body=body,
-                                                **kw)
-                    err = max((rk.X - rp.X).abs().max().item(),
-                              (rk.U - rp.U).abs().max().item())
-                    same = (rk.status == rp.status).float().mean().item()
-                    line[f"{body}_{mode}_max_abs_dxu"] = err
-                    line[f"{body}_{mode}_status_agree"] = same
-                    check(err <= 1e-4 and (same == 1.0 if B == 1
-                                           else same >= 0.99),
-                          f"{name} B={B} N={N} {body} {mode}: max|dX|,|dU| "
-                          f"{err}, statuses agree on {same}")
-            ms = {"group": [], "block": []}
-            for body in ("group", "block", "block", "group"):
-                ms[body].append(kernel_event_ms(
-                    lambda: solve_batch_fused_body(
-                        prob, pw, cold.X, cold.U, opts, mu0=mu_warm,
-                        n_iter=3, body=body)))
-            ratio = sum(ms["block"]) / sum(ms["group"])
-            line.update(group_device_ms=ms["group"],
-                        block_device_ms=ms["block"], block_over_group=ratio)
-            # the rule's body is the faster one (a tie within 5 % passes:
-            # the arm's sixth wave at B=792 ties on the H100)
-            picked = ratio if line["rule"][0] == "block" else 1 / ratio
-            check(picked <= 1.05, f"{name} B={B} N={N}: the rule picks "
-                  f"{line['rule']}, {picked:.3f}x the other body's time")
-            if B == 1:
-                line["block_kernel"] = block_kernel_info(builds, prob, N)
-            emit(**line)
-            lines.append(line)
+    for name, N, B, make in cases:
+        prob, p = make(B, N)
+        other = card_body(prob)[0]
+        cold = solve_batch_fused(prob, p, None, None, opts_cold,
+                                 mu0=opts_cold.mu_init, adaptive=True)
+        pw = p._replace(x0=p.x0 + 0.01)
+        line = dict(phase="block_crossover", model=name, batch=B, N=N,
+                    rule=list(card_body(prob, B)), other_body=other)
+        for mode, kw in (("fixed3", dict(n_iter=3)),
+                         ("adaptive", dict(adaptive=True))):
+            rp = solve_batch_fused_plain(prob, pw, cold.X, cold.U, opts,
+                                         mu0=mu_warm, **kw)
+            for body in (other, "block"):
+                rk = solve_batch_fused_body(prob, pw, cold.X, cold.U,
+                                            opts, mu0=mu_warm, body=body,
+                                            **kw)
+                err = max((rk.X - rp.X).abs().max().item(),
+                          (rk.U - rp.U).abs().max().item())
+                same = (rk.status == rp.status).float().mean().item()
+                line[f"{body}_{mode}_max_abs_dxu"] = err
+                line[f"{body}_{mode}_status_agree"] = same
+                check(err <= 1e-4 and (same == 1.0 if B == 1
+                                       else same >= 0.99),
+                      f"{name} B={B} N={N} {body} {mode}: max|dX|,|dU| "
+                      f"{err}, statuses agree on {same}")
+        ms = {other: [], "block": []}
+        for body in (other, "block", "block", other):
+            ms[body].append(kernel_event_ms(
+                lambda: solve_batch_fused_body(
+                    prob, pw, cold.X, cold.U, opts, mu0=mu_warm,
+                    n_iter=3, body=body)))
+        ratio = sum(ms["block"]) / sum(ms[other])
+        line.update(other_device_ms=ms[other], block_device_ms=ms["block"],
+                    block_over_other=ratio)
+        # the rule's body is the faster one (a tie within 5 % passes:
+        # the arm's sixth wave at B=792 ties on the H100)
+        picked = ratio if line["rule"][0] == "block" else 1 / ratio
+        check(picked <= 1.05, f"{name} B={B} N={N}: the rule picks "
+              f"{line['rule']}, {picked:.3f}x the other body's time")
+        if B == 1:
+            line["block_kernel"] = block_kernel_info(builds, prob, N)
+        emit(**line)
+        lines.append(line)
     return lines
 
 
@@ -2671,7 +2721,8 @@ def time_shard_phase(dev) -> None:
 # first use (models/codegen.py, solver/fused.py `generated_unit`), and the
 # LTV step at two shapes outside the four hand-written ones.
 GEN_WARM_STEPS = 3                # warm service steps a generated case
-GEN_B1_CALLS = 20                 # warm calc_u of the user model, B=1
+GEN_B1_CALLS = 20                 # warm calc_u of Van der Pol, B=1
+CHAIN4_B1_CALLS = 200             # warm calc_u of the 4-DOF chain, B=1
 GEN_DT = 0.02
 VDP_MU = 1.0
 # The generated nq-row cart-pole against the hand-written FastNq<Cartpole>
@@ -2685,8 +2736,11 @@ def user_dynamics() -> dict:
     bound)}.  A Van der Pol oscillator (first order, RK4), a kinematic
     unicycle (first order, Euler), the cart-pole's own f given as a user
     model with nq = 2 and no closed form (the nq-row step over a generated
-    acc), and LTV at (6, 3) and (12, 6): a chain of nq pendulums coupled
-    by springs, frozen at each instance's state."""
+    acc), a chain of nq pendulums coupled by springs at nq = 4 under Euler
+    (nx = 8, nu = 4: a user's 4-DOF model at the exoskeleton's shape, the
+    nq-row step with more controls than its two lanes), and LTV at (6, 3)
+    and (12, 6): the chain at nq = 3 and 6, frozen at each instance's
+    state."""
     import torch
 
     from mahi_mpc_tpu_torch.models import make_dynamics
@@ -2719,6 +2773,7 @@ def user_dynamics() -> dict:
                                    make_dynamics("cartpole").f,
                                    supports_lanes=True, nq=2),
                           "euler", False, 60.0),
+        "user_chain4": (chain(4), "euler", False, 20.0),
         "ltv_6x3": (chain(3), "euler", True, 20.0),
         "ltv_12x6": (chain(6), "euler", True, 20.0)}
 
@@ -2733,6 +2788,38 @@ def user_problem(name, dyn, integrator, is_linear, ulim):
                          u_min=[-ulim] * dyn.nu, u_max=[ulim] * dyn.nu,
                          integrator=integrator, is_linear=is_linear)
     return mp, make_problem(mp, dyn)
+
+
+def generated_batch(dev, rng, name, B):
+    """(problem, params) of B instances of a phase-23 case
+    (``user_problem``: N=25, dt=20 ms) with ``model_batch``'s bench-shaped
+    data: Q = 10, R = 0.1, Rm = 0.01, x0 and x_des ~ 0.2 N(0, 1); an LTV
+    case frozen at each instance's (x0, u_prev)."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+    from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
+                                                        default_params)
+
+    dyn, integrator, is_linear, ulim = user_dynamics()[name]
+    mp, prob = user_problem(name, dyn, integrator, is_linear, ulim)
+    nx, nu, N = dyn.nx, dyn.nu, mp.num_shooting_nodes
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    p = default_params(mp, device=dev)._replace(
+        q=f32([10.0] * nx), r=f32([0.1] * nu), rm=f32([0.01] * nu))
+    ex = lambda a: a.expand((B,) + a.shape).clone()
+    p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
+                    else ex(f) for f in p])
+    p = p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
+                   x_des=f32(0.2 * rng.standard_normal((B, N, nx))))
+    if is_linear:
+        with strict_fp32():
+            A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
+        p = p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
+    return prob, p
 
 
 def followable_reference(dyn, integrator, x0, rng, ulim):
@@ -2775,7 +2862,7 @@ def generated_libraries() -> tuple:
     return names, timing
 
 
-def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
+def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
     """Phase 23, generated: each user model (and LTV shape) of
     ``user_dynamics`` through ``BatchModelControl`` at B=16384 (1 cold + 3
     warm steps, its generated library's launches counted from 0), then
@@ -2785,20 +2872,15 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
     profiler), with the bound (the generated build's own operation count,
     ``mpc_fused_count_ops``), ptxas line, blocks an SM and nvcc seconds;
     an adaptive cold solve, timed, its converged share printed; then
-    ``generate_model`` + ``ModelControl`` of the Van der Pol model at B=1
-    (20 warm ``calc_u`` through the generated kernel).  Returns the
-    kernels line's entries."""
-    import tempfile
-
+    ``generate_model`` + ``ModelControl`` of the Van der Pol model (20 warm
+    ``calc_u``) and of the 4-DOF chain (200) at B=1 on the block body
+    (``generated_model_control``).  Returns the kernels line's entries."""
     import numpy as np
     import torch
 
     from mahi_mpc_tpu_torch import SolverOptions
-    from mahi_mpc_tpu_torch._build import cuda_build
     from mahi_mpc_tpu_torch.models import make_dynamics
-    from mahi_mpc_tpu_torch.models.integrators import rk4_step
-    from mahi_mpc_tpu_torch.runtime import (BatchModelControl, ModelControl,
-                                            generate_model)
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
                                                  count_fused_ops,
                                                  solve_batch_fused,
@@ -2963,57 +3045,178 @@ def generated_phase(dev, rng, timed, builds, gen_libs) -> list:
             **{k: line[k] for k in ("bodies_device_ms", "group_over_thread",
                                     "bodies_bitwise_equal") if k in line}))
 
-    # ---- the single-instance runtime: generate_model builds the user
-    # model's library (the reference's gcc step), ModelControl loads it
-    dyn, integrator, _, ulim = user_dynamics()["user_vdp"]
-    mp, prob = user_problem("user_vdp", dyn, integrator, False, ulim)
-    mp = dataclasses.replace(mp, name="user_vdp")
-    lib = gen_libs["user_vdp"]
-    plant = rk4_step(dyn.f, mp.step_size)
+    # ---- the single-instance runtime of a user's model: generate_model
+    # builds its library (the reference's gcc step), ModelControl loads it
+    # and runs it at B=1 on the block body (a cold solve of the chain took
+    # 35 iterations in float32 on the CPU: the cap is 60)
+    b1_opts = SolverOptions(tol=1e-4, max_iter=60, fixed_warm_iters=3)
+    entries.append(generated_model_control(
+        dev, "user_vdp", GEN_B1_CALLS, np.array([1.0, 0.0]),
+        lambda mp, t: np.zeros((mp.num_shooting_nodes, mp.num_x)),
+        dict(Q=[10.0] * 2, R=[0.1], Rm=[0.0]), b1_opts, builds,
+        gen_libs, timed, clock_mhz))
+    chain_mp = user_problem("user_chain4", *user_dynamics()["user_chain4"])[0]
+    entries.append(generated_model_control(
+        dev, "user_chain4", CHAIN4_B1_CALLS,
+        arm_reference(chain_mp, -chain_mp.step_size)[0], arm_reference,
+        dict(Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4, Rm=[0.0] * 4),
+        b1_opts, builds, gen_libs, timed, clock_mhz, TRACK_BAND))
+    return entries
+
+
+def generated_model_control(dev, name, n_warm, x_start, reference, weights,
+                            opts, builds, gen_libs, timed, clock_mhz,
+                            track_band=None) -> dict:
+    """Phase 23's single-instance runtime of user model ``name`` (a case of
+    ``user_dynamics``): ``generate_model`` into a temporary directory (it
+    must name the model's generated library), ``ModelControl`` loaded
+    from it with ``weights``, one cold and ``n_warm`` warm ``calc_u`` in
+    closed loop on the model's own step from ``x_start``, following
+    ``reference(mp, t)`` (N, nx): the rule's body at B=1 must be the block
+    body, every warm call one launch of the model's library on it, no
+    failure, the cold plan converged, no warm plan diverged, and with
+    ``track_band`` |q - q_des| below it over the last half; ``calc_u``
+    p50 / p99 ms.  Then the B=1 warm solve (fixed-3 and adaptive) held to
+    its plain version, the block kernel's device ms a fixed-3 launch in
+    turns with the body the model ran on before this body existed (the
+    body at full occupancy, from the same library; ``kernel_event_ms``,
+    other, block, block, other), its device ms in 20 ``calc_u`` under the
+    profiler, the plain version's ms, the bound and the chain bound at
+    B=1, and the block kernel's registers, spills and shared memory.
+    Returns the kernels line's entry."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch._build import cuda_build
+    from mahi_mpc_tpu_torch.models.integrators import make_step
+    from mahi_mpc_tpu_torch.runtime import ModelControl, generate_model
+    from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
+                                                 count_fused_ops,
+                                                 solve_batch_fused,
+                                                 solve_batch_fused_body,
+                                                 solve_batch_fused_plain)
+
+    dyn, integrator, _, ulim = user_dynamics()[name]
+    mp, _ = user_problem(name, dyn, integrator, False, ulim)
+    mp = dataclasses.replace(mp, name=name)
+    lib = gen_libs[name]
+    step = make_step(dyn.f, mp.step_size, integrator)
+    plant = lambda x, u: step(
+        torch.as_tensor(x, dtype=torch.float64)[:, None],
+        torch.as_tensor(u, dtype=torch.float64)[:, None])[:, 0].numpy()
+    nq = mp.num_x // 2
+    launched = solve_batch_fused.library_launches
+    bodies = solve_batch_fused.body_launches
     with tempfile.TemporaryDirectory() as d:
         man = json.loads(generate_model(mp, dynamics=dyn, directory=d,
-                                        opts=svc_opts, device=dev)
-                         .read_text())
+                                        opts=opts, device=dev).read_text())
         check(man["warm_solver"] == "fused" and list(man["libraries"]) ==
-              [lib], f"user_vdp manifest: {man}")
-        mc = ModelControl("user_vdp", directory=d, dynamics=dyn, Q=[10.0] * 2,
-                          R=[0.1], Rm=[0.0], device=dev)
+              [lib], f"{name} manifest: {man}")
+        mc = ModelControl(name, directory=d, dynamics=dyn, device=dev,
+                          **weights)
         # the library generate_model built is the one ModelControl launches
         check(mc.warm_solver == "fused" and _cuda_library(mc.problem) == lib
               and cuda_build(lib)[0]._name == man["libraries"][lib],
-              f"ModelControl user_vdp: {mc.warm_solver}, {man}")
-        x, u = np.array([1.0, 0.0]), np.zeros(1)
-        traj = np.zeros((N_NODES, 2))
+              f"ModelControl {name}: {mc.warm_solver}, {man}")
+        body = card_body(mc.problem, 1)
+        other = card_body(mc.problem)[0]
+        check(body == ("block", 256), f"{name} at B=1 on {body}")
+        x, u = np.asarray(x_start, dtype=np.float64), np.zeros(mp.num_u)
         launched.clear()
-        plan = mc.calc_u(0.0, x, u, traj)
-        check(plan.status == 0, "user_vdp cold calc_u did not converge")
-        ms = []
-        for k in range(GEN_B1_CALLS):
-            u = plan.U[0]
-            x = plant(torch.as_tensor(x, dtype=torch.float64)[:, None],
-                      torch.as_tensor(u, dtype=torch.float64)[:, None]
-                      )[:, 0].numpy()
-            t0 = time.perf_counter()
-            plan = mc.calc_u((k + 1) * mp.step_size, x, u, traj)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        b1_launches = dict(launched)
-        check(b1_launches == {lib: GEN_B1_CALLS},
-              f"ModelControl user_vdp: launches {b1_launches}")
-        st = mc.stats.summary()
-        check(st["failures"] == 0, f"ModelControl user_vdp: {st}")
-        p1 = calc_u_params(mc, (GEN_B1_CALLS + 1) * mp.step_size, x, u)
-        p1 = p1._replace(x_des=torch.zeros_like(p1.x_des))
-        err_b1 = held_b1(mc, p1, dict(n_iter=3))
-        emit(phase="generated_model_control", case="user_vdp", library=lib,
-             warm_calls=GEN_B1_CALLS, launches=b1_launches[lib],
-             calc_u_p50_ms=float(np.percentile(ms, 50)),
-             calc_u_p99_ms=float(np.percentile(ms, 99)),
-             final_state=x.tolist(), max_abs_err_b1=err_b1, **st)
-    vdp = next(e for e in entries if e["name"].endswith(":user_vdp"))
-    vdp.update(launches=vdp["launches"] + b1_launches[lib],
-               model_control_launches=b1_launches[lib],
-               max_abs_err_b1=err_b1)
-    return entries
+        bodies.update(thread=0, group=0, block=0)
+        plans, errs = [], []
+        for k in range(1 + n_warm):
+            t = k * mp.step_size
+            ref = reference(mp, t)
+            plans.append(mc.calc_u(t, x, u, ref))
+            u = plans[-1].U[0]
+            x = plant(x, u)
+            errs.append(float(np.abs(x[:nq] - ref[0, :nq]).max()))
+        torch.cuda.synchronize()
+        launches, on_body = dict(launched), dict(bodies)
+        warm = plans[1:]
+        lat = np.array([pl.solve_time_s for pl in warm]) * 1e3
+        st = np.array([pl.status for pl in warm])
+        summ = mc.stats.summary()
+        line = dict(case=name, library=lib, card_body=list(body),
+                    other_body=other, cold_status=plans[0].status,
+                    cold_s=plans[0].solve_time_s, warm_calls=n_warm,
+                    launches=launches.get(lib, 0), body_launches=on_body,
+                    calc_u_p50_ms=float(np.percentile(lat, 50)),
+                    calc_u_p99_ms=float(np.percentile(lat, 99)),
+                    warm_converged=float((st == 0).mean()),
+                    max_track_err_last_half=float(np.max(
+                        errs[len(errs) // 2:])),
+                    final_state=x.tolist(), **summ)
+        check(launches == {lib: n_warm} and on_body["block"] == n_warm
+              and plans[0].status == 0 and summ["failures"] == 0
+              and bool((st != 2).all()) and bool(np.isfinite(x).all())
+              and (track_band is None
+                   or line["max_track_err_last_half"] < track_band),
+              f"ModelControl {name}: {line}")
+        # the B=1 warm solve, next state the last plan predicts
+        t_last = (n_warm + 1) * mp.step_size
+        x1, u1 = mc._X0[1].cpu().numpy(), mc._U0[0].cpu().numpy()
+        ref_last = reference(mp, t_last)
+        p1 = calc_u_params(mc, t_last, x1, u1)._replace(
+            x_des=mc._tensor(ref_last)[None])
+        b1 = {mode: held_b1(mc, p1, kw) for mode, kw in (
+            ("fixed3", dict(n_iter=3)), ("adaptive", dict(adaptive=True)))}
+        X1, U1, mu = mc._X0[None], mc._U0[None], mc._mu_warm
+        ms = {other: [], "block": []}
+        for b in (other, "block", "block", other):
+            ms[b].append(kernel_event_ms(lambda: solve_batch_fused_body(
+                mc.problem, p1, X1, U1, mc.opts, mu0=mu, n_iter=3, body=b)))
+        prof = profile_step(lambda: [mc.calc_u(t_last, x1, u1, ref_last)
+                                     for _ in range(20)],
+                            FUSED_ENTRIES["block"], 20)
+        check(prof["kernel_count"] == 20,
+              f"{name}: {prof['kernel_count']} block kernel launches for 20 "
+              f"calc_u: {prof['top_kernels']}")
+        device_ms = prof["kernel_device_ms"] / prof["kernel_count"]
+        _, plain_ms = timed(lambda: solve_batch_fused_plain(
+            mc.problem, p1, X1, U1, mc.opts, mu0=mu, n_iter=3), 3)
+        # the block body computes the group body's function: its minimum
+        ops = count_fused_ops(mc.problem, p1, X1, U1, mc.opts, mu0=mu,
+                              n_iter=3, body="group")
+        bound = bound_ms(sum(ops["minimum"].values()),
+                         fused_io_bytes(p1, X1, U1, 1))
+        chain = chain_bound(mc.problem, p1, X1, U1, mc.opts, mu,
+                            dict(n_iter=3), clock_mhz)
+        kernel = block_kernel_info(builds, mc.problem, mc.problem.N)
+        line.update(max_abs_dxu_fixed3=b1["fixed3"],
+                    max_abs_dxu_adaptive=b1["adaptive"],
+                    kernel_device_ms=device_ms,
+                    block_event_ms=ms["block"], other_event_ms=ms[other],
+                    block_over_other=sum(ms["block"]) / sum(ms[other]),
+                    plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                    bound_by=bound["bound_by"], **chain,
+                    kernel_share_of_calc_u_p50=device_ms
+                    / line["calc_u_p50_ms"], block_kernel=kernel,
+                    calc_u_profiled={k: prof[k] for k in (
+                        "wall_ms", "device_ms", "kernel_device_ms",
+                        "kernel_count", "device_busy_share")})
+        emit(phase="generated_model_control", **line)
+    return dict(
+        name=f"fused_sqp_generated_block:{name}", route="cuda",
+        source="mahi_mpc_tpu_torch/csrc/fused_sqp_block.cuh",
+        generator="mahi_mpc_tpu_torch/models/codegen.py",
+        replaces="mahi_mpc_tpu/solver/fused.py:186",
+        launches=n_warm, max_abs_err=max(b1.values()), ms=device_ms,
+        device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"], library_ms=None,
+        chain_bound_ms=chain["chain_bound_ms"], library=lib,
+        card_body=list(body), batch=1,
+        mode=f"ModelControl {name} {integrator}, B=1: {n_warm} fixed-3 warm "
+             f"calc_u (block body)",
+        other_body=other, other_event_ms=ms[other],
+        block_event_ms=ms["block"], calc_u_p50_ms=line["calc_u_p50_ms"],
+        calc_u_p99_ms=line["calc_u_p99_ms"],
+        registers=kernel["registers"],
+        spill_store_bytes=kernel["spill_store_bytes"],
+        smem_bytes=kernel["smem_bytes"], nvcc_s=builds[lib][2])
 
 
 def main() -> int:
@@ -3386,7 +3589,8 @@ def main() -> int:
     dist = distributed_phase()
     pariccati_phase(dev, timed)
     time_shard_phase(dev)
-    generated = generated_phase(dev, rng, timed, builds, gen_libs)
+    generated = generated_phase(dev, rng, timed, builds, gen_libs,
+                                clock_mhz)
 
     emit(phase="done")
     arm_b1 = block_modes[0]
@@ -3427,7 +3631,7 @@ def main() -> int:
         "mode": "fixed-3 warm, mahi_arm Euler at B=1 (block body)",
         "modes": block_modes,
         "crossover": [{k: c[k] for k in (
-            "model", "batch", "N", "rule", "group_device_ms",
+            "model", "batch", "N", "rule", "other_body", "other_device_ms",
             "block_device_ms")} for c in crossover]}, {
         "name": "riccati",
         "route": "cuda",

@@ -42,8 +42,10 @@ and ``cuda_build`` / ``cpu_library`` then build that name like any other
 library, from a source written into ``_build/`` beside the build: for the
 card the unit and the launcher (``fused_sqp_launch.cuh``, the same
 exports), for g++ the unit with ``fused_sqp_cpu.cpp`` and
-``flop_count.cpp`` (the CPU solve of both bodies, the operation count and
-the card-body query).  ``register_generated(unit, both_bodies=True)``
+``flop_count.cpp`` (the CPU solve of every body, the operation count and
+the card-body query); a user model's CUDA library holds the block body
+beside the body the rule runs at full occupancy, where its shape splits
+over the policy's lanes.  ``register_generated(unit, both_bodies=True)``
 names a timing build of an LTV unit, a library apart whose CUDA build
 also holds the body the launcher's rule does not pick.  A failed build raises, naming its log; nothing
 falls back.

@@ -32,8 +32,10 @@
 // For the policies `GroupBody` names (the serial arms, LTV at (8, 4), most
 // closed forms under midpoint and RK4, the double pendulum under Euler, a
 // generated model's generic step where its shape splits over two lanes)
-// the card runs the group body of fused_sqp_group.cuh instead; the tests
-// run both bodies of every policy whose shape splits over its group.
+// the card runs the group body of fused_sqp_group.cuh instead, and at
+// small batch the block body of fused_sqp_block.cuh for the policies
+// `BlockBody` names; the tests run every body of every policy whose shape
+// splits over its group.
 // Every policy gives the increment F(x, u) - x, never F, and the body forms
 // each defect as (x - x') + increment: x and x' differ by about the
 // increment, so their float32 rounding (~ulp(x) a component) stays out of

@@ -19,16 +19,18 @@
 //   the NQ q columns, each a pass through the whole chain, then the NQ qd
 //   columns, the RNEA alone, and the NQ u columns, two triangular solves,
 //   which read the stage's Cholesky factor from the first; the closed
-//   forms: the NZ dual-number columns; LTV has none: its step stays in the
-//   tile), then one task a stage forms its defects, gradients, barrier
-//   diagonal and merit partials;
+//   forms and a user's model under Euler: the NZ dual-number columns of
+//   the accelerations; under any integrator: the NZ dual-number columns
+//   of the step's increment; LTV has none: its step stays in the tile),
+//   then one task a stage forms its defects, gradients, barrier diagonal
+//   and merit partials;
 // * the Riccati sweep alone stays serial: the group body's phases (B),
 //   (C), (D) (`GroupPhases`, fused_sqp_group.cuh) on the W lanes of warp
-//   0, with the group body's lane ownership of rows, reading the stage's
-//   rows and defects from shared memory; beside it one thread of warp 1
-//   sums the merit's partials in the group body's order (stage N-1 down to
-//   0, a stage's components in order), so the Armijo test's float32 sums
-//   are the group body's;
+//   0, with the group body's lane ownership of rows and controls, reading
+//   the stage's rows and defects from shared memory; beside it one thread
+//   of warp 1 sums the merit's partials in the group body's order (stage
+//   N-1 down to 0, a stage's components in order), so the Armijo test's
+//   float32 sums are the group body's;
 // * the rollout of dX stays serial on the same W lanes
 //   (`GroupPhases::rollout_du`, `rollout_dx`);
 // * the line search runs rung x stage tasks across the block, storing each
@@ -193,6 +195,32 @@ struct BlockStep<S, FastNq<S, Model>> {
   }
 };
 
+// Any integrator (`Generic`): one pass, a dual-number pass of the step's
+// increment a tangent column (`GroupStep<Generic>::linearize`'s column d),
+// its column of the NX rows [A - I | B] to J (the d = 0 task also stores
+// the increment).  `solve_block` forms A = I + rows in the tile with the
+// rows (`stage_to_tile`).
+template <typename S, typename Model>
+struct BlockStep<S, Generic<S, Model>> {
+  static constexpr int NX = Model::NX, NU = Model::NU, NZ = NX + NU, NJ = NX,
+                       NE = 0, kPasses = 1;
+  const Generic<S, Model>& st;
+  S dt;
+  MPC_HD BlockStep(const Generic<S, Model>& s, const FusedArgs<S>& a)
+      : st(s), dt(a.dt) {}
+  MPC_HD static int tasks(int) { return NZ; }
+  MPC_HD void task(int, int d, const S* xl, const S* ul, S* J, S* F,
+                   S*) const {
+    typedef Dual<S, 1> Dd;
+    Dd xd[NX], ud[NU], out[NX];
+    seed<S, 1, NX, NU>(xl, ul, d, xd, ud);
+    model_increment(st.m, st.integ, dt, xd, ud, out);
+    for (int i = 0; i < NX; ++i) J[i * NZ + d] = out[i].d[0];
+    if (d == 0)
+      for (int i = 0; i < NX; ++i) F[i] = out[i].v;
+  }
+};
+
 // LTV: no linearization.  The affine step (Ad - I | Bd), A = I + (Ad - I)
 // and cd go into the tile once a solve (`GroupStep<Ltv>::setup`), and stay
 // there: no stage rows to J (NJ = 0); f = (Ad - I) x + Bd u + cd formed
@@ -203,6 +231,18 @@ struct BlockStep<S, Ltv<S, NX_, NU_>> {
   MPC_HD BlockStep(const Ltv<S, NX_, NU_>&, const FusedArgs<S>&) {}
   MPC_HD static int tasks(int) { return 0; }
   MPC_HD void task(int, int, const S*, const S*, S*, S*, S*) const {}
+};
+
+// The scalar type of a step policy.
+template <typename Step> struct StepScalar;
+template <typename S, typename M> struct StepScalar<FastNq<S, M>> {
+  typedef S type;
+};
+template <typename S, typename M> struct StepScalar<Generic<S, M>> {
+  typedef S type;
+};
+template <typename S, int NX, int NU> struct StepScalar<Ltv<S, NX, NU>> {
+  typedef S type;
 };
 
 // Which step policies the card runs on the block body, and up to which
@@ -237,6 +277,41 @@ template <typename S> struct BlockBody<Ltv<S, 8, 4>> {
   static constexpr bool value = true;
   static constexpr long long kMaxBatch = 264;
 };
+
+// A user's model (gen::Model, models/codegen.py) under either step policy:
+// the block body where its shape splits over the policy's lanes (`group_fits`:
+// not the unicycle's nx = 3, which stays on one thread).  Its library is
+// built at first use, so kMaxBatch cannot be timed per model: one rule a
+// family, the smallest crossover of the cases timed, rounded down to a
+// whole wave of 132 (tools/time_fused_modes.py, the bodies in turns,
+// fixed-3 warm, device ms a launch, NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md §6).  A block of up to 128 registers a thread leaves room for two
+// an SM, so such a model adds its time every 264 instances:
+// - FastNq: the cart-pole's own f, block 0.196 ms to B=264, 0.392 at 396
+//   and 528, 0.587 at 660 and 792, 0.784 at 1024; one thread 0.585 at
+//   B=1, 0.68-0.73 from 132 to 1024: block through 792.  The 4-DOF chain
+//   user_chain4 (nx = 8, nu = 4; 165 registers, one block an SM), block
+//   0.768 to B=132, 1.537 at 264, 2.305 at 396, 3.075 at 528; one thread
+//   1.94 at B=1, 2.39-2.77 from 132 to 1024: block through 396.  Rule 396;
+// - Generic: Van der Pol under RK4, block 0.120-0.122 ms to B=264, 0.240
+//   at 396 and 528, 0.358-0.360 at 660 and 792, 0.478 at 1024; the
+//   two-lane group body 0.315 at B=1, 0.42-0.47 from 132 to 1024: block
+//   through 792.  Rule 792.
+namespace gen {
+template <typename S> struct Model;
+}
+template <typename Step, long long kMax>
+struct GeneratedBlockBody {
+  static constexpr bool value =
+      group_fits<typename StepScalar<Step>::type, Step>();
+  static constexpr long long kMaxBatch = kMax;
+};
+template <typename S>
+struct BlockBody<FastNq<S, gen::Model<S>>>
+    : GeneratedBlockBody<FastNq<S, gen::Model<S>>, 396> {};
+template <typename S>
+struct BlockBody<Generic<S, gen::Model<S>>>
+    : GeneratedBlockBody<Generic<S, gen::Model<S>>, 792> {};
 
 // Where each array of one instance lies in the block's shared memory, in
 // scalars: the Riccati tile, the parameters, the iterate and its step, the
@@ -295,18 +370,6 @@ struct BlockLayout {
   }
 };
 
-// The scalar type of a step policy.
-template <typename Step> struct StepScalar;
-template <typename S, typename M> struct StepScalar<FastNq<S, M>> {
-  typedef S type;
-};
-template <typename S, typename M> struct StepScalar<Generic<S, M>> {
-  typedef S type;
-};
-template <typename S, int NX, int NU> struct StepScalar<Ltv<S, NX, NU>> {
-  typedef S type;
-};
-
 // Shared memory of one block of the block body on the card (float32) at
 // horizon N, in bytes, for a policy `BlockBody` names.
 template <typename Step>
@@ -361,8 +424,8 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
   typedef BlockStep<S, Step> BS;
   constexpr int W = GS::W, NX = GS::NX, NU = GS::NU, NG = NX + 2 * NU,
                 NZ = NX + NU, NJ = BS::NJ, NE = BS::NE, RPL = NX / W;
-  // a lane owns one control at most (the policies `BlockBody` names)
-  static_assert(NX % W == 0 && NU <= W, "group split");
+  // a lane owns controls l, l + W, ... (`GroupPhases`)
+  static_assert(NX % W == 0 && kMaxFan % W == 0, "group split");
   typedef typename Blk::template Lanes<W> G;
   const GS gs(step, a, b);
   const BS bs(step, a);
@@ -400,10 +463,18 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
     for (int l = 1; l < W; ++l) m = nmin(m, T.red(l, v));
     return m;
   };
-  // Stage k's Jacobian rows and defects into the tile, lane l's share.
+  // Stage k's Jacobian rows and defects into the tile, lane l's share; a
+  // dense step's rows (NJ = NX, `Generic`) also as A = I + rows, as
+  // `GroupStep<Generic>::linearize` forms it.
   auto stage_to_tile = [&](int l, int k) {
-    for (int e = l; e < NJ * NZ; e += W) T.t[GS::Tile::kJr + e] =
-        Js[k * NJ * NZ + e];
+    for (int e = l; e < NJ * NZ; e += W) {
+      const S v = Js[k * NJ * NZ + e];
+      T.t[GS::Tile::kJr + e] = v;
+      if constexpr (NJ == NX) {
+        const int i = e / NZ, c = e - i * NZ;
+        if (c < NX) GS::A(T, i, c) = S(i == c ? 1 : 0) + v;
+      }
+    }
     for (int i = l; i < NX; i += W) T.ck(i) = cks[k * NX + i];
   };
 
@@ -522,10 +593,11 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
             o.gzx[rr] = Gs[k * NG + i];
             o.Dx[rr] = Dxs[k * NX + i];
           }
-          if (l < NU) {
-            o.gzv[0] = Gs[k * NG + NX + l];
-            o.gu[0] = Gs[k * NG + NX + NU + l];
-            o.Du[0] = Dus[k * NU + l];
+          for (int cc = 0; cc < Ph::CPL && Ph::row(l, cc) < NU; ++cc) {
+            const int c = Ph::row(l, cc);
+            o.gzv[cc] = Gs[k * NG + NX + c];
+            o.gu[cc] = Gs[k * NG + NX + NU + c];
+            o.Du[cc] = Dus[k * NU + c];
           }
           Ph::blocks(gs, T, l, o);
         });
@@ -573,7 +645,8 @@ MPC_HD void solve_block(const FusedArgs<S>& a, const Step& step, long long b,
           T.dx(0, Ph::row(l, rr)) = S(0);
           dXs[Ph::row(l, rr)] = S(0);
         }
-        if (l < NU) T.du(0, l) = S(0);
+        for (int cc = 0; cc < Ph::CPL && Ph::row(l, cc) < NU; ++cc)
+          T.du(0, Ph::row(l, cc)) = S(0);
         o.ddir = S(0);
         o.amax = S(1);
         o.stepn = S(0);

@@ -197,7 +197,9 @@ template <typename S, typename Step> struct GroupStep;
 // generated model under midpoint and RK4 (and a first-order one under
 // Euler) the generic path's two lanes where its shape splits over them
 // (NX even, NU <= 2), one thread otherwise; a generated model's nq-row
-// policy one thread; an LTV shape the LTV rule.
+// policy one thread; an LTV shape the LTV rule.  At small batch a
+// generated model runs the block body where its shape splits over two
+// lanes (fused_sqp_block.cuh `BlockBody`).
 template <typename Step> struct GroupBody {
   static constexpr bool value = false;
 };

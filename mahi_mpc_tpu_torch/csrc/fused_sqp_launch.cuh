@@ -25,7 +25,8 @@
 // - the block body (fused_sqp_block.cuh), at small batch for the policies
 //   `BlockBody` names (`FastNq<ArmModel<4>>` in `fused_sqp`,
 //   `FastNq<DoublePendulum>` in `fused_sqp_models`, `Ltv<8, 4>` in
-//   `fused_sqp_ltv`), where B is at most the policy's kMaxBatch and the
+//   `fused_sqp_ltv`, a user's model under `FastNq` or `Generic` in its
+//   generated library), where B is at most the policy's kMaxBatch and the
 //   instance fits in a block's shared memory: one instance a block of 256
 //   threads, one block an SM.  At B=1 one group of the group body runs its
 //   stages one after another on one SM with nothing to hide its latencies

@@ -222,7 +222,14 @@ def card_body(prob: ShootingProblem, B: Optional[int] = None) -> tuple:
     ``csrc/flop_count.cpp`` (the problem's generated build, for a generated
     instantiation).  In LTV: the block body at (8, 4) up to B=264, four
     lanes where nx is a multiple of 4 from 8 up and a block's 32 tiles fit
-    in its shared memory, one thread otherwise."""
+    in its shared memory, one thread otherwise.  A user's model (a
+    generated ``FastNq`` or ``Generic`` over ``gen::Model``): the block
+    body at small batch where its shape splits over the policy's two lanes
+    (nx even; a lane owns controls l, l + 2, ..., so any nu), else, and
+    past the policy's threshold, the body it runs at full occupancy (two
+    lanes for ``Generic`` where nu <= 2, one thread otherwise); a shape
+    that does not split (the unicycle's nx = 3) runs one thread at every
+    B."""
     model = _model_id(prob)[0]
     threads = ctypes.c_int(0)
     kind = _cpu_library(prob, "flop_count").mpc_fused_card_body(
@@ -906,7 +913,8 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     ``body="group"``: the group body (``csrc/fused_sqp_group.cuh``, at the
     step policy's width), each of every policy, whichever the card runs
     (``card_body``); ``body="block"``: the block body
-    (``csrc/fused_sqp_block.cuh``) of the policies ``BlockBody`` names; a
+    (``csrc/fused_sqp_block.cuh``) of the policies ``BlockBody`` names (a
+    user's model where its shape splits over its policy's lanes); a
     generated instantiation runs from the problem's own g++ build.  The
     group body needs a shape that splits over its lanes (NX a multiple of
     the width; a lane owns controls l, l + W, ..., so any NU)."""

@@ -4,9 +4,13 @@ and the line search across the block) on the CPU, through its g++ build
 (``mpc_fused_solve_block_cpu_f32`` / ``_f64``), for the three step
 policies the card runs on it at small batch: ``FastNq<ArmModel<4>>``
 (``mahi_arm`` under Euler, the single robot's warm ``calc_u``),
-``FastNq<DoublePendulum>`` (the reference's default example) and
+``FastNq<DoublePendulum>`` (the reference's default example),
 ``Ltv<8, 4>`` (``mahi_arm_ltv``: the arm frozen at each instance's state,
-the LTV single robot's warm ``calc_u``).
+the LTV single robot's warm ``calc_u``), and a user's own model under each
+generated policy: ``FastNq<gen::Model>`` of a 4-DOF chain of pendulums
+coupled by springs (``user_chain4``, nx = 8, nu = 4: a group lane owns two
+controls) and ``Generic<gen::Model>`` of a Van der Pol oscillator under
+RK4 (``user_vdp``).
 
 - Against the group body's g++ build: bitwise, float32 and float64, fixed-3
   and adaptive, B = 1 and 3, N = 25 and 60 (the block body sums in the
@@ -16,10 +20,11 @@ the LTV single robot's warm ``calc_u``).
   pinning, one NaN instance at B=3.
 - Against the JAX package's Pallas kernel in interpret mode, float32 warm
   re-solves at B=3, N=25 and B=1, N=60: X, U within 2e-5 (the ROADMAP
-  band), equal statuses.
+  band), equal statuses (the registered models; the user models' are in
+  tests/test_torch_fused_generated.py).
 - The launcher's rule (``card_body``): the block body up to the measured
-  threshold, the group body above it and where the instance does not fit
-  in a block's shared memory.
+  threshold, the body at full occupancy (group or one thread) above it and
+  where the instance does not fit in a block's shared memory.
 """
 
 import dataclasses
@@ -42,6 +47,7 @@ from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
+from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.solver.fused import (card_body, solve_batch_fused,
                                              solve_batch_fused_cpu_kernel,
                                              solve_batch_fused_plain)
@@ -51,28 +57,55 @@ torch.set_num_threads(1)
 
 TOL = 1e-4
 # "mahi_arm_ltv": the LTV step of mahi_arm, frozen at each instance's
-# (x0, u_prev).
-MODELS = ("mahi_arm", "double_pendulum", "mahi_arm_ltv")
+# (x0, u_prev); "user_*": a user's own model (below), served by a
+# generated instantiation.
+REGISTERED = ("mahi_arm", "double_pendulum", "mahi_arm_ltv")
+MODELS = REGISTERED + ("user_chain4", "user_vdp")
 SHAPES = ((1, 25), (3, 25), (1, 60), (3, 60))        # (B, N)
 MODES = {"fixed3": dict(n_iter=3), "adaptive": dict(adaptive=True)}
 FIELDS = ("X", "U", "status", "iters", "kkt", "feas", "obj")
 # The launcher's threshold (csrc/fused_sqp_block.cuh `BlockBody`): the
-# largest batch the block body serves, and the group body's width.
+# largest batch the block body serves, and the body at full occupancy.
 BLOCK_MAX_BATCH = {"mahi_arm": 660, "double_pendulum": 396,
-                   "mahi_arm_ltv": 264}
-GROUP_WIDTH = {"mahi_arm": 4, "double_pendulum": 2, "mahi_arm_ltv": 4}
+                   "mahi_arm_ltv": 264, "user_chain4": 396, "user_vdp": 792}
+FULL_BODY = {"mahi_arm": ("group", 4), "double_pendulum": ("group", 2),
+             "mahi_arm_ltv": ("group", 4), "user_chain4": ("thread", 1),
+             "user_vdp": ("group", 2)}
+
+
+def _chain4(x, u):
+    """Four pendulums coupled by springs, each driven by its own torque."""
+    q, qd = x[:4], x[4:]
+    left, right = torch.cat([q[:1], q[:-1]]), torch.cat([q[1:], q[-1:]])
+    return torch.cat([qd, u - torch.sin(q) - 0.1 * qd
+                      + 0.5 * ((left - 2.0 * q) + right)])
+
+
+def _vdp(x, u):
+    return torch.stack([x[1], (1.0 - x[0] * x[0]) * x[1] - x[0] + u[0]])
+
+
+# A user's own models (no hand-written instantiation) and their integrator
+# and control bound.
+USER = {"user_chain4": (Dynamics("user_chain4", 8, 4, _chain4,
+                                 supports_lanes=True, nq=4), "euler", 20.0),
+        "user_vdp": (Dynamics("user_vdp", 2, 1, _vdp, supports_lanes=True),
+                     "rk4", 5.0)}
 
 
 # Bounds that the branch tests' solutions reach: about half the largest
 # |u| of the unbounded solutions (0.97 on the arm, 2.39 on the double
-# pendulum), and |q| <= 0.1 against a reference of 0.1 N(0, 1).
-U_TIGHT = {"mahi_arm": 0.5, "double_pendulum": 1.2, "mahi_arm_ltv": 0.5}
+# pendulum, 0.85 on the chain, 0.75 on Van der Pol), and |q| <= 0.1
+# against a reference of 0.1 N(0, 1).
+U_TIGHT = {"mahi_arm": 0.5, "double_pendulum": 1.2, "mahi_arm_ltv": 0.5,
+           "user_chain4": 0.4, "user_vdp": 0.35}
 Q_BOUND = 0.1
 # The state-bound case's start: q at this fraction of the bound, moving
 # toward it at this speed (rad/s); faster, the double pendulum's cold plan
 # crosses the bound by ~1e-9 before the barrier holds it.
 X_START = {"mahi_arm": (0.8, 1.0), "double_pendulum": (0.6, 0.8),
-           "mahi_arm_ltv": (0.8, 1.0)}
+           "mahi_arm_ltv": (0.8, 1.0), "user_chain4": (0.6, 0.6),
+           "user_vdp": (0.6, 0.6)}
 
 
 def _model(name):
@@ -80,17 +113,28 @@ def _model(name):
     return name.removesuffix("_ltv"), name.endswith("_ltv")
 
 
+def _dynamics(name):
+    """The port's Dynamics of a case of MODELS."""
+    return USER[name][0] if name in USER else make_dynamics(_model(name)[0])
+
+
 def _kw(name, N, x_bounded=False, u_tight=False):
     """The model's bench-shaped parameters: |u| <= 20 on the arm, the
-    default example's unbounded controls on the double pendulum; with
-    ``u_tight`` |u| <= ``U_TIGHT``, with ``x_bounded`` |q| <= ``Q_BOUND``
-    (both active)."""
+    default example's unbounded controls on the double pendulum, a user
+    model's bound of ``USER``; with ``u_tight`` |u| <= ``U_TIGHT``, with
+    ``x_bounded`` |q| <= ``Q_BOUND`` (both active)."""
     dyn, ltv = _model(name)
-    nx, nu = (8, 4) if dyn == "mahi_arm" else (4, 2)
+    d = _dynamics(name)
+    nx, nu = d.nx, d.nu
     kw = dict(num_x=nx, num_u=nu, step_size=0.002, num_shooting_nodes=N,
-              dynamics_name=dyn, is_linear=ltv)
-    if dyn == "mahi_arm" or u_tight:
-        ulim = U_TIGHT[name] if u_tight else 20.0
+              is_linear=ltv)
+    if name in USER:
+        kw.update(integrator=USER[name][1])
+    else:
+        kw.update(dynamics_name=dyn)
+    if dyn == "mahi_arm" or name in USER or u_tight:
+        ulim = U_TIGHT[name] if u_tight else (
+            USER[name][2] if name in USER else 20.0)
         kw.update(u_min=[-ulim] * nu, u_max=[ulim] * nu)
     if x_bounded:
         nq = nx // 2
@@ -102,13 +146,15 @@ def _kw(name, N, x_bounded=False, u_tight=False):
 def _problems(name, B, N, dtype=np.float32, seed=0, **bounds):
     """The same problem in both packages from one numpy seed: (jax problem,
     jax params, port problem, port params in ``dtype``); an LTV case frozen
-    at each instance's (x0, u_prev), the same arrays in both."""
+    at each instance's (x0, u_prev), the same arrays in both.  A user
+    model has no JAX problem here (None)."""
     kw = _kw(name, N, **bounds)
     nx, nu = kw["num_x"], kw["num_u"]
     dyn, ltv = _model(name)
     jmp = JaxModelParameters("t", **kw)
-    jprob = jax_make_problem(jmp, jax_make_dynamics(dyn))
-    prob = make_problem(ModelParameters("t", **kw), make_dynamics(dyn))
+    jprob = None if name in USER else jax_make_problem(
+        jmp, jax_make_dynamics(dyn))
+    prob = make_problem(ModelParameters("t", **kw), _dynamics(name))
     rng = np.random.default_rng(seed)
     nq = nx // 2
     x0 = 0.2 * rng.standard_normal((B, nx))
@@ -162,15 +208,17 @@ def _solve(body, prob, tp, X0, U0, mode, opts=None):
 
 @functools.lru_cache(maxsize=None)
 def _body_runs(name, dt):
-    """{(B, N, mode): {body: result}} for the block and group bodies (and
-    the plain version in float64) from one warm start a shape."""
+    """{(B, N, mode): {body: result}} for the block and group bodies, the
+    one-thread body where the card runs it at full occupancy, and the
+    plain version in float64, from one warm start a shape."""
     out = {}
     for B, N in SHAPES:
         _, _, prob, tp = _problems(name, B, N, getattr(np, dt))
         X0, U0, tp2 = _warm_start(prob, tp)
         for mode in MODES:
-            bodies = ("block", "group") + (("plain",) if dt == "float64"
-                                           else ())
+            bodies = ("block", "group") + (
+                ("thread",) if FULL_BODY[name][0] == "thread" else ()) + (
+                ("plain",) if dt == "float64" else ())
             out[B, N, mode] = {b: _solve(b, prob, tp2, X0, U0, mode)
                                for b in bodies}
     return out
@@ -181,13 +229,16 @@ def _body_runs(name, dt):
 def test_block_body_matches_group_body_bitwise(name, dt):
     """Every output of the block body is the group body's to the last bit,
     at every (B, N) and mode, float32 and float64: the same arithmetic in
-    the same order, the sums over stages and rungs included."""
+    the same order, the sums over stages and rungs included; and the
+    one-thread body's where that is the body the block replaces (the
+    4-DOF chain: the same dual passes, the same sums)."""
     for key, r in _body_runs(name, dt).items():
-        for field in FIELDS:
-            np.testing.assert_array_equal(
-                getattr(r["block"], field).numpy(),
-                getattr(r["group"], field).numpy(),
-                err_msg=f"{name} {dt} {key} {field}")
+        for body in ("group", "thread"):
+            for field in FIELDS if body in r else ():
+                np.testing.assert_array_equal(
+                    getattr(r["block"], field).numpy(),
+                    getattr(r[body], field).numpy(),
+                    err_msg=f"{name} {dt} {key} {body} {field}")
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -205,7 +256,7 @@ def test_block_body_matches_plain_f64(name):
         assert bool((rk.status == 0).all()), (key, rk.status)
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", REGISTERED)
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("B, N", [(3, 25), (1, 60)], ids=["B3-N25", "B1-N60"])
 def test_block_body_matches_jax(name, mode, B, N):
@@ -265,7 +316,7 @@ def test_block_body_branches(name, case):
             assert bool((rk.U.abs() < ulim).all())
             active |= bool((rk.U.abs() > 0.95 * ulim).any())
         if case == "x_bounds":
-            q = rk.X[:, 1:, :prob.dynamics.nq].abs()
+            q = rk.X[:, 1:, :prob.nx // 2].abs()
             assert bool((q < Q_BOUND).all())
             active |= bool((q > 0.95 * Q_BOUND).any())
     assert active or case == "head_pinning", f"{case}: no bound came near"
@@ -293,13 +344,13 @@ def test_nan_instance_leaves_the_others_untouched(name):
 @pytest.mark.parametrize("name", MODELS)
 def test_rule_picks_the_block_body_at_small_batch(name):
     """``card_body`` asks the launcher's rule: the block body (256 threads
-    an instance) from B=1 to the threshold, the group body at its width
-    above it and at full occupancy (B=None), and the group body at a
-    horizon whose instance does not fit in a block's 227 KB of shared
-    memory, at any B."""
+    an instance) from B=1 to the threshold, the body at full occupancy
+    (the group body at its width, or one thread) above it and at B=None,
+    and at a horizon whose instance does not fit in a block's 227 KB of
+    shared memory, at any B."""
     prob = _problems(name, 1, 25)[2]
     long = _problems(name, 1, 1000)[2]
-    block, group = ("block", 256), ("group", GROUP_WIDTH[name])
+    block, group = ("block", 256), FULL_BODY[name]
     top = BLOCK_MAX_BATCH[name]
     assert [card_body(prob, B) for B in (1, 2, top)] == [block] * 3
     assert [card_body(prob, B) for B in (top + 1, 16384)] == [group] * 2

@@ -8,9 +8,16 @@ ones), run through their g++ builds, the kernel bodies' own arithmetic.
   ``FastNq`` / ``Generic`` instantiations.
 - Against JAX: a Van der Pol oscillator (RK4) and a kinematic unicycle
   (Euler), written once in ``jnp`` and once in torch, through the JAX
-  Pallas kernel in interpret mode and the generated g++ build; LTV at
-  (6, 3) and (12, 6) the same way, on the group body (more controls than
-  lanes).
+  Pallas kernel in interpret mode and the generated g++ build, on the
+  body the card runs at full occupancy and at the case's batch (the block
+  body where the policy has one); the spring-coupled chain at nq = 4
+  (nx = 8, nu = 4: the nq-row step with more controls than its two
+  lanes) at B=1, N=25 the same way, on the block body; LTV at (6, 3) and
+  (12, 6) the same way, on the group body (more controls than lanes).
+- The generated closed forms on the block body against the hand-written
+  block body where one exists, else the body the hand-written
+  instantiation runs, bit for bit; the body the rule picks for a user's
+  model at B=1, at its block body's threshold and past it.
 - LTV at (3, 2) and (12, 6) against the plain version; at (12, 6) and
   (6, 3) the group body bitwise the one-thread body; the body the rule
   picks, and the timing build that holds both bodies for the card.
@@ -174,7 +181,9 @@ def builds():
     probs += [make_problem(_mp(d, i), d) for d, i in (
         (Dynamics("vdp", 2, 1, _vdp_torch, supports_lanes=True), "rk4"),
         (Dynamics("unicycle", 3, 2, _unicycle_torch, supports_lanes=True),
-         "euler"))]
+         "euler"),
+        (Dynamics("chain4", 8, 4, _chain_torch(4), supports_lanes=True,
+                  nq=4), "euler"))]
     cpu_build_all(["fused_sqp"] + [_cuda_library(p) for p in probs])
 
 
@@ -185,26 +194,33 @@ def _cold_then_warm(prob, p, solve):
                        opts, n_iter=3)
 
 
-@pytest.mark.parametrize("body", ["thread", "group"])
+@pytest.mark.parametrize("body", ["thread", "group", "block"])
 @pytest.mark.parametrize("name, integrator", HAND)
 def test_generated_matches_hand_written(builds, name, integrator, body):
     """float32: a closed form's own f through its generated instantiation
     (FastNq over the generated acc under Euler, Generic under RK4) against
-    the hand-written instantiation of the same model, each body: the
-    adaptive cold solve and the fixed-3 warm solve from its plan, X and U
-    within 2e-6 (the same expression trees in the traced order, up to
-    commuted operands), equal statuses.  Whether they agree bit for bit is
-    recorded as the test's property ``bitwise``."""
+    the hand-written instantiation of the same model, each body (the
+    generated block body against the hand-written block body where one
+    exists, else against the body the card runs the hand-written one on):
+    the adaptive cold solve and the fixed-3 warm solve from its plan, X
+    and U within 2e-6 (the same expression trees in the traced order, up
+    to commuted operands), equal statuses; on the block body bit for bit.
+    Whether the others agree bit for bit is printed."""
     user = _user(name)
     mp = _mp(user, integrator, ulim=60.0, dt=0.005)
     prob_gen, prob_hand = make_problem(mp, user), make_problem(
         mp, make_dynamics(name))
     assert generated_unit(prob_gen) is not None
     assert generated_unit(prob_hand) is None
+    assert card_body(prob_gen, 1) == ("block", 256)
+    hand_body = body
+    if body == "block" and card_body(prob_hand, 1)[0] != "block":
+        hand_body = card_body(prob_hand)[0]
     p = _params(mp, user, torch.float32)
-    kernel = functools.partial(solve_batch_fused_cpu_kernel, body=body)
-    gen = _cold_then_warm(prob_gen, p, kernel)
-    hand = _cold_then_warm(prob_hand, p, kernel)
+    gen = _cold_then_warm(prob_gen, p, functools.partial(
+        solve_batch_fused_cpu_kernel, body=body))
+    hand = _cold_then_warm(prob_hand, p, functools.partial(
+        solve_batch_fused_cpu_kernel, body=hand_body))
     bitwise = True
     for rg, rh in zip(gen, hand):
         np.testing.assert_array_equal(rg.status.numpy(), rh.status.numpy())
@@ -213,6 +229,7 @@ def test_generated_matches_hand_written(builds, name, integrator, body):
             np.testing.assert_allclose(a, b, rtol=0, atol=2e-6)
             bitwise = bitwise and np.array_equal(a, b)
     assert bool((gen[0].status == 0).all())
+    assert bitwise or body != "block"
     print(f"{name} {integrator} {body}: bitwise={bitwise}")
 
 
@@ -221,9 +238,13 @@ def test_generated_matches_hand_written(builds, name, integrator, body):
 JAX_CASES = {
     "vdp": (2, 1, "rk4", _vdp_jax, _vdp_torch, 5.0),
     "unicycle": (3, 2, "euler", _unicycle_jax, _unicycle_torch, 2.0),
+    "chain4": (8, 4, "euler", _chain_jax(4), _chain_torch(4), 20.0),
     "ltv_6x3": (6, 3, "euler", _chain_jax(3), _chain_torch(3), 20.0),
     "ltv_12x6": (12, 6, "euler", _chain_jax(6), _chain_torch(6), 20.0),
 }
+# (B, N) of a case where it is not (B, N) above: the 4-DOF chain as the
+# single robot's warm calc_u runs it.
+JAX_SHAPES = {"chain4": (1, 25)}
 
 
 @pytest.fixture(scope="module")
@@ -231,14 +252,16 @@ def jax_pairs(builds):
     """For each case of JAX_CASES: one warm start (the port's plain cold
     solve) and warm re-solves of n_iter = 1 and 3 at x0 + 0.01 by the JAX
     Pallas kernel in interpret mode and by the port's generated g++ build
-    (the body the card runs), from the same numpy arrays."""
+    (each body the card runs it on: at full occupancy and at the case's
+    batch), from the same numpy arrays."""
     out = {}
     for key, (nx, nu, integrator, fj, ft, ulim) in JAX_CASES.items():
         ltv = key.startswith("ltv")
-        kw = dict(num_x=nx, num_u=nu, step_size=0.02, num_shooting_nodes=N,
+        nb, nn = JAX_SHAPES.get(key, (B, N))
+        kw = dict(num_x=nx, num_u=nu, step_size=0.02, num_shooting_nodes=nn,
                   u_min=[-ulim] * nu, u_max=[ulim] * nu,
                   integrator=integrator, is_linear=ltv)
-        nq = nx // 2 if ltv else None
+        nq = nx // 2 if ltv or key == "chain4" else None
         jdyn = JaxDynamics(key, nx, nu, fj, supports_lanes=True, nq=nq)
         dyn = Dynamics(key, nx, nu, ft, supports_lanes=True, nq=nq)
         jmp = JaxModelParameters("t", **kw)
@@ -249,10 +272,10 @@ def jax_pairs(builds):
         p = jax_default_params(jmp, dtype=f32)._replace(
             q=jnp.full((nx,), 10.0, f32), r=jnp.full((nu,), 0.1, f32),
             rm=jnp.full((nu,), 0.01, f32))
-        pb = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), p)
+        pb = jax.tree.map(lambda a: jnp.broadcast_to(a, (nb,) + a.shape), p)
         pb = pb._replace(
-            x0=jnp.asarray(0.3 * rng.standard_normal((B, nx)), f32),
-            x_des=jnp.asarray(0.3 * rng.standard_normal((B, N, nx)), f32))
+            x0=jnp.asarray(0.3 * rng.standard_normal((nb, nx)), f32),
+            x_des=jnp.asarray(0.3 * rng.standard_normal((nb, nn, nx)), f32))
         if ltv:
             A, Bm, xd0 = jax.vmap(jdyn.linearize)(pb.x0, pb.u_prev)
             pb = pb._replace(lin=JaxLinPoint(A, Bm, xd0, pb.x0, pb.u_prev))
@@ -268,10 +291,12 @@ def jax_pairs(builds):
             rj = jax_solve_fused(jprob, pb2, jnp.asarray(X0), jnp.asarray(U0),
                                  jopts, mu0=jnp.asarray(mu_warm, f32),
                                  n_iter=n, tile=(1, 8), interpret=True)
-            rt = solve_batch_fused_cpu_kernel(
+            rt = {body: solve_batch_fused_cpu_kernel(
                 prob, tp2, torch.tensor(X0), torch.tensor(U0),
                 SolverOptions(tol=TOL, max_iter=12), mu0=mu_warm, n_iter=n,
-                body=card_body(prob)[0])
+                body=body)
+                for body in dict.fromkeys([card_body(prob)[0],
+                                           card_body(prob, nb)[0]])}
             out[key, n] = (jax.tree.map(np.asarray, rj), rt, prob)
     return out
 
@@ -282,12 +307,62 @@ def test_generated_matches_jax(jax_pairs, key, n_iter):
     """X and U at atol 2e-5 (the band of tests/test_torch_fused_fixed.py:
     float32 roundoff of two implementations of one iteration), equal
     statuses: a user model the JAX kernel traces into its Pallas body, and
-    the port's instantiation generated from the same model in torch."""
-    rj, rt, prob = jax_pairs[key, n_iter]
+    the port's instantiation generated from the same model in torch, on
+    each body the card runs it on (the block body for Van der Pol and the
+    chain at their batch)."""
+    rj, runs, prob = jax_pairs[key, n_iter]
     assert generated_unit(prob) is not None
-    np.testing.assert_allclose(rt.X.numpy(), rj.X, rtol=0, atol=2e-5)
-    np.testing.assert_allclose(rt.U.numpy(), rj.U, rtol=0, atol=2e-5)
-    np.testing.assert_array_equal(rt.status.numpy(), rj.status)
+    assert ("block" in runs) == (key in ("vdp", "chain4"))
+    for body, rt in runs.items():
+        np.testing.assert_allclose(rt.X.numpy(), rj.X, rtol=0, atol=2e-5,
+                                   err_msg=body)
+        np.testing.assert_allclose(rt.U.numpy(), rj.U, rtol=0, atol=2e-5,
+                                   err_msg=body)
+        np.testing.assert_array_equal(rt.status.numpy(), rj.status)
+
+
+# The block body's threshold for a user's model, by step policy
+# (csrc/fused_sqp_block.cuh `BlockBody<FastNq<gen::Model>>`,
+# `BlockBody<Generic<gen::Model>>`).
+GEN_BLOCK_MAX_BATCH = {"fast": 396, "generic": 792}
+# A user's model: its step policy and the body the card runs it on at full
+# occupancy; the unicycle (nx = 3) does not split over two lanes and has
+# no block body.
+GEN_RULE = {"vdp": ("generic", ("group", 2)),
+            "cartpole": ("fast", ("thread", 1)),
+            "chain4": ("fast", ("thread", 1)),
+            "unicycle": (None, ("thread", 1))}
+
+
+def _rule_problem(key):
+    if key == "cartpole":
+        return make_problem(_mp(_user("cartpole"), "euler"), _user("cartpole"))
+    nx, nu, integrator, _, ft, _ = JAX_CASES[key]
+    dyn = Dynamics(key, nx, nu, ft, supports_lanes=True,
+                   nq=4 if key == "chain4" else None)
+    return make_problem(_mp(dyn, integrator), dyn)
+
+
+@pytest.mark.parametrize("key", list(GEN_RULE))
+def test_generated_card_body_rule(builds, key):
+    """The body the card runs a user's model on (``card_body``, the
+    launcher's rule): the block body from B=1 to its policy's threshold
+    (and at N=200), the body it ran before past the threshold, at full
+    occupancy and where the instance does not fit in a block's shared
+    memory (N=1000); the unicycle on one thread at every B."""
+    prob = _rule_problem(key)
+    policy, other = GEN_RULE[key]
+    assert card_body(prob) == other
+    if policy is None:
+        assert card_body(prob, 1) == other
+        return
+    top = GEN_BLOCK_MAX_BATCH[policy]
+    block = ("block", 256)
+    assert [card_body(prob, b) for b in (1, 2, top)] == [block] * 3
+    assert [card_body(prob, b) for b in (top + 1, 16384)] == [other] * 2
+    long = lambda n: dataclasses.replace(prob, N=n)
+    assert card_body(long(200), 1) == block
+    assert card_body(long(1000), 1) == other
 
 
 # ---- LTV shapes outside the hand-written four, against the plain version ----

@@ -17,9 +17,11 @@ card, every test marked ``gpu``::
 - The bodies at the shapes the main paths launch them at, each against its
   plain version on the same inputs (max |dX|, |dU| <= 1e-4, statuses):
   ``Ltv<8,4>`` at B=1 on the block body (the LTV single robot's warm
-  ``calc_u``), and the generated LTV (12, 6) and (6, 3) at B=16384 on the
+  ``calc_u``), the generated LTV (12, 6) and (6, 3) at B=16384 on the
   body the rule names (the four-lane group over more controls than lanes;
-  one thread).
+  one thread), and a user's own model at B=1 on the block body
+  (``user_chain4``: ``FastNq<gen::Model>``, nx = 8, nu = 4;
+  ``user_vdp``: ``Generic<gen::Model>`` under RK4).
 """
 
 import numpy as np
@@ -241,3 +243,45 @@ def test_generated_ltv_body_on_gpu(cuda, nq, body):
                                  mu0=mu_warm, n_iter=3)
     assert _held(rk, rp) <= PLAIN_BAND
     assert (rk.status == rp.status).float().mean().item() >= 0.99
+
+
+def _vdp(x, u):
+    """chip_smoke.py's Van der Pol oscillator (mu = 1)."""
+    return torch.stack([x[1], (1.0 - x[0] * x[0]) * x[1] - x[0] + u[0]])
+
+
+# A user's own models (chip_smoke.py phase 23): (Dynamics, integrator,
+# |u| bound).
+USER = {"user_chain4": (_chain(4), "euler", 20.0),
+        "user_vdp": (Dynamics("user_vdp", 2, 1, _vdp, supports_lanes=True),
+                     "rk4", 5.0)}
+
+
+@pytest.mark.parametrize("mode", [dict(n_iter=3), dict(adaptive=True)],
+                         ids=["fixed3", "adaptive"])
+@pytest.mark.parametrize("name", list(USER))
+def test_generated_block_body_b1_on_gpu(cuda, name, mode):
+    """A user's own model at B=1 (N=25, dt=20 ms), the single robot's warm
+    solve through its generated instantiation: the rule picks the block
+    body, the launch runs there, and its result is the plain version's on
+    the same inputs (max |dX|, |dU| <= 1e-4, statuses equal), from the
+    kernel's cold plan at x0 + 0.01."""
+    dyn, integrator, ulim = USER[name]
+    mp = ModelParameters("gpu_user", num_x=dyn.nx, num_u=dyn.nu,
+                         step_size=0.02, num_shooting_nodes=25,
+                         u_min=[-ulim] * dyn.nu, u_max=[ulim] * dyn.nu,
+                         integrator=integrator)
+    prob = make_problem(mp, dyn)
+    assert card_body(prob, 1) == ("block", 256)
+    p = _batch(cuda, dyn, mp, 1, 6, [10.0] * dyn.nx)
+    opts = SolverOptions(tol=1e-4, max_iter=30)
+    mu_cold, mu_warm = _mu(opts)
+    cold = _launched_on("block", lambda: solve_batch_fused(
+        prob, p, None, None, opts, mu0=mu_cold, adaptive=True))
+    p2 = p._replace(x0=p.x0 + 0.01)
+    rk = _launched_on("block", lambda: solve_batch_fused(
+        prob, p2, cold.X, cold.U, opts, mu0=mu_warm, **mode))
+    rp = solve_batch_fused_plain(prob, p2, cold.X, cold.U, opts,
+                                 mu0=mu_warm, **mode)
+    assert _held(rk, rp) <= PLAIN_BAND
+    assert torch.equal(rk.status, rp.status)

@@ -16,15 +16,19 @@ does, and the kernel's own device time a fixed-3 launch
 plain version on the same inputs (max |dX|, |dU|, the smoke's 1e-4).
 Where the checkout has the block body (``solve_batch_fused_body``), each
 case at a batch of ``BLOCK_LADDER`` whose policy has a block body is also
-timed on both bodies, group and block (device ms a fixed-3 launch by CUDA
-events around 20 launches of the kernel alone, ``chip_smoke.py``
-``kernel_event_ms``, in turns group, block, block, group), each held to
-the plain version; and each case of ``GENERATED`` (``chip_smoke.py``
-phase 23's LTV chains, generated instantiations) on the one-thread body
-and the group body where the checkout has a timing build that holds both
-(``_cuda_library(prob, both_bodies=True)``; in turns thread, group, group,
-thread), with whether the two bodies' fixed-3 outputs are equal bit for
-bit; the case's line names the body the launcher's rule picks.
+timed on both bodies, the block body and the body the rule runs at full
+occupancy (group or one thread; device ms a fixed-3 launch by CUDA events
+around 20 launches of the kernel alone, ``chip_smoke.py``
+``kernel_event_ms``, in turns other, block, block, other), each held to
+the plain version: the registered policies (``CASES``) and a user's own
+model under each generated policy (``GENERATED``: ``chip_smoke.py``
+phase 23's ``user_vdp``, ``user_cartpole``, ``user_chain4``, data from
+its ``generated_batch``); and each generated LTV chain of ``GENERATED``
+on the one-thread body and the group body where the checkout has a
+timing build that holds both (``_cuda_library(prob, both_bodies=True)``;
+in turns thread, group, group, thread), with whether the two bodies'
+fixed-3 outputs are equal bit for bit; the case's line names the body
+the launcher's rule picks.
 ``--match REGEX`` keeps the cases whose key (``mahi_arm-euler-ltv-b1``,
 as ``--save`` names them) it finds, to repeat a few cases in turns.
 ``--save``
@@ -79,42 +83,19 @@ CASES = (("mahi_arm", "euler", False, 16384),
            for name, ltv in (("mahi_arm", False), ("double_pendulum", False),
                              ("mahi_arm", True))
            for batch in BLOCK_LADDER))
-# Generated LTV instantiations (chip_smoke.py `user_dynamics`), at B=16384:
-# the shapes whose controls outnumber their group's lanes.
-GENERATED = (("ltv_12x6", 16384), ("ltv_6x3", 16384))
+# Generated instantiations (chip_smoke.py `user_dynamics`): the LTV shapes
+# whose controls outnumber their group's lanes, at B=16384; and a user's
+# own model under each generated step policy with a block body, over
+# BLOCK_LADDER and at B=16384: Van der Pol under RK4 (`Generic`, the
+# two-lane group body at full occupancy), the cart-pole's own f and the
+# 4-DOF chain (`FastNq`, one thread at full occupancy).
+GENERATED = (("ltv_12x6", 16384), ("ltv_6x3", 16384),
+             *((name, batch)
+               for name in ("user_vdp", "user_cartpole", "user_chain4")
+               for batch in BLOCK_LADDER + (16384,)))
 LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic",
              "fused_sqp_models")
 PLAIN_BAND = 1e-4
-
-
-def generated_batch(smoke, dev, rng, name, B):
-    """(problem, params) of a case of ``GENERATED``: ``chip_smoke.py``'s
-    user model and problem (N=25, dt=20 ms), with ``model_batch``'s
-    bench-shaped data: Q = 10, R = 0.1, Rm = 0.01, x0 and x_des ~ 0.2
-    N(0, 1), frozen at each instance's (x0, u_prev)."""
-    import numpy as np
-    import torch
-    from torch.func import vmap
-
-    from mahi_mpc_tpu_torch.ops.precision import strict_fp32
-    from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
-                                                        default_params)
-
-    dyn, integrator, is_linear, ulim = smoke.user_dynamics()[name]
-    mp, prob = smoke.user_problem(name, dyn, integrator, is_linear, ulim)
-    nx, nu, N = dyn.nx, dyn.nu, mp.num_shooting_nodes
-    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                    device=dev)
-    p = default_params(mp, device=dev)._replace(
-        q=f32([10.0] * nx), r=f32([0.1] * nu), rm=f32([0.01] * nu))
-    ex = lambda a: a.expand((B,) + a.shape).clone()
-    p = MPCParams(*[type(f)(*[ex(a) for a in f]) if isinstance(f, tuple)
-                    else ex(f) for f in p])
-    p = p._replace(x0=f32(0.2 * rng.standard_normal((B, nx))),
-                   x_des=f32(0.2 * rng.standard_normal((B, N, nx))))
-    with strict_fp32():
-        A, Bm, xd0 = vmap(dyn.linearize)(p.x0, p.u_prev)
-    return prob, p._replace(lin=LinPoint(A, Bm, xd0, p.x0, p.u_prev))
 
 
 def compare(a: str, b: str) -> int:
@@ -168,7 +149,7 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cuda_build
     from mahi_mpc_tpu_torch.solver import fused as fused_mod
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _kernel_model, card_body,
+                                                 _model_id, card_body,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     # the checkout's body at a batch (a checkout before the block body has
@@ -192,16 +173,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    generated = {name: generated_batch(smoke, dev, np.random.default_rng(0),
-                                       name, batch)
-                 for name, batch in GENERATED}
+    generated = {(name, batch): smoke.generated_batch(
+        dev, np.random.default_rng(0), name, batch)
+        for name, batch in GENERATED}
     # the generated libraries, and their timing builds where the checkout
     # has them (both bodies of an LTV shape)
     timing = "both_bodies" in inspect.signature(_cuda_library).parameters
-    names = list(LIBRARIES) + [
+    names = list(dict.fromkeys(list(LIBRARIES) + [
         lib for prob, _ in generated.values()
         for lib in ([_cuda_library(prob)] + ([_cuda_library(
-            prob, both_bodies=True)] if timing else []))]
+            prob, both_bodies=True)] if timing else []))]))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         libs = dict(zip(names, ex.map(cuda_build, names)))
@@ -233,15 +214,16 @@ def main() -> int:
                    (r.U - ref.U).abs().max().item())
 
     saved, bad = {}, 0
-    cases = list(CASES) + [(name, "euler", True, batch)
+    user = smoke.user_dynamics()
+    cases = list(CASES) + [(name, user[name][1], user[name][2], batch)
                            for name, batch in GENERATED]
     for name, integrator, is_linear, batch in cases:
         key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
                + f"-b{batch}")
         if args.match and not re.search(args.match, key):
             continue
-        if name in generated:
-            prob, p = generated[name]
+        if (name, batch) in generated:
+            prob, p = generated[name, batch]
         else:
             _, prob, p = smoke.model_batch(dev, np.random.default_rng(0),
                                            name, batch, integrator,
@@ -265,8 +247,10 @@ def main() -> int:
         bodies, outs, turns = {}, {}, ()
         if on_body is not None and batch in BLOCK_LADDER and \
                 body_at(prob, 1) == "block":
-            turns = ("group", "block", "block", "group")
-        elif on_body is not None and name in generated:
+            # the block body against the body at full occupancy
+            other = body_at(prob, None)
+            turns = (other, "block", "block", other)
+        elif on_body is not None and is_linear and (name, batch) in generated:
             turns = ("thread", "group", "group", "thread")
         for b in turns:
             solve_b = lambda: on_body(prob, pw, ct.X, ct.U, opts,
@@ -293,7 +277,7 @@ def main() -> int:
         if per_sm is not None:
             occupancy = per_sm
             per_sm = lambda *a: occupancy(*a[:len(occupancy.argtypes)])
-        model = -1 if is_linear else _kernel_model(prob.dynamics)[0]
+        model = _model_id(prob)[0]
         line = dict(
             label=label, model=name, integrator=integrator,
             is_linear=is_linear, batch=batch, body=body, bodies=bodies,
