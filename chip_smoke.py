@@ -70,14 +70,28 @@ line each, with the seconds since start in ``t``:
    FP32 peak; its bytes over the HBM rate) and roofline share of either
    time; and the kernel's adaptive cold solves, timed;
 8. service_ltv — ``BatchModelControl(mahi_arm, is_linear=True,
-   fixed_warm_iters=3)`` at B=16384: a relinearization and a fused LTV
-   solve every step, 1 cold + 10 warm steps (converged_frac >= 0.9 after
-   the cold and the last warm step, 11 fused launches, all in LTV mode),
-   and ``relinearize`` timed alone; one more step under ``torch.profiler``
+   fixed_warm_iters=3)`` at B=16384: a relinearization (the linearization
+   kernel) and a fused LTV solve (the discretization kernel, then the
+   fused kernel) every step, 1 cold + 10 warm steps (converged_frac >= 0.9
+   after the cold and the last warm step, 11 fused launches, all in LTV
+   mode, 11 launches of each LTV kernel and no call of their plain
+   versions), ``relinearize`` timed on the kernel and on the plain version
+   in turns, the discretization timed (wrapper and launch), and the last
+   warm step again on the same inputs with its frozen point and
+   discretization from the plain versions (controls within 1e-4); one
+   more step under ``torch.profiler``
    (one launch of the group kernel of ``Ltv``, found by name); then
    service_rk4, ``mahi_arm`` under RK4 at B=16384, 1 cold + 3 warm steps
    (converged_frac >= 0.9, 4 fused launches, all generic) and one profiled
    step (the group kernel of ``Generic``);
+   Before phase 5, ltv_kernels: the LTV path's two kernels
+   (``solver/linearize.py``, ``csrc/model_linearize.cuh``) against their
+   plain versions within 1e-5 of max|.| (``LTV_LINEARIZE_CASES``: the arm,
+   the double pendulum, the user chain of phase 23's LTV (6, 3);
+   ``LTV_DISCRETE_CASES``: (8, 4) under every integrator, (4, 2) under
+   RK4, the generated (6, 3) and (12, 6); B=16384 and B=1, the
+   discretization also B=16383), each launch timed at B=16384 in turns with
+   its plain version, with its bound, registers, spills and blocks an SM;
 9. parity_riccati — the Riccati kernel against its plain PyTorch version on
    the card, B=1000, N=25: random well-conditioned QPs at (nz, nu) = (12, 4)
    (one instance with an indefinite Huu: NaN there in both, finite
@@ -136,7 +150,10 @@ line each, with the seconds since start in ``t``:
     copies and ctypes set-up, the kernel, the layout back, the status
     rules, the copy back; each ended by a synchronisation); an LTV
     ``ModelControl`` (1 cold + 50 warm, launches in LTV mode, every one on
-    the block body, ``Ltv<8, 4>``; runtime_ltv_b1: the body ``card_body``
+    the block body, ``Ltv<8, 4>``, the linearization kernel at B=1 every
+    call and the discretization kernel every warm solve, no plain version;
+    ``calc_u`` p50 / p99 of the solve and of the whole call;
+    runtime_ltv_b1: the body ``card_body``
     names at B=1, the B=1 solve, fixed-3 and adaptive, held to the plain
     version, the LTV solve's ms by CUDA events and the block kernel's
     device ms a launch by the profiler, the plain version's ms, the bound
@@ -247,7 +264,10 @@ crossover), the Riccati kernel,
 one ``fused_sqp_generated:<case>`` entry a phase-23 case, its launches
 those of its service, and one ``fused_sqp_generated_block:<case>`` entry
 for the block body of each user model ``ModelControl`` runs at B=1, its
-launches those warm ``calc_u``) with each kernel's launches on the
+launches those warm ``calc_u``; then ``ltv_linearize`` and ``ltv_discrete``, the LTV
+path's kernels, their launches those of phases 8, 14 and 23's LTV runs,
+their times those of ltv_kernels at B=16384, with the LTV service's and
+``ModelControl``'s readings beside them) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
@@ -982,6 +1002,207 @@ TIMED_MODES = (("mahi_arm", "euler", True), ("double_pendulum", "rk4", False),
                  if (name, integrator) != ("double_pendulum", "rk4")))
 
 
+# The LTV path's kernels (solver/linearize.py): each held to its plain
+# version within LTV_BAND of max|.| (float32), at B=16384 and B=1.  The
+# linearization of the 4-DOF arm, the double pendulum and a user's model
+# (the chain of phase 23's LTV (6, 3), from its generated LTV unit); the
+# discretization at (8, 4) under every integrator, the double pendulum's
+# (4, 2) under RK4 and the generated (6, 3) and (12, 6).
+LTV_BAND = 1e-5
+LTV_LINEARIZE_CASES = ("mahi_arm", "double_pendulum", "ltv_6x3")
+LTV_DISCRETE_CASES = (("mahi_arm", "euler"), ("mahi_arm", "midpoint"),
+                      ("mahi_arm", "rk4"), ("double_pendulum", "rk4"),
+                      ("ltv_6x3", "euler"), ("ltv_12x6", "rk4"))
+LTV_KERNEL_REPS = 50
+LTV_DISCRETE_QUERY = -100   # fused_sqp_launch.cuh kLtvDiscreteQuery
+# The LTV kernels' launches on the main paths (the LTV service, the LTV
+# ModelControl, phase 23's generated LTV services), and what the LTV
+# service's phase measured of them; the kernels line reports both.
+LTV_PATH = {"linearize_launches": 0, "ltv_discrete_launches": 0}
+
+
+def ltv_counts() -> tuple:
+    """(linearization launches, discretization launches, plain
+    linearizations, plain discretizations) so far."""
+    from mahi_mpc_tpu_torch.solver.linearize import (linearize_batch,
+                                                     linearize_batch_plain,
+                                                     ltv_discrete,
+                                                     ltv_discrete_plain)
+    return (linearize_batch.launches, ltv_discrete.launches,
+            linearize_batch_plain.calls, ltv_discrete_plain.calls)
+
+
+def ltv_kernel_event_ms(call, reps=LTV_KERNEL_REPS) -> float:
+    """Device ms of one launch of the LTV kernel that ``call()`` launches
+    once: its launcher repeated ``reps`` times back to back between two CUDA
+    events with the arguments ready (after one warm-up), then once more as
+    the call's own; the host's preparation is not in the time."""
+    import torch
+
+    from mahi_mpc_tpu_torch.solver import linearize as lz
+
+    got, real = [], (lz._linearize_call, lz._discrete_call)
+
+    def wrap(inner):
+        def patched(fn, *a):
+            def timed_fn(*args):
+                fn(*args)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn(*args)
+                end.record()
+                torch.cuda.synchronize()
+                got.append(start.elapsed_time(end) / reps)
+                return fn(*args)
+            return inner(timed_fn, *a)
+        return patched
+
+    lz._linearize_call, lz._discrete_call = map(wrap, real)
+    try:
+        call()
+    finally:
+        lz._linearize_call, lz._discrete_call = real
+    check(len(got) == 1, f"{len(got)} LTV launches timed in one call")
+    return got[0]
+
+
+def ltv_case(dev, rng, name, B, integrator="euler"):
+    """(Dynamics, problem, params) of an LTV case at B instances frozen at
+    each instance's (x0, u_prev) by the plain version: a registered model
+    (``model_batch``) or a phase-23 chain (``generated_batch``)."""
+    if name.startswith("ltv_"):
+        from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
+        prob, p = generated_batch(dev, rng, name, B)
+        mp, _ = user_problem(name, *user_dynamics()[name])
+        mp = dataclasses.replace(mp, integrator=integrator)
+        prob = make_problem(mp, prob.dynamics)
+    else:
+        _, prob, p = model_batch(dev, rng, name, B, integrator, True)
+    return prob.dynamics, prob, p
+
+
+def ltv_ptxas(builds, library, mark) -> dict:
+    """The float instantiation of an LTV kernel (``mark``: its mangled
+    name's start and template arguments) in ``library``'s ptxas report."""
+    hit = [k for k in ptxas_summary(builds[library][1])
+           if k["kernel"].startswith(mark)]
+    check(len(hit) == 1, f"{library}: {len(hit)} kernels {mark}")
+    return {k: hit[0][k] for k in ("kernel", "registers",
+                                   "spill_store_bytes", "spill_load_bytes")}
+
+
+def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
+    """The LTV path's two kernels alone (``ltv_kernels``): each held to its
+    plain version (``LTV_*_CASES``, B=16384 and B=1; the discretization
+    also at B=16383, a partial last block), its launch timed at B=16384
+    (CUDA events around the launcher, ``ltv_kernel_event_ms``) in turns
+    with the plain version, the wrapper's ms, the bound (its operations,
+    counted by g++ on a counting scalar over COUNT_SAMPLE instances, over
+    the FP32 peak; its bytes, each input read and each output written once,
+    over the HBM rate), registers, spills and blocks an SM.  Returns the
+    kernels line's numbers of both."""
+    import numpy as np
+
+    from mahi_mpc_tpu_torch.solver.fused import ARM_IDS, _cuda_library
+    from mahi_mpc_tpu_torch.solver.linearize import (
+        count_linearize_ops, count_ltv_discrete_ops, linearize_batch,
+        linearize_batch_plain, linearize_library, ltv_discrete,
+        ltv_discrete_plain)
+
+    def errs(got, want):
+        """(max |got - want|, the same over max|want|), each output's worst"""
+        d = [((g - w).abs().max().item(), w.abs().max().item())
+             for g, w in zip(got, want)]
+        return max(a for a, _ in d), max(a / m for a, m in d)
+
+    out = {"linearize": {"cases": []}, "ltv_discrete": {"cases": []}}
+    for name in LTV_LINEARIZE_CASES:
+        for B in (SERVICE_BATCH, 1):
+            dyn, prob, p = ltv_case(dev, rng, name, B)
+            lib = linearize_library(dyn)
+            if name.startswith("ltv_"):
+                check(lib == gen_libs[name] == _cuda_library(prob),
+                      f"{name}: linearization in {lib}, not its LTV unit")
+            ab, err = errs(linearize_batch(dyn, p.x0, p.u_prev),
+                           linearize_batch_plain(dyn, p.x0, p.u_prev))
+            out["linearize"]["cases"].append(dict(
+                model=name, batch=B, library=lib, max_abs_err=ab,
+                max_rel_err=err))
+            check(err <= LTV_BAND, f"linearization {name} B={B}: {err}")
+    for name, integrator in LTV_DISCRETE_CASES:
+        for B in (SERVICE_BATCH, SERVICE_BATCH - 1, 1):
+            _, prob, p = ltv_case(dev, rng, name, B, integrator)
+            got = ltv_discrete(prob, p)
+            ab, err = errs(got, ltv_discrete_plain(prob, p))
+            out["ltv_discrete"]["cases"].append(dict(
+                model=name, integrator=integrator, shape=[prob.nx, prob.nu],
+                batch=B, library=_cuda_library(prob), max_abs_err=ab,
+                max_rel_err=err))
+            check(err <= LTV_BAND and all(
+                g.movedim(0, -1).is_contiguous() for g in got),
+                f"discretization {name} {integrator} B={B}: {err}")
+    for kind in out:
+        for key in ("max_abs_err", "max_rel_err"):
+            out[kind][key] = max(c[key] for c in out[kind]["cases"])
+
+    # timed at the LTV service's batch and shape: the 4-DOF arm, Euler
+    Bt, S = SERVICE_BATCH, COUNT_SAMPLE
+    dyn, prob, p = ltv_case(dev, rng, "mahi_arm", Bt)
+    nx, nu = prob.nx, prob.nu
+    lin_call = lambda: linearize_batch(dyn, p.x0, p.u_prev)
+    lin_plain = lambda: linearize_batch_plain(dyn, p.x0, p.u_prev)
+    dis_call = lambda: ltv_discrete(prob, p)
+    dis_plain = lambda: ltv_discrete_plain(prob, p)
+    turns = {"linearize": [], "linearize_plain": [], "ltv_discrete": [],
+             "ltv_discrete_plain": []}
+    for order in ((0, 1), (1, 0)):          # kernel, plain, plain, kernel
+        for which in order:
+            if which == 0:
+                turns["linearize"].append(ltv_kernel_event_ms(lin_call))
+                turns["ltv_discrete"].append(ltv_kernel_event_ms(dis_call))
+            else:
+                turns["linearize_plain"].append(timed(lin_plain, 2)[1])
+                turns["ltv_discrete_plain"].append(timed(dis_plain, 5)[1])
+    wrap_lin, wrap_dis = timed(lin_call, 20)[1], timed(dis_call, 20)[1]
+    lin_ops = count_linearize_ops(dyn, p.x0[:S], p.u_prev[:S])
+    dis_ops = count_ltv_discrete_ops(prob, head(p, S))
+    lin_bytes = 4 * Bt * ((nx + nu) + (nx * nx + nx * nu + nx))
+    dis_bytes = 4 * Bt * ((nx * nx + nx * nu + 2 * nx + nu)
+                          + (nx * nx + nx * nu + nx))
+    marks = {"linearize": ("fused_sqp", "_Z16linearize_kernelIfN3mpc8ArmModel"
+                           "IfLi4E", ARM_IDS[4]),
+             "ltv_discrete": ("fused_sqp_ltv",
+                              "_Z19ltv_discrete_kernelIfLi8ELi4E",
+                              LTV_DISCRETE_QUERY)}
+    for kind, ops, nbytes, wrapper in (("linearize", lin_ops, lin_bytes,
+                                        wrap_lin),
+                                       ("ltv_discrete", dis_ops, dis_bytes,
+                                        wrap_dis)):
+        library, mark, query = marks[kind]
+        k = out[kind]
+        k.update(batch=Bt, ms=float(np.mean(turns[kind])),
+                 ms_turns=turns[kind],
+                 plain_ms=float(np.mean(turns[kind + "_plain"])),
+                 plain_ms_turns=turns[kind + "_plain"], wrapper_ms=wrapper,
+                 ops_per_instance=sum(ops.values()) / S, ops_by_kind=ops,
+                 io_mbytes=nbytes / 1e6,
+                 **bound_ms(sum(ops.values()) / S * Bt, nbytes),
+                 **ltv_ptxas(builds, library, mark),
+                 blocks_per_sm=builds[library][0]
+                 .mpc_ltv_path_blocks_per_sm_f32(query, nx, nu))
+        k["share"] = k["bound_ms"] / k["ms"]
+        emit(phase="ltv_kernels", entry=kind,
+             **{key: v for key, v in k.items() if key != "cases"},
+             cases=k["cases"])
+    # the largest generated shape: (12, 6) under RK4 in its own library
+    out["ltv_discrete"]["ptxas_12x6"] = ltv_ptxas(
+        builds, gen_libs["ltv_12x6"], "_Z19ltv_discrete_kernelIfLi12ELi6E")
+    emit(phase="ltv_kernels_12x6", **out["ltv_discrete"]["ptxas_12x6"])
+    return out
+
+
 def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     """Phases 5-8: the fused kernel's LTV, generic and closed-form paths.
     ``builds``: the CUDA libraries and their ptxas reports.  Returns the
@@ -993,11 +1214,17 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
+    from mahi_mpc_tpu_torch.solver.fused import _launch_cuda
+    from mahi_mpc_tpu_torch.solver.fused import _solve as fused_solve
     from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.linearize import (linearize_batch_plain,
+                                                     ltv_discrete,
+                                                     ltv_discrete_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
         solve_lqr_kernel_batch
+    from mahi_mpc_tpu_torch.transcribe.shooting import LinPoint
 
     opts = SolverOptions(tol=1e-4, max_iter=12)
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
@@ -1173,6 +1400,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     solve_batch_fused.launches = 0
     solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
     solve_lqr_kernel_batch.launches = 0
+    c0 = ltv_counts()
     u = svc.step()
     m = svc.metrics()
     emit(phase="service_ltv_cold", batch=Bs, cold_s=m["solve_s"],
@@ -1182,6 +1410,8 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     for i in range(WARM_STEPS):
         svc.set_states(x0 + perts[i], u_prev=u)
         svc.set_references(refs[i])
+        if i == WARM_STEPS - 1:       # the last step's inputs, kept
+            p_last, X_last, U_last = svc._p, svc._X, svc._U
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1193,21 +1423,69 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     ltv_launches = solve_batch_fused.mode_launches["ltv"]
     launches = solve_batch_fused.launches
     ric = solve_lqr_kernel_batch.launches
-    _, relin_ms = timed(svc.relinearize, 3)
+    lin_n, dis_n, lin_plain_n, dis_plain_n = np.subtract(ltv_counts(), c0)
+    LTV_PATH["linearize_launches"] += int(lin_n)
+    LTV_PATH["ltv_discrete_launches"] += int(dis_n)
+    # relinearize on the kernel and on the plain version, in turns; the
+    # discretization of the service's batch, wrapper and kernel alone
+    relin_plain = lambda: [linearize_batch_plain(svc.dynamics, q.x0,
+                                                 q.u_prev)
+                           for q in svc._ps]
+    relin, relin_plain_ms = [], []
+    for order in ((0, 1), (1, 0)):
+        for which in order:
+            if which == 0:
+                relin.append(timed(svc.relinearize, 3)[1])
+            else:
+                relin_plain_ms.append(timed(relin_plain, 2)[1])
+    relin_ms = float(np.mean(relin))
+    dis_ms = timed(lambda: ltv_discrete(svc.problem, svc._p), 20)[1]
+    dis_kernel_ms = ltv_kernel_event_ms(
+        lambda: ltv_discrete(svc.problem, svc._p))
     ms = float(np.mean(step_ms))
+    LTV_PATH.update(service_ms_per_warm_step=ms, relinearize_ms=relin_ms,
+                    relinearize_plain_ms=float(np.mean(relin_plain_ms)),
+                    service_discrete_ms=dis_ms,
+                    service_discrete_kernel_ms=dis_kernel_ms)
     emit(phase="service_ltv_warm", batch=Bs, warm_steps=WARM_STEPS,
          ms_per_warm_step=ms, ms_per_warm_step_all=step_ms,
          solves_per_s=Bs / (ms * 1e-3), relinearize_ms=relin_ms,
+         relinearize_ms_turns=relin,
+         relinearize_plain_ms=LTV_PATH["relinearize_plain_ms"],
+         relinearize_plain_ms_turns=relin_plain_ms,
+         discrete_ms=dis_ms, discrete_kernel_ms=dis_kernel_ms,
          solve_ms_last_step=svc.solve_time_s * 1e3,
          converged_frac=m["converged_frac"], mean_iters=m["mean_iters"],
          max_feas=m["max_feas"], launches=launches, ltv_launches=ltv_launches,
-         riccati_launches=ric)
+         riccati_launches=ric, linearize_launches=int(lin_n),
+         discrete_launches=int(dis_n),
+         plain_linearize_calls=int(lin_plain_n),
+         plain_discrete_calls=int(dis_plain_n))
     check(tuple(u.shape) == (Bs, mp.num_u) and bool(torch.isfinite(u).all()),
           "LTV service: non-finite or misshapen controls")
     check(m["converged_frac"] >= 0.9, f"LTV warm {m}")
     check(launches == ltv_launches == 1 + WARM_STEPS and ric == 0,
           f"LTV service: {launches} fused ({ltv_launches} LTV) and {ric} "
           f"Riccati launches for {1 + WARM_STEPS} steps")
+    check(lin_n == dis_n == 1 + WARM_STEPS and lin_plain_n == dis_plain_n
+          == 0, f"LTV service: {lin_n} linearization and {dis_n} "
+          f"discretization launches, {lin_plain_n} and {dis_plain_n} plain "
+          f"calls for {1 + WARM_STEPS} steps")
+    # the last warm step again on the same inputs, its frozen point and
+    # discretization from the plain versions (the fused kernel as before)
+    lin = linearize_batch_plain(svc.dynamics, p_last.x0, p_last.u_prev)
+    opts_s = svc.opts
+    ref = fused_solve(svc.problem, p_last._replace(lin=LinPoint(
+        *lin, p_last.x0, p_last.u_prev)), X_last, U_last, opts_s,
+        max(opts_s.warm_mu_factor * opts_s.tol, opts_s.mu_min),
+        opts_s.fixed_warm_iters, None, False, _launch_cuda,
+        ltv_discrete_plain)
+    u_ref = torch.where((ref.status != 2)[:, None], ref.U[:, 0], 0.0)
+    du_routes = (u - u_ref).abs().max().item()
+    LTV_PATH["service_routes_max_abs_du"] = du_routes
+    emit(phase="service_ltv_routes", batch=Bs, max_abs_du=du_routes)
+    check(du_routes <= 1e-4, f"LTV service step, kernels against plain "
+                             f"versions: |du| {du_routes} > 1e-4")
     profiled = {"ltv": service_profile("service_ltv_profile", svc, "Ltv")}
 
     # ---- service_rk4: mahi_arm under RK4, the generic arm's group body
@@ -1302,7 +1580,9 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
 
     extra = {("mahi_arm", "euler", True): dict(
                  launches=ltv_launches, service_ms_per_warm_step=ms,
-                 relinearize_ms=relin_ms, **profiled_in("ltv")),
+                 relinearize_ms=relin_ms,
+                 relinearize_plain_ms=LTV_PATH["relinearize_plain_ms"],
+                 **profiled_in("ltv")),
              ("mahi_arm", "rk4", False): dict(
                  launches=rk4_launches, service_ms_per_warm_step=ms_rk4,
                  **profiled_in("generic"))}
@@ -1463,10 +1743,12 @@ def calc_u_split(mc, t, x, u, traj, reps=50) -> dict:
                 reps=reps)
 
 
-def closed_loop(mc, plant, x, n_warm, t0=0.0):
+def closed_loop(mc, plant, x, n_warm, t0=0.0, walls=None):
     """One cold and ``n_warm`` warm ``calc_u`` of ``mc`` in closed loop on
     ``plant``, one plan step a call: (cold plan, warm plans, final state,
-    largest |q - q_des| over the last half)."""
+    largest |q - q_des| over the last half).  ``walls``: a list that gets
+    the host ms of each whole ``calc_u`` (a plan's ``solve_time_s`` is the
+    solve and its copy back; the LTV linearization comes before it)."""
     import numpy as np
 
     mp = mc.params
@@ -1475,7 +1757,10 @@ def closed_loop(mc, plant, x, n_warm, t0=0.0):
     for k in range(1 + n_warm):
         t = t0 + k * mp.step_size
         ref = arm_reference(mp, t)
+        w0 = time.perf_counter()
         plan = mc.calc_u(t, x, u, ref)
+        if walls is not None:
+            walls.append((time.perf_counter() - w0) * 1e3)
         plans.append(plan)
         u = plan.U[0]
         x = plant(x, u)
@@ -1641,18 +1926,35 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
             tol=opts.tol, max_iter=30, fixed_warm_iters=3))
         lmc = ModelControl(lmp.name, directory=tmp, device=dev, **weights)
         reset()
+        c0 = ltv_counts()
+        walls = []
         cold, warm, x, err = closed_loop(lmc, plant, x_start,
-                                         RUNTIME_LTV_CALLS)
+                                         RUNTIME_LTV_CALLS, walls=walls)
+        walls = np.array(walls[1:])           # the warm calls
         launches, modes, ric = counts()
         ltv_bodies = dict(solve_batch_fused.body_launches)
+        # the linearization kernel at B=1 every call, the discretization
+        # every warm (fused) solve; no plain version
+        lin_n, dis_n, lin_plain_n, dis_plain_n = (
+            int(v) for v in np.subtract(ltv_counts(), c0))
+        check((lin_n, dis_n, lin_plain_n, dis_plain_n)
+              == (1 + len(warm), len(warm), 0, 0),
+              f"LTV runtime: {lin_n} linearization, {dis_n} discretization "
+              f"launches, {lin_plain_n} and {dis_plain_n} plain calls for "
+              f"1 cold + {len(warm)} warm calc_u")
+        LTV_PATH["linearize_launches"] += lin_n
+        LTV_PATH["ltv_discrete_launches"] += dis_n
         st = np.array([p.status for p in warm])
         lat = np.array([p.solve_time_s for p in warm]) * 1e3
         emit(phase="runtime_control_ltv", cold_status=cold.status,
              cold_iters=cold.iters, cold_s=cold.solve_time_s,
              warm_calls=len(warm), launches=launches,
              launches_ltv=modes["ltv"], body_launches=ltv_bodies,
+             linearize_launches=lin_n, discrete_launches=dis_n,
              calc_u_p50_ms=float(np.percentile(lat, 50)),
              calc_u_p99_ms=float(np.percentile(lat, 99)),
+             calc_u_wall_p50_ms=float(np.percentile(walls, 50)),
+             calc_u_wall_p99_ms=float(np.percentile(walls, 99)),
              warm_converged=float((st == 0).mean()),
              max_track_err_last_half=err)
         check(cold.status == 0 and launches == len(warm) == modes["ltv"]
@@ -1662,6 +1964,10 @@ def runtime_phases(dev, mp, Qw, Rw, Rmw, opts, timed, clock_mhz) -> dict:
               f"({modes}, {ltv_bodies}) for {len(warm)}, statuses "
               f"{np.unique(st)}: every one on the block body")
         out["ltv_launches"] = launches
+        LTV_PATH.update(calc_u_p50_ms=float(np.percentile(lat, 50)),
+                        calc_u_p99_ms=float(np.percentile(lat, 99)),
+                        calc_u_wall_p50_ms=float(np.percentile(walls, 50)),
+                        calc_u_wall_p99_ms=float(np.percentile(walls, 99)))
         # the LTV warm solve at B=1 (Ltv<8, 4> on the block body): held to
         # its plain version, the block kernel's device ms a launch
         # (profiler, by name), its bound and chain bound
@@ -2913,8 +3219,11 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
         svc.set_references(followable_reference(dyn, integrator, x0, rng,
                                                 ulim))
         svc.set_states(x0 + 0.02 * rng.standard_normal((Bs, nx)))
-        # the main path: the service's steps, counted from 0
+        # the main path: the service's steps, counted from 0 (in LTV the
+        # user chain's linearization and the discretization, from the same
+        # generated library, once a step)
         launched.clear()
+        c0 = ltv_counts()
         u = svc.step()
         cold_m = svc.metrics()
         for _ in range(GEN_WARM_STEPS):
@@ -2923,9 +3232,15 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
             u = svc.step()
         torch.cuda.synchronize()
         launches = dict(launched)
+        ltv_n = tuple(int(v) for v in np.subtract(ltv_counts(), c0))
         m = svc.metrics()
         check(launches == {lib: 1 + GEN_WARM_STEPS},
               f"{name}: launches {launches}")
+        steps = 1 + GEN_WARM_STEPS
+        check(ltv_n == ((steps, steps, 0, 0) if is_linear else (0, 0, 0, 0)),
+              f"{name}: LTV kernel launches and plain calls {ltv_n}")
+        LTV_PATH["linearize_launches"] += ltv_n[0]
+        LTV_PATH["ltv_discrete_launches"] += ltv_n[1]
         check(tuple(u.shape) == (Bs, nu) and bool(torch.isfinite(u).all()),
               f"{name}: non-finite or misshapen controls")
         # the kernel against its plain version on the service's inputs (its
@@ -3217,6 +3532,47 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         registers=kernel["registers"],
         spill_store_bytes=kernel["spill_store_bytes"],
         smem_bytes=kernel["smem_bytes"], nvcc_s=builds[lib][2])
+
+
+def ltv_kernel_entries(ltv) -> list:
+    """The kernels line's entries of the LTV path's two kernels: their
+    launches on the main paths (``LTV_PATH``), the worst error against the
+    plain version over ``LTV_*_CASES``, the launch's ms (CUDA events around
+    the launcher) against the plain version's at B=16384, the bound,
+    registers, spills and blocks an SM; the LTV service's and ModelControl's
+    readings beside them."""
+    keys = ("max_rel_err", "wrapper_ms", "share", "ops_per_instance",
+            "io_mbytes", "registers", "spill_store_bytes", "blocks_per_sm",
+            "ms_turns", "plain_ms_turns", "cases")
+    svc = {k: LTV_PATH.get(k) for k in (
+        "service_ms_per_warm_step", "relinearize_ms", "relinearize_plain_ms",
+        "service_discrete_ms", "service_discrete_kernel_ms",
+        "service_routes_max_abs_du", "calc_u_p50_ms", "calc_u_p99_ms",
+        "calc_u_wall_p50_ms", "calc_u_wall_p99_ms")}
+    out = []
+    for kind, name, replaces, mode in (
+            ("linearize", "ltv_linearize",
+             "mahi_mpc_tpu/runtime/batch_service.py:122",
+             "mahi_arm at B=16384, the folded columns, one thread an "
+             "instance (jax.jit(jax.vmap(dynamics.linearize)); no "
+             "pl.pallas_call)"),
+            ("ltv_discrete", "ltv_discrete",
+             "mahi_mpc_tpu/solver/batched.py:58",
+             "(8, 4) Euler at B=16384, Ad - I, Bd, cd batch-innermost, one "
+             "thread an instance (_ltv_discrete; no pl.pallas_call)")):
+        k = ltv[kind]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "mahi_mpc_tpu_torch/csrc/model_linearize.cuh",
+            "replaces": replaces,
+            "launches": LTV_PATH[f"{kind}_launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "batch": k["batch"], "mode": mode,
+            **{key: k[key] for key in keys}, **svc})
+    out[1]["ptxas_12x6"] = ltv["ltv_discrete"]["ptxas_12x6"]
+    return out
 
 
 def main() -> int:
@@ -3536,6 +3892,8 @@ def main() -> int:
     check(solve_lqr_kernel_batch.launches == 0,
           "the fused route launched the Riccati kernel")
 
+    ltv = ltv_kernel_phase(dev, np.random.default_rng(15), timed, builds,
+                           gen_libs)
     modes = fused_mode_phases(dev, rng, timed, warm_schedule, builds)
     ric = lanes_phases(dev, f32, rng, timed, batch_params, warm_schedule,
                        mp, prob, opts, opts_cold, mu_warm, Qw, Rw, Rmw)
@@ -3655,7 +4013,7 @@ def main() -> int:
         "trajgen_max_rel_err_n40": traj["max_rel_err_n40"],
         "ms_6x2": ric["ms_6x2"], "bound_ms_6x2": ric["bound_ms_6x2"],
         "design_bound_ms_6x2": ric["design_bound_ms_6x2"],
-        "ptxas": ric_ptxas}, *generated]}),
+        "ptxas": ric_ptxas}, *generated, *ltv_kernel_entries(ltv)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

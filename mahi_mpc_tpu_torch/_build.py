@@ -90,6 +90,22 @@ _FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
                                                         _c_void_p],
                  "mpc_fused_block_info": [_c_int] * 6 + [_c_void_p],
                  "mpc_fused_blocks_per_sm": [_c_int] * 6}
+# The LTV path's linearization and discretization (csrc/model_linearize.cuh),
+# which every fused library exports beside the solve for the models and Ltv
+# shapes it holds: the linearization takes B, model, nx, nu, the model's
+# constants, x0, u0, A, Bm, xd0; the discretization B, nx, nu, integrator,
+# dt, A, Bm, xd0, x0, u0 and the outputs AdI, Bd, cd; on the card both
+# also take the stream.
+_REALS = (("f32", ctypes.c_float), ("f64", ctypes.c_double))
+_LINEARIZE = [_c_ll, _c_int, _c_int, _c_int] + [_c_void_p] * 6
+_LTV_DISCRETE = lambda real: [_c_ll, _c_int, _c_int, _c_int, real] + \
+    [_c_void_p] * 8
+for _bits, _real in _REALS:
+    _FUSED_LAUNCH.update({
+        f"mpc_linearize_launch_{_bits}": _LINEARIZE + [_c_void_p],
+        f"mpc_ltv_discrete_launch_{_bits}": _LTV_DISCRETE(_real)
+        + [_c_void_p],
+        f"mpc_ltv_path_blocks_per_sm_{_bits}": [_c_int] * 3})
 _ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
 # name -> (CUDA source, {launcher: argtypes})
@@ -129,6 +145,9 @@ CPU_LIBRARIES = {
             _c_void_p, _c_void_p]
            for bits, real in (("f32", ctypes.c_float),
                               ("f64", ctypes.c_double))},
+        **{f"mpc_linearize_cpu_{bits}": _LINEARIZE for bits, _ in _REALS},
+        **{f"mpc_ltv_discrete_cpu_{bits}": _LTV_DISCRETE(real)
+           for bits, real in _REALS},
     }),
     "riccati": ("riccati_cpu.cpp", {
         "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],
@@ -138,6 +157,9 @@ CPU_LIBRARIES = {
         "mpc_fused_count_ops": _FUSED_ARGS + [_c_int, _c_void_p],
         "mpc_fused_count_path": _FUSED_ARGS + [_c_void_p],
         "mpc_fused_card_body": [_c_int] * 5 + [_c_ll, _c_int, _c_void_p],
+        "mpc_linearize_count_ops": _LINEARIZE[:7] + [_c_void_p],
+        "mpc_ltv_discrete_count_ops": _LTV_DISCRETE(ctypes.c_double)[:10]
+        + [_c_void_p],
     }),
 }
 
@@ -246,8 +268,12 @@ def _generated_source(name: str, target: str) -> Path:
     if target == "cuda":
         families = "mpc::kGenerated" + (" | kBothBodiesBuild"
                                         if both_bodies else "")
+        # a user's model, linearized by the build where its policy is LTV
+        # (csrc/model_linearize.cuh `model_dispatch`)
+        model = "#define MPC_GENERATED_MODEL 1\n" \
+            if "namespace gen" in unit else ""
         text = ("// A generated instantiation of the fused kernel "
-                "(_build.py).\n#include \"fused_sqp_launch.cuh\"\n\n"
+                f"(_build.py).\n{model}#include \"fused_sqp_launch.cuh\"\n\n"
                 f"{unit}\nMPC_FUSED_LIBRARY({families})\n")
         suffix = ".cu"
     else:

@@ -13,11 +13,13 @@
 // (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
 // are not counted.  A generated build includes it after its step policy,
 // with MPC_GENERATED defined, to count that policy (solver/fused.py
-// `generated_unit`).
+// `generated_unit`).  It counts the LTV path's linearization and
+// discretization (model_linearize.cuh) the same way.
 #include <algorithm>
 #include <vector>
 
 #include "fused_sqp_block.cuh"
+#include "model_linearize.cuh"
 
 #if !defined(MPC_CPU_FAMILIES)
 #if defined(MPC_GENERATED)
@@ -401,6 +403,64 @@ int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv,
         typedef std::decay_t<decltype(step)> Step;
         return mpc::card_body<Step>(B, N, threads);
       });
+}
+
+// The operations of the LTV path's linearization (`linearize_one`) at B
+// points (float64 arrays, batch-leading as the kernel takes them), added
+// to counts[0..3] as {add, mul, div_sqrt, transcendental}; -1 when the
+// build does not hold the model.
+int mpc_linearize_count_ops(long long B, int model, int nx, int nu,
+                            const double* consts, const double* x0,
+                            const double* u0, double* counts) {
+  using mpc::Flop;
+  std::vector<Flop> A(nx * nx), Bm(nx * nu), xd0(nx);
+  mpc::g_ops = mpc::OpCount();
+  const int rc = mpc::model_dispatch<Flop, MPC_CPU_FAMILIES>(
+      model, consts, [&](const auto& m) -> int {
+        typedef std::decay_t<decltype(m)> M;
+        if (M::NX != nx || M::NU != nu) return -5;
+        for (long long b = 0; b < B; ++b)
+          mpc::linearize_instance<Flop>(
+              m, 0, reinterpret_cast<const Flop*>(x0 + b * nx),
+              reinterpret_cast<const Flop*>(u0 + b * nu), A.data(),
+              Bm.data(), xd0.data());
+        return 0;
+      });
+  counts[0] += mpc::g_ops.add;
+  counts[1] += mpc::g_ops.mul;
+  counts[2] += mpc::g_ops.div_sqrt;
+  counts[3] += mpc::g_ops.transcendental;
+  return rc;
+}
+
+// The operations of the LTV discretization (`ltv_discrete_one`) of B
+// frozen points, as `mpc_linearize_count_ops` counts them.
+int mpc_ltv_discrete_count_ops(long long B, int nx, int nu, int integ,
+                               double dt, const double* A, const double* Bm,
+                               const double* xd0, const double* x0,
+                               const double* u0, double* counts) {
+  using mpc::Flop;
+  std::vector<Flop> out(B * (nx * nx + nx * nu + nx));
+  mpc::g_ops = mpc::OpCount();
+  const int rc = mpc::ltv_dispatch<Flop, MPC_CPU_FAMILIES>(
+      nx, nu, [&](const auto& step) -> int {
+        typedef std::decay_t<decltype(step)> Step;
+        Flop* AdI = out.data();
+        for (long long b = 0; b < B; ++b)
+          mpc::ltv_discrete_instance<Flop, Step::NX, Step::NU>(
+              b, B, integ, Flop(dt), reinterpret_cast<const Flop*>(A),
+              reinterpret_cast<const Flop*>(Bm),
+              reinterpret_cast<const Flop*>(xd0),
+              reinterpret_cast<const Flop*>(x0),
+              reinterpret_cast<const Flop*>(u0), AdI, AdI + B * nx * nx,
+              AdI + B * (nx * nx + nx * nu));
+        return 0;
+      });
+  counts[0] += mpc::g_ops.add;
+  counts[1] += mpc::g_ops.mul;
+  counts[2] += mpc::g_ops.div_sqrt;
+  counts[3] += mpc::g_ops.transcendental;
+  return rc;
 }
 
 }  // extern "C"

@@ -9,10 +9,13 @@
 // `generated_unit`) includes this file after its step policy with
 // MPC_GENERATED defined: it then holds that policy alone (and, with
 // MPC_GENERATED_MODEL, evaluates its model under model id kGeneratedModel).
+// The LTV path's linearization and discretization (model_linearize.cuh)
+// are looped over instances here too, as their kernels run them.
 #include <limits>
 #include <vector>
 
 #include "fused_sqp_block.cuh"
+#include "model_linearize.cuh"
 
 #if defined(MPC_GENERATED)
 #define MPC_CPU_FAMILIES mpc::kGenerated
@@ -144,28 +147,13 @@ void eval_increment(const Model& m, long long M, int integ, const S* x,
 }
 
 // Runs fn on the registered model `model` built from the constants c (in a
-// generated build, on its generated model alone).
+// generated build, on its generated model alone, whatever its policy).
 template <typename S, typename F>
 int with_model(int model, const double* c, const F& fn) {
-#if defined(MPC_GENERATED)
-  (void)c;
 #if defined(MPC_GENERATED_MODEL)
   if (model == mpc::kGeneratedModel) return fn(mpc::gen::Model<S>{});
 #endif
-  return -1;
-#else
-  switch (model) {
-    case mpc::kTwoLinkArm:
-      return fn(mpc::ArmModel<S, 2>{mpc::load_arm<S, double, 2>(c)});
-    case mpc::kMahiArm:
-      return fn(mpc::ArmModel<S, 4>{mpc::load_arm<S, double, 4>(c)});
-    case mpc::kPendulum: return fn(mpc::Pendulum<S>::load(c));
-    case mpc::kCartpole: return fn(mpc::Cartpole<S>::load(c));
-    case mpc::kDoublePendulum: return fn(mpc::DoublePendulum<S>::load(c));
-    case mpc::kAcrobot: return fn(mpc::Acrobot<S>::load(c));
-    default: return -1;
-  }
-#endif
+  return mpc::model_dispatch<S, MPC_CPU_FAMILIES>(model, c, fn);
 }
 
 template <typename S>
@@ -184,6 +172,38 @@ int increment(long long M, int model, int integ, const S* x, const S* u,
     eval_increment<S>(m, M, integ, x, u, dt, ival, irows);
     return 0;
   });
+}
+
+// The linearization of B points (model_linearize.cuh `linearize_one`, one
+// instance after another): -1 when the build does not hold the model, -5
+// when its shape is not (nx, nu).
+template <typename S>
+int linearize_all(long long B, int model, int nx, int nu, const double* c,
+                  const S* x0, const S* u0, S* A, S* Bm, S* xd0) {
+  return mpc::model_dispatch<S, MPC_CPU_FAMILIES>(
+      model, c, [&](const auto& m) -> int {
+        typedef std::decay_t<decltype(m)> M;
+        if (M::NX != nx || M::NU != nu) return -5;
+        for (long long b = 0; b < B; ++b)
+          mpc::linearize_instance<S>(m, b, x0, u0, A, Bm, xd0);
+        return 0;
+      });
+}
+
+// The LTV discretization of B frozen points (`ltv_discrete_one`): -1 when
+// the build holds no Ltv policy at (nx, nu).
+template <typename S>
+int ltv_discrete_all(long long B, int nx, int nu, int integ, S dt,
+                     const S* A, const S* Bm, const S* xd0, const S* x0,
+                     const S* u0, S* AdI, S* Bd, S* cd) {
+  return mpc::ltv_dispatch<S, MPC_CPU_FAMILIES>(
+      nx, nu, [&](const auto& step) -> int {
+        typedef std::decay_t<decltype(step)> Step;
+        for (long long b = 0; b < B; ++b)
+          mpc::ltv_discrete_instance<S, Step::NX, Step::NU>(
+              b, B, integ, dt, A, Bm, xd0, x0, u0, AdI, Bd, cd);
+        return 0;
+      });
 }
 
 #if !defined(MPC_GENERATED)
@@ -364,6 +384,41 @@ int mpc_model_increment_cpu_f64(long long M, int model, int integ,
                                 const double* consts, double* ival,
                                 double* irows) {
   return increment<double>(M, model, integ, x, u, dt, consts, ival, irows);
+}
+
+// The linearization at B points, batch-leading: x0 (B, nx), u0 (B, nu)
+// in, A (B, nx, nx), Bm (B, nx, nu), xd0 (B, nx) out.
+int mpc_linearize_cpu_f32(long long B, int model, int nx, int nu,
+                          const double* consts, const float* x0,
+                          const float* u0, float* A, float* Bm, float* xd0) {
+  return linearize_all<float>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0);
+}
+
+int mpc_linearize_cpu_f64(long long B, int model, int nx, int nu,
+                          const double* consts, const double* x0,
+                          const double* u0, double* A, double* Bm,
+                          double* xd0) {
+  return linearize_all<double>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0);
+}
+
+// The LTV discretization of B batch-leading frozen points into the
+// batch-innermost increment form AdI (nx, nx, B), Bd (nx, nu, B), cd (nx, B).
+int mpc_ltv_discrete_cpu_f32(long long B, int nx, int nu, int integ,
+                             float dt, const float* A, const float* Bm,
+                             const float* xd0, const float* x0,
+                             const float* u0, float* AdI, float* Bd,
+                             float* cd) {
+  return ltv_discrete_all<float>(B, nx, nu, integ, dt, A, Bm, xd0, x0, u0,
+                                 AdI, Bd, cd);
+}
+
+int mpc_ltv_discrete_cpu_f64(long long B, int nx, int nu, int integ,
+                             double dt, const double* A, const double* Bm,
+                             const double* xd0, const double* x0,
+                             const double* u0, double* AdI, double* Bd,
+                             double* cd) {
+  return ltv_discrete_all<double>(B, nx, nu, integ, dt, A, Bm, xd0, x0, u0,
+                                  AdI, Bd, cd);
 }
 
 }  // extern "C"

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "fused_sqp_block.cuh"
+#include "model_linearize.cuh"
 
 template <typename Step>
 __global__ void __launch_bounds__(128)
@@ -287,12 +288,125 @@ int block_info(int model, int nx, int nu, int integ, int ltv, int N,
       });
 }
 
+// ---- the LTV path's linearization and discretization (model_linearize.cuh):
+// one thread an instance, 128 a block, float or double.
+
+template <typename S, typename Model>
+__global__ void __launch_bounds__(128)
+linearize_kernel(long long B, Model m, const S* x0, const S* u0, S* A,
+                 S* Bm, S* xd0) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mpc::linearize_instance<S>(m, b, x0, u0, A, Bm, xd0);
+}
+
+template <typename S, int NX, int NU>
+__global__ void __launch_bounds__(128)
+ltv_discrete_kernel(long long B, int integ, S dt, const S* A, const S* Bm,
+                    const S* xd0, const S* x0, const S* u0, S* AdI, S* Bd,
+                    S* cd) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mpc::ltv_discrete_instance<S, NX, NU>(b, B, integ, dt, A, Bm, xd0, x0, u0,
+                                        AdI, Bd, cd);
+}
+
+// Launch the linearization of model `model` (an mpc::ModelId, its
+// constants `consts`) at B points on `stream`: x0 (B, nx), u0 (B, nu) in,
+// A (B, nx, nx), Bm (B, nx, nu), xd0 (B, nx) out, batch-leading.  Returns
+// cudaGetLastError(), -1 when this library does not hold the model, -5
+// when the model's shape is not (nx, nu).  Does not synchronise.
+template <int kFamilies, typename S>
+int launch_linearize(long long B, int model, int nx, int nu,
+                     const double* consts, const S* x0, const S* u0, S* A,
+                     S* Bm, S* xd0, void* stream) {
+  return mpc::model_dispatch<S, kFamilies>(
+      model, consts, [&](const auto& m) -> int {
+        typedef typename std::decay<decltype(m)>::type M;
+        if (M::NX != nx || M::NU != nu) return -5;
+        if (B <= 0) return 0;
+        const unsigned grid = (unsigned)((B + 127) / 128);
+        linearize_kernel<S, M><<<grid, 128, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+            B, m, x0, u0, A, Bm, xd0);
+        return (int)cudaGetLastError();
+      });
+}
+
+// Launch the LTV discretization at (nx, nu) under integrator `integ` and
+// step dt on `stream`: the batch-leading frozen point A (B, nx, nx),
+// Bm (B, nx, nu), xd0 (B, nx), x0 (B, nx), u0 (B, nu) in, the increment
+// form AdI = Ad - I (nx, nx, B), Bd (nx, nu, B), cd (nx, B) out,
+// batch-innermost.  Returns cudaGetLastError(), or -1 when this library
+// holds no Ltv policy at (nx, nu).  Does not synchronise.
+template <int kFamilies, typename S>
+int launch_ltv_discrete(long long B, int nx, int nu, int integ, S dt,
+                        const S* A, const S* Bm, const S* xd0, const S* x0,
+                        const S* u0, S* AdI, S* Bd, S* cd, void* stream) {
+  return mpc::ltv_dispatch<S, kFamilies>(nx, nu, [&](const auto& step) -> int {
+    typedef typename std::decay<decltype(step)>::type Step;
+    if (B <= 0) return 0;
+    const unsigned grid = (unsigned)((B + 127) / 128);
+    ltv_discrete_kernel<S, Step::NX, Step::NU>
+        <<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+            B, integ, dt, A, Bm, xd0, x0, u0, AdI, Bd, cd);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Blocks an SM of the float (`f64` 0) or double linearization kernel of
+// `model`, or of the discretization kernel at (nx, nu) when `model` is
+// kLtvDiscreteQuery; -1 when this library holds neither, or the CUDA error
+// code negated.
+constexpr int kLtvDiscreteQuery = -100;
+template <int kFamilies, typename S>
+int ltv_path_blocks_per_sm(int model, int nx, int nu) {
+  static const double consts[256] = {};   // the model's constants: unused
+  auto query = [](auto kernel) -> int {
+    int n = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 128, 0);
+    return e == cudaSuccess ? n : -(int)e;
+  };
+  if (model == kLtvDiscreteQuery)
+    return mpc::ltv_dispatch<S, kFamilies>(nx, nu, [&](const auto& step) {
+      typedef typename std::decay<decltype(step)>::type Step;
+      return query(ltv_discrete_kernel<S, Step::NX, Step::NU>);
+    });
+  return mpc::model_dispatch<S, kFamilies>(model, consts, [&](const auto& m) {
+    typedef typename std::decay<decltype(m)>::type M;
+    return query(linearize_kernel<S, M>);
+  });
+}
+
+#define MPC_LTV_PATH_EXPORTS(kFamilies, S, bits)                             \
+  extern "C" int mpc_linearize_launch_##bits(                                \
+      long long B, int model, int nx, int nu, const double* consts,          \
+      const S* x0, const S* u0, S* A, S* Bm, S* xd0, void* stream) {         \
+    return launch_linearize<kFamilies, S>(B, model, nx, nu, consts, x0, u0,  \
+                                          A, Bm, xd0, stream);               \
+  }                                                                          \
+  extern "C" int mpc_ltv_discrete_launch_##bits(                             \
+      long long B, int nx, int nu, int integ, S dt, const S* A, const S* Bm, \
+      const S* xd0, const S* x0, const S* u0, S* AdI, S* Bd, S* cd,          \
+      void* stream) {                                                        \
+    return launch_ltv_discrete<kFamilies, S>(B, nx, nu, integ, dt, A, Bm,    \
+                                             xd0, x0, u0, AdI, Bd, cd,       \
+                                             stream);                        \
+  }                                                                          \
+  extern "C" int mpc_ltv_path_blocks_per_sm_##bits(int model, int nx,        \
+                                                   int nu) {                 \
+    return ltv_path_blocks_per_sm<kFamilies, S>(model, nx, nu);              \
+  }
+
 // The plain C interface of one library, for ctypes: the launcher (device
 // pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
 // fan rungs and model constants, the stream, the body to launch (-1: the
 // rule's) and where to write the body it launched; solver/fused.py
 // `_run_library`), and the occupancy of the kernels it launches
-// (chip_smoke.py).
+// (chip_smoke.py); and the LTV path's linearization of the models this
+// library holds and discretization of its Ltv shapes, float and double
+// (solver/linearize.py), with their occupancy.
 #define MPC_FUSED_LIBRARY(kFamilies)                                         \
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
@@ -308,4 +422,6 @@ int block_info(int model, int nx, int nu, int integ, int ltv, int N,
   extern "C" int mpc_fused_blocks_per_sm(int model, int nx, int nu,          \
                                          int integ, int ltv, int want) {     \
     return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv, want);        \
-  }
+  }                                                                          \
+  MPC_LTV_PATH_EXPORTS(kFamilies, float, f32)                                \
+  MPC_LTV_PATH_EXPORTS(kFamilies, double, f64)

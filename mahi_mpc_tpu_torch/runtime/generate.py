@@ -46,14 +46,20 @@ def kernel_libraries(prob: ShootingProblem, opts: SolverOptions,
     """The CUDA libraries that a ``ModelControl`` of this problem launches
     under ``opts`` on ``device``: the fused kernel's instantiation when warm
     solves resolve to it (one of ``_build.CUDA_LIBRARIES``, or the
-    problem's generated library, ``gen-<hash>``), the Riccati kernel when
-    ``kkt_backend="pallas"`` asks for it; none off the card."""
+    problem's generated library, ``gen-<hash>``), in LTV the library of the
+    model's linearization kernel (``linearize.linearize_library``), the
+    Riccati kernel when ``kkt_backend="pallas"`` asks for it; none off the
+    card."""
     if torch.device(device).type != "cuda":
         return []
     from ..solver.fused import _cuda_library
+    from ..solver.linearize import linearize_library
     libs = []
     if resolve_warm_solver(opts, prob, device) == "fused":
         libs.append(_cuda_library(prob))
+    relin = linearize_library(prob.dynamics) if prob.is_linear else None
+    if relin is not None and relin not in libs:
+        libs.append(relin)
     if opts.kkt_backend == "pallas":
         libs.append("riccati")
     return libs

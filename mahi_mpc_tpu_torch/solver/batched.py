@@ -53,6 +53,20 @@ def _ltv_step_one(prob: ShootingProblem, lp, x: Tensor, u: Tensor) -> Tensor:
     return make_step(f, prob.dt, prob.integrator)(x, u)
 
 
+def check_lin(prob: ShootingProblem, p: MPCParams):
+    """``p.lin``, after checking that it holds one frozen linearization per
+    instance of the (B, ...) batch ``p``."""
+    nx, nu, B = prob.nx, prob.nu, p.x0.shape[0]
+    want = {"A": (B, nx, nx), "B": (B, nx, nu), "x_dot0": (B, nx),
+            "x0": (B, nx), "u0": (B, nu)}
+    for k, shape in want.items():
+        got = tuple(getattr(p.lin, k).shape)
+        if got != shape:
+            raise ValueError(f"lin.{k}: expected {shape} (one frozen "
+                             f"linearization per instance), got {got}")
+    return p.lin
+
+
 @strict_fp32()
 def _ltv_discrete(prob: ShootingProblem, p: MPCParams):
     """Exact per-instance discrete affine step for LTV mode:
@@ -65,15 +79,7 @@ def _ltv_discrete(prob: ShootingProblem, p: MPCParams):
     once per solve.  Strict float32: TF32 here would hand the solver a
     perturbed problem (the card's analogue of JAX commit 56dd6ff)."""
     nx, nu = prob.nx, prob.nu
-    lin = p.lin
-    B = p.x0.shape[0]
-    want = {"A": (B, nx, nx), "B": (B, nx, nu), "x_dot0": (B, nx),
-            "x0": (B, nx), "u0": (B, nu)}
-    for k, shape in want.items():
-        got = tuple(getattr(lin, k).shape)
-        if got != shape:
-            raise ValueError(f"lin.{k}: expected {shape} (one frozen "
-                             f"linearization per instance), got {got}")
+    lin = check_lin(prob, p)
 
     def one(lp):
         joint = lambda w: _ltv_step_one(prob, lp, w[:nx], w[nx:])

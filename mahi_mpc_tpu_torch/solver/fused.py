@@ -22,8 +22,8 @@ and three step modes, as in the JAX kernel:
 - **generic** (midpoint, rk4): all nx rows through the integrator step;
 - **ltv** (``prob.is_linear``, reference C8): the exact affine step
   ``Ad x + Bd u + cd`` of the frozen linearization, computed once per solve
-  on the host (``batched._ltv_discrete``) and streamed in as
-  ``(Ad - I, Bd, cd)``; no AD.
+  (``linearize.ltv_discrete``: its own kernel on the card, batch-innermost
+  as the solve streams it) and streamed in as ``(Ad - I, Bd, cd)``; no AD.
 
 Every step mode gives the step's increment ``F(x, u) - x``, formed
 directly, and every defect is formed as ``(x - x') + increment``
@@ -86,7 +86,7 @@ from ..ops.precision import strict_fp32
 from ..params import SolverOptions
 from ..transcribe.shooting import MPCParams, ShootingProblem
 from . import loop_common as lc
-from .batched import _fan_jacobian, _ltv_discrete
+from .batched import _fan_jacobian
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
 from .stage_qp import barrier_terms
 
@@ -163,19 +163,23 @@ def generated_unit(prob: ShootingProblem) -> Optional[str]:
     ``FastNq`` under the ``_fast2`` rule, ``Generic`` otherwise), or the
     ``Ltv<S, NX, NU>`` policy at an LTV shape outside ``LTV_SHAPES``, as
     ``GeneratedStep<S>::make`` (``csrc/fused_sqp.cuh`` ``dispatch``).
-    ``_build`` wraps it into the CUDA library and the g++ build."""
+    ``_build`` wraps it into the CUDA library and the g++ build.  The LTV
+    unit of a user's model holds the model too (``ltv_unit``)."""
     if prob.is_linear:
         if (prob.nx, prob.nu) in LTV_SHAPES:
             return None
-        policy, model = f"Ltv<S, {prob.nx}, {prob.nu}>", ""
-        make = "{}"
-    else:
-        if _kernel_model(prob.dynamics) is not None:
-            return None
-        model = lower(prob.dynamics).source
-        fast = _fast2(prob)
-        policy = f"{'FastNq' if fast else 'Generic'}<S, gen::Model<S>>"
-        make = "{{}}" if fast else "{{}, a.integ}"
+        return ltv_unit(prob.dynamics, prob.nx, prob.nu)
+    if _kernel_model(prob.dynamics) is not None:
+        return None
+    fast = _fast2(prob)
+    return _unit(lower(prob.dynamics).source,
+                 f"{'FastNq' if fast else 'Generic'}<S, gen::Model<S>>",
+                 "{{}}" if fast else "{{}, a.integ}")
+
+
+def _unit(model: str, policy: str, make: str) -> str:
+    """A generated unit: the model's C++ (or nothing) and
+    ``GeneratedStep<S>::make``, which returns ``policy`` as ``make``."""
     return "\n".join([
         model + "namespace mpc {",
         "template <typename S>",
@@ -186,6 +190,25 @@ def generated_unit(prob: ShootingProblem) -> Optional[str]:
         "  }",
         "};",
         "}  // namespace mpc", ""])
+
+
+def _user_model(dyn) -> str:
+    """The C++ of a user's model (``models/codegen.py``): a
+    lanes-polymorphic ``Dynamics`` without a hand-written CUDA form that the
+    generator lowers; "" for every other."""
+    if dyn is None or not dyn.supports_lanes or \
+            _kernel_model(dyn) is not None or not lowerable(dyn):
+        return ""
+    return lower(dyn).source
+
+
+def ltv_unit(dyn, nx: int, nu: int) -> str:
+    """The generated unit of the ``Ltv<S, nx, nu>`` policy.  For a user's
+    model ``dyn`` (``_user_model``) it also holds the model,
+    ``mpc::gen::Model<S>``, whose linearization the build then exports
+    (``csrc/model_linearize.cuh`` ``model_dispatch``): the library of such
+    a model's LTV path (``solver/linearize.py``)."""
+    return _unit(_user_model(dyn), f"Ltv<S, {nx}, {nu}>", "{}")
 
 
 def _model_id(prob: ShootingProblem) -> tuple:
@@ -778,9 +801,13 @@ def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv,
 # The wrapper.
 # ---------------------------------------------------------------------------
 
-def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
+def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
+           discretize=None):
     """Host-side preparation (the JAX wrapper's fused.py:910-932), one call
-    of ``body`` (plain version or a kernel build), and the status rules."""
+    of ``body`` (plain version or a kernel build), and the status rules.
+    In LTV, ``discretize(prob, p)`` gives the streamed (Ad - I, Bd, cd)
+    (``solver/linearize.py``: the kernel ``ltv_discrete`` on the card,
+    by default the plain version ``ltv_discrete_plain``)."""
     if not (prob.is_linear or prob.dynamics.supports_lanes):
         raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
                          "lanes-polymorphic")
@@ -823,8 +850,9 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body):
         ltv = None
         if prob.is_linear:
             # the kernel streams Ad - I: its increment forms no difference
-            Ad, Bd, cd = _ltv_discrete(prob, p)
-            ltv = (Ad - torch.eye(nx, dtype=Ad.dtype, device=device), Bd, cd)
+            if discretize is None:
+                from .linearize import ltv_discrete_plain as discretize
+            ltv = discretize(prob, p)
         X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive,
                         ltv)
 
@@ -866,17 +894,20 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
 
     On CUDA tensors this launches the kernel (float32) on the body the
     launcher's rule picks (``card_body``) and counts the launch in
-    ``solve_batch_fused.launches`` (and by mode, library and body); on CPU
+    ``solve_batch_fused.launches`` (and by mode, library and body), in LTV
+    after the discretization kernel (``linearize.ltv_discrete``); on CPU
     tensors it runs the plain PyTorch version.  Any other device raises.
     """
     kind = p.x0.device.type
     if kind == "cuda":
+        from .linearize import ltv_discrete as discretize
         body = _launch_cuda
     elif kind == "cpu":
-        body = _solve_batch_fused_plain
+        body, discretize = _solve_batch_fused_plain, None
     else:
         raise ValueError(f"no fused solve for device type {kind!r}")
-    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body)
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
+                  discretize)
 
 
 solve_batch_fused.launches = 0
@@ -942,14 +973,17 @@ def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
     ``tools/time_fused_modes.py``; a generated LTV shape runs from its
     timing build, ``_cuda_library(prob, both_bodies=True)``, which holds
     both the group and the one-thread body where the shape splits over a
-    group).  Not counted in ``solve_batch_fused.launches``;
+    group).  Not counted in ``solve_batch_fused.launches`` (its LTV
+    discretization is, in ``ltv_discrete.launches``);
     ``solve_batch_fused`` never calls it.  Raises where the library holds
     no such body."""
+    from .linearize import ltv_discrete
     if p.x0.device.type != "cuda":
         raise ValueError("solve_batch_fused_body runs the CUDA kernel: "
                          f"got tensors on {p.x0.device}")
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                  functools.partial(_launch_cuda, want=BODIES.index(body)))
+                  functools.partial(_launch_cuda, want=BODIES.index(body)),
+                  ltv_discrete)
 
 
 def count_fused_ops(prob: ShootingProblem, p: MPCParams,
