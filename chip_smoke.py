@@ -89,9 +89,11 @@ line each, with the seconds since start in ``t``:
    plain versions within 1e-5 of max|.| (``LTV_LINEARIZE_CASES``: the arm,
    the double pendulum, the user chain of phase 23's LTV (6, 3);
    ``LTV_DISCRETE_CASES``: (8, 4) under every integrator, (4, 2) under
-   RK4, the generated (6, 3) and (12, 6); B=16384 and B=1, the
-   discretization also B=16383), each launch timed at B=16384 in turns with
-   its plain version, with its bound, registers, spills and blocks an SM;
+   RK4, the generated (6, 3) and (12, 6); B=16384, 16383 (a partial last
+   tile), 1, and the kernel's tile T and T + 1), each launch timed at
+   B=16384 and at B=1 in turns with its plain version, with its bound,
+   tile (threads an instance, instances a tile, shared bytes), registers,
+   spills and blocks an SM;
 9. parity_riccati — the Riccati kernel against its plain PyTorch version on
    the card, B=1000, N=25: random well-conditioned QPs at (nz, nu) = (12, 4)
    (one instance with an indefinite Huu: NaN there in both, finite
@@ -266,7 +268,8 @@ those of its service, and one ``fused_sqp_generated_block:<case>`` entry
 for the block body of each user model ``ModelControl`` runs at B=1, its
 launches those warm ``calc_u``; then ``ltv_linearize`` and ``ltv_discrete``, the LTV
 path's kernels, their launches those of phases 8, 14 and 23's LTV runs,
-their times those of ltv_kernels at B=16384, with the LTV service's and
+their times those of ltv_kernels at B=16384 (and B=1), their tiles, with
+the LTV service's and
 ``ModelControl``'s readings beside them) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
@@ -1014,7 +1017,6 @@ LTV_DISCRETE_CASES = (("mahi_arm", "euler"), ("mahi_arm", "midpoint"),
                       ("mahi_arm", "rk4"), ("double_pendulum", "rk4"),
                       ("ltv_6x3", "euler"), ("ltv_12x6", "rk4"))
 LTV_KERNEL_REPS = 50
-LTV_DISCRETE_QUERY = -100   # fused_sqp_launch.cuh kLtvDiscreteQuery
 # The LTV kernels' launches on the main paths (the LTV service, the LTV
 # ModelControl, phase 23's generated LTV services), and what the LTV
 # service's phase measured of them; the kernels line reports both.
@@ -1095,21 +1097,24 @@ def ltv_ptxas(builds, library, mark) -> dict:
 
 def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
     """The LTV path's two kernels alone (``ltv_kernels``): each held to its
-    plain version (``LTV_*_CASES``, B=16384 and B=1; the discretization
-    also at B=16383, a partial last block), its launch timed at B=16384
-    (CUDA events around the launcher, ``ltv_kernel_event_ms``) in turns
-    with the plain version, the wrapper's ms, the bound (its operations,
-    counted by g++ on a counting scalar over COUNT_SAMPLE instances, over
-    the FP32 peak; its bytes, each input read and each output written once,
-    over the HBM rate), registers, spills and blocks an SM.  Returns the
-    kernels line's numbers of both."""
+    plain version (``LTV_*_CASES`` at B=16384, B=16383 (a partial last
+    tile), B=1, and at the kernel's tile T and T + 1), its launch timed at
+    B=16384 and at B=1 (CUDA events around the launcher,
+    ``ltv_kernel_event_ms``) in turns with the plain version, the
+    wrapper's ms, the bound (the function's operations, counted by g++ on
+    a counting scalar over COUNT_SAMPLE instances less what the tasks
+    repeat, over the FP32 peak; the tasks' own count beside it; its bytes,
+    each input read and each output written once, over the HBM rate), its
+    tile (instances, threads an instance, threads and shared bytes a
+    block), registers, spills and blocks an SM.  Returns the kernels
+    line's numbers of both."""
     import numpy as np
 
-    from mahi_mpc_tpu_torch.solver.fused import ARM_IDS, _cuda_library
+    from mahi_mpc_tpu_torch.solver.fused import _cuda_library
     from mahi_mpc_tpu_torch.solver.linearize import (
         count_linearize_ops, count_ltv_discrete_ops, linearize_batch,
-        linearize_batch_plain, linearize_library, ltv_discrete,
-        ltv_discrete_plain)
+        linearize_batch_plain, linearize_library, linearize_tile,
+        ltv_discrete, ltv_discrete_plain, ltv_discrete_tile)
 
     def errs(got, want):
         """(max |got - want|, the same over max|want|), each output's worst"""
@@ -1118,8 +1123,10 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
         return max(a for a, _ in d), max(a / m for a, m in d)
 
     out = {"linearize": {"cases": []}, "ltv_discrete": {"cases": []}}
+    batches = lambda T: (SERVICE_BATCH, SERVICE_BATCH - 1, 1, T, T + 1)
     for name in LTV_LINEARIZE_CASES:
-        for B in (SERVICE_BATCH, 1):
+        T = linearize_tile(ltv_case(dev, rng, name, 1)[0])["instances"]
+        for B in batches(T):
             dyn, prob, p = ltv_case(dev, rng, name, B)
             lib = linearize_library(dyn)
             if name.startswith("ltv_"):
@@ -1132,7 +1139,9 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
                 max_rel_err=err))
             check(err <= LTV_BAND, f"linearization {name} B={B}: {err}")
     for name, integrator in LTV_DISCRETE_CASES:
-        for B in (SERVICE_BATCH, SERVICE_BATCH - 1, 1):
+        T = ltv_discrete_tile(ltv_case(dev, rng, name, 1, integrator)[1])[
+            "instances"]
+        for B in batches(T):
             _, prob, p = ltv_case(dev, rng, name, B, integrator)
             got = ltv_discrete(prob, p)
             ab, err = errs(got, ltv_discrete_plain(prob, p))
@@ -1147,58 +1156,72 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
         for key in ("max_abs_err", "max_rel_err"):
             out[kind][key] = max(c[key] for c in out[kind]["cases"])
 
-    # timed at the LTV service's batch and shape: the 4-DOF arm, Euler
+    # timed at the LTV service's batch and shape, the 4-DOF arm under
+    # Euler, and at B=1 (the LTV single robot's)
     Bt, S = SERVICE_BATCH, COUNT_SAMPLE
     dyn, prob, p = ltv_case(dev, rng, "mahi_arm", Bt)
+    _, prob1, p1 = ltv_case(dev, rng, "mahi_arm", 1)
     nx, nu = prob.nx, prob.nu
-    lin_call = lambda: linearize_batch(dyn, p.x0, p.u_prev)
-    lin_plain = lambda: linearize_batch_plain(dyn, p.x0, p.u_prev)
-    dis_call = lambda: ltv_discrete(prob, p)
-    dis_plain = lambda: ltv_discrete_plain(prob, p)
-    turns = {"linearize": [], "linearize_plain": [], "ltv_discrete": [],
-             "ltv_discrete_plain": []}
-    for order in ((0, 1), (1, 0)):          # kernel, plain, plain, kernel
-        for which in order:
-            if which == 0:
-                turns["linearize"].append(ltv_kernel_event_ms(lin_call))
-                turns["ltv_discrete"].append(ltv_kernel_event_ms(dis_call))
-            else:
-                turns["linearize_plain"].append(timed(lin_plain, 2)[1])
-                turns["ltv_discrete_plain"].append(timed(dis_plain, 5)[1])
-    wrap_lin, wrap_dis = timed(lin_call, 20)[1], timed(dis_call, 20)[1]
+    calls = {
+        "linearize": lambda: linearize_batch(dyn, p.x0, p.u_prev),
+        "linearize_plain": lambda: linearize_batch_plain(dyn, p.x0, p.u_prev),
+        "ltv_discrete": lambda: ltv_discrete(prob, p),
+        "ltv_discrete_plain": lambda: ltv_discrete_plain(prob, p),
+        "linearize_b1": lambda: linearize_batch(dyn, p1.x0, p1.u_prev),
+        "linearize_plain_b1": lambda: linearize_batch_plain(dyn, p1.x0,
+                                                            p1.u_prev),
+        "ltv_discrete_b1": lambda: ltv_discrete(prob1, p1),
+        "ltv_discrete_plain_b1": lambda: ltv_discrete_plain(prob1, p1)}
+    reps = {"linearize_plain": 2, "ltv_discrete_plain": 5,
+            "linearize_plain_b1": 2, "ltv_discrete_plain_b1": 5}
+    turns = {k: [] for k in calls}
+    for plain in (False, True, True, False):  # kernel, plain, plain, kernel
+        for k, call in calls.items():
+            if ("plain" in k) == plain:
+                turns[k].append(timed(call, reps.get(k, 20))[1] if plain
+                                else ltv_kernel_event_ms(call))
+    wrap_lin = timed(calls["linearize"], 20)[1]
+    wrap_dis = timed(calls["ltv_discrete"], 20)[1]
     lin_ops = count_linearize_ops(dyn, p.x0[:S], p.u_prev[:S])
     dis_ops = count_ltv_discrete_ops(prob, head(p, S))
     lin_bytes = 4 * Bt * ((nx + nu) + (nx * nx + nx * nu + nx))
     dis_bytes = 4 * Bt * ((nx * nx + nx * nu + 2 * nx + nu)
                           + (nx * nx + nx * nu + nx))
-    marks = {"linearize": ("fused_sqp", "_Z16linearize_kernelIfN3mpc8ArmModel"
-                           "IfLi4E", ARM_IDS[4]),
+    marks = {"linearize": ("fused_sqp",
+                           "_Z21linearize_tile_kernelIfN3mpc8ArmModelIfLi4E",
+                           linearize_tile(dyn)),
              "ltv_discrete": ("fused_sqp_ltv",
-                              "_Z19ltv_discrete_kernelIfLi8ELi4E",
-                              LTV_DISCRETE_QUERY)}
+                              "_Z24ltv_discrete_tile_kernelIfLi8ELi4E",
+                              ltv_discrete_tile(prob))}
     for kind, ops, nbytes, wrapper in (("linearize", lin_ops, lin_bytes,
                                         wrap_lin),
                                        ("ltv_discrete", dis_ops, dis_bytes,
                                         wrap_dis)):
-        library, mark, query = marks[kind]
+        library, mark, tile = marks[kind]
         k = out[kind]
         k.update(batch=Bt, ms=float(np.mean(turns[kind])),
                  ms_turns=turns[kind],
                  plain_ms=float(np.mean(turns[kind + "_plain"])),
                  plain_ms_turns=turns[kind + "_plain"], wrapper_ms=wrapper,
-                 ops_per_instance=sum(ops.values()) / S, ops_by_kind=ops,
+                 ms_b1=float(np.mean(turns[kind + "_b1"])),
+                 ms_b1_turns=turns[kind + "_b1"],
+                 plain_ms_b1=float(np.mean(turns[kind + "_plain_b1"])),
+                 ops_per_instance=sum(ops["minimum"].values()) / S,
+                 ops_by_kind=ops["minimum"],
+                 ops_per_instance_body=sum(ops["body"].values()) / S,
                  io_mbytes=nbytes / 1e6,
-                 **bound_ms(sum(ops.values()) / S * Bt, nbytes),
-                 **ltv_ptxas(builds, library, mark),
-                 blocks_per_sm=builds[library][0]
-                 .mpc_ltv_path_blocks_per_sm_f32(query, nx, nu))
+                 **bound_ms(sum(ops["minimum"].values()) / S * Bt, nbytes),
+                 **ltv_ptxas(builds, library, mark), tile=tile,
+                 blocks_per_sm=tile["blocks_per_sm"])
         k["share"] = k["bound_ms"] / k["ms"]
         emit(phase="ltv_kernels", entry=kind,
              **{key: v for key, v in k.items() if key != "cases"},
              cases=k["cases"])
     # the largest generated shape: (12, 6) under RK4 in its own library
-    out["ltv_discrete"]["ptxas_12x6"] = ltv_ptxas(
-        builds, gen_libs["ltv_12x6"], "_Z19ltv_discrete_kernelIfLi12ELi6E")
+    out["ltv_discrete"]["ptxas_12x6"] = dict(
+        **ltv_ptxas(builds, gen_libs["ltv_12x6"],
+                    "_Z24ltv_discrete_tile_kernelIfLi12ELi6E"),
+        tile=ltv_discrete_tile(ltv_case(dev, rng, "ltv_12x6", 1, "rk4")[1]))
     emit(phase="ltv_kernels_12x6", **out["ltv_discrete"]["ptxas_12x6"])
     return out
 
@@ -3543,7 +3566,8 @@ def ltv_kernel_entries(ltv) -> list:
     readings beside them."""
     keys = ("max_rel_err", "wrapper_ms", "share", "ops_per_instance",
             "io_mbytes", "registers", "spill_store_bytes", "blocks_per_sm",
-            "ms_turns", "plain_ms_turns", "cases")
+            "tile", "ms_b1", "plain_ms_b1", "ms_turns", "plain_ms_turns",
+            "ms_b1_turns", "cases")
     svc = {k: LTV_PATH.get(k) for k in (
         "service_ms_per_warm_step", "relinearize_ms", "relinearize_plain_ms",
         "service_discrete_ms", "service_discrete_kernel_ms",
@@ -3553,13 +3577,14 @@ def ltv_kernel_entries(ltv) -> list:
     for kind, name, replaces, mode in (
             ("linearize", "ltv_linearize",
              "mahi_mpc_tpu/runtime/batch_service.py:122",
-             "mahi_arm at B=16384, the folded columns, one thread an "
-             "instance (jax.jit(jax.vmap(dynamics.linearize)); no "
-             "pl.pallas_call)"),
+             "mahi_arm at B=16384, the folded columns, a thread a joint's "
+             "columns, the tile staged through shared memory "
+             "(jax.jit(jax.vmap(dynamics.linearize)); no pl.pallas_call)"),
             ("ltv_discrete", "ltv_discrete",
              "mahi_mpc_tpu/solver/batched.py:58",
-             "(8, 4) Euler at B=16384, Ad - I, Bd, cd batch-innermost, one "
-             "thread an instance (_ltv_discrete; no pl.pallas_call)")):
+             "(8, 4) Euler at B=16384, Ad - I, Bd, cd batch-innermost, a "
+             "thread a column, the tile staged through shared memory "
+             "(_ltv_discrete; no pl.pallas_call)")):
         k = ltv[kind]
         out.append({
             "name": name, "route": "cuda",

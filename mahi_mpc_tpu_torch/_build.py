@@ -95,7 +95,9 @@ _FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
 # shapes it holds: the linearization takes B, model, nx, nu, the model's
 # constants, x0, u0, A, Bm, xd0; the discretization B, nx, nu, integrator,
 # dt, A, Bm, xd0, x0, u0 and the outputs AdI, Bd, cd; on the card both
-# also take the stream.
+# also take the stream, on the CPU whether a block's threads run last to
+# first.  The occupancy query takes model, nx, nu and where it writes the
+# kernel's tile.
 _REALS = (("f32", ctypes.c_float), ("f64", ctypes.c_double))
 _LINEARIZE = [_c_ll, _c_int, _c_int, _c_int] + [_c_void_p] * 6
 _LTV_DISCRETE = lambda real: [_c_ll, _c_int, _c_int, _c_int, real] + \
@@ -105,7 +107,7 @@ for _bits, _real in _REALS:
         f"mpc_linearize_launch_{_bits}": _LINEARIZE + [_c_void_p],
         f"mpc_ltv_discrete_launch_{_bits}": _LTV_DISCRETE(_real)
         + [_c_void_p],
-        f"mpc_ltv_path_blocks_per_sm_{_bits}": [_c_int] * 3})
+        f"mpc_ltv_path_blocks_per_sm_{_bits}": [_c_int] * 3 + [_c_void_p]})
 _ARM_EVAL = [_c_ll, _c_int, _c_void_p, _c_void_p]
 
 # name -> (CUDA source, {launcher: argtypes})
@@ -145,8 +147,9 @@ CPU_LIBRARIES = {
             _c_void_p, _c_void_p]
            for bits, real in (("f32", ctypes.c_float),
                               ("f64", ctypes.c_double))},
-        **{f"mpc_linearize_cpu_{bits}": _LINEARIZE for bits, _ in _REALS},
-        **{f"mpc_ltv_discrete_cpu_{bits}": _LTV_DISCRETE(real)
+        **{f"mpc_linearize_cpu_{bits}": _LINEARIZE + [_c_int]
+           for bits, _ in _REALS},
+        **{f"mpc_ltv_discrete_cpu_{bits}": _LTV_DISCRETE(real) + [_c_int]
            for bits, real in _REALS},
     }),
     "riccati": ("riccati_cpu.cpp", {

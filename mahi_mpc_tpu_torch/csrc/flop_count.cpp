@@ -14,7 +14,8 @@
 // are not counted.  A generated build includes it after its step policy,
 // with MPC_GENERATED defined, to count that policy (solver/fused.py
 // `generated_unit`).  It counts the LTV path's linearization and
-// discretization (model_linearize.cuh) the same way.
+// discretization (model_linearize.cuh) the same way, with what their tasks
+// repeat (`linearize_task_repeats`, `discrete_task_repeats`).
 #include <algorithm>
 #include <vector>
 
@@ -189,6 +190,48 @@ template <int NX, int NU>
 OpCount linearize_repeats(const Ltv<Flop, NX, NU>&, Flop) {
   OpCount r;
   r.add += NX * NX - NX;
+  return r;
+}
+
+// What one instance's linearization tasks (model_linearize.cuh
+// `linearize_task`) repeat, where the function needs it once: the value
+// part.  A serial arm's NQ q tasks each form it (the chain's values, M's
+// Cholesky factor and qdd: `arm_value`), so NQ - 1 times more than once,
+// and each of its NQ qd tasks runs the plain kinematics and RNEA values
+// again under its tangent (as `repeated_ops` counts them for the group
+// body).  Every other model's NZ one-tangent passes each form f's value,
+// so NZ - 1 times more.
+template <typename Model>
+OpCount linearize_task_repeats(const Model& m) {
+  constexpr int NX = Model::NX, NU = Model::NU;
+  Flop x[NX], u[NU], out[NX];
+  count_point(x, u);
+  OpCount r;
+  if constexpr (IsArm<Model>::value) {
+    constexpr int NQ = Model::NQ;
+    Flop L[NQ][NQ], M[NQ][NQ], h[NQ];
+    add(r, ops_of([&] { arm_value(m.c, x, x + NQ, u, L, out); }), NQ - 1);
+    add(r, ops_of([&] { arm_chain<false>(m.c, x, x + NQ, M, h); }), NQ);
+  } else {
+    add(r, ops_of([&] { model_f(m, x, u, out); }), NX + NU - 1);
+  }
+  return r;
+}
+
+// What one instance's discretization tasks (`ltv_discrete_task`) repeat:
+// each of the NZ passes forms the step's value (the increment of the
+// frozen model at z = 0), so NZ - 1 times more than once.
+template <int NX, int NU>
+OpCount discrete_task_repeats(int integ, Flop dt) {
+  Flop A[NX * NX], B[NX * NU], xd0[NX], x[NX], u[NU], out[NX];
+  count_point(x, u);
+  std::fill(A, A + NX * NX, Flop(0.5));
+  std::fill(B, B + NX * NU, Flop(0.5));
+  std::fill(xd0, xd0 + NX, Flop(0.5));
+  const AffineModel<Flop, NX, NU> m{A, B, xd0, x, u};
+  OpCount r;
+  add(r, ops_of([&] { model_increment(m, integ, dt, x, u, out); }),
+      NX + NU - 1);
   return r;
 }
 
@@ -405,36 +448,45 @@ int mpc_fused_card_body(int model, int nx, int nu, int integ, int ltv,
       });
 }
 
-// The operations of the LTV path's linearization (`linearize_one`) at B
-// points (float64 arrays, batch-leading as the kernel takes them), added
-// to counts[0..3] as {add, mul, div_sqrt, transcendental}; -1 when the
-// build does not hold the model.
+// The operations of the LTV path's linearization (its tasks as the card's
+// blocks run them, model_linearize.cuh `linearize_host`) at B points
+// (float64 arrays, batch-leading as the kernel takes them), added to
+// counts[0..3] as {add, mul, div_sqrt, transcendental}, and the part of
+// them that the tasks repeat (`linearize_task_repeats`) to counts[4..7];
+// -1 when the build does not hold the model.
 int mpc_linearize_count_ops(long long B, int model, int nx, int nu,
                             const double* consts, const double* x0,
                             const double* u0, double* counts) {
   using mpc::Flop;
-  std::vector<Flop> A(nx * nx), Bm(nx * nu), xd0(nx);
+  std::vector<Flop> out(B * (nx * nx + nx * nu + nx));
   mpc::g_ops = mpc::OpCount();
+  mpc::OpCount repeated;
   const int rc = mpc::model_dispatch<Flop, MPC_CPU_FAMILIES>(
       model, consts, [&](const auto& m) -> int {
         typedef std::decay_t<decltype(m)> M;
         if (M::NX != nx || M::NU != nu) return -5;
-        for (long long b = 0; b < B; ++b)
-          mpc::linearize_instance<Flop>(
-              m, 0, reinterpret_cast<const Flop*>(x0 + b * nx),
-              reinterpret_cast<const Flop*>(u0 + b * nu), A.data(),
-              Bm.data(), xd0.data());
+        Flop* A = out.data();
+        mpc::linearize_host<Flop>(
+            m, B, reinterpret_cast<const Flop*>(x0),
+            reinterpret_cast<const Flop*>(u0), A, A + B * nx * nx,
+            A + B * (nx * nx + nx * nu), false);
+        mpc::add(repeated, mpc::linearize_task_repeats(m), double(B));
         return 0;
       });
   counts[0] += mpc::g_ops.add;
   counts[1] += mpc::g_ops.mul;
   counts[2] += mpc::g_ops.div_sqrt;
   counts[3] += mpc::g_ops.transcendental;
+  counts[4] += repeated.add;
+  counts[5] += repeated.mul;
+  counts[6] += repeated.div_sqrt;
+  counts[7] += repeated.transcendental;
   return rc;
 }
 
-// The operations of the LTV discretization (`ltv_discrete_one`) of B
-// frozen points, as `mpc_linearize_count_ops` counts them.
+// The operations of the LTV discretization (`ltv_discrete_host`) of B
+// frozen points, and what its tasks repeat (`discrete_task_repeats`), as
+// `mpc_linearize_count_ops` counts them.
 int mpc_ltv_discrete_count_ops(long long B, int nx, int nu, int integ,
                                double dt, const double* A, const double* Bm,
                                const double* xd0, const double* x0,
@@ -442,24 +494,31 @@ int mpc_ltv_discrete_count_ops(long long B, int nx, int nu, int integ,
   using mpc::Flop;
   std::vector<Flop> out(B * (nx * nx + nx * nu + nx));
   mpc::g_ops = mpc::OpCount();
+  mpc::OpCount repeated;
   const int rc = mpc::ltv_dispatch<Flop, MPC_CPU_FAMILIES>(
       nx, nu, [&](const auto& step) -> int {
         typedef std::decay_t<decltype(step)> Step;
+        mpc::add(repeated, mpc::discrete_task_repeats<Step::NX, Step::NU>(
+                               integ, Flop(dt)),
+                 double(B));
         Flop* AdI = out.data();
-        for (long long b = 0; b < B; ++b)
-          mpc::ltv_discrete_instance<Flop, Step::NX, Step::NU>(
-              b, B, integ, Flop(dt), reinterpret_cast<const Flop*>(A),
-              reinterpret_cast<const Flop*>(Bm),
-              reinterpret_cast<const Flop*>(xd0),
-              reinterpret_cast<const Flop*>(x0),
-              reinterpret_cast<const Flop*>(u0), AdI, AdI + B * nx * nx,
-              AdI + B * (nx * nx + nx * nu));
+        mpc::ltv_discrete_host<Flop, Step::NX, Step::NU>(
+            B, integ, Flop(dt), reinterpret_cast<const Flop*>(A),
+            reinterpret_cast<const Flop*>(Bm),
+            reinterpret_cast<const Flop*>(xd0),
+            reinterpret_cast<const Flop*>(x0),
+            reinterpret_cast<const Flop*>(u0), AdI, AdI + B * nx * nx,
+            AdI + B * (nx * nx + nx * nu), false);
         return 0;
       });
   counts[0] += mpc::g_ops.add;
   counts[1] += mpc::g_ops.mul;
   counts[2] += mpc::g_ops.div_sqrt;
   counts[3] += mpc::g_ops.transcendental;
+  counts[4] += repeated.add;
+  counts[5] += repeated.mul;
+  counts[6] += repeated.div_sqrt;
+  counts[7] += repeated.transcendental;
   return rc;
 }
 

@@ -174,34 +174,34 @@ int increment(long long M, int model, int integ, const S* x, const S* u,
   });
 }
 
-// The linearization of B points (model_linearize.cuh `linearize_one`, one
-// instance after another): -1 when the build does not hold the model, -5
-// when its shape is not (nx, nu).
+// The linearization of B points as the card's blocks run it
+// (model_linearize.cuh `linearize_host`: tile after tile, each phase's
+// threads one after another, last to first when `reverse`): -1 when the
+// build does not hold the model, -5 when its shape is not (nx, nu).
 template <typename S>
 int linearize_all(long long B, int model, int nx, int nu, const double* c,
-                  const S* x0, const S* u0, S* A, S* Bm, S* xd0) {
+                  const S* x0, const S* u0, S* A, S* Bm, S* xd0,
+                  int reverse) {
   return mpc::model_dispatch<S, MPC_CPU_FAMILIES>(
       model, c, [&](const auto& m) -> int {
         typedef std::decay_t<decltype(m)> M;
         if (M::NX != nx || M::NU != nu) return -5;
-        for (long long b = 0; b < B; ++b)
-          mpc::linearize_instance<S>(m, b, x0, u0, A, Bm, xd0);
+        mpc::linearize_host<S>(m, B, x0, u0, A, Bm, xd0, reverse != 0);
         return 0;
       });
 }
 
-// The LTV discretization of B frozen points (`ltv_discrete_one`): -1 when
-// the build holds no Ltv policy at (nx, nu).
+// The LTV discretization of B frozen points as the card's blocks run it
+// (`ltv_discrete_host`): -1 when the build holds no Ltv policy at (nx, nu).
 template <typename S>
 int ltv_discrete_all(long long B, int nx, int nu, int integ, S dt,
                      const S* A, const S* Bm, const S* xd0, const S* x0,
-                     const S* u0, S* AdI, S* Bd, S* cd) {
+                     const S* u0, S* AdI, S* Bd, S* cd, int reverse) {
   return mpc::ltv_dispatch<S, MPC_CPU_FAMILIES>(
       nx, nu, [&](const auto& step) -> int {
         typedef std::decay_t<decltype(step)> Step;
-        for (long long b = 0; b < B; ++b)
-          mpc::ltv_discrete_instance<S, Step::NX, Step::NU>(
-              b, B, integ, dt, A, Bm, xd0, x0, u0, AdI, Bd, cd);
+        mpc::ltv_discrete_host<S, Step::NX, Step::NU>(
+            B, integ, dt, A, Bm, xd0, x0, u0, AdI, Bd, cd, reverse != 0);
         return 0;
       });
 }
@@ -387,18 +387,22 @@ int mpc_model_increment_cpu_f64(long long M, int model, int integ,
 }
 
 // The linearization at B points, batch-leading: x0 (B, nx), u0 (B, nu)
-// in, A (B, nx, nx), Bm (B, nx, nu), xd0 (B, nx) out.
+// in, A (B, nx, nx), Bm (B, nx, nu), xd0 (B, nx) out; a block's threads
+// last to first when `reverse`.
 int mpc_linearize_cpu_f32(long long B, int model, int nx, int nu,
                           const double* consts, const float* x0,
-                          const float* u0, float* A, float* Bm, float* xd0) {
-  return linearize_all<float>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0);
+                          const float* u0, float* A, float* Bm, float* xd0,
+                          int reverse) {
+  return linearize_all<float>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0,
+                              reverse);
 }
 
 int mpc_linearize_cpu_f64(long long B, int model, int nx, int nu,
                           const double* consts, const double* x0,
                           const double* u0, double* A, double* Bm,
-                          double* xd0) {
-  return linearize_all<double>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0);
+                          double* xd0, int reverse) {
+  return linearize_all<double>(B, model, nx, nu, consts, x0, u0, A, Bm, xd0,
+                               reverse);
 }
 
 // The LTV discretization of B batch-leading frozen points into the
@@ -407,18 +411,18 @@ int mpc_ltv_discrete_cpu_f32(long long B, int nx, int nu, int integ,
                              float dt, const float* A, const float* Bm,
                              const float* xd0, const float* x0,
                              const float* u0, float* AdI, float* Bd,
-                             float* cd) {
+                             float* cd, int reverse) {
   return ltv_discrete_all<float>(B, nx, nu, integ, dt, A, Bm, xd0, x0, u0,
-                                 AdI, Bd, cd);
+                                 AdI, Bd, cd, reverse);
 }
 
 int mpc_ltv_discrete_cpu_f64(long long B, int nx, int nu, int integ,
                              double dt, const double* A, const double* Bm,
                              const double* xd0, const double* x0,
                              const double* u0, double* AdI, double* Bd,
-                             double* cd) {
+                             double* cd, int reverse) {
   return ltv_discrete_all<double>(B, nx, nu, integ, dt, A, Bm, xd0, x0, u0,
-                                  AdI, Bd, cd);
+                                  AdI, Bd, cd, reverse);
 }
 
 }  // extern "C"

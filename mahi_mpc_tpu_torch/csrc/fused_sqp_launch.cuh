@@ -289,26 +289,56 @@ int block_info(int model, int nx, int nu, int integ, int ltv, int N,
 }
 
 // ---- the LTV path's linearization and discretization (model_linearize.cuh):
-// one thread an instance, 128 a block, float or double.
+// a block a tile of T instances x C tasks (`TileShape`), the tile in
+// dynamic shared memory, float or double.
 
 template <typename S, typename Model>
-__global__ void __launch_bounds__(128)
-linearize_kernel(long long B, Model m, const S* x0, const S* u0, S* A,
-                 S* Bm, S* xd0) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mpc::linearize_instance<S>(m, b, x0, u0, A, Bm, xd0);
+__global__ void __launch_bounds__(
+    mpc::LinearizeTile<S, Model>::Shape::kThreads,
+    mpc::LinearizeTile<S, Model>::kMinBlocks)
+linearize_tile_kernel(long long B, Model m, const S* x0, const S* u0, S* A,
+                      S* Bm, S* xd0) {
+  typedef mpc::LinearizeTile<S, Model> L;
+  extern __shared__ __align__(16) unsigned char ltv_tile[];
+  S* tile = reinterpret_cast<S*>(ltv_tile);
+  const long long b0 = (long long)blockIdx.x * L::Shape::T;
+  const int nb = (int)(B - b0 < L::Shape::T ? B - b0 : L::Shape::T);
+  const int t = (int)threadIdx.x;
+  L::load(t, nb, b0, x0, u0, tile);
+  __syncthreads();
+  L::task(m, t, nb, tile);
+  __syncthreads();
+  L::store(t, nb, b0, tile, A, Bm, xd0);
 }
 
 template <typename S, int NX, int NU>
-__global__ void __launch_bounds__(128)
-ltv_discrete_kernel(long long B, int integ, S dt, const S* A, const S* Bm,
-                    const S* xd0, const S* x0, const S* u0, S* AdI, S* Bd,
-                    S* cd) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mpc::ltv_discrete_instance<S, NX, NU>(b, B, integ, dt, A, Bm, xd0, x0, u0,
-                                        AdI, Bd, cd);
+__global__ void __launch_bounds__(
+    mpc::DiscreteTile<S, NX, NU>::Shape::kThreads,
+    mpc::DiscreteTile<S, NX, NU>::kMinBlocks)
+ltv_discrete_tile_kernel(long long B, int integ, S dt, const S* A,
+                         const S* Bm, const S* xd0, const S* x0,
+                         const S* u0, S* AdI, S* Bd, S* cd) {
+  typedef mpc::DiscreteTile<S, NX, NU> L;
+  extern __shared__ __align__(16) unsigned char ltv_tile[];
+  S* tile = reinterpret_cast<S*>(ltv_tile);
+  const long long b0 = (long long)blockIdx.x * L::Shape::T;
+  const int nb = (int)(B - b0 < L::Shape::T ? B - b0 : L::Shape::T);
+  const int t = (int)threadIdx.x;
+  L::load(t, nb, b0, A, Bm, xd0, x0, u0, tile);
+  __syncthreads();
+  L::task(t, nb, b0, B, integ, dt, tile, AdI, Bd, cd);
+}
+
+// Launches `kernel` of tile shape Sh over B instances on `stream`.
+template <typename Sh, typename K, typename... Args>
+int launch_tiles(K kernel, long long B, void* stream, Args... args) {
+  if (B <= 0) return 0;
+  const cudaError_t e = allow_smem(kernel, Sh::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((B + Sh::T - 1) / Sh::T);
+  kernel<<<grid, Sh::kThreads, Sh::kSmem,
+           static_cast<cudaStream_t>(stream)>>>(B, args...);
+  return (int)cudaGetLastError();
 }
 
 // Launch the linearization of model `model` (an mpc::ModelId, its
@@ -324,12 +354,8 @@ int launch_linearize(long long B, int model, int nx, int nu,
       model, consts, [&](const auto& m) -> int {
         typedef typename std::decay<decltype(m)>::type M;
         if (M::NX != nx || M::NU != nu) return -5;
-        if (B <= 0) return 0;
-        const unsigned grid = (unsigned)((B + 127) / 128);
-        linearize_kernel<S, M><<<grid, 128, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-            B, m, x0, u0, A, Bm, xd0);
-        return (int)cudaGetLastError();
+        return launch_tiles<typename mpc::LinearizeTile<S, M>::Shape>(
+            linearize_tile_kernel<S, M>, B, stream, m, x0, u0, A, Bm, xd0);
       });
 }
 
@@ -345,37 +371,47 @@ int launch_ltv_discrete(long long B, int nx, int nu, int integ, S dt,
                         const S* u0, S* AdI, S* Bd, S* cd, void* stream) {
   return mpc::ltv_dispatch<S, kFamilies>(nx, nu, [&](const auto& step) -> int {
     typedef typename std::decay<decltype(step)>::type Step;
-    if (B <= 0) return 0;
-    const unsigned grid = (unsigned)((B + 127) / 128);
-    ltv_discrete_kernel<S, Step::NX, Step::NU>
-        <<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-            B, integ, dt, A, Bm, xd0, x0, u0, AdI, Bd, cd);
-    return (int)cudaGetLastError();
+    constexpr int NX = Step::NX, NU = Step::NU;
+    return launch_tiles<typename mpc::DiscreteTile<S, NX, NU>::Shape>(
+        ltv_discrete_tile_kernel<S, NX, NU>, B, stream, integ, dt, A, Bm,
+        xd0, x0, u0, AdI, Bd, cd);
   });
 }
 
 // Blocks an SM of the float (`f64` 0) or double linearization kernel of
 // `model`, or of the discretization kernel at (nx, nu) when `model` is
-// kLtvDiscreteQuery; -1 when this library holds neither, or the CUDA error
-// code negated.
+// kLtvDiscreteQuery, at its block and shared memory; its tile in
+// tile[0..3]: instances a tile, threads an instance, threads a block,
+// shared bytes a block.  -1 when this library holds neither, or the CUDA
+// error code negated.
 constexpr int kLtvDiscreteQuery = -100;
 template <int kFamilies, typename S>
-int ltv_path_blocks_per_sm(int model, int nx, int nu) {
+int ltv_path_blocks_per_sm(int model, int nx, int nu, int* tile) {
   static const double consts[256] = {};   // the model's constants: unused
-  auto query = [](auto kernel) -> int {
+  auto query = [tile](auto kernel, auto shape) -> int {
+    typedef decltype(shape) Sh;
+    tile[0] = Sh::T;
+    tile[1] = Sh::kTasks;
+    tile[2] = Sh::kThreads;
+    tile[3] = Sh::kSmem;
     int n = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 128, 0);
+    cudaError_t e = allow_smem(kernel, Sh::kSmem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, Sh::kThreads, Sh::kSmem);
     return e == cudaSuccess ? n : -(int)e;
   };
   if (model == kLtvDiscreteQuery)
     return mpc::ltv_dispatch<S, kFamilies>(nx, nu, [&](const auto& step) {
       typedef typename std::decay<decltype(step)>::type Step;
-      return query(ltv_discrete_kernel<S, Step::NX, Step::NU>);
+      constexpr int NX = Step::NX, NU = Step::NU;
+      return query(ltv_discrete_tile_kernel<S, NX, NU>,
+                   typename mpc::DiscreteTile<S, NX, NU>::Shape{});
     });
   return mpc::model_dispatch<S, kFamilies>(model, consts, [&](const auto& m) {
     typedef typename std::decay<decltype(m)>::type M;
-    return query(linearize_kernel<S, M>);
+    return query(linearize_tile_kernel<S, M>,
+                 typename mpc::LinearizeTile<S, M>::Shape{});
   });
 }
 
@@ -395,8 +431,8 @@ int ltv_path_blocks_per_sm(int model, int nx, int nu) {
                                              stream);                        \
   }                                                                          \
   extern "C" int mpc_ltv_path_blocks_per_sm_##bits(int model, int nx,        \
-                                                   int nu) {                 \
-    return ltv_path_blocks_per_sm<kFamilies, S>(model, nx, nu);              \
+                                                   int nu, int* tile) {      \
+    return ltv_path_blocks_per_sm<kFamilies, S>(model, nx, nu, tile);        \
   }
 
 // The plain C interface of one library, for ctypes: the launcher (device

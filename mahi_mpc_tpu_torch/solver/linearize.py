@@ -7,7 +7,9 @@ model.  The JAX package compiles both functions: the service's
 (``mahi_mpc_tpu/runtime/batch_service.py:117-123``) and ``_ltv_discrete``
 inside the jitted fused wrapper (``mahi_mpc_tpu/solver/fused.py:950-953``).
 Here each has a hand-written CUDA kernel (``csrc/model_linearize.cuh``,
-one thread an instance, float32 or float64) and its plain PyTorch version:
+float32 or float64: a block a tile of instances, a thread a column task of
+one instance, the tile staged through shared memory) and its plain PyTorch
+version:
 
 - ``linearize_batch(dyn, x0, u0)``: (A, B, x_dot0) = (df/dx, df/du, f) at B
   points, batch-leading as ``LinPoint`` keeps them.  Its kernel lives with
@@ -37,8 +39,9 @@ build or launch that fails raises.  Launches are counted in
 ``linearize_batch.launches`` and ``ltv_discrete.launches``, calls of the
 plain versions in ``linearize_batch_plain.calls`` and
 ``ltv_discrete_plain.calls``.  ``*_cpu_kernel`` run the kernels' own
-arithmetic built by g++ (the tests); ``count_*_ops`` count their
-operations on a counting scalar (``csrc/flop_count.cpp``).
+blocks built by g++ (the tests); ``count_*_ops`` count their operations on
+a counting scalar (``csrc/flop_count.cpp``); ``linearize_tile`` and
+``ltv_discrete_tile`` report a kernel's tile and occupancy on the card.
 """
 
 from __future__ import annotations
@@ -197,13 +200,15 @@ def linearize_batch_plain(dyn, x0: Tensor, u0: Tensor):
 linearize_batch_plain.calls = 0
 
 
-def linearize_batch_cpu_kernel(dyn, x0: Tensor, u0: Tensor):
-    """The kernel's arithmetic built by g++ (float32 or float64 CPU
-    tensors, a model with a CUDA form): how the tests run it without a
-    card."""
+def linearize_batch_cpu_kernel(dyn, x0: Tensor, u0: Tensor,
+                               reverse: bool = False):
+    """The kernel's blocks built by g++ (float32 or float64 CPU tensors, a
+    model with a CUDA form), each phase's threads one after another (last
+    to first with ``reverse``): how the tests run it without a card."""
     bits, _ = _real(x0)
     fn = getattr(_cpu_build(dyn, "fused_sqp"), f"mpc_linearize_cpu_{bits}")
-    return _linearize_call(fn, dyn, x0, u0, None)
+    return _linearize_call(lambda *a: fn(*a, int(reverse)), dyn, x0, u0,
+                           None)
 
 
 # ---- the discretization ------------------------------------------------------
@@ -275,14 +280,51 @@ def ltv_discrete_plain(prob: ShootingProblem, p: MPCParams):
 ltv_discrete_plain.calls = 0
 
 
-def ltv_discrete_cpu_kernel(prob: ShootingProblem, p: MPCParams):
-    """The kernel's arithmetic built by g++ (float32 or float64 CPU
-    tensors): the hand-written build for ``fused.LTV_SHAPES``, the
-    problem's generated one for any other shape."""
+def ltv_discrete_cpu_kernel(prob: ShootingProblem, p: MPCParams,
+                            reverse: bool = False):
+    """The kernel's blocks built by g++ (float32 or float64 CPU tensors;
+    ``reverse`` as ``linearize_batch_cpu_kernel``): the hand-written build
+    for ``fused.LTV_SHAPES``, the problem's generated one for any other
+    shape."""
     bits, _ = _real(p.x0)
     fn = getattr(_cpu_library(prob, "fused_sqp"),
                  f"mpc_ltv_discrete_cpu_{bits}")
-    return _discrete_call(fn, prob, p, None)
+    return _discrete_call(lambda *a: fn(*a, int(reverse)), prob, p, None)
+
+
+# ---- the kernels' tiles on the card ------------------------------------------
+
+# ``mpc_ltv_path_blocks_per_sm``'s model for the discretization
+# (csrc/fused_sqp_launch.cuh kLtvDiscreteQuery)
+_DISCRETE_QUERY = -100
+
+
+def _tile(library: str, model: int, nx: int, nu: int, dtype) -> dict:
+    from .._build import cuda_build
+    bits, _ = _REALS[dtype]
+    out = (ctypes.c_int * 4)()
+    n = getattr(cuda_build(library)[0],
+                f"mpc_ltv_path_blocks_per_sm_{bits}")(model, nx, nu, out)
+    if n < 0:
+        raise RuntimeError(f"no LTV kernel at ({nx}, {nu}) in {library} "
+                           f"(code {n})")
+    return dict(zip(("instances", "threads_per_instance", "threads",
+                     "smem_bytes"), out), blocks_per_sm=n)
+
+
+def linearize_tile(dyn, dtype=torch.float32) -> dict:
+    """The linearization kernel of ``dyn`` in ``dtype`` (a model on the
+    kernel route): instances a tile, threads an instance, threads and
+    shared bytes a block, blocks an SM (needs the card)."""
+    return _tile(linearize_library(dyn), _model_args(dyn)[0], dyn.nx,
+                 dyn.nu, dtype)
+
+
+def ltv_discrete_tile(prob: ShootingProblem, dtype=torch.float32) -> dict:
+    """The discretization kernel of ``prob``'s shape in ``dtype``, as
+    ``linearize_tile`` reports it."""
+    return _tile(_cuda_library(prob), _DISCRETE_QUERY, prob.nx, prob.nu,
+                 dtype)
 
 
 # ---- operation counts (the kernels' roofline bounds) -------------------------
@@ -294,13 +336,24 @@ def _host64(t: Tensor) -> Tensor:
     return t.detach().to("cpu", torch.float64).contiguous()
 
 
+def _body_and_minimum(counts: Tensor) -> dict:
+    """{"body": the tasks' own tally, "minimum": the function's operations,
+    each counted once (the tally less what the tasks repeat)}, each as
+    {"add", "mul", "div_sqrt", "transcendental"}."""
+    return dict(body=dict(zip(_KINDS, counts[:4].tolist())),
+                minimum=dict(zip(_KINDS, (counts[:4] - counts[4:]).tolist())))
+
+
 def count_linearize_ops(dyn, x0: Tensor, u0: Tensor) -> dict:
     """The linearization kernel's floating-point operations at these points
-    (``linearize_one`` run by g++ on a counting scalar, float64 copies),
-    as {"add", "mul", "div_sqrt", "transcendental"} summed over them."""
+    (its tasks run by g++ on a counting scalar, float64 copies), summed
+    over them, as ``_body_and_minimum`` gives them: the minimum counts the
+    value part once (a serial arm's q tasks each form it, and its qd tasks
+    run the chain's values again; every other model's one-tangent passes
+    each form f), and is the numerator of the kernel's roofline bound."""
     lib = _cpu_build(dyn, "flop_count")
     x0, u0 = _host64(x0), _host64(u0)
-    counts = torch.zeros(4, dtype=torch.float64)
+    counts = torch.zeros(8, dtype=torch.float64)
     model, consts = _model_args(dyn)
     rc = lib.mpc_linearize_count_ops(x0.shape[0], model, dyn.nx, dyn.nu,
                                      consts, x0.data_ptr(), u0.data_ptr(),
@@ -308,18 +361,19 @@ def count_linearize_ops(dyn, x0: Tensor, u0: Tensor) -> dict:
     if rc != 0:
         raise ValueError(f"no linearization of {dyn.name!r} to count "
                          f"(code {rc})")
-    return dict(zip(_KINDS, counts.tolist()))
+    return _body_and_minimum(counts)
 
 
 def count_ltv_discrete_ops(prob: ShootingProblem, p: MPCParams) -> dict:
     """The discretization kernel's operations on these frozen points, as
-    ``count_linearize_ops`` counts them."""
+    ``count_linearize_ops`` counts them (each pass forms the step's value:
+    the minimum counts it once)."""
     lin = [_host64(t) for t in check_lin(prob, p)]
-    counts = torch.zeros(4, dtype=torch.float64)
+    counts = torch.zeros(8, dtype=torch.float64)
     rc = _cpu_library(prob, "flop_count").mpc_ltv_discrete_count_ops(
         p.x0.shape[0], prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
         float(prob.dt), *[t.data_ptr() for t in lin], counts.data_ptr())
     if rc != 0:
         raise ValueError(f"no Ltv policy at ({prob.nx}, {prob.nu}) to "
                          f"count (code {rc})")
-    return dict(zip(_KINDS, counts.tolist()))
+    return _body_and_minimum(counts)

@@ -1,13 +1,16 @@
 """The LTV path's kernels on the CPU (``solver/linearize.py``): the
 linearization and the affine discretization built by g++ from the sources
-nvcc builds for the card (``csrc/model_linearize.cuh``), and their plain
-versions, against the JAX package on the same numpy inputs; the LTV
-service with the g++ bodies against the JAX service; and the route a model
-takes.
+nvcc builds for the card (``csrc/model_linearize.cuh``: the card's blocks,
+tile after tile, each phase's threads one after another), and their plain
+versions, against the JAX package on the same numpy inputs; the blocks at
+partial and full tiles against the plain version, and with their threads
+in reverse order; the LTV service with the g++ bodies against the JAX
+service; and the route a model takes.
 
-Bands: relative to max|.| of the JAX output, 1e-9 in float64 and 2e-5 in
-float32 (the arm's folded columns agree with ``jacfwd`` to rounding; an
-RK4 step's rows are formed directly, not as Ad - I).
+Bands: relative to max|.| of the reference output, 1e-9 in float64 and
+1e-5 in float32 (the arm's folded columns agree with ``jacfwd`` to
+rounding; an RK4 step's rows are formed directly, not as Ad - I; the
+largest float32 reading is 2.6e-6, the (6, 3) midpoint step's cd).
 """
 
 import functools
@@ -35,12 +38,14 @@ from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.runtime import BatchModelControl
 from mahi_mpc_tpu_torch.runtime import batch_service
 from mahi_mpc_tpu_torch.solver import fused, linearize as lz
+from mahi_mpc_tpu_torch.transcribe.shooting import LinPoint, MPCParams
+from mahi_mpc_tpu_torch.transcribe.shooting import default_params
 from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
 
 torch.set_num_threads(1)
 
 B = 3
-TOLS = {"float64": 1e-9, "float32": 2e-5}
+TOLS = {"float64": 1e-9, "float32": 1e-5}
 REGISTERED = ("mahi_arm", "two_link_arm", "pendulum", "cartpole",
               "double_pendulum", "acrobot")
 
@@ -100,10 +105,10 @@ def _jax_linearize(name, dtype):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("name", REGISTERED + ("chain3",))
 def test_linearize_matches_jax(name, dtype):
-    """The g++ build of ``linearize_one`` and the plain version against
-    the JAX package's jitted ``vmap(dynamics.linearize)`` on numpy seed 0's
-    points: A, B and x_dot0, each within the dtype's band; both routes
-    resolve to the kernel."""
+    """The g++ build of the linearization's blocks and the plain version
+    against the JAX package's jitted ``vmap(dynamics.linearize)`` on numpy
+    seed 0's points: A, B and x_dot0, each within the dtype's band; both
+    routes resolve to the kernel."""
     dyn, _ = _models(name)
     assert lz.linearize_route(dyn) == "kernel"
     x0, u0 = [torch.tensor(a, dtype=getattr(torch, dtype))
@@ -146,9 +151,9 @@ def _ltv_case(shape, integrator, dtype):
 @pytest.mark.parametrize("shape", [(8, 4), (4, 1), (6, 3)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_ltv_discrete_matches_jax(shape, integrator, dtype):
-    """The g++ build of ``ltv_discrete_one`` and the plain version against
-    the JAX package's ``_ltv_discrete`` minus I: (Ad - I, Bd, cd) within the
-    dtype's band; the kernel's outputs are batch-leading views of
+    """The g++ build of the discretization's blocks and the plain version
+    against the JAX package's ``_ltv_discrete`` minus I: (Ad - I, Bd, cd)
+    within the dtype's band; the kernel's outputs are batch-leading views of
     batch-innermost storage (what the fused solve streams, uncopied)."""
     prob, p, ref = _ltv_case(shape, integrator, dtype)
     assert (fused.generated_unit(prob) is None) == (shape != (6, 3))
@@ -160,24 +165,142 @@ def test_ltv_discrete_matches_jax(shape, integrator, dtype):
             assert _rel(g, r) <= TOLS[dtype], _rel(g, r)
 
 
+# ---- the blocks: partial and full tiles, threads in any order ----------------
+
+# A tile holds 32 instances (64 where a block would have fewer than 128
+# threads): one partial tile, a full one and a partial one, or partial ones.
+TILE_BATCHES = (1, 33, 37)
+SHAPES = {(8, 4): "mahi_arm", (4, 1): "cartpole", (6, 3): "chain3"}
+
+
+def _unaligned(t):
+    """``t`` copied to storage one element past a 16-byte boundary: the
+    tile's spans then take their scalar copy."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def _tile_points(dyn, B, dtype):
+    rng = np.random.default_rng(B)
+    x0, u0 = [torch.tensor(a, dtype=dtype) for a in (
+        0.5 * rng.standard_normal((B, dyn.nx)),
+        rng.standard_normal((B, dyn.nu)))]
+    return (x0, u0) if B != 37 else (_unaligned(x0), _unaligned(u0))
+
+
+def _tile_frozen(shape, integrator, B, dtype):
+    """An LTV problem at ``shape`` and B frozen points drawn from numpy
+    seed B (a frozen linearization of any values: the step is affine in
+    it), unaligned at B=37."""
+    dyn = _models(SHAPES[shape])[0]
+    mp = ModelParameters("ltv", num_x=dyn.nx, num_u=dyn.nu, step_size=0.02,
+                         num_shooting_nodes=5, is_linear=True,
+                         integrator=integrator)
+    p = default_params(mp, dtype=dtype, device="cpu")
+    p = MPCParams(*[type(f)(*[a.expand((B,) + a.shape) for a in f])
+                    if isinstance(f, tuple) else f.expand((B,) + f.shape)
+                    for f in p])
+    rng = np.random.default_rng(B)
+    nx, nu = dyn.nx, dyn.nu
+    lin = [torch.tensor(rng.standard_normal((B,) + s), dtype=dtype)
+           for s in ((nx, nx), (nx, nu), (nx,), (nx,), (nu,))]
+    if B == 37:
+        lin = [_unaligned(t) for t in lin]
+    return make_problem(mp, dyn), p._replace(
+        x0=lin[3], u_prev=lin[4], lin=LinPoint(*lin))
+
+
+def _rel_t(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("B", TILE_BATCHES)
+@pytest.mark.parametrize("name", REGISTERED + ("chain3",))
+def test_linearize_tiles_match_plain(name, B):
+    """The g++ blocks of the linearization at B = 1, 33, 37 (at 37 from
+    unaligned inputs) against the plain version on the same points: A, B
+    and x_dot0 within the dtype's band, float64 and float32."""
+    dyn, _ = _models(name)
+    for dtype in (torch.float64, torch.float32):
+        x0, u0 = _tile_points(dyn, B, dtype)
+        got = lz.linearize_batch_cpu_kernel(dyn, x0, u0)
+        want = lz.linearize_batch_plain(dyn, x0, u0)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert _rel_t(g, w) <= TOLS[str(dtype)[6:]], (dtype, _rel_t(g, w))
+
+
+@pytest.mark.parametrize("B", TILE_BATCHES)
+@pytest.mark.parametrize("integrator", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ltv_discrete_tiles_match_plain(shape, integrator, B):
+    """The g++ blocks of the discretization at B = 1, 33, 37 (at 37 from
+    unaligned frozen points) against the plain version: (Ad - I, Bd, cd)
+    within the dtype's band, float64 and float32, batch-innermost under
+    batch-leading views."""
+    for dtype in (torch.float64, torch.float32):
+        prob, p = _tile_frozen(shape, integrator, B, dtype)
+        got = lz.ltv_discrete_cpu_kernel(prob, p)
+        assert all(g.movedim(0, -1).is_contiguous() for g in got)
+        for g, w in zip(got, lz.ltv_discrete_plain(prob, p)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert _rel_t(g, w) <= TOLS[str(dtype)[6:]], (dtype, _rel_t(g, w))
+
+
+@pytest.mark.parametrize("name", REGISTERED + ("chain3",))
+def test_linearize_tasks_share_no_state(name):
+    """Each phase's threads run last to first give bitwise the outputs of
+    first to last, at B=37 in float64 and float32: no task reads what
+    another writes."""
+    dyn, _ = _models(name)
+    for dtype in (torch.float64, torch.float32):
+        x0, u0 = _tile_points(dyn, 37, dtype)
+        fwd = lz.linearize_batch_cpu_kernel(dyn, x0, u0)
+        back = lz.linearize_batch_cpu_kernel(dyn, x0, u0, reverse=True)
+        assert all(torch.equal(f, b) for f, b in zip(fwd, back))
+
+
+@pytest.mark.parametrize("integrator", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ltv_discrete_tasks_share_no_state(shape, integrator):
+    """As ``test_linearize_tasks_share_no_state``, for the
+    discretization."""
+    for dtype in (torch.float64, torch.float32):
+        prob, p = _tile_frozen(shape, integrator, 37, dtype)
+        fwd = lz.ltv_discrete_cpu_kernel(prob, p)
+        back = lz.ltv_discrete_cpu_kernel(prob, p, reverse=True)
+        assert all(torch.equal(f, b) for f, b in zip(fwd, back))
+
+
 def test_ltv_operation_counts():
     """The operation counts the smoke's bounds divide: the arm's
     linearization does its q columns' chain passes and the user chain's
     (its generated build) a dual pass a column, each with the joint
     angles' sines (transcendental operations); the (8, 4) discretization
     under Euler one affine pass a column (no division, no transcendental)
-    and RK4 about four times Euler's."""
+    and RK4 about four times Euler's.  The tasks' own tallies are the
+    one-thread kernels' (34,888 an instance for the arm, 7,500 for the
+    (8, 4) Euler step: the tasks do each pass once); the minimum, the
+    bounds' numerator, counts the value part once: 21,140 and 4,057."""
+    minimum = {"mahi_arm": 21140, "chain3": 297}
     for name in ("mahi_arm", "chain3"):
         dyn = _models(name)[0]
         x0, u0 = [torch.tensor(a) for a in _points(dyn)]
         lin = lz.count_linearize_ops(dyn, x0, u0)
-        assert lin["transcendental"] > 0 and lin["mul"] > 0
+        assert lin["body"]["transcendental"] > 0 and lin["body"]["mul"] > 0
+        assert 0 < lin["minimum"]["transcendental"] \
+            < lin["body"]["transcendental"]
+        assert sum(lin["minimum"].values()) == minimum[name] * B
+        if name == "mahi_arm":
+            assert sum(lin["body"].values()) == 34888 * B
     counts = {}
     for integrator in ("euler", "rk4"):
         prob, p, _ = _ltv_case((8, 4), integrator, "float64")
         counts[integrator] = lz.count_ltv_discrete_ops(prob, p)
-    euler, rk4 = counts["euler"], counts["rk4"]
+    euler, rk4 = counts["euler"]["body"], counts["rk4"]["body"]
     assert euler["div_sqrt"] == euler["transcendental"] == 0
+    assert sum(euler.values()) == 7500 * B
+    assert sum(counts["euler"]["minimum"].values()) == 4057 * B
     assert 3.5 < (rk4["add"] + rk4["mul"]) / (euler["add"] + euler["mul"]) \
         < 4.5
 

@@ -29,19 +29,35 @@ timing build that holds both (``_cuda_library(prob, both_bodies=True)``;
 in turns thread, group, group, thread), with whether the two bodies'
 fixed-3 outputs are equal bit for bit; the case's line names the body
 the launcher's rule picks.
+The LTV path's own two kernels, linearization and discretization
+(``ltv-kernel`` cases: ``chip_smoke.py``'s ``LTV_LINEARIZE_CASES`` and
+``LTV_DISCRETE_CASES`` at B=16384 and B=1, its ``ltv_case`` data from
+numpy seed ``LTV_SEED``): one launch timed with CUDA events around 50
+launches of its launcher, the inputs ready (``chip_smoke.py``
+``ltv_kernel_event_ms``), the outputs held to the plain version run in
+float64 on the same inputs (``LTV_BAND`` of max|.|; the float32 plain
+version's own Ad - I loses digits to cancellation), with the kernel's
+tile where the checkout reports one; and the LTV service's warm step at
+B=16384 (``ltv-service``: ``chip_smoke.py``'s ``service_ltv`` set-up,
+``LTV_WARM_STEPS`` steps timed with CUDA events after a cold one).
 ``--match REGEX`` keeps the cases whose key (``mahi_arm-euler-ltv-b1``,
+``ltv-kernel-linearize-mahi_arm-euler-b1``, ``ltv-service-mahi_arm-b16384``,
 as ``--save`` names them) it finds, to repeat a few cases in turns.
 ``--save``
 writes the SHA-256 of each case's adaptive cold and fixed-3 warm X, U and
-iterations (their bytes), and the body that computed them, to a JSON
-file, so that two checkouts' outputs on the card can be compared bit for
-bit: ``--compare A.json B.json`` prints, for each case and run, whether
-they are equal (a case whose bodies differ between the two is listed and
-not compared), and builds nothing.  Prints one JSON line a case, the libraries'
-``-Xptxas -v`` lines of the fused kernels, and the card's ``nvidia-smi``
-name and power limit.  To compare two checkouts, run it for each in turns
-on the same card (parent, change, change, parent, ...).  Exits 1 without a
-CUDA device, or when a case is beyond the band of its plain version.
+iterations (their bytes), and the body that computed them, and of each
+LTV kernel case's inputs and outputs, to a JSON file (the LTV kernels'
+outputs themselves to an .npz beside it), so that two checkouts' outputs
+on the card can be compared bit for bit: ``--compare A.json B.json``
+prints, for each case and run, whether they are equal (a case whose
+bodies differ between the two is listed and not compared) and, for an
+output that differs where both .npz files are there, its largest
+difference (absolute, and over max|.|), and builds nothing.  Prints one
+JSON line a case, the libraries' ``-Xptxas -v`` lines, and the card's
+``nvidia-smi`` name and power limit.  To compare two checkouts, run it for
+each in turns on the same card (parent, change, change, parent, ...).
+Exits 1 without a CUDA device, or when a case is beyond the band of its
+plain version.
 """
 
 import argparse
@@ -96,12 +112,23 @@ GENERATED = (("ltv_12x6", 16384), ("ltv_6x3", 16384),
 LIBRARIES = ("fused_sqp", "fused_sqp_ltv", "fused_sqp_generic",
              "fused_sqp_models")
 PLAIN_BAND = 1e-4
+# the LTV path's kernels at the LTV service's batch and the single robot's,
+# on data from one seed in every checkout; the LTV service's warm steps
+LTV_BATCHES = (16384, 1)
+LTV_SEED = 16
+LTV_WARM_STEPS = 20
 
 
 def compare(a: str, b: str) -> int:
     """Print, for each array of two ``--save`` files, whether its bytes
-    are equal in both; 0 when every array matches."""
+    are equal in both, and an LTV kernel output's largest difference where
+    they are not; 0 when every array matches."""
+    import numpy as np
+
     A, B = (json.loads(Path(f).read_text()) for f in (a, b))
+    arrays = [np.load(Path(f).with_suffix(".npz"))
+              if Path(f).with_suffix(".npz").exists() else None
+              for f in (a, b)]
     same = sorted(A) == sorted(B)
     for key in sorted(set(A) & set(B)):
         if key.endswith("/body"):
@@ -112,11 +139,110 @@ def compare(a: str, b: str) -> int:
             print(json.dumps(dict(key=key, bitwise_equal=None,
                                   bodies=bodies)))
             continue
-        print(json.dumps(dict(key=key, bitwise_equal=A[key] == B[key],
-                              body=bodies[0])))
+        line = dict(key=key, bitwise_equal=A[key] == B[key], body=bodies[0])
+        npz = key.replace("/", ":")
+        if not line["bitwise_equal"] and all(
+                z is not None and npz in z for z in arrays):
+            x, y = (z[npz].astype(np.float64) for z in arrays)
+            d = float(np.abs(x - y).max())
+            line.update(max_abs_diff=d, max_rel_diff=d / max(
+                float(np.abs(y).max()), 1e-300))
+        print(json.dumps(line))
         same &= A[key] == B[key]
     print(json.dumps(dict(compared=[a, b], all_bitwise_equal=same)))
     return 0 if same else 1
+
+
+def ltv_case_keys(smoke) -> list:
+    """(key, kind, model, integrator, batch) of the LTV kernel cases."""
+    cases = [("linearize", name, "euler")
+             for name in smoke.LTV_LINEARIZE_CASES] + \
+        [("ltv_discrete", name, integrator)
+         for name, integrator in smoke.LTV_DISCRETE_CASES]
+    return [(f"ltv-kernel-{kind}-{name}-{integrator}-b{B}", kind, name,
+             integrator, B) for kind, name, integrator in cases
+            for B in LTV_BATCHES]
+
+
+def ltv_kernel_case(smoke, lz, case, data, saved, arrays) -> dict:
+    """One LTV kernel case: its launch ms, its outputs held to the float64
+    plain version, their digests (and the outputs) into saved (arrays)."""
+    import torch
+
+    key, kind, name, integrator, B = case
+    dyn, prob, p = data
+    if kind == "linearize":
+        call = lambda: lz.linearize_batch(dyn, p.x0, p.u_prev)
+        plain = lz.linearize_batch_plain(dyn, p.x0.double(),
+                                         p.u_prev.double())
+        ins, tile = (p.x0, p.u_prev), getattr(lz, "linearize_tile", None)
+        tile = tile(dyn) if tile else None
+    else:
+        call = lambda: lz.ltv_discrete(prob, p)
+        lin64 = type(p.lin)(*[t.double() for t in p.lin])
+        plain = lz.ltv_discrete_plain(prob, p._replace(x0=p.x0.double(),
+                                                       lin=lin64))
+        ins, tile = tuple(p.lin), getattr(lz, "ltv_discrete_tile", None)
+        tile = tile(prob) if tile else None
+    out = call()
+    torch.cuda.synchronize()
+    err = max(((g.double() - w).abs().max() / w.abs().max()).item()
+              for g, w in zip(out, plain))
+    digest = lambda t: hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    for i, t in enumerate(ins):
+        saved[f"{key}/in/{i}"] = digest(t)
+    for i, t in enumerate(out):
+        saved[f"{key}/out/{i}"] = digest(t)
+        arrays[f"{key}:out:{i}"] = t.detach().cpu().numpy()
+    return dict(case=key, batch=B, ms=smoke.ltv_kernel_event_ms(call),
+                max_rel_err_vs_plain=err, within_band=err <= smoke.LTV_BAND,
+                tile=tile)
+
+
+def ltv_service_case(smoke, dev) -> dict:
+    """The LTV service's warm step at chip_smoke.py's ``service_ltv``
+    set-up (the 4-DOF arm, B=16384, fixed-3 warm solves): a cold step,
+    then LTV_WARM_STEPS warm steps each timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.runtime import BatchModelControl
+
+    rng = np.random.default_rng(LTV_SEED)
+    mp, _, _ = smoke.model_batch(dev, rng, "mahi_arm", 1, is_linear=True)
+    Bs, nx, N = smoke.SERVICE_BATCH, mp.num_x, smoke.N_NODES
+    svc = BatchModelControl(mp, batch=Bs, device=dev,
+                            opts=SolverOptions(tol=1e-4, max_iter=30,
+                                               fixed_warm_iters=3),
+                            Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4,
+                            Rm=[0.01] * 4)
+    x0 = 0.2 * rng.standard_normal((Bs, nx))
+    svc.set_states(x0)
+    svc.set_references(0.2 * rng.standard_normal((Bs, N, nx)))
+    u = svc.step()
+    tgrid = np.arange(1, N + 1) * mp.step_size
+    phase = rng.uniform(0, 2 * np.pi, (Bs, 1, 1))
+    amp = 0.2 * rng.standard_normal((Bs, 1, nx))
+    step_ms = []
+    for i in range(LTV_WARM_STEPS):
+        svc.set_states(x0 + 0.01 * rng.standard_normal((Bs, nx)), u_prev=u)
+        svc.set_references(amp * np.sin(2 * np.pi * (
+            tgrid[None, :, None] + i * mp.step_size) + phase))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u = svc.step()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    return dict(case=f"ltv-service-mahi_arm-b{Bs}", batch=Bs,
+                warm_solver=svc.warm_solver,
+                ms_per_warm_step=float(np.mean(step_ms)),
+                ms_p50=float(np.percentile(step_ms, 50)),
+                ms_all=step_ms,
+                converged_frac=svc.metrics()["converged_frac"])
 
 
 def main() -> int:
@@ -148,6 +274,7 @@ def main() -> int:
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch._build import cuda_build
     from mahi_mpc_tpu_torch.solver import fused as fused_mod
+    from mahi_mpc_tpu_torch.solver import linearize as lz
     from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
                                                  _model_id, card_body,
                                                  solve_batch_fused,
@@ -173,16 +300,31 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    kept = lambda key: not args.match or re.search(args.match, key)
+    user = smoke.user_dynamics()
+    cases = [(f"{name}-{integrator}" + ("-ltv" if is_linear else "")
+              + f"-b{batch}", name, integrator, is_linear, batch)
+             for name, integrator, is_linear, batch in list(CASES) + [
+                 (name, user[name][1], user[name][2], batch)
+                 for name, batch in GENERATED]]
+    cases = [c for c in cases if kept(c[0])]
     generated = {(name, batch): smoke.generated_batch(
         dev, np.random.default_rng(0), name, batch)
-        for name, batch in GENERATED}
+        for name, batch in GENERATED
+        if any(c[1:2] + c[4:] == (name, batch) for c in cases)}
+    ltv_cases = [c for c in ltv_case_keys(smoke) if kept(c[0])]
+    ltv_data = {c[0]: smoke.ltv_case(dev, np.random.default_rng(LTV_SEED),
+                                     c[2], c[4], c[3]) for c in ltv_cases}
     # the generated libraries, and their timing builds where the checkout
-    # has them (both bodies of an LTV shape)
+    # has them (both bodies of an LTV shape); the LTV kernels' libraries
     timing = "both_bodies" in inspect.signature(_cuda_library).parameters
     names = list(dict.fromkeys(list(LIBRARIES) + [
         lib for prob, _ in generated.values()
         for lib in ([_cuda_library(prob)] + ([_cuda_library(
-            prob, both_bodies=True)] if timing else []))]))
+            prob, both_bodies=True)] if timing else []))] + [
+        lz.linearize_library(dyn) if c[1] == "linearize"
+        else _cuda_library(prob)
+        for c in ltv_cases for dyn, prob, _ in [ltv_data[c[0]]]]))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         libs = dict(zip(names, ex.map(cuda_build, names)))
@@ -213,15 +355,8 @@ def main() -> int:
         return max((r.X - ref.X).abs().max().item(),
                    (r.U - ref.U).abs().max().item())
 
-    saved, bad = {}, 0
-    user = smoke.user_dynamics()
-    cases = list(CASES) + [(name, user[name][1], user[name][2], batch)
-                           for name, batch in GENERATED]
-    for name, integrator, is_linear, batch in cases:
-        key = (f"{name}-{integrator}" + ("-ltv" if is_linear else "")
-               + f"-b{batch}")
-        if args.match and not re.search(args.match, key):
-            continue
+    saved, arrays, bad = {}, {}, 0
+    for key, name, integrator, is_linear, batch in cases:
         if (name, batch) in generated:
             prob, p = generated[name, batch]
         else:
@@ -300,8 +435,19 @@ def main() -> int:
             for field in ("X", "U", "iters"):
                 saved[f"{key}/{run}/{field}"] = hashlib.sha256(
                     getattr(r, field).cpu().numpy().tobytes()).hexdigest()
+    for case in ltv_cases:
+        line = ltv_kernel_case(smoke, lz, case, ltv_data[case[0]], saved,
+                               arrays)
+        bad += not line["within_band"]
+        print(json.dumps(dict(label=label, **line, nvidia_smi=smi)),
+              flush=True)
+    if kept(f"ltv-service-mahi_arm-b{smoke.SERVICE_BATCH}"):
+        print(json.dumps(dict(label=label, **ltv_service_case(smoke, dev),
+                              nvidia_smi=smi)), flush=True)
     if args.save:
         Path(args.save).write_text(json.dumps(saved, indent=0))
+        if arrays:
+            np.savez(Path(args.save).with_suffix(".npz"), **arrays)
     print(smi, flush=True)
     if bad:
         print(f"time_fused_modes: {bad} cases beyond {PLAIN_BAND} of the "
