@@ -202,10 +202,10 @@ line each, with the seconds since start in ``t``:
     from it in float64 too (PERF.md);
 17. batch_scenarios — ``examples/batch_scenarios.py`` at its defaults
     (``mahi_arm``, B=4096, 50 steps, RK4 plant on the card) inside
-    ``device_trace``, one ``annotate`` region a step: solves/s,
-    converged_frac (>= 0.9 after the cold step), the share within 0.05 rad
-    of the goal, one fused launch a step, and the exported trace must name
-    the fused kernel and the region;
+    ``device_trace``, one ``annotate`` region a step: the last solve's
+    seconds, converged_frac (>= 0.9 after the cold step), the share
+    within 0.05 rad of the goal, one fused launch a step, and the
+    exported trace must name the fused kernel and the region;
 18. sharded_service — phase 4's fixed-3 service (B=16384, 1 cold + 10
     warm steps) without a mesh, on a mesh of the one card and on a mesh of
     the card twice (two batch shards) at B=16384 and B=16383 (padded by
@@ -2599,7 +2599,7 @@ def batch_scenarios_phase(dev) -> int:
     line = dict(
         phase="batch_scenarios", batch=out["last"]["batch"],
         steps=SCENARIO_STEPS, seconds=out["seconds"],
-        solves_per_s=out["last"]["solves_per_s"],
+        solve_s=out["last"]["solve_s"],
         converged_frac_cold=out["cold"]["converged_frac"],
         converged_frac_last=out["last"]["converged_frac"],
         mean_iters_last=out["last"]["mean_iters"],

@@ -301,17 +301,27 @@ def _generated_source(name: str, target: str) -> Path:
 def cuda_build(name: str) -> tuple[ctypes.CDLL, str, float]:
     """(library, ptxas report, build seconds) of the CUDA library ``name``
     (one of ``CUDA_LIBRARIES`` or a registered generated one); the seconds
-    are 0 when an earlier build of the same sources was loaded."""
+    are 0 when an earlier build of the same sources was loaded.
+    ``cuda_build.seconds[name]`` keeps (build seconds, load seconds:
+    ``ctypes.CDLL`` and the argument types) of each library this process
+    built or loaded."""
     if name in GENERATED:
         path, report, secs = _compile(
             [_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC)],
             _generated_source(name, "cuda"), f"{name}_sm90a",
             name.split("-", 1)[1])
-        return _load(path, _FUSED_LAUNCH), report, secs
-    source, functions = CUDA_LIBRARIES[name]
-    path, report, secs = _compile([_nvcc()] + NVCC_FLAGS, CSRC / source,
-                                  f"{name}_sm90a")
-    return _load(path, functions), report, secs
+        functions = _FUSED_LAUNCH
+    else:
+        source, functions = CUDA_LIBRARIES[name]
+        path, report, secs = _compile([_nvcc()] + NVCC_FLAGS, CSRC / source,
+                                      f"{name}_sm90a")
+    t0 = time.perf_counter()
+    lib = _load(path, functions)
+    cuda_build.seconds[name] = (secs, time.perf_counter() - t0)
+    return lib, report, secs
+
+
+cuda_build.seconds = {}
 
 
 def cuda_build_all(extra=()) -> dict:

@@ -65,7 +65,7 @@ def run(batch=4096, steps=50, model="mahi_arm", warm_solver="auto",
             print(f"  step 0 (cold): {svc.solve_time_s:.1f}s")
         elif k % 10 == 0 or k == steps - 1:
             m = svc.metrics()
-            print(f"  step {k}: {m['solves_per_s']:.0f} solves/s, "
+            print(f"  step {k}: solve {1e3 * m['solve_s']:.2f} ms, "
                   f"iters {m['mean_iters']:.1f}, conv {m['converged_frac']:.2f}, "
                   f"median err {np.median(err):.4f}")
     el = time.perf_counter() - t_all

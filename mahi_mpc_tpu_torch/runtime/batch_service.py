@@ -56,6 +56,7 @@ from ..solver.select import resolve_warm_solver
 from ..solver.sqp import DIVERGED, SolveResult, solve_batch
 from ..transcribe.shooting import (LinPoint, MPCParams, default_params,
                                    make_problem, map_params)
+from ..utils.profiling import annotate
 
 
 class BatchModelControl:
@@ -136,6 +137,8 @@ class BatchModelControl:
         self._results = None
         self._last = None
         self.solve_time_s = 0.0
+        # Steps taken; the step id of the spans a step opens.
+        self.steps = 0
 
     def _tensor(self, v) -> torch.Tensor:
         return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
@@ -184,13 +187,15 @@ class BatchModelControl:
 
     def set_states(self, x0, u_prev=None):
         """Measured states for all instances: (B, nx)."""
-        self._set(x0=x0)
-        if u_prev is not None:
-            self._set(u_prev=u_prev)
+        with annotate("service.set_states", step=self.steps + 1):
+            self._set(x0=x0)
+            if u_prev is not None:
+                self._set(u_prev=u_prev)
 
     def set_references(self, x_des):
         """Per-instance reference trajectories: (B, N, nx)."""
-        self._set(x_des=x_des)
+        with annotate("service.set_references", step=self.steps + 1):
+            self._set(x_des=x_des)
 
     def relinearize(self):
         """LTV mode (C8): refreeze each instance's (A, B, x_dot0) at its
@@ -202,12 +207,15 @@ class BatchModelControl:
         models."""
         if not self.params.is_linear:
             return
-        ps = []
-        for p in self._ps:
-            with strict_fp32():
-                A, B, xd0 = linearize_batch(self.dynamics, p.x0, p.u_prev)
-            ps.append(p._replace(lin=LinPoint(A, B, xd0, p.x0, p.u_prev)))
-        self._ps = ps
+        with annotate("service.relinearize"):
+            ps = []
+            for p in self._ps:
+                with strict_fp32():
+                    A, B, xd0 = linearize_batch(self.dynamics, p.x0,
+                                                p.u_prev)
+                ps.append(p._replace(lin=LinPoint(A, B, xd0, p.x0,
+                                                  p.u_prev)))
+            self._ps = ps
 
     def update_weights(self, Q=None, R=None, Rm=None):
         """Per-instance (B, nx)/(B, nu) or broadcastable weight updates."""
@@ -227,35 +235,46 @@ class BatchModelControl:
 
     def step(self) -> torch.Tensor:
         """One batched warm-started solve, each shard on its device;
-        returns first controls (B, nu) on the service's device."""
-        self.relinearize()
-        opts = self.opts
-        if self.warm_solver != "fused":
-            solve, kw = (solve_batch_lanes if self._lanes else solve_batch), {}
-        elif self._warm and opts.fixed_warm_iters > 0:
-            solve, kw = solve_batch_fused, dict(n_iter=opts.fixed_warm_iters)
-        else:
-            solve, kw = solve_batch_fused, dict(adaptive=True)
-        mu0 = self._mu_warm if self._warm else self._mu_cold
-        self._sync()
-        t0 = time.perf_counter()
-        results = [solve(self.problem, p, X, U, opts, mu0=mu0, **kw)
-                   for p, X, U in zip(self._ps, self._Xs, self._Us)]
-        self._sync()
-        self.solve_time_s = time.perf_counter() - t0
+        returns first controls (B, nu) on the service's device.  Its spans
+        (``utils.profiling.annotate``, recorded while a profiler collects)
+        carry the step's number, ``steps``."""
+        self.steps += 1
+        with annotate("service.step", step=self.steps):
+            self.relinearize()
+            opts = self.opts
+            if self.warm_solver != "fused":
+                solve = solve_batch_lanes if self._lanes else solve_batch
+                kw = {}
+            elif self._warm and opts.fixed_warm_iters > 0:
+                solve = solve_batch_fused
+                kw = dict(n_iter=opts.fixed_warm_iters)
+            else:
+                solve, kw = solve_batch_fused, dict(adaptive=True)
+            mu0 = self._mu_warm if self._warm else self._mu_cold
+            with annotate("service.sync", at="before"):
+                self._sync()
+            t0 = time.perf_counter()
+            with annotate("service.solve"):
+                results = [solve(self.problem, p, X, U, opts, mu0=mu0, **kw)
+                           for p, X, U in zip(self._ps, self._Xs, self._Us)]
+            with annotate("service.sync", at="after"):
+                self._sync()
+            self.solve_time_s = time.perf_counter() - t0
 
-        # A failed instance re-solves from scratch: zero warm start.
-        us = []
-        for k, res in enumerate(results):
-            ok = ((res.status != DIVERGED)
-                  & torch.isfinite(res.X).all(dim=(1, 2))
-                  & torch.isfinite(res.U).all(dim=(1, 2)))
-            self._Xs[k] = torch.where(ok[:, None, None], res.X, 0.0)
-            self._Us[k] = torch.where(ok[:, None, None], res.U, 0.0)
-            us.append(torch.where(ok[:, None], res.U[:, 0], 0.0))
-        self._warm = True
-        self._results, self._last = results, None
-        return self._gather(us)
+            # A failed instance re-solves from scratch: zero warm start.
+            with annotate("service.status"):
+                us = []
+                for k, res in enumerate(results):
+                    ok = ((res.status != DIVERGED)
+                          & torch.isfinite(res.X).all(dim=(1, 2))
+                          & torch.isfinite(res.U).all(dim=(1, 2)))
+                    self._Xs[k] = torch.where(ok[:, None, None], res.X, 0.0)
+                    self._Us[k] = torch.where(ok[:, None, None], res.U, 0.0)
+                    us.append(torch.where(ok[:, None], res.U[:, 0], 0.0))
+            self._warm = True
+            self._results, self._last = results, None
+            with annotate("service.gather"):
+                return self._gather(us)
 
     def metrics(self) -> dict:
         res = self.last
@@ -264,7 +283,6 @@ class BatchModelControl:
         return {
             "batch": self.batch,
             "solve_s": self.solve_time_s,
-            "solves_per_s": self.batch / max(self.solve_time_s, 1e-12),
             "mean_iters": float(res.iters.float().mean()),
             "converged_frac": float((res.status == 0).float().mean()),
             "max_feas": float(res.feas.max()),

@@ -85,6 +85,7 @@ from ..ops.linalg import chol_lanes
 from ..ops.precision import strict_fp32
 from ..params import SolverOptions
 from ..transcribe.shooting import MPCParams, ShootingProblem
+from ..utils.profiling import annotate
 from . import loop_common as lc
 from .batched import _fan_jacobian
 from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
@@ -722,41 +723,46 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
     dtype, device = X0.dtype, X0.device
     if len(fan) > MAX_FAN:
         raise ValueError(f"at most {MAX_FAN} line-search rungs, got {len(fan)}")
-    lanes = lambda t: t.to(dtype).movedim(0, -1).contiguous()
-    ins = [lanes(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
-                              p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
-                              p.xf_des, mu)]
-    ltv_in = [lanes(t) for t in ltv] if prob.is_linear else [None] * 3
-    new = lambda *shape: torch.empty(shape + (B,), dtype=dtype, device=device)
-    # Rows a stage of the Jacobian scratch: the nq acceleration rows (fast),
-    # all nx (generic), none in LTV (one element keeps the pointer valid).
     mode = _mode(prob)
-    n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[mode]
-    outs = [new(N + 1, nx), new(N, nu), new(8)]
-    scratch = [new(N, nu, nz),          # feedback gains K
-               new(N, nu),              # feedforward kff
-               new(N + 1, nx),          # step direction dX
-               new(N, nu),              # step direction dU
-               new(N + 1, nx + 2 * nu),  # stage gradients G
-               new(N, n_store, nz) if n_store else new(1),  # Jacobian rows J
-               new(N, nx)]              # stage defects ck
-    ptrs = (ctypes.c_void_p * 27)(*[
-        None if t is None else t.data_ptr()
-        for t in ins + ltv_in + outs + scratch])
-    ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    scal = (ctype * 4)(float(prob.dt), float(opts.tol), lc.mu_floor(opts),
-                       float(opts.kappa_mu))
-    ints = (ctypes.c_int * 6)(int(n_iter), int(opts.num_control_inputs_saved),
-                              int(adaptive), len(fan),
-                              INTEGRATORS.index(prob.integrator),
-                              int(prob.is_linear))
-    fan_c = (ctype * MAX_FAN)(*fan)
-    model, consts = _model_id(prob)
-    consts_c = (ctypes.c_double * len(consts))(*consts)
-    args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
-    if stream is not None:
-        args += [stream, *tail]
-    rc = fn(*args)
+    with annotate("fused.copy_in"):
+        lanes = lambda t: t.to(dtype).movedim(0, -1).contiguous()
+        ins = [lanes(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
+                                  p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
+                                  p.xf_des, mu)]
+        ltv_in = [lanes(t) for t in ltv] if prob.is_linear else [None] * 3
+        new = lambda *shape: torch.empty(shape + (B,), dtype=dtype,
+                                         device=device)
+        # Rows a stage of the Jacobian scratch: the nq acceleration rows
+        # (fast), all nx (generic), none in LTV (one element keeps the
+        # pointer valid).
+        n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[mode]
+        outs = [new(N + 1, nx), new(N, nu), new(8)]
+        scratch = [new(N, nu, nz),          # feedback gains K
+                   new(N, nu),              # feedforward kff
+                   new(N + 1, nx),          # step direction dX
+                   new(N, nu),              # step direction dU
+                   new(N + 1, nx + 2 * nu),  # stage gradients G
+                   new(N, n_store, nz) if n_store else new(1),  # rows J
+                   new(N, nx)]              # stage defects ck
+    with annotate("fused.launch"):
+        ptrs = (ctypes.c_void_p * 27)(*[
+            None if t is None else t.data_ptr()
+            for t in ins + ltv_in + outs + scratch])
+        ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+        scal = (ctype * 4)(float(prob.dt), float(opts.tol),
+                           lc.mu_floor(opts), float(opts.kappa_mu))
+        ints = (ctypes.c_int * 6)(int(n_iter),
+                                  int(opts.num_control_inputs_saved),
+                                  int(adaptive), len(fan),
+                                  INTEGRATORS.index(prob.integrator),
+                                  int(prob.is_linear))
+        fan_c = (ctype * MAX_FAN)(*fan)
+        model, consts = _model_id(prob)
+        consts_c = (ctypes.c_double * len(consts))(*consts)
+        args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
+        if stream is not None:
+            args += [stream, *tail]
+        rc = fn(*args)
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
                          f"model {model}, (nx, nu) = ({nx}, {nu}), {mode}")
@@ -768,8 +774,9 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                          f"({nx}, {nu}), {mode} has no such body at N={N}")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
-    back = lambda t: t.movedim(-1, 0).contiguous()
-    return back(outs[0]), back(outs[1]), back(outs[2])
+    with annotate("fused.copy_out"):
+        back = lambda t: t.movedim(-1, 0).contiguous()
+        return back(outs[0]), back(outs[1]), back(outs[2])
 
 
 def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv,
@@ -808,43 +815,47 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
     In LTV, ``discretize(prob, p)`` gives the streamed (Ad - I, Bd, cd)
     (``solver/linearize.py``: the kernel ``ltv_discrete`` on the card,
     by default the plain version ``ltv_discrete_plain``)."""
-    if not (prob.is_linear or prob.dynamics.supports_lanes):
-        raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
-                         "lanes-polymorphic")
-    nx, nu, N = prob.nx, prob.nu, prob.N
-    B = p.x0.shape[0]
-    dtype, device = p.x0.dtype, p.x0.device
-    if n_iter is None:
-        n_iter = int(opts.max_iter) if adaptive else 3
-    fan = tuple(float(a) for a in (
-        ls_fan if ls_fan is not None
-        else (LS_FAN_ADAPTIVE if adaptive else LS_FAN_FIXED)))
-    if X0 is None:
-        X0 = torch.zeros(B, N + 1, nx, dtype=dtype, device=device)
-    if U0 is None:
-        U0 = torch.zeros(B, N, nu, dtype=dtype, device=device)
-    want = {"x_des": (B, N, nx), "q": (B, nx), "r": (B, nu), "rm": (B, nu),
-            "u_prev": (B, nu), "x0": (B, nx), "u_min": (B, nu),
-            "u_max": (B, nu), "x_min": (B, nx), "x_max": (B, nx),
-            "qf": (B, nx), "xf_des": (B, nx)}
-    got = dict(X0=X0, U0=U0, **{k: getattr(p, k) for k in want})
-    want.update(X0=(B, N + 1, nx), U0=(B, N, nu))
-    for k, shape in want.items():
-        t = got[k]
-        if tuple(t.shape) != shape or t.device != device:
-            raise ValueError(f"{k}: expected shape {shape} on {device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-    X0 = torch.cat([p.x0[:, None],
-                    _strict_interior(X0[:, 1:].to(dtype), p.x_min[:, None],
-                                     p.x_max[:, None])], dim=1)
-    U0 = _strict_interior(U0.to(dtype), p.u_min[:, None], p.u_max[:, None])
-    fin = lambda t: torch.isfinite(t).any(dim=1)
-    has_bounds = fin(p.u_min) | fin(p.u_max) | fin(p.x_min) | fin(p.x_max)
-    floor = lc.mu_floor(opts)
-    if mu0 is None:
-        mu0 = opts.warm_mu_factor * opts.tol
-    mu0 = torch.as_tensor(mu0, dtype=dtype, device=device).expand(B)
-    mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
+    with annotate("fused.prepare"):
+        if not (prob.is_linear or prob.dynamics.supports_lanes):
+            raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
+                             "lanes-polymorphic")
+        nx, nu, N = prob.nx, prob.nu, prob.N
+        B = p.x0.shape[0]
+        dtype, device = p.x0.dtype, p.x0.device
+        if n_iter is None:
+            n_iter = int(opts.max_iter) if adaptive else 3
+        fan = tuple(float(a) for a in (
+            ls_fan if ls_fan is not None
+            else (LS_FAN_ADAPTIVE if adaptive else LS_FAN_FIXED)))
+        if X0 is None:
+            X0 = torch.zeros(B, N + 1, nx, dtype=dtype, device=device)
+        if U0 is None:
+            U0 = torch.zeros(B, N, nu, dtype=dtype, device=device)
+        want = {"x_des": (B, N, nx), "q": (B, nx), "r": (B, nu),
+                "rm": (B, nu), "u_prev": (B, nu), "x0": (B, nx),
+                "u_min": (B, nu), "u_max": (B, nu), "x_min": (B, nx),
+                "x_max": (B, nx), "qf": (B, nx), "xf_des": (B, nx)}
+        got = dict(X0=X0, U0=U0, **{k: getattr(p, k) for k in want})
+        want.update(X0=(B, N + 1, nx), U0=(B, N, nu))
+        for k, shape in want.items():
+            t = got[k]
+            if tuple(t.shape) != shape or t.device != device:
+                raise ValueError(f"{k}: expected shape {shape} on {device}, "
+                                 f"got {tuple(t.shape)} on {t.device}")
+        X0 = torch.cat([p.x0[:, None],
+                        _strict_interior(X0[:, 1:].to(dtype),
+                                         p.x_min[:, None], p.x_max[:, None])],
+                       dim=1)
+        U0 = _strict_interior(U0.to(dtype), p.u_min[:, None],
+                              p.u_max[:, None])
+        fin = lambda t: torch.isfinite(t).any(dim=1)
+        has_bounds = (fin(p.u_min) | fin(p.u_max) | fin(p.x_min)
+                      | fin(p.x_max))
+        floor = lc.mu_floor(opts)
+        if mu0 is None:
+            mu0 = opts.warm_mu_factor * opts.tol
+        mu0 = torch.as_tensor(mu0, dtype=dtype, device=device).expand(B)
+        mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
 
     with strict_fp32():
         ltv = None
@@ -852,10 +863,18 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
             # the kernel streams Ad - I: its increment forms no difference
             if discretize is None:
                 from .linearize import ltv_discrete_plain as discretize
-            ltv = discretize(prob, p)
+            with annotate("fused.discretize"):
+                ltv = discretize(prob, p)
         X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive,
                         ltv)
 
+    with annotate("fused.status"):
+        return _status(opts, X, U, st, mu, floor, n_iter, adaptive)
+
+
+def _status(opts, X, U, st, mu, floor, n_iter, adaptive) -> SolveResult:
+    """The status rules of a fused solve, from the body's statistics."""
+    B, device = X.shape[0], X.device
     stepn, feas, obj = st[:, 0], st[:, 1], st[:, 2]
     finite = (torch.isfinite(stepn) & torch.isfinite(feas)
               & torch.isfinite(X.reshape(B, -1)).all(dim=1))

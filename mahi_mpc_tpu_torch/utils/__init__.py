@@ -1,4 +1,6 @@
-from .profiling import annotate, device_trace
+from .profiling import (Span, annotate, clear_spans, device_trace, spans,
+                        spans_dropped)
 from .results import ControlLog
 
-__all__ = ["ControlLog", "annotate", "device_trace"]
+__all__ = ["ControlLog", "Span", "annotate", "clear_spans", "device_trace",
+           "spans", "spans_dropped"]

@@ -65,7 +65,7 @@ def test_closed_loop_converges(fixed_warm_iters):
     err = np.abs(x[:, :4].numpy() - goals).max(axis=1)
     assert (err < err0).all(), (err, err0)
     m = svc.metrics()
-    assert m["batch"] == B and m["solves_per_s"] > 0
+    assert m["batch"] == B and m["solve_s"] > 0
     assert m["mean_iters"] == 3.0 if fixed_warm_iters else m["mean_iters"] >= 1
 
 
