@@ -41,7 +41,16 @@ line each, with the seconds since start in ``t``:
    after the cold and the last warm step; the kernel's launch count rises by
    11), one more step under ``torch.profiler`` (the group kernel's device
    ms by its name, its share of the step, the host-only ms); then a service
-   with adaptive warm steps (1 cold + 3 warm);
+   with adaptive warm steps (1 cold + 3 warm); the preparation kernel
+   launched once a solve of both (``solve_batch_fused.prepare_launches``
+   equal to the kernel's launches); then fused_prepare
+   (``fused_prepare_phase``): the preparation kernel's 14 batch-innermost
+   inputs bit for bit ``sqp._start``'s and each input's ``movedim(0,
+   -1).contiguous()`` on the same card tensors, nonlinear and LTV at
+   B=16384 and at B=1 and nonlinear at 65536, from a warm start with NaN
+   and +-inf spikes and controls beyond the box; its device ms (the
+   profiler) at B=16384 and 65536 against its bytes bound, its wrapper's
+   ms and the PyTorch preparation's (CUDA events);
 5. parity_fused_ltv — the fused kernel in LTV mode (``mahi_arm``
    frozen at each instance's x0, B=1024) against its plain version, with
    phase 3's rules: adaptive cold statuses agree on >= 99 %, the kernel
@@ -270,7 +279,9 @@ launches those warm ``calc_u``; then ``ltv_linearize`` and ``ltv_discrete``, the
 path's kernels, their launches those of phases 8, 14 and 23's LTV runs,
 their times those of ltv_kernels at B=16384 (and B=1), their tiles, with
 the LTV service's and
-``ModelControl``'s readings beside them) with each kernel's launches on the
+``ModelControl``'s readings beside them; then ``fused_prepare``, the
+preparation kernel, its launches those of phase 4's services, its times
+those of fused_prepare) with each kernel's launches on the
 main paths (the fused kernel's include phases 17-18's, the Riccati
 kernel's phases 16 and 19's), its error against the plain version (for the fused kernel's
 modes, the fixed-3 warm solve at B=16384; ``max_abs_err_b1`` at B=1),
@@ -456,6 +467,12 @@ def random_qp(B, N, nz, nu, seed, to):
 
 
 PROFILE_TRIES = 3     # profiled calls when the trace lost a launch's record
+# Kernels that open every traced window, ignored by what reads the trace.
+# Run after run in one process the profiler loses the first device records
+# of a trace, more the more traces the process has taken (PERF.md §6),
+# so a window's first operations must be ones nothing counts.
+PROFILE_LEAD_OPS = 256
+PROFILE_LEAD_KERNEL = "spin_kernel"   # torch.cuda._sleep's
 
 
 def profile_step(step, kernel, expect=None):
@@ -489,14 +506,18 @@ def profile_step(step, kernel, expect=None):
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         before = solve_batch_fused.launches
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_OPS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+                   if e.device_type == DeviceType.CUDA
+                   and PROFILE_LEAD_KERNEL not in e.key]
         mine = [e for e in kernels if kernel in e.key]
         count = sum(e.count for e in mine)
         if expect is None:
@@ -1226,6 +1247,125 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
     return out
 
 
+def prepare_bytes(nx, nu, N) -> int:
+    """Bytes the preparation kernel must move an instance
+    (``csrc/fused_prepare.cuh``): 2 N nx + N nu + 6 nx + 5 nu words read
+    (X rows 1..N, U, x_des, the vectors and x0) and (2N + 6) nx + (N + 5)
+    nu + 1 written (FusedArgs' 14 inputs)."""
+    read = 2 * N * nx + N * nu + 6 * nx + 5 * nu
+    written = (2 * N + 6) * nx + (N + 5) * nu + 1
+    return 4 * (read + written)
+
+
+def fused_prepare_phase(dev, rng, timed) -> dict:
+    """fused_prepare: the preparation kernel (``csrc/fused_prepare.cuh``,
+    ``fused._prepare_cuda``) at the main path's shapes (the 4-DOF arm, N =
+    25), nonlinear and LTV at B=16384 and at B=1, from a warm start with
+    NaN and +-inf spikes and controls beyond the box: its 14 batch-innermost
+    inputs bit for bit ``sqp._start``'s with each input's ``movedim(0,
+    -1).contiguous()`` on the same card tensors; its device ms by the
+    profiler at B=16384 and 65536 against the bytes bound
+    (``prepare_bytes``), and the PyTorch preparation's ms (CUDA events)
+    beside the kernel's wrapper's.  Returns the kernels line's entry but
+    its launches."""
+    import torch
+
+    from mahi_mpc_tpu_torch import SolverOptions
+    from mahi_mpc_tpu_torch.solver import fused as fused_mod
+    from mahi_mpc_tpu_torch.solver.sqp import _start
+
+    opts = SolverOptions(tol=1e-4, max_iter=12)
+    mu0 = opts.warm_mu_factor * opts.tol
+    fan = fused_mod.LS_FAN_FIXED
+
+    def same_bits(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+    def warm_start(prob, B):
+        g = torch.Generator(device=dev).manual_seed(B + prob.is_linear)
+        spike = lambda t: torch.where(
+            torch.rand(t.shape, generator=g, device=dev) < 0.02,
+            torch.tensor([float("nan"), float("inf"), -float("inf")],
+                         device=dev)[torch.randint(0, 3, t.shape, generator=g,
+                                                   device=dev)], t)
+        X0 = spike(0.5 * torch.randn(B, prob.N + 1, prob.nx, generator=g,
+                                     device=dev))
+        U0 = spike(30.0 * torch.randn(B, prob.N, prob.nu, generator=g,
+                                      device=dev))
+        return X0, U0
+
+    def plain(prob, p, X0, U0):
+        X, U, mu = _start(prob, p, X0, U0, opts, mu0)
+        return [t.movedim(0, -1).contiguous() for t in (
+            X, U, p.x_des, p.q, p.r, p.rm, p.u_prev, p.u_min, p.u_max,
+            p.x_min, p.x_max, p.qf, p.xf_des, mu)]
+
+    def card(prob, p, X0, U0):
+        (_, ws), _ = fused_mod._prepare_cuda(prob, opts, p, X0, U0, mu0, fan,
+                                             want=0)
+        return ws.ins
+
+    held, times = [], {}
+    for B in (16384, 1, 65536):
+        for is_linear in (False, True):
+            if B == 65536 and is_linear:
+                continue
+            _, prob, p = model_batch(dev, rng, "mahi_arm", B,
+                                     is_linear=is_linear)
+            X0, U0 = warm_start(prob, B)
+            got, want = card(prob, p, X0, U0), plain(prob, p, X0, U0)
+            bad = [k for k, (a, b) in enumerate(zip(got, want))
+                   if not same_bits(a, b)]
+            moved = not same_bits(got[1], U0.movedim(0, -1).contiguous())
+            held.append(dict(batch=B, ltv=is_linear, fields_differing=bad,
+                             clip_moved_u=moved))
+            check(bad == [] and moved,
+                  f"fused_prepare B={B} ltv={is_linear}: fields {bad} differ "
+                  f"from the PyTorch preparation (clip moved U: {moved})")
+            if is_linear or B == 1:
+                continue
+            reps = 50
+            prof = profile_step(lambda: [card(prob, p, X0, U0)
+                                         for _ in range(reps)],
+                                "fused_prepare_tile_kernel")
+            check(prof["kernel_count"] == reps,
+                  f"fused_prepare B={B}: {prof['kernel_count']} kernel "
+                  f"records for {reps} launches")
+            _, wrapper_ms = timed(lambda: card(prob, p, X0, U0), reps)
+            _, plain_ms = timed(lambda: plain(prob, p, X0, U0), reps)
+            bound = bound_ms(0, B * prepare_bytes(prob.nx, prob.nu, prob.N))
+            ms = prof["kernel_device_ms"] / reps
+            times[B] = dict(device_ms=ms, wrapper_ms=wrapper_ms,
+                            plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                            bound_by=bound["bound_by"],
+                            share=bound["bound_ms"] / ms)
+    emit(phase="fused_prepare", held=held,
+         bytes_per_instance=prepare_bytes(8, 4, N_NODES), **{
+             f"b{B}": t for B, t in times.items()})
+    t, t64 = times[SERVICE_BATCH], times[65536]
+    return {
+        "name": "fused_prepare",
+        "route": "cuda",
+        "source": "mahi_mpc_tpu_torch/csrc/fused_prepare.cuh",
+        "replaces": "mahi_mpc_tpu/solver/fused.py:910-932",
+        "max_abs_err": 0.0,
+        "ms": t["device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "batch": SERVICE_BATCH,
+        "mode": "mahi_arm N=25 at B=16384: the interior clip, the barrier "
+                "start and the batch-innermost layout, 16 instances a block",
+        "share": t["share"],
+        "wrapper_ms": t["wrapper_ms"],
+        "ms_65536": t64["device_ms"], "bound_ms_65536": t64["bound_ms"],
+        "share_65536": t64["share"],
+        "held_bitwise": [[h["batch"], h["ltv"]] for h in held]}
+
+
 def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     """Phases 5-8: the fused kernel's LTV, generic and closed-form paths.
     ``builds``: the CUDA libraries and their ptxas reports.  Returns the
@@ -1237,7 +1377,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
     from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
-    from mahi_mpc_tpu_torch.solver.fused import _launch_cuda
+    from mahi_mpc_tpu_torch.solver.fused import _launch_cuda, _prepare_cuda
     from mahi_mpc_tpu_torch.solver.fused import _solve as fused_solve
     from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
@@ -1501,7 +1641,7 @@ def fused_mode_phases(dev, rng, timed, warm_schedule, builds) -> list:
     ref = fused_solve(svc.problem, p_last._replace(lin=LinPoint(
         *lin, p_last.x0, p_last.u_prev)), X_last, U_last, opts_s,
         max(opts_s.warm_mu_factor * opts_s.tol, opts_s.mu_min),
-        opts_s.fixed_warm_iters, None, False, _launch_cuda,
+        opts_s.fixed_warm_iters, None, False, _prepare_cuda, _launch_cuda,
         ltv_discrete_plain)
     u_ref = torch.where((ref.status != 2)[:, None], ref.U[:, 0], 0.0)
     du_routes = (u - u_ref).abs().max().item()
@@ -1694,10 +1834,11 @@ def calc_u_split(mc, t, x, u, traj, reps=50) -> dict:
     """A warm ``mc.calc_u(t, x, u, traj)`` at B=1 split by stage, each
     stage ended by a device synchronisation (mean ms over ``reps`` calls):
     the tensors made from the host arrays, the params (``_replace``, the
-    batch of one, ``_solve``'s preparation up to ``_run_library``), the
-    batch-innermost copies and ctypes set-up in ``_run_library``, the
-    kernel, the layout back, the status rules (the rest of ``_solve``), and
-    the copy back to the host; and ``calc_u`` itself (p50 ms, no
+    batch of one, ``_solve``'s preparation up to ``_run_library``: on the
+    card one kernel writes the batch-innermost inputs), the ctypes set-up
+    in ``_run_library`` (``copies_ctypes``), the kernel, the layout back,
+    the status rules (the rest of ``_solve``), and the copy back to the
+    host; and ``calc_u`` itself (p50 ms, no
     synchronisation inside).  ``calc_u``'s own steps are done here as it
     does them; the package is not changed.  Leaves ``mc``'s plan as it
     was."""
@@ -3632,14 +3773,15 @@ def main() -> int:
     # ---- build: one nvcc per library (phase 23's generated ones too),
     # started together, and beside them g++'s operation counters
     # (csrc/flop_count.cpp and each generated library's build) for the
-    # bounds
+    # bounds, with the g++ build that prepares their inputs
     t_gen = time.perf_counter()
     gen_libs, timing_libs = generated_libraries()
     emit(phase="generate", seconds=time.perf_counter() - t_gen,
          libraries=gen_libs, timing_libraries=timing_libs)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        counter = ex.submit(cpu_build_all, ["flop_count", *gen_libs.values()])
+        counter = ex.submit(cpu_build_all, ["flop_count", "fused_sqp",
+                                            *gen_libs.values()])
         builds = cuda_build_all(extra=[*gen_libs.values(),
                                        *timing_libs.values()])
         counter.result()
@@ -3894,6 +4036,7 @@ def main() -> int:
         return svc, ms
 
     solve_batch_fused.launches = 0
+    solve_batch_fused.prepare_launches = 0
     solve_batch_fused.mode_launches.update(fast=0, generic=0, ltv=0)
     solve_lqr_kernel_batch.launches = 0
     svc3, step_ms = service(3, WARM_STEPS)
@@ -3916,6 +4059,12 @@ def main() -> int:
           f"({fast_launches} on the nq-row path)")
     check(solve_lqr_kernel_batch.launches == 0,
           "the fused route launched the Riccati kernel")
+    prepare_launches = solve_batch_fused.prepare_launches
+    check(prepare_launches == launches,
+          f"the main path prepared {prepare_launches} solves and launched "
+          f"{launches}")
+    prepare = fused_prepare_phase(dev, rng, timed)
+    prepare["launches"] = prepare_launches
 
     ltv = ltv_kernel_phase(dev, np.random.default_rng(15), timed, builds,
                            gen_libs)
@@ -4038,7 +4187,8 @@ def main() -> int:
         "trajgen_max_rel_err_n40": traj["max_rel_err_n40"],
         "ms_6x2": ric["ms_6x2"], "bound_ms_6x2": ric["bound_ms_6x2"],
         "design_bound_ms_6x2": ric["design_bound_ms_6x2"],
-        "ptxas": ric_ptxas}, *generated, *ltv_kernel_entries(ltv)]}),
+        "ptxas": ric_ptxas}, *generated, *ltv_kernel_entries(ltv),
+        prepare]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

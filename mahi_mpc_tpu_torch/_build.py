@@ -86,8 +86,14 @@ _c_ll = ctypes.c_longlong
 # launched).
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
+# The preparation of the kernel's inputs (csrc/fused_prepare.cuh): B, N, nx,
+# nu, the batch-leading sources, the batch-innermost outputs and the host
+# scalars; on the card the stream, on the CPU whether a block's threads run
+# last to first.
+_PREPARE = [_c_ll, _c_int, _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p]
 _FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
                                                         _c_void_p],
+                 "mpc_fused_prepare_f32": _PREPARE + [_c_void_p],
                  "mpc_fused_block_info": [_c_int] * 6 + [_c_void_p],
                  "mpc_fused_blocks_per_sm": [_c_int] * 6}
 # The LTV path's linearization and discretization (csrc/model_linearize.cuh),
@@ -151,6 +157,8 @@ CPU_LIBRARIES = {
            for bits, _ in _REALS},
         **{f"mpc_ltv_discrete_cpu_{bits}": _LTV_DISCRETE(real) + [_c_int]
            for bits, real in _REALS},
+        **{f"mpc_fused_prepare_cpu_{bits}": _PREPARE + [_c_int]
+           for bits, _ in _REALS},
     }),
     "riccati": ("riccati_cpu.cpp", {
         "mpc_riccati_cpu_f32": [_c_ll, _c_int, _c_int, _c_int, _c_void_p],

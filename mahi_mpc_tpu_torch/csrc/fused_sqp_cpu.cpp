@@ -10,10 +10,12 @@
 // MPC_GENERATED defined: it then holds that policy alone (and, with
 // MPC_GENERATED_MODEL, evaluates its model under model id kGeneratedModel).
 // The LTV path's linearization and discretization (model_linearize.cuh)
-// are looped over instances here too, as their kernels run them.
+// and the fused route's preparation (fused_prepare.cuh) are looped over
+// instances here too, as their kernels run them.
 #include <limits>
 #include <vector>
 
+#include "fused_prepare.cuh"
 #include "fused_sqp_block.cuh"
 #include "model_linearize.cuh"
 
@@ -423,6 +425,27 @@ int mpc_ltv_discrete_cpu_f64(long long B, int nx, int nu, int integ,
                              double* cd, int reverse) {
   return ltv_discrete_all<double>(B, nx, nu, integ, dt, A, Bm, xd0, x0, u0,
                                   AdI, Bd, cd, reverse);
+}
+
+// The fused route's preparation of B instances at (N, nx, nu) as the
+// card's blocks run it (`prepare_host`: a block's threads last to first
+// when `reverse`): the mpc::kPrepareIn batch-leading sources `in`, the
+// batch-innermost FusedArgs inputs `out`, the host scalars {mu0, floor,
+// mu_min, delta}; -6 where one instance's record does not fit in a block.
+int mpc_fused_prepare_cpu_f32(long long B, int N, int nx, int nu,
+                              const void* const* in, void* const* out,
+                              const double* scal, int reverse) {
+  return mpc::prepare_host(
+      mpc::make_prepare_args<float>(B, N, nx, nu, in, out, scal),
+      reverse != 0);
+}
+
+int mpc_fused_prepare_cpu_f64(long long B, int N, int nx, int nu,
+                              const void* const* in, void* const* out,
+                              const double* scal, int reverse) {
+  return mpc::prepare_host(
+      mpc::make_prepare_args<double>(B, N, nx, nu, in, out, scal),
+      reverse != 0);
 }
 
 }  // extern "C"

@@ -64,6 +64,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fused_prepare.cuh"
 #include "fused_sqp_block.cuh"
 #include "model_linearize.cuh"
 
@@ -435,14 +436,56 @@ int ltv_path_blocks_per_sm(int model, int nx, int nu, int* tile) {
     return ltv_path_blocks_per_sm<kFamilies, S>(model, nx, nu, tile);        \
   }
 
+// ---- the fused route's preparation (fused_prepare.cuh): a block a tile of
+// T instances, their records in dynamic shared memory; float, as the solve.
+
+template <typename S>
+__global__ void __launch_bounds__(mpc::kPrepareThreads, 4)
+fused_prepare_tile_kernel(mpc::PrepareArgs<S> a) {
+  extern __shared__ __align__(16) unsigned char prepare_smem[];
+  S* tile = reinterpret_cast<S*>(prepare_smem);
+  const long long b0 = (long long)blockIdx.x * a.sh.T;
+  const int nb = (int)(a.B - b0 < a.sh.T ? a.B - b0 : a.sh.T);
+  const int t = (int)threadIdx.x;
+  mpc::prepare_load(t, mpc::kPrepareThreads, nb, b0, a, tile);
+  __syncthreads();
+  mpc::prepare_tile(t, mpc::kPrepareThreads, nb, a, tile);
+  __syncthreads();
+  mpc::prepare_store(t, mpc::kPrepareThreads, nb, b0, a, tile);
+}
+
+// Launch the preparation of B instances at (N, nx, nu) on `stream`: the
+// mpc::kPrepareIn batch-leading sources `in`, the mpc::kPrepareFields
+// batch-innermost outputs `out` (FusedArgs' X0 .. mu0) and the host scalars
+// {mu0, floor, mu_min, delta}.  Returns cudaGetLastError(), or -6 when one
+// instance's record does not fit in a block's shared memory.  Does not
+// synchronise.
+inline int launch_prepare(long long B, int N, int nx, int nu,
+                          const void* const* in, void* const* out,
+                          const double* scal, void* stream) {
+  if (B <= 0) return 0;
+  const mpc::PrepareArgs<float> a =
+      mpc::make_prepare_args<float>(B, N, nx, nu, in, out, scal);
+  if (a.sh.T == 0) return -6;
+  const size_t smem = sizeof(float) * a.sh.T * a.sh.stride;
+  const cudaError_t e = allow_smem(fused_prepare_tile_kernel<float>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((B + a.sh.T - 1) / a.sh.T);
+  fused_prepare_tile_kernel<float>
+      <<<grid, mpc::kPrepareThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // The plain C interface of one library, for ctypes: the launcher (device
 // pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
 // fan rungs and model constants, the stream, the body to launch (-1: the
 // rule's) and where to write the body it launched; solver/fused.py
-// `_run_library`), and the occupancy of the kernels it launches
-// (chip_smoke.py); and the LTV path's linearization of the models this
-// library holds and discretization of its Ltv shapes, float and double
-// (solver/linearize.py), with their occupancy.
+// `_run_library`), the preparation of its inputs (`launch_prepare`), and
+// the occupancy of the kernels it launches (chip_smoke.py); and the LTV
+// path's linearization of the models this library holds and discretization
+// of its Ltv shapes, float and double (solver/linearize.py), with their
+// occupancy.
 #define MPC_FUSED_LIBRARY(kFamilies)                                         \
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
@@ -450,6 +493,11 @@ int ltv_path_blocks_per_sm(int model, int nx, int nu, int* tile) {
       const double* consts, void* stream, int want, int* body) {             \
     return launch_fused<kFamilies>(B, N, model, nx, nu, ptrs, scal, ints,    \
                                    fan, consts, stream, want, body);         \
+  }                                                                          \
+  extern "C" int mpc_fused_prepare_f32(                                      \
+      long long B, int N, int nx, int nu, const void* const* in,             \
+      void* const* out, const double* scal, void* stream) {                  \
+    return launch_prepare(B, N, nx, nu, in, out, scal, stream);              \
   }                                                                          \
   extern "C" int mpc_fused_block_info(int model, int nx, int nu, int integ,  \
                                       int ltv, int N, int* out) {            \

@@ -57,6 +57,12 @@ Two implementations of the same function live here:
   tensor form, used for CPU tensors and as the kernel's reference on the
   card.
 
+Every build of the kernel, nvcc's and g++'s, has its inputs prepared by
+a kernel too (``csrc/fused_prepare.cuh``; ``_prepare_cuda``,
+``_prepare_cpu``): one launch clips the warm start into the interior, sets
+the barrier's start and writes every input batch-innermost, bit for bit
+what the plain version's preparation (``sqp._start``) gives.
+
 There is no fallback from one to the other: a problem the kernel does not
 serve raises on CUDA tensors (``fused_supported`` says which it serves),
 and so does a failed build or launch.
@@ -72,7 +78,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+import math
+import numbers
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,7 +96,8 @@ from ..transcribe.shooting import MPCParams, ShootingProblem
 from ..utils.profiling import annotate
 from . import loop_common as lc
 from .batched import _fan_jacobian
-from .sqp import CONVERGED, DIVERGED, MAX_ITER, SolveResult, _strict_interior
+from .sqp import (CONVERGED, DIVERGED, INTERIOR_DELTA, MAX_ITER, SolveResult,
+                  _start)
 from .stage_qp import barrier_terms
 
 Tensor = torch.Tensor
@@ -427,12 +436,13 @@ def _plain_step(prob: ShootingProblem, ltv):
 
 
 def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
-                             X: Tensor, U: Tensor, p: MPCParams, mu: Tensor,
-                             n_iter: int, fan: Sequence[float],
-                             adaptive: bool, ltv=None):
-    """The fused solve in plain PyTorch: returns X, U and the (B, 8) stats
-    [stepn, feas, jref, alpha, mu, done, iters, 0] of the kernel.  ``ltv``
-    is the streamed (Ad - I, Bd, cd) in LTV mode."""
+                             p: MPCParams, start: tuple, n_iter: int,
+                             fan: Sequence[float], adaptive: bool, ltv=None):
+    """The fused solve in plain PyTorch from ``start`` = (X, U, mu)
+    (``_prepare_plain``): returns X, U and the (B, 8) stats [stepn, feas,
+    jref, alpha, mu, done, iters, 0] of the kernel.  ``ltv`` is the
+    streamed (Ad - I, Bd, cd) in LTV mode."""
+    X, U, mu = start
     nx, nu, N = prob.nx, prob.nu, prob.N
     nz = nx + nu
     B = X.shape[0]
@@ -704,50 +714,111 @@ def _cuda_library(prob: ShootingProblem, both_bodies: bool = False) -> str:
     return "fused_sqp_models"
 
 
-def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
-                 X0: Tensor, U0: Tensor, p: MPCParams, mu: Tensor,
-                 n_iter: int, fan: Sequence[float], adaptive: bool, ltv=None,
-                 tail=()):
-    """Call a build of the kernel body (``fn``: a CUDA launcher when
-    ``stream`` is given, followed by its own arguments ``tail``, else the
-    CPU test build) on batch-innermost copies of the inputs; returns X, U,
-    stats in batch-leading layout."""
+def _check_kernel(prob: ShootingProblem, fan: Sequence[float]) -> None:
+    """Raise where no build of the kernel serves the problem or the fan."""
     if not fused_supported(prob):
         raise ValueError(
             f"no instantiation of the fused kernel serves {prob.dynamics.name!r}"
             f" (is_linear={prob.is_linear}, integrator={prob.integrator!r}); "
             f"see fused_supported()")
-    nx, nu, N = prob.nx, prob.nu, prob.N
-    nz = nx + nu
-    B = X0.shape[0]
-    dtype, device = X0.dtype, X0.device
     if len(fan) > MAX_FAN:
         raise ValueError(f"at most {MAX_FAN} line-search rungs, got {len(fan)}")
-    mode = _mode(prob)
+
+
+class _Workspace(NamedTuple):
+    """The kernel's batch-innermost arrays (``csrc/fused_sqp.cuh``
+    ``FusedArgs``)."""
+    ins: list       # X0 U0 xdes q r rm uprev umin umax xmin xmax qf xfdes mu0
+    outs: list      # X U stats
+    scratch: list   # K kff dX dU G J ck
+    ltv: list       # AdI Bd cd in LTV, else None
+
+
+def _workspace(prob: ShootingProblem, B: int, dtype, device) -> _Workspace:
+    """The kernel's inputs, outputs and scratch for B instances as views of
+    one ``torch.empty``, each at a 128-byte boundary."""
+    nx, nu, N = prob.nx, prob.nu, prob.N
+    nz = nx + nu
+    # Rows a stage of the Jacobian scratch: the nq acceleration rows (fast),
+    # all nx (generic), none in LTV (one element keeps the pointer valid).
+    n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[_mode(prob)]
+    shapes = [(N + 1, nx), (N, nu), (N, nx), (nx,), (nu,), (nu,), (nu,),
+              (nu,), (nu,), (nx,), (nx,), (nx,), (nx,), (),
+              (N + 1, nx), (N, nu), (8,),
+              (N, nu, nz),          # feedback gains K
+              (N, nu),              # feedforward kff
+              (N + 1, nx),          # step direction dX
+              (N, nu),              # step direction dU
+              (N + 1, nx + 2 * nu),  # stage gradients G
+              (N, n_store, nz) if n_store else (1,),  # rows J
+              (N, nx)]              # stage defects ck
+    sizes = []
+    for shape in shapes:
+        n = math.prod(shape) * B
+        sizes += [n, -n % 32]
+    parts = torch.empty(sum(sizes), dtype=dtype, device=device).split(sizes)
+    views = [t.view(shape + (B,)) for t, shape in zip(parts[::2], shapes)]
+    return _Workspace(views[:14], views[14:17], views[17:], [None] * 3)
+
+
+def _prepare(prob: ShootingProblem, opts: SolverOptions, p: MPCParams,
+             X0: Optional[Tensor], U0: Optional[Tensor], mu0, fn,
+             last) -> _Workspace:
+    """A workspace whose inputs one call of a build's preparation
+    (``csrc/fused_prepare.cuh``; ``fn``, followed by its own last argument
+    ``last``: the stream on the card, 0 for g++) wrote, bit for bit what
+    ``sqp._start`` gives, batch-innermost.  ``X0`` and ``U0`` None: a zero
+    warm start; ``mu0`` a number, or a tensor that broadcasts to (B,)."""
+    nx, nu, N = prob.nx, prob.nu, prob.N
+    B, dtype, device = p.x0.shape[0], p.x0.dtype, p.x0.device
     with annotate("fused.copy_in"):
-        lanes = lambda t: t.to(dtype).movedim(0, -1).contiguous()
-        ins = [lanes(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
-                                  p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
-                                  p.xf_des, mu)]
-        ltv_in = [lanes(t) for t in ltv] if prob.is_linear else [None] * 3
-        new = lambda *shape: torch.empty(shape + (B,), dtype=dtype,
-                                         device=device)
-        # Rows a stage of the Jacobian scratch: the nq acceleration rows
-        # (fast), all nx (generic), none in LTV (one element keeps the
-        # pointer valid).
-        n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[mode]
-        outs = [new(N + 1, nx), new(N, nu), new(8)]
-        scratch = [new(N, nu, nz),          # feedback gains K
-                   new(N, nu),              # feedforward kff
-                   new(N + 1, nx),          # step direction dX
-                   new(N, nu),              # step direction dU
-                   new(N + 1, nx + 2 * nu),  # stage gradients G
-                   new(N, n_store, nz) if n_store else new(1),  # rows J
-                   new(N, nx)]              # stage defects ck
+        ws = _workspace(prob, B, dtype, device)
+    same = lambda t: None if t is None else t.to(dtype).contiguous()
+    mu_each = None
+    if not isinstance(mu0, numbers.Real):
+        mu_each = torch.as_tensor(mu0, dtype=dtype,
+                                  device=device).expand(B).contiguous()
+        mu0 = 0.0
+    srcs = [same(t) for t in (X0, U0, p.x_des, p.q, p.r, p.rm, p.u_prev,
+                              p.u_min, p.u_max, p.x_min, p.x_max, p.qf,
+                              p.xf_des, mu_each, p.x0)]
+    ins = (ctypes.c_void_p * len(srcs))(*[
+        None if t is None else t.data_ptr() for t in srcs])
+    outs = (ctypes.c_void_p * len(ws.ins))(*[t.data_ptr() for t in ws.ins])
+    scal = (ctypes.c_double * 4)(float(mu0), lc.mu_floor(opts),
+                                 float(opts.mu_min), INTERIOR_DELTA)
+    rc = fn(B, N, nx, nu, ins, outs, scal, last)
+    if rc == -6:
+        raise ValueError(f"one instance's inputs at N={N}, (nx, nu) = ({nx}, "
+                         f"{nu}) do not fit in a block of the preparation "
+                         f"kernel")
+    if rc != 0:
+        raise RuntimeError(f"fused preparation kernel failed (error code "
+                           f"{rc})")
+    return ws
+
+
+def _with_ltv(ws: _Workspace, dtype, ltv) -> _Workspace:
+    """``ws`` with the streamed LTV step batch-innermost (LTV only)."""
+    if ltv is None:
+        return ws
+    return ws._replace(ltv=[t.to(dtype).movedim(0, -1).contiguous()
+                            for t in ltv])
+
+
+def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
+                 ws: _Workspace, n_iter: int, fan: Sequence[float],
+                 adaptive: bool, tail=()):
+    """Call a build of the kernel body (``fn``: a CUDA launcher when
+    ``stream`` is given, followed by its own arguments ``tail``, else the
+    CPU test build) on the arrays of ``ws``; returns X, U, stats in
+    batch-leading layout."""
+    nx, nu, N = prob.nx, prob.nu, prob.N
+    B, dtype = ws.outs[0].shape[-1], ws.outs[0].dtype
     with annotate("fused.launch"):
         ptrs = (ctypes.c_void_p * 27)(*[
             None if t is None else t.data_ptr()
-            for t in ins + ltv_in + outs + scratch])
+            for t in ws.ins + ws.ltv + ws.outs + ws.scratch])
         ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         scal = (ctype * 4)(float(prob.dt), float(opts.tol),
                            lc.mu_floor(opts), float(opts.kappa_mu))
@@ -765,72 +836,124 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
         rc = fn(*args)
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
-                         f"model {model}, (nx, nu) = ({nx}, {nu}), {mode}")
+                         f"model {model}, (nx, nu) = ({nx}, {nu}), "
+                         f"{_mode(prob)}")
     if rc == -3:
         raise ValueError(f"no group body at (nx, nu) = ({nx}, {nu}): the "
                          f"shape does not split over the group's lanes")
     if rc == -4:
         raise ValueError(f"the step policy of model {model}, (nx, nu) = "
-                         f"({nx}, {nu}), {mode} has no such body at N={N}")
+                         f"({nx}, {nu}), {_mode(prob)} has no such body at "
+                         f"N={N}")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
     with annotate("fused.copy_out"):
         back = lambda t: t.movedim(-1, 0).contiguous()
-        return back(outs[0]), back(outs[1]), back(outs[2])
+        return back(ws.outs[0]), back(ws.outs[1]), back(ws.outs[2])
 
 
-def _launch_cuda(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive, ltv,
-                 want=-1):
-    """Launch the CUDA kernel on the current stream of X0's device, on the
-    body the launcher's rule picks, counting the launch by mode, library
-    and body; or, for ``want`` >= 0, on that body (``BODIES``) uncounted."""
-    if X0.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel is float32 only, got {X0.dtype}")
+def _prepare_cpu(prob, opts, p, X0, U0, mu0, fan):
+    """The g++ builds' preparation (``_solve``'s ``prepare``): the
+    preparation kernel's blocks run by g++ (``mpc_fused_prepare_cpu_*``)
+    into a workspace; returns (the workspace, its mu)."""
+    _check_kernel(prob, fan)
+    bits = "f32" if p.x0.dtype == torch.float32 else "f64"
+    fn = getattr(_cpu_library(prob, "fused_sqp"),
+                 f"mpc_fused_prepare_cpu_{bits}")
+    ws = _prepare(prob, opts, p, X0, U0, mu0, fn, 0)
+    return ws, ws.ins[13]
+
+
+def _run_cpu(fn, prob, opts, p, ws, n_iter, fan, adaptive, ltv=None):
+    """A g++ build of the kernel body (``fn``) as ``_solve``'s ``run``, on
+    ``_prepare_cpu``'s workspace."""
+    return _run_library(fn, None, prob, opts,
+                        _with_ltv(ws, p.x0.dtype, ltv), n_iter, fan,
+                        adaptive)
+
+
+def _prepare_cuda(prob, opts, p, X0, U0, mu0, fan, want: int = -1):
+    """The card's preparation (``_solve``'s ``prepare``): one launch of the
+    preparation kernel of the solve's CUDA library on the current stream,
+    counted in ``solve_batch_fused.prepare_launches`` where ``want`` is -1
+    (``_launch_cuda``'s); returns ((the library's name, the workspace),
+    its mu)."""
+    _check_kernel(prob, fan)
+    if p.x0.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel is float32 only, got {p.x0.dtype}")
     from .._build import cuda_build
-    lib = _cuda_library(prob, both_bodies=want >= 0)
-    fn = cuda_build(lib)[0].mpc_fused_launch_f32
+    name = _cuda_library(prob, both_bodies=want >= 0)
+    fn = cuda_build(name)[0].mpc_fused_prepare_f32
+    device = p.x0.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ws = _prepare(prob, opts, p, X0, U0, mu0, fn, stream)
+    if want < 0:
+        solve_batch_fused.prepare_launches += 1
+    return (name, ws), ws.ins[13]
+
+
+def _launch_cuda(prob, opts, p, state, n_iter, fan, adaptive, ltv,
+                 want: int = -1):
+    """The card's solve (``_solve``'s ``run``): the CUDA kernel of
+    ``_prepare_cuda``'s library on its workspace (``state``), on the
+    current stream of the workspace's device, on the body the launcher's
+    rule picks, counting the launch by mode, library and body; or, for
+    ``want`` >= 0, on that body (``BODIES``) uncounted."""
+    from .._build import cuda_build
+    name, ws = state
+    fn = cuda_build(name)[0].mpc_fused_launch_f32
+    ws = _with_ltv(ws, p.x0.dtype, ltv)
     body = ctypes.c_int(-1)
-    with torch.cuda.device(X0.device):
-        stream = torch.cuda.current_stream(X0.device).cuda_stream
-        out = _run_library(fn, stream, prob, opts, X0, U0, p, mu, n_iter,
-                           fan, adaptive, ltv, (want, ctypes.byref(body)))
+    device = ws.outs[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out = _run_library(fn, stream, prob, opts, ws, n_iter, fan, adaptive,
+                           (want, ctypes.byref(body)))
     if want < 0:
         solve_batch_fused.launches += 1
         solve_batch_fused.mode_launches[_mode(prob)] += 1
-        solve_batch_fused.library_launches[lib] = \
-            solve_batch_fused.library_launches.get(lib, 0) + 1
+        solve_batch_fused.library_launches[name] = \
+            solve_batch_fused.library_launches.get(name, 0) + 1
         if body.value >= 0:       # B = 0 launches nothing
             solve_batch_fused.body_launches[BODIES[body.value]] += 1
     return out
+
+
+def _prepare_plain(prob, opts, p, X0, U0, mu0, fan):
+    """The plain version's preparation (``_solve``'s ``prepare``):
+    ``sqp._start``; returns ((X0, U0, mu), mu)."""
+    start = _start(prob, p, X0, U0, opts, mu0)
+    return start, start[2]
 
 
 # ---------------------------------------------------------------------------
 # The wrapper.
 # ---------------------------------------------------------------------------
 
-def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
-           discretize=None):
-    """Host-side preparation (the JAX wrapper's fused.py:910-932), one call
-    of ``body`` (plain version or a kernel build), and the status rules.
-    In LTV, ``discretize(prob, p)`` gives the streamed (Ad - I, Bd, cd)
-    (``solver/linearize.py``: the kernel ``ltv_discrete`` on the card,
-    by default the plain version ``ltv_discrete_plain``)."""
+def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, prepare,
+           run, discretize=None):
+    """Host-side checks (the JAX wrapper's fused.py:910-932), the
+    preparation, one run of the body, and the status rules.  ``prepare(prob,
+    opts, p, X0, U0, mu0, fan)`` gives (what ``run`` takes, the barrier's
+    start): a kernel build's preparation kernel (``_prepare_cuda``,
+    ``_prepare_cpu``) or the plain version's (``_prepare_plain``).  ``run(
+    prob, opts, p, prepared, n_iter, fan, adaptive, ltv)`` gives X, U and the
+    statistics.  In LTV, ``discretize(prob, p)`` gives the streamed (Ad - I,
+    Bd, cd) (``solver/linearize.py``: the kernel ``ltv_discrete`` on the
+    card, by default the plain version ``ltv_discrete_plain``)."""
     with annotate("fused.prepare"):
         if not (prob.is_linear or prob.dynamics.supports_lanes):
             raise ValueError(f"dynamics {prob.dynamics.name!r} is not "
                              "lanes-polymorphic")
         nx, nu, N = prob.nx, prob.nu, prob.N
         B = p.x0.shape[0]
-        dtype, device = p.x0.dtype, p.x0.device
+        device = p.x0.device
         if n_iter is None:
             n_iter = int(opts.max_iter) if adaptive else 3
         fan = tuple(float(a) for a in (
             ls_fan if ls_fan is not None
             else (LS_FAN_ADAPTIVE if adaptive else LS_FAN_FIXED)))
-        if X0 is None:
-            X0 = torch.zeros(B, N + 1, nx, dtype=dtype, device=device)
-        if U0 is None:
-            U0 = torch.zeros(B, N, nu, dtype=dtype, device=device)
         want = {"x_des": (B, N, nx), "q": (B, nx), "r": (B, nu),
                 "rm": (B, nu), "u_prev": (B, nu), "x0": (B, nx),
                 "u_min": (B, nu), "u_max": (B, nu), "x_min": (B, nx),
@@ -839,23 +962,14 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
         want.update(X0=(B, N + 1, nx), U0=(B, N, nu))
         for k, shape in want.items():
             t = got[k]
-            if tuple(t.shape) != shape or t.device != device:
+            if t is not None and (tuple(t.shape) != shape
+                                  or t.device != device):
                 raise ValueError(f"{k}: expected shape {shape} on {device}, "
                                  f"got {tuple(t.shape)} on {t.device}")
-        X0 = torch.cat([p.x0[:, None],
-                        _strict_interior(X0[:, 1:].to(dtype),
-                                         p.x_min[:, None], p.x_max[:, None])],
-                       dim=1)
-        U0 = _strict_interior(U0.to(dtype), p.u_min[:, None],
-                              p.u_max[:, None])
-        fin = lambda t: torch.isfinite(t).any(dim=1)
-        has_bounds = (fin(p.u_min) | fin(p.u_max) | fin(p.x_min)
-                      | fin(p.x_max))
         floor = lc.mu_floor(opts)
         if mu0 is None:
             mu0 = opts.warm_mu_factor * opts.tol
-        mu0 = torch.as_tensor(mu0, dtype=dtype, device=device).expand(B)
-        mu = lc.mu_start(has_bounds, mu0, floor, opts.mu_min)
+        prepared, mu = prepare(prob, opts, p, X0, U0, mu0, fan)
 
     with strict_fp32():
         ltv = None
@@ -865,8 +979,7 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
                 from .linearize import ltv_discrete_plain as discretize
             with annotate("fused.discretize"):
                 ltv = discretize(prob, p)
-        X, U, st = body(prob, opts, X0, U0, p, mu, n_iter, fan, adaptive,
-                        ltv)
+        X, U, st = run(prob, opts, p, prepared, n_iter, fan, adaptive, ltv)
 
     with annotate("fused.status"):
         return _status(opts, X, U, st, mu, floor, n_iter, adaptive)
@@ -911,25 +1024,29 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
     ``n_iter`` the iteration cap (default ``opts.max_iter``); cold starts
     pass ``mu0 = opts.mu_init``.
 
-    On CUDA tensors this launches the kernel (float32) on the body the
-    launcher's rule picks (``card_body``) and counts the launch in
-    ``solve_batch_fused.launches`` (and by mode, library and body), in LTV
-    after the discretization kernel (``linearize.ltv_discrete``); on CPU
-    tensors it runs the plain PyTorch version.  Any other device raises.
+    On CUDA tensors this launches the preparation kernel and then the
+    kernel (float32) on the body the launcher's rule picks (``card_body``),
+    in LTV after the discretization kernel (``linearize.ltv_discrete``),
+    and counts the launch in ``solve_batch_fused.launches`` (and by mode,
+    library and body) and the preparation in
+    ``solve_batch_fused.prepare_launches``; on CPU tensors it runs the
+    plain PyTorch version.  Any other device raises.
     """
     kind = p.x0.device.type
     if kind == "cuda":
-        from .linearize import ltv_discrete as discretize
-        body = _launch_cuda
+        from .linearize import ltv_discrete
+        route = _prepare_cuda, _launch_cuda, ltv_discrete
     elif kind == "cpu":
-        body, discretize = _solve_batch_fused_plain, None
+        route = _prepare_plain, _solve_batch_fused_plain, None
     else:
         raise ValueError(f"no fused solve for device type {kind!r}")
-    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, body,
-                  discretize)
+    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
+                  *route)
 
 
 solve_batch_fused.launches = 0
+# card preparations (``_prepare_cuda``): one a counted launch
+solve_batch_fused.prepare_launches = 0
 solve_batch_fused.mode_launches = {"fast": 0, "generic": 0, "ltv": 0}
 # launches by CUDA library (``_cuda_library``: generated ones by name)
 solve_batch_fused.library_launches = {}
@@ -946,7 +1063,7 @@ def solve_batch_fused_plain(prob: ShootingProblem, p: MPCParams,
                             adaptive: bool = False) -> SolveResult:
     """The plain PyTorch version on any device (the kernel's reference)."""
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                  _solve_batch_fused_plain)
+                  _prepare_plain, _solve_batch_fused_plain)
 
 
 def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
@@ -975,7 +1092,7 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     bits = "f32" if p.x0.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"{name}_{bits}")
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                  functools.partial(_run_library, fn, None))
+                  _prepare_cpu, functools.partial(_run_cpu, fn))
 
 
 def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
@@ -992,17 +1109,19 @@ def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
     ``tools/time_fused_modes.py``; a generated LTV shape runs from its
     timing build, ``_cuda_library(prob, both_bodies=True)``, which holds
     both the group and the one-thread body where the shape splits over a
-    group).  Not counted in ``solve_batch_fused.launches`` (its LTV
-    discretization is, in ``ltv_discrete.launches``);
+    group).  Not counted in ``solve_batch_fused.launches`` nor
+    ``prepare_launches`` (its LTV discretization is, in
+    ``ltv_discrete.launches``);
     ``solve_batch_fused`` never calls it.  Raises where the library holds
     no such body."""
     from .linearize import ltv_discrete
     if p.x0.device.type != "cuda":
         raise ValueError("solve_batch_fused_body runs the CUDA kernel: "
                          f"got tensors on {p.x0.device}")
+    want = BODIES.index(body)
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                  functools.partial(_launch_cuda, want=BODIES.index(body)),
-                  ltv_discrete)
+                  functools.partial(_prepare_cuda, want=want),
+                  functools.partial(_launch_cuda, want=want), ltv_discrete)
 
 
 def count_fused_ops(prob: ShootingProblem, p: MPCParams,
@@ -1038,7 +1157,7 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     p64 = MPCParams(*[type(f)(*[host(a) for a in f]) if isinstance(f, tuple)
                       else host(f) for f in p])
     _solve(prob, p64, host(X0), host(U0), opts, mu0, n_iter, None, adaptive,
-           functools.partial(_run_library, fn, None))
+           _prepare_cpu, functools.partial(_run_cpu, fn))
     kinds = ("add", "mul", "div_sqrt", "transcendental")
     tally = dict(zip(kinds, counts[:4].tolist()))
     minimum = dict(zip(kinds, (counts[:4] - counts[4:]).tolist()))
@@ -1073,5 +1192,5 @@ def count_block_path(prob: ShootingProblem, p: MPCParams,
     p64 = MPCParams(*[type(f)(*[host(a) for a in f]) if isinstance(f, tuple)
                       else host(f) for f in p])
     _solve(prob, p64, host(X0), host(U0), opts, mu0, n_iter, None, adaptive,
-           functools.partial(_run_library, fn, None))
+           _prepare_cpu, functools.partial(_run_cpu, fn))
     return dict(zip(BLOCK_REGIONS, path.tolist()))

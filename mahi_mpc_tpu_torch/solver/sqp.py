@@ -50,8 +50,11 @@ class SolveResult(NamedTuple):
     obj: Tensor     # reference-form objective at the solution
 
 
+INTERIOR_DELTA = 1e-3     # the widest margin `_strict_interior` keeps
+
+
 def _strict_interior(v: Tensor, lo: Tensor, hi: Tensor,
-                     delta: float = 1e-3) -> Tensor:
+                     delta: float = INTERIOR_DELTA) -> Tensor:
     """Clip into the strict interior of a (possibly infinite) box so barrier
     terms are well-defined at the initial iterate.  ``lo``/``hi`` broadcast
     against ``v``."""

@@ -22,6 +22,12 @@ card, every test marked ``gpu``::
   one thread), and a user's own model at B=1 on the block body
   (``user_chain4``: ``FastNq<gen::Model>``, nx = 8, nu = 4;
   ``user_vdp``: ``Generic<gen::Model>`` under RK4).
+- The preparation kernel (``csrc/fused_prepare.cuh``): its inputs bit for
+  bit the PyTorch preparation's on the CPU at B = 1, 33 (not a multiple of
+  the tile) and 16384; a card solve, nonlinear and LTV, bit for bit the
+  same kernel's fed by the PyTorch preparation and copies that ran before
+  it; one device operation under ``fused.prepare`` (with
+  ``fused.copy_in``) a solve; one preparation counted a counted launch.
 """
 
 import numpy as np
@@ -33,9 +39,15 @@ from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.ops.precision import strict_fp32
+from mahi_mpc_tpu_torch.runtime import BatchModelControl
+from mahi_mpc_tpu_torch.solver import fused
+from mahi_mpc_tpu_torch.solver import loop_common as lc
 from mahi_mpc_tpu_torch.solver.batched import solve_batch_lanes
 from mahi_mpc_tpu_torch.solver.fused import (card_body, solve_batch_fused,
                                              solve_batch_fused_plain)
+from mahi_mpc_tpu_torch.solver.linearize import ltv_discrete
+from mahi_mpc_tpu_torch.solver.sqp import _start
+from mahi_mpc_tpu_torch.utils.profiling import clear_spans, spans
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
                                                     make_problem)
@@ -285,3 +297,159 @@ def test_generated_block_body_b1_on_gpu(cuda, name, mode):
                                  mu0=mu_warm, **mode)
     assert _held(rk, rp) <= PLAIN_BAND
     assert torch.equal(rk.status, rp.status)
+
+
+# ---- the preparation kernel --------------------------------------------------
+
+def _same_bits(a, b):
+    """Equal bit for bit, any NaN matching any NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _mixed(prob, p, seed):
+    """``p`` with boxes of every kind by instance (x finite, lower-only,
+    open; u finite, upper-only; every fourth instance unbounded) and a
+    warm start 3 N(0, 1) with NaN and +-inf in it."""
+    g = torch.Generator(device=p.x0.device).manual_seed(seed)
+    B, N, nx, nu = p.x0.shape[0], prob.N, prob.nx, prob.nu
+    inf = float("inf")
+    kind = torch.arange(B, device=p.x0.device)[:, None]
+    full = lambda v, n: torch.full((B, n), v, device=p.x0.device)
+    x_min = torch.where(kind % 3 == 2, -inf, full(-1.5, nx))
+    x_max = torch.where(kind % 3 >= 1, inf, full(0.001, nx))
+    u_min = torch.where(kind % 2 == 1, -inf, full(-20.0, nu))
+    u_max = full(20.0, nu)
+    off = (kind % 4 == 3)
+    p = p._replace(x_min=torch.where(off, -inf, x_min),
+                   x_max=torch.where(off, inf, x_max),
+                   u_min=torch.where(off, -inf, u_min),
+                   u_max=torch.where(off, inf, u_max))
+    spike = lambda t: torch.where(
+        torch.rand(t.shape, generator=g, device=t.device) < 0.02,
+        torch.tensor([float("nan"), inf, -inf], device=t.device)[
+            torch.randint(0, 3, t.shape, generator=g, device=t.device)], t)
+    X0 = spike(3.0 * torch.randn(B, N + 1, nx, generator=g,
+                                 device=p.x0.device))
+    U0 = spike(3.0 * torch.randn(B, N, nu, generator=g, device=p.x0.device))
+    return p, X0, U0
+
+
+@pytest.mark.parametrize("batch", [1, 33, 16384])
+def test_card_preparation_is_the_pytorch_preparation(cuda, batch):
+    """The preparation kernel's 14 batch-innermost inputs are bit for bit
+    ``sqp._start``'s (``_strict_interior``, ``mu_start``) with each input's
+    ``movedim(0, -1).contiguous()``, computed by PyTorch on the CPU."""
+    prob, p, opts = _setup(cuda, seed=8, batch=batch)
+    p, X0, U0 = _mixed(prob, p, 8)
+    _, mu_warm = _mu(opts)
+    (_, ws), _ = fused._prepare_cuda(prob, opts, p, X0, U0, mu_warm,
+                                     fused.LS_FAN_FIXED)
+    host = lambda t: t.cpu()
+    ph = p._replace(**{k: host(getattr(p, k)) for k in p._fields
+                       if k != "lin"})
+    Xr, Ur, mur = _start(prob, ph, host(X0), host(U0), opts, mu_warm)
+    want = [t.movedim(0, -1).contiguous() for t in (
+        Xr, Ur, ph.x_des, ph.q, ph.r, ph.rm, ph.u_prev, ph.u_min, ph.u_max,
+        ph.x_min, ph.x_max, ph.qf, ph.xf_des, mur)]
+    for k, (a, b) in enumerate(zip(ws.ins, want)):
+        assert _same_bits(a.cpu(), b), k
+    assert (mur == opts.mu_min).any() == (batch >= 4)
+
+
+def _old_route(prob, p, X0, U0, opts, mu0, n_iter):
+    """The card solve as it ran before the preparation kernel: PyTorch's
+    preparation (``sqp._start``) and a batch-innermost copy of each input
+    (``movedim(0, -1).contiguous()``), then the same solve kernel and
+    status rules."""
+    Xs, Us, mu = _start(prob, p, X0, U0, opts, mu0)
+    lanes = lambda t: t.movedim(0, -1).contiguous()
+    ws = fused._workspace(prob, Xs.shape[0], Xs.dtype, Xs.device)
+    ws = ws._replace(ins=[lanes(t) for t in (
+        Xs, Us, p.x_des, p.q, p.r, p.rm, p.u_prev, p.u_min, p.u_max,
+        p.x_min, p.x_max, p.qf, p.xf_des, mu)])
+    with strict_fp32():
+        ltv = ltv_discrete(prob, p) if prob.is_linear else None
+        X, U, st = fused._launch_cuda(prob, opts, p,
+                                      (fused._cuda_library(prob), ws),
+                                      n_iter, fused.LS_FAN_FIXED, False, ltv)
+    return fused._status(opts, X, U, st, mu, lc.mu_floor(opts), n_iter,
+                         False)
+
+
+@pytest.mark.parametrize("ltv", [False, True], ids=["nonlinear", "ltv"])
+def test_card_solve_is_the_old_routes(cuda, ltv):
+    """The fixed-3 warm solve at B=1024 from the kernel's cold plan, with
+    NaN and +-inf spikes in a copy of that plan: X, U and status bit for
+    bit what the same kernel gives fed by the PyTorch preparation."""
+    prob, p, opts = _setup(cuda, ltv=ltv, seed=9)
+    mu_cold, mu_warm = _mu(opts)
+    cold = solve_batch_fused(prob, p, None, None, opts, mu0=mu_cold,
+                             adaptive=True)
+    p2 = p._replace(x0=p.x0 + 0.01)
+    U0 = torch.where(torch.arange(B, device=cuda)[:, None, None] % 97 == 5,
+                     float("nan"), cold.U)
+    new = solve_batch_fused(prob, p2, cold.X, U0, opts, mu0=mu_warm,
+                            n_iter=3)
+    old = _old_route(prob, p2, cold.X, U0, opts, mu_warm, 3)
+    assert _same_bits(new.X, old.X) and _same_bits(new.U, old.U)
+    assert torch.equal(new.status, old.status)
+
+
+def test_preparation_is_one_device_operation(cuda):
+    """Under ``torch.profiler``, a fixed-3 solve at B=16384 launches one
+    device operation, the preparation kernel, from inside
+    ``fused.prepare`` (which holds ``fused.copy_in``): the device
+    operations whose launch call lies in the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prob, p, opts = _setup(cuda, seed=10, batch=16384)
+    _, mu_warm = _mu(opts)
+    solve_batch_fused(prob, p, None, None, opts, mu0=mu_warm, n_iter=3)
+    torch.cuda.synchronize()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):        # test_torch_gpu_spans.py LEAD_OPS
+            torch.cuda._sleep(1)
+        solve_batch_fused(prob, p, None, None, opts, mu0=mu_warm, n_iter=3)
+        torch.cuda.synchronize()
+    prep = [s for s in spans() if s.name == "fused.prepare"]
+    copy_in = [s for s in spans() if s.name == "fused.copy_in"]
+    assert len(prep) == len(copy_in) == 1
+    assert copy_in[0].parent == prep[0].id
+    events = prof.profiler.kineto_results.events()
+    inside = {e.correlation_id() for e in events
+              if e.device_type() == DeviceType.CPU
+              and e.name().startswith("cuda") and e.correlation_id()
+              and prep[0].start_ns <= e.start_ns() <= prep[0].end_ns}
+    ops = [e.name() for e in events if e.device_type() == DeviceType.CUDA
+           and e.correlation_id() in inside]
+    assert len(ops) == 1 and "fused_prepare_tile_kernel" in ops[0], ops
+
+
+def test_one_preparation_a_launch(cuda):
+    """On the card route ``solve_batch_fused.prepare_launches`` rises with
+    ``solve_batch_fused.launches``, one for one: a service's cold adaptive
+    step and two warm fixed-3 steps, nonlinear and LTV, and a solve at
+    B=1 on the block body."""
+    before = (solve_batch_fused.prepare_launches, solve_batch_fused.launches)
+    for is_linear in (False, True):
+        mp = ModelParameters("count", num_x=8, num_u=4, step_size=0.002,
+                             num_shooting_nodes=25, u_min=[-20.0] * 4,
+                             u_max=[20.0] * 4, dynamics_name="mahi_arm",
+                             is_linear=is_linear)
+        svc = BatchModelControl(mp, batch=256, device=cuda,
+                                Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4,
+                                Rm=[0.01] * 4,
+                                opts=SolverOptions(tol=1e-4, max_iter=30,
+                                                   fixed_warm_iters=3))
+        svc.set_states(0.2 * torch.randn(256, 8, device=cuda))
+        for _ in range(3):
+            svc.step()
+    prob, p, opts = _setup(cuda, seed=11, batch=1)
+    _launched_on("block", lambda: solve_batch_fused(
+        prob, p, None, None, opts, mu0=_mu(opts)[1], n_iter=3))
+    after = (solve_batch_fused.prepare_launches, solve_batch_fused.launches)
+    assert after[0] - before[0] == after[1] - before[1] == 7

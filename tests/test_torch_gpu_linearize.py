@@ -24,7 +24,8 @@ from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.runtime import BatchModelControl
-from mahi_mpc_tpu_torch.solver.fused import _launch_cuda, _solve
+from mahi_mpc_tpu_torch.solver.fused import (_launch_cuda, _prepare_cuda,
+                                             _solve)
 from mahi_mpc_tpu_torch.solver.linearize import (linearize_batch,
                                                  linearize_batch_plain,
                                                  linearize_tile,
@@ -239,7 +240,7 @@ def test_ltv_paths_launch_the_kernels(cuda):
     opts = svc.opts
     ref = _solve(svc.problem, pp, X, U, opts,
                  max(opts.warm_mu_factor * opts.tol, opts.mu_min), 3, None,
-                 False, _launch_cuda, ltv_discrete_plain)
+                 False, _prepare_cuda, _launch_cuda, ltv_discrete_plain)
     ok = ref.status != 2
     assert (u - torch.where(ok[:, None], ref.U[:, 0], 0.0)).abs().max() \
         .item() <= 1e-4

@@ -37,6 +37,12 @@ pytestmark = pytest.mark.gpu
 B, N = 16384, 25
 STEPS = 5
 SLACK_NS = 20_000
+# Kernels that open every traced window, ignored by what reads the trace.
+# Run after run in one process the profiler loses the first device records
+# of a trace, more the more traces the process has taken (PERF.md §6),
+# so a window's first operations must be ones nothing counts.
+LEAD_OPS = 256
+LEAD_KERNEL = "spin_kernel"       # torch.cuda._sleep's
 
 
 @pytest.fixture
@@ -75,6 +81,8 @@ def _traced(svc, g):
     clear_spans()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
+        for _ in range(LEAD_OPS):
+            torch.cuda._sleep(1)
         _steps(svc, g, STEPS)
         torch.cuda.synchronize()
     return prof
@@ -112,7 +120,8 @@ def test_spans_leak_nothing_into_the_device_trace(cuda, monkeypatch):
 
     def counted(prof):
         events = list(prof.events())
-        by_name = Counter(e.name for e in _device_events(events))
+        by_name = Counter(e.name for e in _device_events(events)
+                          if LEAD_KERNEL not in e.name)
         tr = device_time(events, sorted(by_name))
         return by_name, {k: v[1] for k, v in tr["kernel_s"].items()}
 

@@ -349,7 +349,8 @@ def _gxx_fused(prob, p, X0=None, U0=None, opts=SolverOptions(), mu0=None,
     fn = getattr(fused._cpu_library(prob, "fused_sqp"),
                  f"mpc_fused_solve_cpu_{bits}")
     return fused._solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                        functools.partial(fused._run_library, fn, None),
+                        fused._prepare_cpu,
+                        functools.partial(fused._run_cpu, fn),
                         lz.ltv_discrete_cpu_kernel)
 
 

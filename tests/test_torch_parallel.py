@@ -389,13 +389,53 @@ def test_fused_launch_enters_the_device_guard(monkeypatch):
     monkeypatch.setattr(solve_batch_fused, "mode_launches",
                         dict(fast=0, generic=0, ltv=0))
     log = _fake_cuda(monkeypatch, fused_mod, "mpc_fused_launch_f32")
-    X0 = types.SimpleNamespace(device=torch.device("cuda", 1),
-                               dtype=torch.float32)
-    fused_mod._launch_cuda(prob, None, X0, None, None, None, 3, (1.0,),
+    X = types.SimpleNamespace(device=torch.device("cuda", 1),
+                              dtype=torch.float32)
+    ws = fused_mod._Workspace([], [X], [], [None] * 3)
+    p = types.SimpleNamespace(x0=X)
+    fused_mod._launch_cuda(prob, None, p, ("fused_sqp", ws), 3, (1.0,),
                            False, None)
     assert launched == ["stream of cuda:1 with cuda:1 current"]
     assert log == [("enter", "cuda:1"), ("exit", "cuda:1")]
     assert solve_batch_fused.launches == 1
+
+
+class _CardTensor:
+    """A stand-in for a float32 tensor on cuda:1, batch of one."""
+    device, dtype, shape = torch.device("cuda", 1), torch.float32, (1,)
+
+    def to(self, *a):
+        return self
+
+    def contiguous(self):
+        return self
+
+    def data_ptr(self):
+        return 0
+
+
+def test_fused_prepare_enters_the_device_guard(monkeypatch):
+    """The card route's preparation (``_prepare_cuda``), called for cuda:1
+    while cuda:0 is current, launches its kernel on cuda:1's stream inside
+    cuda:1's guard and counts the preparation."""
+    prob, pb = _arm_batch(B=1)
+    log = _fake_cuda(monkeypatch, fused_mod, "mpc_fused_prepare_f32")
+    streams = []
+    lib = types.SimpleNamespace(mpc_fused_prepare_f32=lambda *a:
+                                streams.append(a[-1]) or 0)
+    import mahi_mpc_tpu_torch._build as build
+    monkeypatch.setattr(build, "cuda_build", lambda name: (lib, "", 0.0))
+    t = _CardTensor()
+    monkeypatch.setattr(fused_mod, "_workspace", lambda *a: fused_mod
+                        ._Workspace([t] * 14, [t] * 3, [t] * 7, [None] * 3))
+    monkeypatch.setattr(solve_batch_fused, "prepare_launches", 0)
+    p = pb._replace(**{k: t for k in pb._fields if k != "lin"})
+    (name, ws), mu = fused_mod._prepare_cuda(prob, SolverOptions(), p, t, t,
+                                             1e-5, fused_mod.LS_FAN_FIXED)
+    assert name == "fused_sqp" and ws.ins == [t] * 14 and mu is t
+    assert streams == ["stream of cuda:1 with cuda:1 current"]
+    assert log == [("enter", "cuda:1"), ("exit", "cuda:1")]
+    assert solve_batch_fused.prepare_launches == 1
 
 
 def test_riccati_launch_enters_the_device_guard(monkeypatch):

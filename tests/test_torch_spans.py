@@ -121,13 +121,19 @@ def _gxx_fused(prob, p, X0=None, U0=None, opts=SolverOptions(), mu0=None,
 
 def test_kernel_build_step_span_tree(monkeypatch):
     """Through ``_run_library`` (the g++ build of the kernel body): the
-    batch-innermost copies, the launch and the copies back, between the
-    preparation and the status rules."""
+    launch and the copies back between the preparation and the status
+    rules, and the workspace (``fused.copy_in``) inside the preparation, as
+    on the card."""
     monkeypatch.setattr(batch_service, "solve_batch_fused", _gxx_fused)
     svc, g = _service()
-    _check_tree(_traced_steps(svc, g), False,
-                ["fused.prepare", "fused.copy_in", "fused.launch",
-                 "fused.copy_out", "fused.status"])
+    recorded = _traced_steps(svc, g)
+    _check_tree(recorded, False,
+                ["fused.prepare", "fused.launch", "fused.copy_out",
+                 "fused.status"])
+    prepares = [s for s in recorded if s.name == "fused.prepare"]
+    assert len(prepares) == STEPS
+    for prep in prepares:
+        assert _children(recorded, prep)[0] == ["fused.copy_in"]
 
 
 def test_two_threads_keep_their_own_parents(monkeypatch):
