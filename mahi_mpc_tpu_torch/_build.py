@@ -83,7 +83,7 @@ _c_ll = ctypes.c_longlong
 # The fused kernel's C interface: B, N, model, nx, nu, pointers, scalars,
 # ints, fan rungs, model constants (and on the card the stream, the body to
 # launch, -1 for the launcher's rule, and where it writes the body it
-# launched).
+# launched and that body's threads an instance).
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
 # The preparation of the kernel's inputs (csrc/fused_prepare.cuh): B, N, nx,

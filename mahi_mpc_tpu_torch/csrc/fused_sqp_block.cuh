@@ -397,19 +397,23 @@ MPC_HD bool use_block(long long B, int N) {
   }
 }
 
+// The threads an instance of policy Step's body `body` (a `Body`).
+template <typename Step>
+MPC_HD int body_threads(int body) {
+  if (body == kBlockBody) return kBlockThreads;
+  if (body == kGroupBody)
+    return GroupStep<typename StepScalar<Step>::type, Step>::W;
+  return 1;
+}
+
 // The body the rule picks for B instances at horizon N, and its threads an
 // instance in `threads` (when given).
 template <typename Step>
 MPC_HD int card_body(long long B, int N, int* threads) {
-  int body = kThreadBody, n = 1;
-  if (use_block<Step>(B, N)) {
-    body = kBlockBody;
-    n = kBlockThreads;
-  } else if (GroupBody<Step>::value) {
-    body = kGroupBody;
-    n = GroupStep<typename StepScalar<Step>::type, Step>::W;
-  }
-  if (threads) *threads = n;
+  const int body = use_block<Step>(B, N)     ? kBlockBody
+                   : GroupBody<Step>::value ? kGroupBody
+                                            : kThreadBody;
+  if (threads) *threads = body_threads<Step>(body);
   return body;
 }
 

@@ -182,15 +182,17 @@ constexpr bool kHasThread = !mpc::GroupBody<Step>::value ||
 // body for the policies `GroupBody` names, else the one-thread body), or on
 // body `want` (an mpc::Body) when it is not negative: how the two bodies
 // are timed against each other (chip_smoke.py, tools/time_fused_modes.py).
-// Writes the body it launched to `body`; does not synchronise.  Returns
-// cudaGetLastError(), -1 when this library holds no instantiation for the
-// problem, -4 when the policy has no body `want`.
+// Writes the body it launched and that body's threads an instance to
+// `launched[0]` and `launched[1]` (-1 and 0 where it launched nothing); does
+// not synchronise.  Returns cudaGetLastError(), -1 when this library holds
+// no instantiation for the problem, -4 when the policy has no body `want`.
 template <int kFamilies>
 int launch_fused(long long B, int N, int model, int nx, int nu,
                  void* const* ptrs, const float* scal, const int* ints,
                  const float* fan, const double* consts, void* stream,
-                 int want, int* body) {
-  *body = -1;
+                 int want, int* launched) {
+  launched[0] = -1;
+  launched[1] = 0;
   if (B <= 0) return 0;
   const mpc::FusedArgs<float> a =
       mpc::make_args<float>(B, N, ptrs, scal, ints, fan);
@@ -201,7 +203,8 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
         typedef typename std::decay<decltype(step)>::type Step;
         const int pick = want >= 0 ? want
                                    : mpc::card_body<Step>(B, N, nullptr);
-        *body = pick;
+        launched[0] = pick;
+        launched[1] = mpc::body_threads<Step>(pick);
         if (pick == mpc::kBlockBody) {
           if constexpr (mpc::BlockBody<Step>::value) {
             if (mpc::block_smem_bytes<Step>(N) > mpc::kBlockSmemMax)
@@ -480,19 +483,19 @@ inline int launch_prepare(long long B, int N, int nx, int nu,
 // The plain C interface of one library, for ctypes: the launcher (device
 // pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
 // fan rungs and model constants, the stream, the body to launch (-1: the
-// rule's) and where to write the body it launched; solver/fused.py
-// `_run_library`), the preparation of its inputs (`launch_prepare`), and
-// the occupancy of the kernels it launches (chip_smoke.py); and the LTV
-// path's linearization of the models this library holds and discretization
-// of its Ltv shapes, float and double (solver/linearize.py), with their
-// occupancy.
+// rule's) and where to write the body it launched and its threads an
+// instance; solver/fused.py `_run_library`), the preparation of its inputs
+// (`launch_prepare`), and the occupancy of the kernels it launches
+// (chip_smoke.py); and the LTV path's linearization of the models this
+// library holds and discretization of its Ltv shapes, float and double
+// (solver/linearize.py), with their occupancy.
 #define MPC_FUSED_LIBRARY(kFamilies)                                         \
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
       const float* scal, const int* ints, const float* fan,                  \
-      const double* consts, void* stream, int want, int* body) {             \
+      const double* consts, void* stream, int want, int* launched) {         \
     return launch_fused<kFamilies>(B, N, model, nx, nu, ptrs, scal, ints,    \
-                                   fan, consts, stream, want, body);         \
+                                   fan, consts, stream, want, launched);     \
   }                                                                          \
   extern "C" int mpc_fused_prepare_f32(                                      \
       long long B, int N, int nx, int nu, const void* const* in,             \

@@ -806,16 +806,30 @@ def _with_ltv(ws: _Workspace, dtype, ltv) -> _Workspace:
                             for t in ltv])
 
 
+def _launched(fn, tail) -> dict:
+    """The body a build of the kernel ran and its threads an instance: on
+    the card what the launcher wrote into ``tail``'s last (body -1 where it
+    launched nothing), in a g++ build (no ``tail``) the build's name and no
+    width."""
+    if not tail:
+        return dict(body=getattr(fn, "__name__", None), width=None)
+    body, width = tail[-1]
+    return dict(body=BODIES[body] if body >= 0 else None, width=width)
+
+
 def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                  ws: _Workspace, n_iter: int, fan: Sequence[float],
                  adaptive: bool, tail=()):
     """Call a build of the kernel body (``fn``: a CUDA launcher when
-    ``stream`` is given, followed by its own arguments ``tail``, else the
-    CPU test build) on the arrays of ``ws``; returns X, U, stats in
-    batch-leading layout."""
+    ``stream`` is given, followed by its own arguments ``tail``, the body to
+    launch and where it writes what it launched, else the CPU test build)
+    on the arrays of ``ws``; returns X, U, stats in batch-leading layout.
+    Its span ``fused.launch`` records what ran: the step ``mode``, the
+    ``integrator``, the ``body`` and its threads an instance, ``width``, as
+    the launcher wrote them (a g++ build: its name, and no width)."""
     nx, nu, N = prob.nx, prob.nu, prob.N
     B, dtype = ws.outs[0].shape[-1], ws.outs[0].dtype
-    with annotate("fused.launch"):
+    with annotate("fused.launch") as span:
         ptrs = (ctypes.c_void_p * 27)(*[
             None if t is None else t.data_ptr()
             for t in ws.ins + ws.ltv + ws.outs + ws.scratch])
@@ -834,6 +848,9 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
         if stream is not None:
             args += [stream, *tail]
         rc = fn(*args)
+        if span is not None:
+            span.attrs = dict(mode=_mode(prob), integrator=prob.integrator,
+                              **_launched(fn, tail))
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
                          f"model {model}, (nx, nu) = ({nx}, {nu}), "
@@ -904,19 +921,19 @@ def _launch_cuda(prob, opts, p, state, n_iter, fan, adaptive, ltv,
     name, ws = state
     fn = cuda_build(name)[0].mpc_fused_launch_f32
     ws = _with_ltv(ws, p.x0.dtype, ltv)
-    body = ctypes.c_int(-1)
+    launched = (ctypes.c_int * 2)(-1, 0)     # the body, its threads
     device = ws.outs[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         out = _run_library(fn, stream, prob, opts, ws, n_iter, fan, adaptive,
-                           (want, ctypes.byref(body)))
+                           (want, launched))
     if want < 0:
         solve_batch_fused.launches += 1
         solve_batch_fused.mode_launches[_mode(prob)] += 1
         solve_batch_fused.library_launches[name] = \
             solve_batch_fused.library_launches.get(name, 0) + 1
-        if body.value >= 0:       # B = 0 launches nothing
-            solve_batch_fused.body_launches[BODIES[body.value]] += 1
+        if launched[0] >= 0:      # B = 0 launches nothing
+            solve_batch_fused.body_launches[BODIES[launched[0]]] += 1
     return out
 
 

@@ -15,6 +15,10 @@ only):
   interval itself is not placed against the spans: on the H100 machine
   the profiler puts its device events off its own launch events by up to
   milliseconds in some profiles, drifting within one (PERF.md §5);
+- each ``fused.launch`` span records what the launcher ran: the step
+  mode, the integrator, the body and its threads an instance (the RK4 arm
+  on ``Generic<ArmModel<4>>``'s group body, the Euler arm on the group
+  body and, at B=1, on the block body, LTV on the group body);
 - the spans leak nothing into the device trace: ``portbench.core``'s
   reduction of the device's operations counts the same operations, by
   name and number, with the spans recording as with them patched out.
@@ -134,3 +138,28 @@ def test_spans_leak_nothing_into_the_device_trace(cuda, monkeypatch):
     off = counted(_traced(svc, g))
     assert spans() == []
     assert on == off
+
+
+@pytest.mark.parametrize("is_linear, integrator, batch, want", [
+    (False, "rk4", 2048, ("generic", "group", 4)),
+    (False, "euler", 2048, ("fast", "group", 4)),
+    (False, "euler", 1, ("fast", "block", 256)),
+    (True, "euler", 2048, ("ltv", "group", 4))])
+def test_launch_span_records_what_the_launcher_ran(cuda, is_linear,
+                                                   integrator, batch, want):
+    mp = ModelParameters("spans", num_x=8, num_u=4, step_size=0.002,
+                         num_shooting_nodes=N, u_min=[-20.0] * 4,
+                         u_max=[20.0] * 4, dynamics_name="mahi_arm",
+                         is_linear=is_linear, integrator=integrator)
+    svc = BatchModelControl(mp, batch=batch, device=cuda,
+                            opts=SolverOptions(tol=1e-4, max_iter=30,
+                                               fixed_warm_iters=3))
+    svc.set_states(0.1 * torch.ones(batch, 8, device=cuda))
+    svc.step()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        svc.step().cpu()
+    launches = [s.attrs for s in spans() if s.name == "fused.launch"]
+    mode, body, width = want
+    assert launches == [dict(mode=mode, integrator=integrator, body=body,
+                             width=width)]

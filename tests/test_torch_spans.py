@@ -5,8 +5,10 @@ versions, and the kernel body's g++ build through ``_run_library``), every
 child inside its parent, step ids one a step; spans of two threads keep
 their own parents; the buffer's bound drops and counts."""
 
+import ctypes
 import threading
 
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -23,11 +25,11 @@ SERVICE = ["service.sync", "service.solve", "service.sync", "service.status",
            "service.gather"]
 
 
-def _service(is_linear=False):
+def _service(is_linear=False, integrator="euler"):
     mp = ModelParameters("spans", num_x=8, num_u=4, step_size=0.002,
                          num_shooting_nodes=N, u_min=[-20.0] * 4,
                          u_max=[20.0] * 4, dynamics_name="mahi_arm",
-                         is_linear=is_linear)
+                         is_linear=is_linear, integrator=integrator)
     svc = BatchModelControl(
         mp, batch=B, device="cpu", Q=[10.0] * 4 + [1.0] * 4, R=[0.1] * 4,
         Rm=[0.01] * 4, opts=SolverOptions(tol=1e-4, max_iter=30,
@@ -134,6 +136,35 @@ def test_kernel_build_step_span_tree(monkeypatch):
     assert len(prepares) == STEPS
     for prep in prepares:
         assert _children(recorded, prep)[0] == ["fused.copy_in"]
+
+
+@pytest.mark.parametrize("is_linear, integrator, mode", [
+    (False, "rk4", "generic"), (False, "euler", "fast"),
+    (True, "euler", "ltv")])
+def test_launch_span_records_what_ran(monkeypatch, is_linear, integrator,
+                                      mode):
+    """``fused.launch`` carries the step mode, the integrator, and the
+    body and its width as the build reports them: a g++ build gives its
+    own name and no width."""
+    monkeypatch.setattr(batch_service, "solve_batch_fused", _gxx_fused)
+    svc, g = _service(is_linear=is_linear, integrator=integrator)
+    launches = [s for s in _traced_steps(svc, g) if s.name == "fused.launch"]
+    assert len(launches) == STEPS
+    for s in launches:
+        assert s.attrs == dict(mode=mode, integrator=integrator,
+                               body="mpc_fused_solve_cpu_f32", width=None)
+
+
+def test_launch_records_the_body_the_launcher_wrote():
+    """On the card the launcher writes the body it launched and its
+    threads an instance; -1 where it launched nothing (B = 0)."""
+    launched = lambda body, width: (-1, (ctypes.c_int * 2)(body, width))
+    assert fused._launched(None, launched(1, 4)) == dict(body="group",
+                                                         width=4)
+    assert fused._launched(None, launched(2, 256)) == dict(body="block",
+                                                           width=256)
+    assert fused._launched(None, launched(-1, 0)) == dict(body=None,
+                                                          width=0)
 
 
 def test_two_threads_keep_their_own_parents(monkeypatch):
