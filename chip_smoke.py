@@ -14,7 +14,8 @@ line each, with the seconds since start in ``t``:
    ``flop_count.cpp`` beside them; registers and spill bytes of every
    kernel instantiation from ``-Xptxas -v``; then the main path's
    instantiation alone (``fused_sqp_group_kernel``, four threads an
-   instance): its ptxas line and blocks an SM; and the Riccati kernel
+   instance): its ptxas line and blocks an SM, and the arm under RK4's
+   (``Generic<ArmModel<4>>``) beside it; and the Riccati kernel
    (``riccati_group_kernel``, a group of 16 / 8 / 4 threads an instance) at
    each stage shape: its ptxas line, shared memory and blocks an SM (0 B of
    spill stores and >= 2 blocks an SM, or the phase fails);
@@ -3797,6 +3798,11 @@ def main() -> int:
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
           f"group kernel: {len(group)} instantiations, blocks/SM {per_sm}")
+    # beside it the arm under RK4 (``Generic<ArmModel<4>>``), whose
+    # dual-number passes run the chain's code (``arm_chain``) as well
+    _, rk4_arm, _ = model_batch(dev, np.random.default_rng(0), "mahi_arm", 1,
+                                integrator="rk4")
+    emit(phase="group_kernel_rk4_arm", **fused_instantiation(builds, rk4_arm))
     # the Riccati kernel: a group of threads an instance, every stage shape
     ric_lib = builds["riccati"][0]
     ric_k = {tuple(k["template_args"]): k

@@ -140,7 +140,7 @@ CPU_LIBRARIES = {
         "mpc_fused_solve_block_cpu_f32": _FUSED_ARGS,
         "mpc_fused_solve_block_cpu_f64": _FUSED_ARGS,
         **{f"mpc_arm_{kind}_cpu_{bits}": _ARM_EVAL + [real] + [_c_void_p] * 3
-           for kind in ("eval", "fold")
+           for kind in ("eval", "fold", "sweep")
            for bits, real in (("f32", ctypes.c_float),
                               ("f64", ctypes.c_double))},
         **{f"mpc_model_eval_cpu_{bits}": [

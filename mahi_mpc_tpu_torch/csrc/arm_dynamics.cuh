@@ -18,6 +18,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #if !defined(__CUDACC__)
 #define __host__
 #define __device__
@@ -190,6 +192,32 @@ template <typename S, int K>
 MPC_HD S m_value(const Dual<S, K>& a) { return a.v; }
 #undef MPC_DUAL
 
+// Mixed widths: a Dual<S, KA> with KA < KB stands for a Dual<S, KB> whose
+// tangents KA .. KB - 1 are zero, and their product forms no 0 * x.  Each
+// tangent k < KA is formed as the KA-wide product forms it, each k >= KA as
+// a plain scalar times a dual number forms it; so a pass that carries both
+// tangents rounds each as the two narrower passes did.
+template <typename S, int KA, int KB>
+MPC_HD std::enable_if_t<(KA < KB), Dual<S, KB>> operator*(
+    const Dual<S, KA>& a, const Dual<S, KB>& b) {
+  Dual<S, KB> r(a.v * b.v);
+#pragma unroll
+  for (int k = 0; k < KA; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+#pragma unroll
+  for (int k = KA; k < KB; ++k) r.d[k] = a.v * b.d[k];
+  return r;
+}
+template <typename S, int KA, int KB>
+MPC_HD std::enable_if_t<(KB < KA), Dual<S, KA>> operator*(
+    const Dual<S, KA>& a, const Dual<S, KB>& b) {
+  Dual<S, KA> r(a.v * b.v);
+#pragma unroll
+  for (int k = 0; k < KB; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+#pragma unroll
+  for (int k = KB; k < KA; ++k) r.d[k] = a.d[k] * b.v;
+  return r;
+}
+
 // minimum / maximum of two scalars of one type (plain or dual), NaN
 // propagating as torch.minimum / torch.maximum; a dual number keeps the
 // tangent of the operand it picks.
@@ -280,7 +308,8 @@ MPC_HD auto dot3(const A* a, const B* b) -> decltype(a[0] * b[0]) {
 // dual-number pass in registers.  Kinematics and M are in the scalar K,
 // velocities, forces and h in the scalar T of qd: K = T for one pass
 // through the whole chain; K plain and T a Dual for the tangent of a qd
-// direction, on which the kinematics and M do not depend.
+// direction, on which the kinematics and M do not depend; K = Dual<S, 1>
+// and T = Dual<S, 2> for a q and a qd direction in one pass.
 template <bool kMass, typename T, typename K, typename S, int NQ>
 MPC_HD void arm_chain(const ArmConsts<S, NQ>& c, const K* q, const T* qd,
                       K (&M)[NQ][NQ], T* h) {
@@ -508,7 +537,8 @@ MPC_HD void arm_qdd(const ArmConsts<S, NQ>& c, const T* q, const T* qd,
 //   qd_j: -M^{-1} (dh + D e_j), dh from the RNEA alone over plain
 //         kinematics;
 //   u_j:  M^{-1} e_j,
-// each solve with the Cholesky factor L of the value part.
+// each solve with the Cholesky factor L of the value part; or q_j and qd_j
+// from one sweep that carries both tangents (`arm_q_qd_columns`).
 
 // The value part in plain scalars: L and qdd.
 template <typename S, int NQ>
@@ -574,6 +604,50 @@ MPC_HD void arm_qd_column(const ArmConsts<S, NQ>& c, const S* q, const S* qd,
   for (int i = 0; i < NQ; ++i)
     rhs[i] = -h[i].d[0] - (i == j ? c.damping : S(0));
   arm_solve<S>(L, rhs, col);
+}
+
+// The q_j and qd_j columns and the value part (L, qdd) from one sweep of
+// the chain: the kinematics and M carry the q_j tangent, the velocities,
+// forces and h the q_j and the qd_j tangents.  Every value and tangent is
+// formed by the operations, in the order, of `arm_q_column` and
+// `arm_qd_column`, whose qd pass forms the chain's values once more.
+template <typename S, int NQ>
+MPC_HD void arm_q_qd_columns(const ArmConsts<S, NQ>& c, const S* q,
+                             const S* qd, const S* u, int j,
+                             S (&L)[NQ][NQ], S* qdd, S* col_q, S* col_qd) {
+  typedef Dual<S, 1> K;
+  typedef Dual<S, 2> T;
+  K qs[NQ], M[NQ][NQ];
+  T qds[NQ], h[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    qs[i] = K(q[i]);
+    qs[i].d[0] = S(i == j ? 1 : 0);
+    qds[i] = T(qd[i]);
+    qds[i].d[1] = S(i == j ? 1 : 0);
+  }
+  arm_chain<true>(c, qs, qds, M, h);
+  S Mv[NQ][NQ], rhs[NQ];
+#pragma unroll
+  for (int a = 0; a < NQ; ++a)
+#pragma unroll
+    for (int b = 0; b < NQ; ++b) Mv[a][b] = M[a][b].v;
+  arm_chol<S>(Mv, L);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) rhs[i] = (u[i] - h[i].v) - c.damping * qd[i];
+  arm_solve<S>(L, rhs, qdd);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    S acc = -h[i].d[0];
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) acc = acc - M[i][t].d[0] * qdd[t];
+    rhs[i] = acc;
+  }
+  arm_solve<S>(L, rhs, col_q);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+    rhs[i] = -h[i].d[1] - (i == j ? c.damping : S(0));
+  arm_solve<S>(L, rhs, col_qd);
 }
 
 // The u_j column.

@@ -101,7 +101,10 @@ OpCount ops_of(const F& f) {
 //  - the value part (kinematics, M, its Cholesky factor, qdd): every lane
 //    forms it, as the values of its q column's dual-number pass or by
 //    arm_value, so G - 1 times more than once (G the group's 4 lanes);
-//  - the plain kinematics and RNEA values under each qd column's tangent;
+//  - where a lane's qd column has a pass of its own (NQ below the group's
+//    width: `GroupStep::linearize`), the plain kinematics and RNEA values
+//    under each qd column's tangent; where one sweep carries a lane's q
+//    and qd tangents (NQ = G), it forms them once;
 //  - in the Riccati step: Prp and the Cholesky of Quu, which every lane
 //    forms; B' Pxv and Qxu Kx, each entry formed twice; the mirrored
 //    entries of Quu, Pxx and Pvv; the adds of A's identity block (`At`
@@ -120,7 +123,8 @@ OpCount repeated_ops(const ArmConsts<Flop, NQ>& c, int n_fan, bool pinned) {
   for (int i = 0; i < NQ; ++i) q[i] = qd[i] = u[i] = Flop(0.1 * (i + 1));
   OpCount r;
   add(r, ops_of([&] { arm_value(c, q, qd, u, L, qdd); }), G - 1);
-  add(r, ops_of([&] { arm_chain<false>(c, q, qd, M, h); }), NQ);
+  if (NQ != G)
+    add(r, ops_of([&] { arm_chain<false>(c, q, qd, M, h); }), NQ);
   const double tri = NU * (NU - 1) / 2.0, xtri = NX * (NX - 1) / 2.0;
   r.mul += (G - 1) * NX * NX;                       // Prp
   r.add += (G - 1) * NX * NX;

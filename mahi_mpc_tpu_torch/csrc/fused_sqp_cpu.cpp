@@ -228,30 +228,45 @@ void arm_rows_all(long long M, const S* x, const S* u, S dt,
   }
 }
 
-// The same through the folded linearization the group body runs
-// (arm_dynamics.cuh `arm_q_column`, `arm_qd_column`, `arm_u_column`), every
-// column by one call: fval from the q_0 pass's value part.
-template <typename S, int NQ>
+// The same through the folded linearization, every column by one call:
+// with kSweep the one-sweep columns the four-lane group body runs where NQ
+// = 4 (arm_dynamics.cuh `arm_q_qd_columns`, then `arm_u_column`), else a
+// pass a column (`arm_q_column`, `arm_qd_column`, `arm_u_column`: the block
+// body's, the LTV linearization's and the two-joint group body's); fval
+// from the q_0 pass's value part.
+template <typename S, int NQ, bool kSweep>
 void arm_fold_all(long long M, const S* x, const S* u, S dt,
                   const double* arm, S* fval, S* jrows) {
   constexpr int NX = 2 * NQ, NZ = 3 * NQ;
   const mpc::ArmConsts<S, NQ> c = mpc::load_arm<S, double, NQ>(arm);
   for (long long p = 0; p < M; ++p) {
-    S xl[NX], ul[NQ], L[NQ][NQ], qdd[NQ], qdd_j[NQ], col[NQ];
+    S xl[NX], ul[NQ], L[NQ][NQ], qdd[NQ], qdd_j[NQ], col[NQ], col_qd[NQ];
     for (int i = 0; i < NX; ++i) xl[i] = x[i * M + p];
     for (int i = 0; i < NQ; ++i) ul[i] = u[i * M + p];
-    auto put = [&](int j) {
-      for (int i = 0; i < NQ; ++i) jrows[(i * NZ + j) * M + p] = dt * col[i];
+    auto put = [&](int j, const S* v) {
+      for (int i = 0; i < NQ; ++i) jrows[(i * NZ + j) * M + p] = dt * v[i];
     };
-    for (int j = NQ - 1; j >= 0; --j) {
-      mpc::arm_q_column(c, xl, xl + NQ, ul, j, L, j == 0 ? qdd : qdd_j, col);
-      put(j);
-    }
-    for (int j = 0; j < NQ; ++j) {
-      mpc::arm_qd_column(c, xl, xl + NQ, j, L, col);
-      put(NQ + j);
-      mpc::arm_u_column(L, j, col);
-      put(NX + j);
+    if constexpr (kSweep) {
+      for (int j = 0; j < NQ; ++j) {
+        mpc::arm_q_qd_columns(c, xl, xl + NQ, ul, j, L,
+                              j == 0 ? qdd : qdd_j, col, col_qd);
+        put(j, col);
+        put(NQ + j, col_qd);
+        mpc::arm_u_column(L, j, col);
+        put(NX + j, col);
+      }
+    } else {
+      for (int j = NQ - 1; j >= 0; --j) {
+        mpc::arm_q_column(c, xl, xl + NQ, ul, j, L, j == 0 ? qdd : qdd_j,
+                          col);
+        put(j, col);
+      }
+      for (int j = 0; j < NQ; ++j) {
+        mpc::arm_qd_column(c, xl, xl + NQ, j, L, col);
+        put(NQ + j, col);
+        mpc::arm_u_column(L, j, col);
+        put(NX + j, col);
+      }
     }
     for (int i = 0; i < NQ; ++i) {
       fval[i * M + p] = xl[NQ + i];
@@ -260,19 +275,20 @@ void arm_fold_all(long long M, const S* x, const S* u, S dt,
   }
 }
 
-// `folded` 0: the dual-number rows; 1: the folded columns.
+// `kind` 0: the dual-number rows; 1: the folded columns; 2: the one-sweep
+// columns.
 template <typename S>
-int arm_rows(long long M, int nq, int folded, const S* x, const S* u, S dt,
+int arm_rows(long long M, int nq, int kind, const S* x, const S* u, S dt,
              const double* arm, S* fval, S* jrows) {
-  auto run = [&](auto all) {
-    all(M, x, u, dt, arm, fval, jrows);
-    return 0;
-  };
-  switch (nq) {
-    case 2: return folded ? run(arm_fold_all<S, 2>) : run(arm_rows_all<S, 2>);
-    case 4: return folded ? run(arm_fold_all<S, 4>) : run(arm_rows_all<S, 4>);
-    default: return -1;
-  }
+  typedef void (*All)(long long, const S*, const S*, S, const double*, S*,
+                      S*);
+  const All two[] = {arm_rows_all<S, 2>, arm_fold_all<S, 2, false>,
+                     arm_fold_all<S, 2, true>};
+  const All four[] = {arm_rows_all<S, 4>, arm_fold_all<S, 4, false>,
+                      arm_fold_all<S, 4, true>};
+  if (kind < 0 || kind > 2 || (nq != 2 && nq != 4)) return -1;
+  (nq == 2 ? two : four)[kind](M, x, u, dt, arm, fval, jrows);
+  return 0;
 }
 #endif  // !MPC_GENERATED
 
@@ -350,6 +366,19 @@ int mpc_arm_fold_cpu_f64(long long M, int nq, const double* x,
                          const double* u, double dt, const double* arm,
                          double* fval, double* jrows) {
   return arm_rows<double>(M, nq, 1, x, u, dt, arm, fval, jrows);
+}
+
+// The same arguments, through the one-sweep columns.
+int mpc_arm_sweep_cpu_f32(long long M, int nq, const float* x,
+                          const float* u, float dt, const double* arm,
+                          float* fval, float* jrows) {
+  return arm_rows<float>(M, nq, 2, x, u, dt, arm, fval, jrows);
+}
+
+int mpc_arm_sweep_cpu_f64(long long M, int nq, const double* x,
+                          const double* u, double dt, const double* arm,
+                          double* fval, double* jrows) {
+  return arm_rows<double>(M, nq, 2, x, u, dt, arm, fval, jrows);
 }
 
 #endif  // !MPC_GENERATED

@@ -21,10 +21,14 @@
 //   / d[q, qd, u], only the NQ q columns take a pass through the whole
 //   chain; a qd column is the RNEA alone and a u column two triangular
 //   solves.  Lane l takes the tasks l, l + 4, l + 8 of the list (q_0 ..
-//   q_{NQ-1}, qd_0 .., u_0 ..).  The structural zeros of A = [[I, dt I],
-//   [Jq, I + Jqd]] and B = [[0], [Ju]] are skipped in the step's products
-//   (their zero terms add nothing, so the sums are the one-thread body's);
-//   only the folded Jacobian rounds differently.
+//   q_{NQ-1}, qd_0 .., u_0 ..).  Where NQ = 4 those are q_l, qd_l and u_l,
+//   and one sweep of the chain carries both of the lane's tangents
+//   (`arm_q_qd_columns`), so the lane forms the chain's values once; at
+//   NQ = 2 lanes 2 and 3 form the value part and a qd column each.  The
+//   structural zeros of A = [[I, dt I], [Jq, I + Jqd]] and B = [[0], [Ju]]
+//   are skipped in the step's products (their zero terms add nothing, so
+//   the sums are the one-thread body's); only the folded Jacobian rounds
+//   differently.
 // * the closed forms under Euler (`FastNq<Model>`, W = 2): the NQ
 //   acceleration rows by one dual-number pass a tangent column, as
 //   `acc_rows` forms them, the NZ columns split over the lanes (lane l
@@ -285,27 +289,38 @@ struct GroupStep<S, FastNq<S, ArmModel<S, NQ_>>>
   MPC_HD void linearize(int l, int k, const S* xl, const S* ul,
                         const View& T, const Lane<S>& Js, S* f) const {
     S L[NQ][NQ], qdd[NQ], col[NQ];
-    auto put = [&](int c) {
+    auto put = [&](int c, const S* v) {
       for (int i = 0; i < NQ; ++i) {
-        const S v = this->dt * col[i];
-        T.Jr(i, c) = v;
-        Js[(k * NQ + i) * NZ + c] = v;
+        const S vi = this->dt * v[i];
+        T.Jr(i, c) = vi;
+        Js[(k * NQ + i) * NZ + c] = vi;
       }
     };
-    if (l < NQ) {
-      arm_q_column(this->m.c, xl, xl + NQ, ul, l, L, qdd, col);
-      put(l);
+    if constexpr (NQ == W) {
+      // Lane l's tasks are q_l, qd_l and u_l: one sweep forms the values
+      // and both tangents.
+      S col_qd[NQ];
+      arm_q_qd_columns(this->m.c, xl, xl + NQ, ul, l, L, qdd, col, col_qd);
+      put(l, col);
+      put(NQ + l, col_qd);
+      arm_u_column(L, l, col);
+      put(NX + l, col);
     } else {
-      arm_value(this->m.c, xl, xl + NQ, ul, L, qdd);
-    }
-#pragma unroll 1
-    for (int t = l < NQ ? l + W : l; t < 3 * NQ; t += W) {
-      if (t < 2 * NQ) {
-        arm_qd_column(this->m.c, xl, xl + NQ, t - NQ, L, col);
+      if (l < NQ) {
+        arm_q_column(this->m.c, xl, xl + NQ, ul, l, L, qdd, col);
+        put(l, col);
       } else {
-        arm_u_column(L, t - 2 * NQ, col);
+        arm_value(this->m.c, xl, xl + NQ, ul, L, qdd);
       }
-      put(t < 2 * NQ ? t : NX + (t - 2 * NQ));
+#pragma unroll 1
+      for (int t = l < NQ ? l + W : l; t < 3 * NQ; t += W) {
+        if (t < 2 * NQ) {
+          arm_qd_column(this->m.c, xl, xl + NQ, t - NQ, L, col);
+        } else {
+          arm_u_column(L, t - 2 * NQ, col);
+        }
+        put(t < 2 * NQ ? t : NX + (t - 2 * NQ), col);
+      }
     }
     for (int i = 0; i < NX; ++i) f[i] = i < NQ ? xl[NQ + i] : qdd[i - NQ];
   }

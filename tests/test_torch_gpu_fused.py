@@ -16,6 +16,8 @@ card, every test marked ``gpu``::
   warm) within 5e-3 of lanes; N=50 adaptive warm >= 99 % converged.
 - The bodies at the shapes the main paths launch them at, each against its
   plain version on the same inputs (max |dX|, |dU| <= 1e-4, statuses):
+  ``FastNq<ArmModel<4>>`` at B = 16384 and 65536 on the four-lane group
+  body (the service's batches, fixed-3 and adaptive warm solves),
   ``Ltv<8,4>`` at B=1 on the block body (the LTV single robot's warm
   ``calc_u``), the generated LTV (12, 6) and (6, 3) at B=16384 on the
   body the rule names (the four-lane group over more controls than lanes;
@@ -207,6 +209,30 @@ def test_ltv_block_body_b1_on_gpu(cuda, mode):
                              adaptive=True)
     p2 = p._replace(x0=p.x0 + 0.01)
     rk = _launched_on("block", lambda: solve_batch_fused(
+        prob, p2, cold.X, cold.U, opts, mu0=mu_warm, **mode))
+    rp = solve_batch_fused_plain(prob, p2, cold.X, cold.U, opts,
+                                 mu0=mu_warm, **mode)
+    assert _held(rk, rp) <= PLAIN_BAND
+    assert torch.equal(rk.status, rp.status)
+
+
+@pytest.mark.parametrize("mode", [dict(n_iter=3), dict(adaptive=True)],
+                         ids=["fixed3", "adaptive"])
+@pytest.mark.parametrize("batch", [16384, 65536])
+def test_main_path_group_body_on_gpu(cuda, batch, mode):
+    """``FastNq<ArmModel<4>>`` at the service's batches, where each lane
+    forms its stage's q and qd columns from one sweep of the chain
+    (``arm_q_qd_columns``): the rule picks the four-lane group body, the
+    launch runs there, and its result is the plain version's on the same
+    inputs (max |dX|, |dU| <= 1e-4, statuses equal), from the kernel's
+    cold plan at x0 + 0.01."""
+    prob, p, opts = _setup(cuda, seed=5, batch=batch)
+    assert card_body(prob, batch) == ("group", 4)
+    mu_cold, mu_warm = _mu(opts)
+    cold = solve_batch_fused(prob, p, None, None, opts, mu0=mu_cold,
+                             adaptive=True)
+    p2 = p._replace(x0=p.x0 + 0.01)
+    rk = _launched_on("group", lambda: solve_batch_fused(
         prob, p2, cold.X, cold.U, opts, mu0=mu_warm, **mode))
     rp = solve_batch_fused_plain(prob, p2, cold.X, cold.U, opts,
                                  mu0=mu_warm, **mode)

@@ -153,7 +153,10 @@ def test_folded_jacobian_rows(lib, name, dtype):
     arithmetic of the same chain, accelerations and their dt-scaled
     derivatives of order 1e0-1e1) and at the float32 band of
     ``test_kernel_dynamics_and_jacobian_rows`` against the float64
-    linearization."""
+    linearization.  The one-sweep columns (``arm_q_qd_columns``: a q and
+    a qd tangent through one pass of the chain, which the four-lane group
+    body runs where NQ = 4) are the folded columns bit for bit, f and every
+    Jacobian row."""
     dyn = make_dynamics(name)
     nx, nu, nq = dyn.nx, dyn.nu, dyn.nq
     M, dt = 32, 0.002
@@ -164,7 +167,7 @@ def test_folded_jacobian_rows(lib, name, dtype):
     arm_c = (ctypes.c_double * len(arm))(*arm)
     bits = "f64" if dtype == torch.float64 else "f32"
     out = {}
-    for kind in ("eval", "fold"):
+    for kind in ("eval", "fold", "sweep"):
         fval = torch.empty(nx, M, dtype=dtype)
         jrows = torch.empty(nq, nx + nu, M, dtype=dtype)
         fn = getattr(lib, f"mpc_arm_{kind}_cpu_{bits}")
@@ -175,6 +178,9 @@ def test_folded_jacobian_rows(lib, name, dtype):
         dict(rtol=1e-5, atol=1e-5)
     for a, b in zip(out["fold"], out["eval"]):
         np.testing.assert_allclose(a, b, **tol)
+    raw = lambda a: a.view(np.uint64 if a.itemsize == 8 else np.uint32)
+    for a, b in zip(out["sweep"], out["fold"]):
+        np.testing.assert_array_equal(raw(a), raw(b))
     # Dynamics.linearize at each point: A = d f / dx, B = d f / du (float64)
     lin = [dyn.linearize(x[:, j].double(), u[:, j].double())
            for j in range(M)]
@@ -267,6 +273,16 @@ def test_kernel_branches_match_plain_f64(lib, case, body):
             assert bool((q.abs() < 0.3).all())
 
 
+# The operations of the Euler arm's group body at n_iter 1 on
+# ``_problem(torch.float32)``, counted with a qd column's own pass through
+# the chain (``arm_qd_column``, before ``arm_q_qd_columns``), and the
+# function's minimum, which the one sweep leaves as it was.
+FOLDED_BODY = dict(add=1496032, mul=1746888, div_sqrt=17664,
+                   transcendental=10752)
+MINIMUM = dict(add=1038176, mul=1211720, div_sqrt=13056,
+               transcendental=7168)
+
+
 def test_group_body_operation_count():
     """``count_fused_ops`` runs a body on a counting scalar
     (csrc/flop_count.cpp): fixed mode does the same work every iteration
@@ -275,10 +291,16 @@ def test_group_body_operation_count():
     iteration adds the deeper fan's rungs, the group body's folded
     Jacobian does less than the one-thread body's dual-number rows, the
     function's minimum (the group body's tally less what its lanes repeat:
-    three more value parts and a plain chain under each qd tangent, about
-    a third of the tally) is below the tally in every kind, and the
+    three more value parts and the Riccati step's shared terms, about a
+    fifth of the tally) is below the tally in every kind, and the
     pendulum's two-lane group body counts the one-thread body's minimum
-    (the same function) below its own tally.  The group body of a dense
+    (the same function) below its own tally.  Each lane's one sweep of the
+    chain for its q and qd columns (``arm_q_qd_columns``) does exactly
+    NQ x N x 1,700 operations an instance-iteration fewer than the body
+    with a pass of its own under each qd tangent (``FOLDED_BODY``: that
+    pass formed the plain chain's 732 adds, 960 multiplies and 8 sines
+    and cosines again), and the function's minimum is that body's
+    (``MINIMUM``).  The group body of a dense
     step (LTV ``mahi_arm``, ``mahi_arm`` under RK4) does the one-thread
     body's work and what its lanes repeat: more adds and multiplies (Prp,
     the Cholesky of Quu and the increment in each lane), exactly three more
@@ -300,7 +322,12 @@ def test_group_body_operation_count():
                                    rtol=1e-3)
     for kind, n in one["minimum"].items():
         assert 0 < n < one["body"][kind]
-    assert 0.55 < total(one["minimum"]) / total(one["body"]) < 0.8
+    assert one["minimum"] == MINIMUM
+    chain = dict(add=732, mul=960, div_sqrt=0, transcendental=8)
+    assert sum(chain.values()) == 1700
+    assert {k: FOLDED_BODY[k] - one["body"][k] for k in kinds} == {
+        k: 4 * N * chain[k] * B for k in kinds}
+    assert 0.75 < total(one["minimum"]) / total(one["body"]) < 0.85
     adaptive = count_fused_ops(prob, p, opts=opts, mu0=opts.mu_init,
                                n_iter=1, adaptive=True)
     assert total(adaptive["body"]) > total(one["body"])
