@@ -180,17 +180,16 @@ line each, with the seconds since start in ``t``:
     (on the block body), the B=1 solve held to its plain version, the
     block kernel's device ms, the plain version's ms, the bound and the
     chain bound at B=1, and its ``calc_u`` split by stage; then
-    block_crossover (``block_crossover_phase``): the block body and the
-    group body of the three hand-written policies with a block body (the
-    arm and the double pendulum under Euler, LTV at (8, 4)) at each B of
+    block_ladder (``block_ladder_phase``): the body the launcher's rule
+    picks for the three hand-written policies with a block body (the arm
+    and the double pendulum under Euler, LTV at (8, 4)) at each B of
     ``CROSSOVER_LADDER`` (rungs of ``tools/time_fused_modes.py``'s
-    ``BLOCK_LADDER``) and at B=1 with N = 100 and 200, and of a user's own
-    model under each generated policy (Van der Pol under RK4 against the
-    group body; the cart-pole's own f and the 4-DOF chain under Euler
-    against one thread) at B=1 and at its policy's threshold, fixed-3 and
-    adaptive warm solves held to the plain version, device ms of each body
-    in turns, the body the rule picks, the block kernel's registers,
-    spills, shared memory and blocks an SM;
+    ``BLOCK_LADDER``) and at B=1 with N = 100 and 200, and for a user's
+    own model under each generated policy (Van der Pol under RK4, the
+    cart-pole's own f and the 4-DOF chain under Euler) at B=1 and at its
+    policy's threshold: fixed-3 and adaptive warm solves launched on that
+    body and held to the plain version, its device ms, the block kernel's
+    registers, spills, shared memory and blocks an SM;
 15. service_non_lanes — ``BatchModelControl`` over the arm written as a
     per-instance ``Dynamics`` (no lanes support), B=1024: the
     ``solve_batch`` route, 1 cold + 2 warm steps, converged_frac >= 0.9,
@@ -238,7 +237,7 @@ line each, with the seconds since start in ``t``:
     and 4 at N = 24 and 1000 against the scan, and one SQP ``solve`` with
     the registered backend against ``"riccati"``;
 23. generated — the fused kernel's instantiations generated at first use
-    (``models/codegen.py``, ``solver/fused.py`` ``generated_unit``; their
+    (``models/codegen.py``, ``solver/target.py`` ``kernel_target``; their
     nvcc builds start in phase 2 with the others, g++ builds their
     operation counters beside them): user models written as a user writes
     them (``user_dynamics``: a Van der Pol oscillator under RK4 and a
@@ -253,26 +252,21 @@ line each, with the seconds since start in ``t``:
     FastNq<Cartpole> within 1e-5), timed (wrapper by CUDA events, kernel
     by the profiler), with the bound from the generated build's own
     operation count, its ptxas line, blocks an SM and nvcc seconds, and an
-    adaptive cold solve (converged share printed); the LTV shapes (more
-    controls than the group's lanes) also on both bodies, the group and
-    the one-thread body, each held to the plain version and timed in turns
-    (CUDA events around the kernel alone), with the other body's ptxas
-    line and blocks an SM and whether the two agree bit for bit; then
+    adaptive cold solve (converged share printed); then
     ``generate_model`` of the Van der Pol model and of the 4-DOF chain (it
     must name the generated library), and ``ModelControl`` through it at
     B=1 on the block body (``card_body`` must name it): a cold and 20 (Van
     der Pol) or 200 (the chain, tracking a sinusoid on its own Euler step)
     warm ``calc_u``, one block launch each, no failure, ``calc_u`` p50 /
     p99 ms; the B=1 solve (fixed-3 and adaptive) held to its plain
-    version, the block kernel's device ms in turns with the body the
-    model ran on before (group or one thread, CUDA events) and under the
-    profiler, the plain version's ms, the bound and the chain bound.
+    version, the block kernel's device ms (CUDA events and the
+    profiler), the plain version's ms, the bound and the chain bound.
 
 Then one line ``{"kernels": [...]}`` (the fused kernel's group body at
 B=16384, its block body at B=1 (``fused_sqp_block``: launches of every
 warm ``calc_u`` of phase 14, LTV's included, its arm entry's times and
 bounds, the B=1 modes (the arm, the default example, LTV) and the
-crossover), the Riccati kernel,
+ladder), the Riccati kernel,
 one ``fused_sqp_generated:<case>`` entry a phase-23 case, its launches
 those of its service, and one ``fused_sqp_generated_block:<case>`` entry
 for the block body of each user model ``ModelControl`` runs at B=1, its
@@ -400,38 +394,30 @@ FUSED_ENTRIES = {"block": "fused_sqp_block_kernel",
                  "thread": "fused_sqp_kernel"}
 
 
-def fused_instantiation(builds, prob, body=None) -> dict:
+def fused_instantiation(builds, prob) -> dict:
     """The kernel the card launches for ``prob`` at full occupancy
-    (``card_body``), or its kernel on ``body`` ("group" or "thread", where
-    its library holds it: a generated LTV shape's timing build): its body
-    and threads an instance (None for a group the rule does not run), its
-    ``-Xptxas -v`` line (registers, spills) from its library's build, and
-    its blocks an SM."""
-    from mahi_mpc_tpu_torch.solver.fused import (BODIES, INTEGRATORS,
-                                                 _cuda_library, _mode,
-                                                 _model_id, card_body,
-                                                 generated_unit)
+    (``card_body``): its body and threads an instance, its ``-Xptxas -v``
+    line (registers, spills) from its library's build, and its blocks an
+    SM."""
+    from mahi_mpc_tpu_torch.solver.fused import card_body
+    from mahi_mpc_tpu_torch.solver.target import INTEGRATORS, kernel_target
 
-    rule, width = card_body(prob)
-    if body is None:
-        body = rule
-    elif body != rule:
-        width = 1 if body == "thread" else None
-    lib = _cuda_library(prob, both_bodies=body != rule)
-    model = _model_id(prob)[0]
+    body, width = card_body(prob)
+    target = kernel_target(prob)
+    lib = target.cuda
     if prob.is_linear:
         marks = ("3Ltv", f"IfLi{prob.nx}ELi{prob.nu}E")
     else:
-        marks = ("6FastNq" if _mode(prob) == "fast" else "7Generic",
-                 "3gen5ModelIf" if generated_unit(prob) is not None
+        marks = ("6FastNq" if target.mode == "fast" else "7Generic",
+                 "3gen5ModelIf" if target.unit is not None
                  else MODEL_MARKS[prob.dynamics.name])
     entry = f"{len(FUSED_ENTRIES[body])}{FUSED_ENTRIES[body]}"
     found = [k for k in ptxas_summary(builds[lib][1])
              if entry in k["kernel"] and all(m in k["kernel"] for m in marks)]
     check(len(found) == 1, f"{lib}: {len(found)} kernels {entry} {marks}")
     per_sm = builds[lib][0].mpc_fused_blocks_per_sm(
-        model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
-        int(prob.is_linear), BODIES.index(body))
+        target.model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
+        int(prob.is_linear))
     check(per_sm > 0, f"{lib} {marks}: {per_sm} blocks an SM")
     return dict(card_body=[body, width], library=lib,
                 registers=found[0]["registers"],
@@ -1132,11 +1118,11 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
     line's numbers of both."""
     import numpy as np
 
-    from mahi_mpc_tpu_torch.solver.fused import _cuda_library
     from mahi_mpc_tpu_torch.solver.linearize import (
         count_linearize_ops, count_ltv_discrete_ops, linearize_batch,
-        linearize_batch_plain, linearize_library, linearize_tile,
-        ltv_discrete, ltv_discrete_plain, ltv_discrete_tile)
+        linearize_batch_plain, linearize_tile, ltv_discrete,
+        ltv_discrete_plain, ltv_discrete_tile)
+    from mahi_mpc_tpu_torch.solver.target import kernel_target, model_kernel
 
     def errs(got, want):
         """(max |got - want|, the same over max|want|), each output's worst"""
@@ -1150,9 +1136,9 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
         T = linearize_tile(ltv_case(dev, rng, name, 1)[0])["instances"]
         for B in batches(T):
             dyn, prob, p = ltv_case(dev, rng, name, B)
-            lib = linearize_library(dyn)
+            lib = model_kernel(dyn).library
             if name.startswith("ltv_"):
-                check(lib == gen_libs[name] == _cuda_library(prob),
+                check(lib == gen_libs[name] == kernel_target(prob).cuda,
                       f"{name}: linearization in {lib}, not its LTV unit")
             ab, err = errs(linearize_batch(dyn, p.x0, p.u_prev),
                            linearize_batch_plain(dyn, p.x0, p.u_prev))
@@ -1169,7 +1155,7 @@ def ltv_kernel_phase(dev, rng, timed, builds, gen_libs) -> dict:
             ab, err = errs(got, ltv_discrete_plain(prob, p))
             out["ltv_discrete"]["cases"].append(dict(
                 model=name, integrator=integrator, shape=[prob.nx, prob.nu],
-                batch=B, library=_cuda_library(prob), max_abs_err=ab,
+                batch=B, library=kernel_target(prob).cuda, max_abs_err=ab,
                 max_rel_err=err))
             check(err <= LTV_BAND and all(
                 g.movedim(0, -1).is_contiguous() for g in got),
@@ -1304,8 +1290,7 @@ def fused_prepare_phase(dev, rng, timed) -> dict:
             p.x_min, p.x_max, p.qf, p.xf_des, mu)]
 
     def card(prob, p, X0, U0):
-        (_, ws), _ = fused_mod._prepare_cuda(prob, opts, p, X0, U0, mu0, fan,
-                                             want=0)
+        (_, ws), _ = fused_mod._prepare_cuda(prob, opts, p, X0, U0, mu0, fan)
         return ws.ins
 
     held, times = [], {}
@@ -2371,11 +2356,11 @@ def runtime_default_example(dev, timed, clock_mhz) -> dict:
         calc_u_split_ms=split["split_ms"])
 
 
-# Phase 14c's batches: the ladder at which the block body and the group body
-# of the two small-batch policies are timed against each other (one SM, two,
-# a few, a quarter of the card, one and two waves of one block an SM, the
-# double pendulum's and the arm's thresholds, three and five waves, and
-# past them), and the horizons held at B=1 beyond N=25.
+# Phase 14c's batches: the ladder at which the body the launcher's rule
+# picks for the small-batch policies is held and timed (one SM, two, a few,
+# a quarter of the card, one and two waves of one block an SM, the double
+# pendulum's and the arm's thresholds, three and five waves, and past
+# them), and the horizons held at B=1 beyond N=25.
 CROSSOVER_LADDER = (1, 2, 8, 32, 132, 264, 396, 660, 1024)
 # The policies with a block body: (model, LTV), under Euler.
 BLOCK_MODELS = (("mahi_arm", False), ("double_pendulum", False),
@@ -2427,14 +2412,13 @@ def block_kernel_info(builds, prob, N) -> dict:
     an SM."""
     import ctypes
 
-    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _mode, _model_id,
-                                                 generated_unit)
-    lib = _cuda_library(prob)
+    from mahi_mpc_tpu_torch.solver.target import INTEGRATORS, kernel_target
+    target = kernel_target(prob)
+    lib = target.cuda
     if prob.is_linear:
         marks = (f"3LtvIfLi{prob.nx}ELi{prob.nu}E",)
-    elif generated_unit(prob) is not None:
-        marks = ("6FastNq" if _mode(prob) == "fast" else "7Generic",
+    elif target.unit is not None:
+        marks = ("6FastNq" if target.mode == "fast" else "7Generic",
                  "3gen5ModelIf")
     else:
         marks = (MODEL_MARKS[prob.dynamics.name],)
@@ -2445,7 +2429,7 @@ def block_kernel_info(builds, prob, N) -> dict:
           f"{prob.dynamics.name}")
     out = (ctypes.c_int * 2)()
     rc = builds[lib][0].mpc_fused_block_info(
-        _model_id(prob)[0], prob.nx, prob.nu,
+        target.model, prob.nx, prob.nu,
         INTEGRATORS.index(prob.integrator), int(prob.is_linear), N, out)
     check(rc == 0 and out[0] > 0, f"{lib} block kernel at N={N}: rc {rc}, "
           f"{out[0]} blocks an SM")
@@ -2478,36 +2462,32 @@ def block_max_batch(prob) -> int:
 BLOCK_USER_MODELS = ("user_vdp", "user_cartpole", "user_chain4")
 
 
-def block_crossover_phase(dev, builds) -> list:
-    """Phase 14c, block_crossover: the block body
-    (``csrc/fused_sqp_block.cuh``) of ``FastNq<ArmModel<4>>``,
-    ``FastNq<DoublePendulum>`` and ``Ltv<8, 4>`` (``BLOCK_MODELS``: Euler,
-    bench-shaped data of ``model_batch``) at each B of
-    ``CROSSOVER_LADDER`` (N=25) and at B=1 with N of
-    ``LONG_HORIZONS``, and of a user's own model under each generated
-    policy (``BLOCK_USER_MODELS``, data of ``generated_batch``) at B=1 and
-    at its policy's threshold (``block_max_batch``): from the rule's
-    adaptive cold plan, a fixed-3 and an adaptive warm solve at x0 + 0.01
-    by each body (``solve_batch_fused_body``: the block body and the body
-    at full occupancy, group or one thread) held to the plain version on
-    the same inputs (max |dX|, |dU| <= 1e-4; statuses equal on every
-    instance at B=1, on >= 99 % above), then each body's device ms a
-    fixed-3 launch (``kernel_event_ms``, in turns other, block, block,
-    other), the body the launcher's rule picks (``card_body``: it must not
-    be more than 5 % slower than the other), and each model's block kernel
-    (registers, spills, shared memory and blocks an SM at each N).
-    Returns the lines."""
+def block_ladder_phase(dev, builds) -> list:
+    """Phase 14c, block_ladder: the body the launcher's rule picks
+    (``card_body``) for ``FastNq<ArmModel<4>>``, ``FastNq<DoublePendulum>``
+    and ``Ltv<8, 4>`` (``BLOCK_MODELS``: Euler, bench-shaped data of
+    ``model_batch``) at each B of ``CROSSOVER_LADDER`` (N=25) and at B=1
+    with N of ``LONG_HORIZONS``, and for a user's own model under each
+    generated policy (``BLOCK_USER_MODELS``, data of ``generated_batch``)
+    at B=1 and at its policy's threshold (``block_max_batch``): from the
+    adaptive cold plan, a fixed-3 and an adaptive warm solve at x0 + 0.01,
+    each launched on the rule's body (``solve_batch_fused.body_launches``)
+    and held to the plain version on the same inputs (max |dX|, |dU| <=
+    1e-4; statuses equal on every instance at B=1, on >= 99 % above), the
+    body's device ms a fixed-3 launch (``kernel_event_ms``), and at B=1
+    each model's block kernel (registers, spills, shared memory and blocks
+    an SM at each N).  Returns the lines."""
     import numpy as np
 
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch.solver.fused import (card_body,
                                                  solve_batch_fused,
-                                                 solve_batch_fused_body,
                                                  solve_batch_fused_plain)
 
     opts = SolverOptions(tol=1e-4, max_iter=12)
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
     mu_warm = opts.warm_mu_factor * opts.tol
+    bodies = solve_batch_fused.body_launches
     cases = [(name + (" LTV" if ltv else ""), N, B, lambda B, N, name=name,
               ltv=ltv: model_batch(dev, np.random.default_rng(0), name, B,
                                    is_linear=ltv, N=N)[1:])
@@ -2523,43 +2503,31 @@ def block_crossover_phase(dev, builds) -> list:
     lines = []
     for name, N, B, make in cases:
         prob, p = make(B, N)
-        other = card_body(prob)[0]
+        rule = card_body(prob, B)
         cold = solve_batch_fused(prob, p, None, None, opts_cold,
                                  mu0=opts_cold.mu_init, adaptive=True)
         pw = p._replace(x0=p.x0 + 0.01)
-        line = dict(phase="block_crossover", model=name, batch=B, N=N,
-                    rule=list(card_body(prob, B)), other_body=other)
+        line = dict(phase="block_ladder", model=name, batch=B, N=N,
+                    rule=list(rule))
         for mode, kw in (("fixed3", dict(n_iter=3)),
                          ("adaptive", dict(adaptive=True))):
             rp = solve_batch_fused_plain(prob, pw, cold.X, cold.U, opts,
                                          mu0=mu_warm, **kw)
-            for body in (other, "block"):
-                rk = solve_batch_fused_body(prob, pw, cold.X, cold.U,
-                                            opts, mu0=mu_warm, body=body,
-                                            **kw)
-                err = max((rk.X - rp.X).abs().max().item(),
-                          (rk.U - rp.U).abs().max().item())
-                same = (rk.status == rp.status).float().mean().item()
-                line[f"{body}_{mode}_max_abs_dxu"] = err
-                line[f"{body}_{mode}_status_agree"] = same
-                check(err <= 1e-4 and (same == 1.0 if B == 1
-                                       else same >= 0.99),
-                      f"{name} B={B} N={N} {body} {mode}: max|dX|,|dU| "
-                      f"{err}, statuses agree on {same}")
-        ms = {other: [], "block": []}
-        for body in (other, "block", "block", other):
-            ms[body].append(kernel_event_ms(
-                lambda: solve_batch_fused_body(
-                    prob, pw, cold.X, cold.U, opts, mu0=mu_warm,
-                    n_iter=3, body=body)))
-        ratio = sum(ms["block"]) / sum(ms[other])
-        line.update(other_device_ms=ms[other], block_device_ms=ms["block"],
-                    block_over_other=ratio)
-        # the rule's body is the faster one (a tie within 5 % passes:
-        # the arm's sixth wave at B=792 ties on the H100)
-        picked = ratio if line["rule"][0] == "block" else 1 / ratio
-        check(picked <= 1.05, f"{name} B={B} N={N}: the rule picks "
-              f"{line['rule']}, {picked:.3f}x the other body's time")
+            n0 = bodies[rule[0]]
+            rk = solve_batch_fused(prob, pw, cold.X, cold.U, opts,
+                                   mu0=mu_warm, **kw)
+            err = max((rk.X - rp.X).abs().max().item(),
+                      (rk.U - rp.U).abs().max().item())
+            same = (rk.status == rp.status).float().mean().item()
+            line[f"{mode}_max_abs_dxu"] = err
+            line[f"{mode}_status_agree"] = same
+            check(bodies[rule[0]] == n0 + 1,
+                  f"{name} B={B} N={N} {mode}: not launched on {rule}")
+            check(err <= 1e-4 and (same == 1.0 if B == 1 else same >= 0.99),
+                  f"{name} B={B} N={N} {mode}: max|dX|,|dU| {err}, "
+                  f"statuses agree on {same}")
+        line["device_ms"] = kernel_event_ms(lambda: solve_batch_fused(
+            prob, pw, cold.X, cold.U, opts, mu0=mu_warm, n_iter=3))
         if B == 1:
             line["block_kernel"] = block_kernel_info(builds, prob, N)
         emit(**line)
@@ -3189,7 +3157,7 @@ def time_shard_phase(dev) -> None:
 # Phase 23's user models: Dynamics as a user writes them (a
 # lanes-polymorphic f and no CUDA form of their own), each served by a
 # fused-kernel instantiation generated from its traced f and built at
-# first use (models/codegen.py, solver/fused.py `generated_unit`), and the
+# first use (models/codegen.py, solver/target.py `kernel_target`), and the
 # LTV step at two shapes outside the four hand-written ones.
 GEN_WARM_STEPS = 3                # warm service steps a generated case
 GEN_B1_CALLS = 20                 # warm calc_u of Van der Pol, B=1
@@ -3316,21 +3284,20 @@ def followable_reference(dyn, integrator, x0, rng, ulim):
     return np.stack(out, axis=1)
 
 
-def generated_libraries() -> tuple:
-    """({case: generated library name}, {LTV case: its timing build's
-    name}) of phase 23, registered (traced and lowered here) so that the
-    build phase starts their nvcc with the others."""
-    from mahi_mpc_tpu_torch.solver.fused import _cuda_library, generated_unit
+def generated_libraries() -> dict:
+    """{case: generated library name} of phase 23, registered (traced and
+    lowered here) so that the build phase starts their nvcc with the
+    others."""
+    from mahi_mpc_tpu_torch.solver.target import kernel_target
 
-    names, timing = {}, {}
+    names = {}
     for name, (dyn, integrator, is_linear, ulim) in user_dynamics().items():
-        prob = user_problem(name, dyn, integrator, is_linear, ulim)[1]
-        check(generated_unit(prob) is not None,
+        target = kernel_target(user_problem(name, dyn, integrator, is_linear,
+                                            ulim)[1])
+        check(target.unit is not None,
               f"{name}: a hand-written instantiation serves it")
-        names[name] = _cuda_library(prob)
-        if is_linear:
-            timing[name] = _cuda_library(prob, both_bodies=True)
-    return names, timing
+        names[name] = target.cuda
+    return names
 
 
 def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
@@ -3352,11 +3319,10 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
-    from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
-                                                 count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
-                                                 solve_batch_fused_body,
                                                  solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.target import kernel_target
     from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
 
     Bs = SERVICE_BATCH
@@ -3365,11 +3331,10 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
     svc_opts = SolverOptions(tol=1e-4, max_iter=30, fixed_warm_iters=3)
     mu_warm = opts.warm_mu_factor * opts.tol
     frac = lambda m: m.float().mean().item()
-    launched = solve_batch_fused.library_launches
     entries = []
     for name, (dyn, integrator, is_linear, ulim) in user_dynamics().items():
         mp, prob = user_problem(name, dyn, integrator, is_linear, ulim)
-        lib = _cuda_library(prob)
+        lib = kernel_target(prob).cuda
         check(lib == gen_libs[name], f"{name}: library {lib}")
         kernel_of = fused_instantiation(builds, prob)
         nx, nu = dyn.nx, dyn.nu
@@ -3387,7 +3352,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
         # the main path: the service's steps, counted from 0 (in LTV the
         # user chain's linearization and the discretization, from the same
         # generated library, once a step)
-        launched.clear()
+        n0 = solve_batch_fused.launches
         c0 = ltv_counts()
         u = svc.step()
         cold_m = svc.metrics()
@@ -3396,11 +3361,10 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
                            u_prev=u)
             u = svc.step()
         torch.cuda.synchronize()
-        launches = dict(launched)
+        launches = solve_batch_fused.launches - n0
         ltv_n = tuple(int(v) for v in np.subtract(ltv_counts(), c0))
         m = svc.metrics()
-        check(launches == {lib: 1 + GEN_WARM_STEPS},
-              f"{name}: launches {launches}")
+        check(launches == 1 + GEN_WARM_STEPS, f"{name}: launches {launches}")
         steps = 1 + GEN_WARM_STEPS
         check(ltv_n == ((steps, steps, 0, 0) if is_linear else (0, 0, 0, 0)),
               f"{name}: LTV kernel launches and plain calls {ltv_n}")
@@ -3438,7 +3402,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
             phase="generated", case=name, integrator=integrator,
             is_linear=is_linear, nx=nx, nu=nu, batch=Bs,
             nvcc_s=builds[lib][2], **kernel_of,
-            service_launches=launches[lib],
+            service_launches=launches,
             service_cold_converged_frac=cold_m["converged_frac"],
             service_warm_converged_frac=m["converged_frac"],
             fixed3_warm_max_abs_dxu=err,
@@ -3455,38 +3419,11 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
             adaptive_cold_mean_iters=frac(ct.iters),
             kernel=[k[0] for k in prof["top_kernels"]
                     if "fused_sqp" in k[0]][0])
-        if is_linear:
-            # the LTV shapes whose controls outnumber the group's lanes:
-            # the group body and the one-thread body (the shape's timing
-            # build holds both where the shape splits over its group),
-            # device ms a fixed-3 launch in turns (CUDA events around the
-            # kernel alone), each held to the plain version, and whether
-            # the two agree bit for bit
-            ms_b, out_b = {"thread": [], "group": []}, {}
-            for b in ("thread", "group", "group", "thread"):
-                solve_b = lambda: solve_batch_fused_body(
-                    prob, p2, X, U, opts, mu0=mu_warm, n_iter=3, body=b)
-                out_b[b] = solve_b()
-                ms_b[b].append(kernel_event_ms(solve_b))
-            err_b = {b: max((r.X - wp.X).abs().max().item(),
-                            (r.U - wp.U).abs().max().item())
-                     for b, r in out_b.items()}
-            line.update(
-                bodies_device_ms=ms_b, bodies_max_abs_dxu=err_b,
-                group_over_thread=sum(ms_b["group"]) / sum(ms_b["thread"]),
-                bodies_bitwise_equal=bool(
-                    torch.equal(out_b["group"].X, out_b["thread"].X)
-                    and torch.equal(out_b["group"].U, out_b["thread"].U)),
-                other_body=fused_instantiation(
-                    builds, prob, "thread" if kernel_of["card_body"][0]
-                    == "group" else "group"))
-            check(max(err_b.values()) <= 1e-4,
-                  f"{name}: bodies against the plain version {err_b}")
         if name == "user_cartpole":
             # the same problem through the hand-written FastNq<Cartpole>
             hand = make_problem(mp, make_dynamics("cartpole"))
-            check(_cuda_library(hand) == "fused_sqp_models",
-                  f"cart-pole: {_cuda_library(hand)}")
+            check(kernel_target(hand).cuda == "fused_sqp_models",
+                  f"cart-pole: {kernel_target(hand).cuda}")
             wh = solve_batch_fused(hand, p2, X, U, opts, mu0=mu_warm,
                                    n_iter=3)
             torch.cuda.synchronize()
@@ -3512,7 +3449,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
             generator="mahi_mpc_tpu_torch/models/codegen.py"
             if not is_linear else "mahi_mpc_tpu_torch/solver/fused.py",
             replaces="mahi_mpc_tpu/solver/fused.py:186",
-            launches=launches[lib], max_abs_err=err, ms=warm_ms,
+            launches=launches, max_abs_err=err, ms=warm_ms,
             device_ms=device_ms, plain_ms=plain_ms,
             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
             library_ms=None, library=lib, card_body=[body, width],
@@ -3521,9 +3458,7 @@ def generated_phase(dev, rng, timed, builds, gen_libs, clock_mhz) -> list:
             blocks_per_sm=line["blocks_per_sm"], nvcc_s=line["nvcc_s"],
             batch=Bs, mode=f"fixed-3 warm, {name} {integrator}"
             + (" LTV" if is_linear else ""),
-            adaptive_cold_converged=line["adaptive_cold_converged"],
-            **{k: line[k] for k in ("bodies_device_ms", "group_over_thread",
-                                    "bodies_bitwise_equal") if k in line}))
+            adaptive_cold_converged=line["adaptive_cold_converged"]))
 
     # ---- the single-instance runtime of a user's model: generate_model
     # builds its library (the reference's gcc step), ModelControl loads it
@@ -3557,12 +3492,10 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
     failure, the cold plan converged, no warm plan diverged, and with
     ``track_band`` |q - q_des| below it over the last half; ``calc_u``
     p50 / p99 ms.  Then the B=1 warm solve (fixed-3 and adaptive) held to
-    its plain version, the block kernel's device ms a fixed-3 launch in
-    turns with the body the model ran on before this body existed (the
-    body at full occupancy, from the same library; ``kernel_event_ms``,
-    other, block, block, other), its device ms in 20 ``calc_u`` under the
-    profiler, the plain version's ms, the bound and the chain bound at
-    B=1, and the block kernel's registers, spills and shared memory.
+    its plain version, the block kernel's device ms a fixed-3 launch
+    (``kernel_event_ms``) and in 20 ``calc_u`` under the profiler, the
+    plain version's ms, the bound and the chain bound at B=1, and the
+    block kernel's registers, spills and shared memory.
     Returns the kernels line's entry."""
     import tempfile
 
@@ -3572,11 +3505,10 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
     from mahi_mpc_tpu_torch._build import cuda_build
     from mahi_mpc_tpu_torch.models.integrators import make_step
     from mahi_mpc_tpu_torch.runtime import ModelControl, generate_model
-    from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
-                                                 count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, count_fused_ops,
                                                  solve_batch_fused,
-                                                 solve_batch_fused_body,
                                                  solve_batch_fused_plain)
+    from mahi_mpc_tpu_torch.solver.target import kernel_target
 
     dyn, integrator, _, ulim = user_dynamics()[name]
     mp, _ = user_problem(name, dyn, integrator, False, ulim)
@@ -3587,7 +3519,6 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         torch.as_tensor(x, dtype=torch.float64)[:, None],
         torch.as_tensor(u, dtype=torch.float64)[:, None])[:, 0].numpy()
     nq = mp.num_x // 2
-    launched = solve_batch_fused.library_launches
     bodies = solve_batch_fused.body_launches
     with tempfile.TemporaryDirectory() as d:
         man = json.loads(generate_model(mp, dynamics=dyn, directory=d,
@@ -3597,14 +3528,14 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         mc = ModelControl(name, directory=d, dynamics=dyn, device=dev,
                           **weights)
         # the library generate_model built is the one ModelControl launches
-        check(mc.warm_solver == "fused" and _cuda_library(mc.problem) == lib
+        check(mc.warm_solver == "fused" and kernel_target(mc.problem).cuda
+              == lib
               and cuda_build(lib)[0]._name == man["libraries"][lib],
               f"ModelControl {name}: {mc.warm_solver}, {man}")
         body = card_body(mc.problem, 1)
-        other = card_body(mc.problem)[0]
         check(body == ("block", 256), f"{name} at B=1 on {body}")
         x, u = np.asarray(x_start, dtype=np.float64), np.zeros(mp.num_u)
-        launched.clear()
+        n0 = solve_batch_fused.launches
         bodies.update(thread=0, group=0, block=0)
         plans, errs = [], []
         for k in range(1 + n_warm):
@@ -3615,22 +3546,22 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
             x = plant(x, u)
             errs.append(float(np.abs(x[:nq] - ref[0, :nq]).max()))
         torch.cuda.synchronize()
-        launches, on_body = dict(launched), dict(bodies)
+        launches, on_body = solve_batch_fused.launches - n0, dict(bodies)
         warm = plans[1:]
         lat = np.array([pl.solve_time_s for pl in warm]) * 1e3
         st = np.array([pl.status for pl in warm])
         summ = mc.stats.summary()
         line = dict(case=name, library=lib, card_body=list(body),
-                    other_body=other, cold_status=plans[0].status,
+                    cold_status=plans[0].status,
                     cold_s=plans[0].solve_time_s, warm_calls=n_warm,
-                    launches=launches.get(lib, 0), body_launches=on_body,
+                    launches=launches, body_launches=on_body,
                     calc_u_p50_ms=float(np.percentile(lat, 50)),
                     calc_u_p99_ms=float(np.percentile(lat, 99)),
                     warm_converged=float((st == 0).mean()),
                     max_track_err_last_half=float(np.max(
                         errs[len(errs) // 2:])),
                     final_state=x.tolist(), **summ)
-        check(launches == {lib: n_warm} and on_body["block"] == n_warm
+        check(launches == n_warm and on_body["block"] == n_warm
               and plans[0].status == 0 and summ["failures"] == 0
               and bool((st != 2).all()) and bool(np.isfinite(x).all())
               and (track_band is None
@@ -3645,10 +3576,8 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         b1 = {mode: held_b1(mc, p1, kw) for mode, kw in (
             ("fixed3", dict(n_iter=3)), ("adaptive", dict(adaptive=True)))}
         X1, U1, mu = mc._X0[None], mc._U0[None], mc._mu_warm
-        ms = {other: [], "block": []}
-        for b in (other, "block", "block", other):
-            ms[b].append(kernel_event_ms(lambda: solve_batch_fused_body(
-                mc.problem, p1, X1, U1, mc.opts, mu0=mu, n_iter=3, body=b)))
+        event_ms = kernel_event_ms(lambda: solve_batch_fused(
+            mc.problem, p1, X1, U1, mc.opts, mu0=mu, n_iter=3))
         prof = profile_step(lambda: [mc.calc_u(t_last, x1, u1, ref_last)
                                      for _ in range(20)],
                             FUSED_ENTRIES["block"], 20)
@@ -3669,8 +3598,7 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         line.update(max_abs_dxu_fixed3=b1["fixed3"],
                     max_abs_dxu_adaptive=b1["adaptive"],
                     kernel_device_ms=device_ms,
-                    block_event_ms=ms["block"], other_event_ms=ms[other],
-                    block_over_other=sum(ms["block"]) / sum(ms[other]),
+                    block_event_ms=event_ms,
                     plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                     bound_by=bound["bound_by"], **chain,
                     kernel_share_of_calc_u_p50=device_ms
@@ -3691,8 +3619,7 @@ def generated_model_control(dev, name, n_warm, x_start, reference, weights,
         card_body=list(body), batch=1,
         mode=f"ModelControl {name} {integrator}, B=1: {n_warm} fixed-3 warm "
              f"calc_u (block body)",
-        other_body=other, other_event_ms=ms[other],
-        block_event_ms=ms["block"], calc_u_p50_ms=line["calc_u_p50_ms"],
+        block_event_ms=event_ms, calc_u_p50_ms=line["calc_u_p50_ms"],
         calc_u_p99_ms=line["calc_u_p99_ms"],
         registers=kernel["registers"],
         spill_store_bytes=kernel["spill_store_bytes"],
@@ -3753,11 +3680,12 @@ def main() -> int:
     from mahi_mpc_tpu_torch._build import cpu_build_all, cuda_build_all
     from mahi_mpc_tpu_torch.models import make_dynamics
     from mahi_mpc_tpu_torch.runtime import BatchModelControl
-    from mahi_mpc_tpu_torch.solver.fused import (ARM_IDS, count_fused_ops,
+    from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
                                                  solve_batch_fused,
                                                  solve_batch_fused_plain)
     from mahi_mpc_tpu_torch.solver.riccati_kernel import \
         solve_lqr_kernel_batch
+    from mahi_mpc_tpu_torch.solver.target import ARM_IDS
     from mahi_mpc_tpu_torch.transcribe.shooting import (MPCParams,
                                                         default_params,
                                                         make_problem)
@@ -3776,15 +3704,14 @@ def main() -> int:
     # (csrc/flop_count.cpp and each generated library's build) for the
     # bounds, with the g++ build that prepares their inputs
     t_gen = time.perf_counter()
-    gen_libs, timing_libs = generated_libraries()
+    gen_libs = generated_libraries()
     emit(phase="generate", seconds=time.perf_counter() - t_gen,
-         libraries=gen_libs, timing_libraries=timing_libs)
+         libraries=gen_libs)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         counter = ex.submit(cpu_build_all, ["flop_count", "fused_sqp",
                                             *gen_libs.values()])
-        builds = cuda_build_all(extra=[*gen_libs.values(),
-                                       *timing_libs.values()])
+        builds = cuda_build_all(extra=list(gen_libs.values()))
         counter.result()
     emit(phase="build", seconds=time.perf_counter() - t_build,
          seconds_each={name: b[2] for name, b in builds.items()},
@@ -3793,7 +3720,7 @@ def main() -> int:
     group = [k for k in ptxas_summary(builds["fused_sqp"][1])
              if "fused_sqp_group_kernel" in k["kernel"]]
     per_sm = {nq: builds["fused_sqp"][0].mpc_fused_blocks_per_sm(
-        ARM_IDS[nq], 2 * nq, nq, 0, 0, -1) for nq in (2, 4)}
+        ARM_IDS[nq], 2 * nq, nq, 0, 0) for nq in (2, 4)}
     emit(phase="group_kernel", threads_per_instance=4, instances_per_block=32,
          blocks_per_sm=per_sm, ptxas=group)
     check(len(group) == 2 and min(per_sm.values()) > 0,
@@ -4116,7 +4043,7 @@ def main() -> int:
         chain_bound_ms=b1["ltv_chain_bound_ms_b1"],
         share=b1["ltv_bound_ms_b1"] / b1["ltv_ms_b1"],
         device_share=b1["ltv_bound_ms_b1"] / b1["ltv_device_ms_b1"])]
-    crossover = block_crossover_phase(dev, builds)
+    ladder = block_ladder_phase(dev, builds)
     service_non_lanes(dev, mp, Qw, Rw, Rmw, opts, rng)
     traj = trajgen_phase(dev)
     scenario_launches = batch_scenarios_phase(dev)
@@ -4168,9 +4095,8 @@ def main() -> int:
         "batch": 1,
         "mode": "fixed-3 warm, mahi_arm Euler at B=1 (block body)",
         "modes": block_modes,
-        "crossover": [{k: c[k] for k in (
-            "model", "batch", "N", "rule", "other_body", "other_device_ms",
-            "block_device_ms")} for c in crossover]}, {
+        "ladder": [{k: c[k] for k in (
+            "model", "batch", "N", "rule", "device_ms")} for c in ladder]}, {
         "name": "riccati",
         "route": "cuda",
         "source": "mahi_mpc_tpu_torch/csrc/riccati.cu",

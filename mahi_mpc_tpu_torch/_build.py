@@ -36,7 +36,7 @@ occupancy query (``mpc_fused_blocks_per_sm``).
 
 A problem without a hand-written instantiation (a user's own dynamics, an
 LTV shape outside the four) gets a generated one
-(``solver/fused.py`` ``generated_unit``): ``register_generated(unit)``
+(``solver/target.py`` ``kernel_target``): ``register_generated(unit)``
 names it ``gen-<hash>``, the hash of the unit together with ``csrc/``,
 and ``cuda_build`` / ``cpu_library`` then build that name like any other
 library, from a source written into ``_build/`` beside the build: for the
@@ -45,9 +45,7 @@ exports), for g++ the unit with ``fused_sqp_cpu.cpp`` and
 ``flop_count.cpp`` (the CPU solve of every body, the operation count and
 the card-body query); a user model's CUDA library holds the block body
 beside the body the rule runs at full occupancy, where its shape splits
-over the policy's lanes.  ``register_generated(unit, both_bodies=True)``
-names a timing build of an LTV unit, a library apart whose CUDA build
-also holds the body the launcher's rule does not pick.  A failed build raises, naming its log; nothing
+over the policy's lanes.  A failed build raises, naming its log; nothing
 falls back.
 """
 
@@ -81,9 +79,8 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 
 # The fused kernel's C interface: B, N, model, nx, nu, pointers, scalars,
-# ints, fan rungs, model constants (and on the card the stream, the body to
-# launch, -1 for the launcher's rule, and where it writes the body it
-# launched and that body's threads an instance).
+# ints, fan rungs, model constants (and on the card the stream and where it
+# writes the body it launched and that body's threads an instance).
 _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
                _c_void_p, _c_void_p, _c_void_p]
 # The preparation of the kernel's inputs (csrc/fused_prepare.cuh): B, N, nx,
@@ -91,11 +88,11 @@ _FUSED_ARGS = [_c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
 # scalars; on the card the stream, on the CPU whether a block's threads run
 # last to first.
 _PREPARE = [_c_ll, _c_int, _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p]
-_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p, _c_int,
+_FUSED_LAUNCH = {"mpc_fused_launch_f32": _FUSED_ARGS + [_c_void_p,
                                                         _c_void_p],
                  "mpc_fused_prepare_f32": _PREPARE + [_c_void_p],
                  "mpc_fused_block_info": [_c_int] * 6 + [_c_void_p],
-                 "mpc_fused_blocks_per_sm": [_c_int] * 6}
+                 "mpc_fused_blocks_per_sm": [_c_int] * 5}
 # The LTV path's linearization and discretization (csrc/model_linearize.cuh),
 # which every fused library exports beside the solve for the models and Ltv
 # shapes it holds: the linearization takes B, model, nx, nu, the model's
@@ -182,8 +179,7 @@ _GENERATED_CPU = {
                       **CPU_LIBRARIES["flop_count"][1]}.items()
     if not k.startswith("mpc_arm_")}
 
-# Generated units by library name (``register_generated``): (unit, whether
-# it is a timing build that holds both bodies).
+# Generated units by library name (``register_generated``).
 GENERATED: dict = {}
 
 
@@ -255,37 +251,29 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def register_generated(unit: str, both_bodies: bool = False) -> str:
+def register_generated(unit: str) -> str:
     """The library name of a generated unit (``gen-`` and the hash of the
     unit together with ``csrc/``), which ``cuda_build`` and
-    ``cpu_library`` then build.  ``both_bodies``: a timing build, whose CUDA
-    library also holds the body the launcher's rule does not pick for an
-    LTV shape that splits over its group (``fused_sqp_launch.cuh``
-    ``kBothBodiesBuild``), so the two can be timed against each other; the
-    library a problem runs holds the rule's body alone."""
+    ``cpu_library`` then build."""
     h = hashlib.sha256(unit.encode())
     h.update(_source_hash().encode())
-    if both_bodies:
-        h.update(b"both bodies")
     name = f"gen-{h.hexdigest()[:16]}"
-    GENERATED[name] = (unit, both_bodies)
+    GENERATED[name] = unit
     return name
 
 
 def _generated_source(name: str, target: str) -> Path:
     """Write the source of generated library ``name`` for ``target``
     ("cuda" or "cpu") into ``_build/`` (once: the name is its hash)."""
-    unit, both_bodies = GENERATED[name]
+    unit = GENERATED[name]
     if target == "cuda":
-        families = "mpc::kGenerated" + (" | kBothBodiesBuild"
-                                        if both_bodies else "")
         # a user's model, linearized by the build where its policy is LTV
         # (csrc/model_linearize.cuh `model_dispatch`)
         model = "#define MPC_GENERATED_MODEL 1\n" \
             if "namespace gen" in unit else ""
         text = ("// A generated instantiation of the fused kernel "
                 f"(_build.py).\n{model}#include \"fused_sqp_launch.cuh\"\n\n"
-                f"{unit}\nMPC_FUSED_LIBRARY({families})\n")
+                f"{unit}\nMPC_FUSED_LIBRARY(mpc::kGenerated)\n")
         suffix = ".cu"
     else:
         model = "#define MPC_GENERATED_MODEL 1\n" \

@@ -12,8 +12,8 @@
 // bound (chip_smoke.py).  Built with g++ and loaded with ctypes
 // (solver/fused.py `count_fused_ops`); comparisons, selects, |x| and loads
 // are not counted.  A generated build includes it after its step policy,
-// with MPC_GENERATED defined, to count that policy (solver/fused.py
-// `generated_unit`).  It counts the LTV path's linearization and
+// with MPC_GENERATED defined, to count that policy (solver/target.py
+// `kernel_target`).  It counts the LTV path's linearization and
 // discretization (model_linearize.cuh) the same way, with what their tasks
 // repeat (`linearize_task_repeats`, `discrete_task_repeats`).
 #include <algorithm>

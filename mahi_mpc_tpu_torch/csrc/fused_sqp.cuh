@@ -17,7 +17,7 @@
 // stage (the step's increment, A, B, and the rows the rollout reuses),
 // takes the rollout's next state step, and evaluates the increment at a
 // trial point.  The three modes of the Pallas kernel (`fused.py:313-369`):
-//   FastNq<Model>   Euler step of a second-order model (the `_fast2` rule):
+//   FastNq<Model>   Euler step of a second-order model (the JAX nq-row rule):
 //                   NQ dual-number acceleration rows, the rest analytic;
 //   Generic<Model>  midpoint or RK4 (any integrator): NX rows of the
 //                   increment's Jacobian by dual numbers through the step;
@@ -820,7 +820,7 @@ enum ModelId {
 // The instantiation families; a build holds the ones in its mask (one CUDA
 // library each, so nvcc builds them concurrently; the CPU test build holds
 // all the hand-written ones).  kGenerated: the one step policy of a
-// generated build (solver/fused.py `generated_unit`), which defines
+// generated build (solver/target.py `kernel_target`), which defines
 // `GeneratedStep<S>::make(args)`: FastNq or Generic over a generated model
 // gen::Model<S>, or Ltv<S, NX, NU> at a shape outside kLtvShapes.
 enum Family { kArmFast = 1, kArmGeneric = 2, kModels = 4, kLtvShapes = 8,

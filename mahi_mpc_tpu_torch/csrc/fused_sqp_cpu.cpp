@@ -5,8 +5,8 @@
 // compiles for the card, each for every instantiation family that has it,
 // looped over instances and built for float and double.  Built with
 // `g++ -O2 -shared -fPIC` and loaded with ctypes (solver/fused.py); the
-// package's main path never loads it.  A generated build (solver/fused.py
-// `generated_unit`) includes this file after its step policy with
+// package's main path never loads it.  A generated build (solver/target.py
+// `kernel_target`) includes this file after its step policy with
 // MPC_GENERATED defined: it then holds that policy alone (and, with
 // MPC_GENERATED_MODEL, evaluates its model under model id kGeneratedModel).
 // The LTV path's linearization and discretization (model_linearize.cuh)

@@ -158,39 +158,19 @@ int launch_block(const mpc::FusedArgs<float>& a, const Step& step,
   return (int)cudaGetLastError();
 }
 
-// A flag beside the families of a build's mask: the timing build of a
-// generated LTV shape (_build.py `register_generated(unit, both_bodies=
-// True)`), which holds the group body and the one-thread body where the
-// shape splits over its group, so that the two can be timed against each
-// other (solver/fused.py `solve_batch_fused_body`).  The library a problem
-// runs holds the rule's body alone (`mpc::GroupBody`).
-constexpr int kBothBodiesBuild = 1 << 8;
-template <int kFamilies, typename Step>
-constexpr bool kBothBodies = (kFamilies & kBothBodiesBuild) != 0 &&
-                             mpc::IsLtv<Step>::value &&
-                             mpc::group_fits<float, Step>();
-template <int kFamilies, typename Step>
-constexpr bool kHasGroup = mpc::GroupBody<Step>::value ||
-                           kBothBodies<kFamilies, Step>;
-template <int kFamilies, typename Step>
-constexpr bool kHasThread = !mpc::GroupBody<Step>::value ||
-                            kBothBodies<kFamilies, Step>;
-
 // Launch the instantiation of family mask kFamilies that serves (model, nx,
 // nu) on `stream`, on the body the rule picks (`mpc::card_body`: the block
 // body at small batch for the policies `BlockBody` names, else the group
-// body for the policies `GroupBody` names, else the one-thread body), or on
-// body `want` (an mpc::Body) when it is not negative: how the two bodies
-// are timed against each other (chip_smoke.py, tools/time_fused_modes.py).
+// body for the policies `GroupBody` names, else the one-thread body).
 // Writes the body it launched and that body's threads an instance to
 // `launched[0]` and `launched[1]` (-1 and 0 where it launched nothing); does
 // not synchronise.  Returns cudaGetLastError(), -1 when this library holds
-// no instantiation for the problem, -4 when the policy has no body `want`.
+// no instantiation for the problem.
 template <int kFamilies>
 int launch_fused(long long B, int N, int model, int nx, int nu,
                  void* const* ptrs, const float* scal, const int* ints,
                  const float* fan, const double* consts, void* stream,
-                 int want, int* launched) {
+                 int* launched) {
   launched[0] = -1;
   launched[1] = 0;
   if (B <= 0) return 0;
@@ -201,21 +181,17 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
   return mpc::dispatch<float, kFamilies>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
-        const int pick = want >= 0 ? want
-                                   : mpc::card_body<Step>(B, N, nullptr);
+        const int pick = mpc::card_body<Step>(B, N, nullptr);
         launched[0] = pick;
         launched[1] = mpc::body_threads<Step>(pick);
         if (pick == mpc::kBlockBody) {
-          if constexpr (mpc::BlockBody<Step>::value) {
-            if (mpc::block_smem_bytes<Step>(N) > mpc::kBlockSmemMax)
-              return -4;
+          if constexpr (mpc::BlockBody<Step>::value)
             return launch_block(a, step, s);
-          }
         } else if (pick == mpc::kGroupBody) {
-          if constexpr (kHasGroup<kFamilies, Step>)
+          if constexpr (mpc::GroupBody<Step>::value)
             return launch_group(a, step, s);
         } else if (pick == mpc::kThreadBody) {
-          if constexpr (kHasThread<kFamilies, Step>) {
+          if constexpr (!mpc::GroupBody<Step>::value) {
             fused_sqp_kernel<Step><<<grid, 128, 0, s>>>(a, step);
             return (int)cudaGetLastError();
           }
@@ -226,12 +202,11 @@ int launch_fused(long long B, int N, int model, int nx, int nu,
 
 // Blocks of the kernel that serves (model, nx, nu) under `integ` and `ltv`
 // at full occupancy (the group or one-thread body, as `mpc::card_body`
-// picks it; or body `want`, an mpc::Body, when it is not negative) that fit
-// on one SM at once (registers and shared memory); -1 when this library
-// holds no instantiation for it, -4 when it holds no body `want`, or the
-// CUDA error code negated.
+// picks it) that fit on one SM at once (registers and shared memory); -1
+// when this library holds no instantiation for it, or the CUDA error code
+// negated.
 template <int kFamilies>
-int blocks_per_sm(int model, int nx, int nu, int integ, int ltv, int want) {
+int blocks_per_sm(int model, int nx, int nu, int integ, int ltv) {
   mpc::FusedArgs<float> a{};
   a.integ = integ;
   a.ltv = ltv;
@@ -247,18 +222,11 @@ int blocks_per_sm(int model, int nx, int nu, int integ, int ltv, int want) {
   return mpc::dispatch<float, kFamilies>(
       a, model, nx, nu, consts, [&](const auto& step) -> int {
         typedef typename std::decay<decltype(step)>::type Step;
-        const int body = want >= 0 ? want
-            : mpc::GroupBody<Step>::value ? mpc::kGroupBody
-                                          : mpc::kThreadBody;
-        if (body == mpc::kGroupBody) {
-          if constexpr (kHasGroup<kFamilies, Step>)
-            return query(fused_sqp_group_kernel<Step>, kGroupThreads,
-                         group_smem<Step>());
-        } else if (body == mpc::kThreadBody) {
-          if constexpr (kHasThread<kFamilies, Step>)
-            return query(fused_sqp_kernel<Step>, 128, 0);
-        }
-        return -4;
+        if constexpr (mpc::GroupBody<Step>::value)
+          return query(fused_sqp_group_kernel<Step>, kGroupThreads,
+                       group_smem<Step>());
+        else
+          return query(fused_sqp_kernel<Step>, 128, 0);
       });
 }
 
@@ -482,9 +450,9 @@ inline int launch_prepare(long long B, int N, int nx, int nu,
 
 // The plain C interface of one library, for ctypes: the launcher (device
 // pointers in the order of mpc::FusedArgs, host arrays of scalars, ints,
-// fan rungs and model constants, the stream, the body to launch (-1: the
-// rule's) and where to write the body it launched and its threads an
-// instance; solver/fused.py `_run_library`), the preparation of its inputs
+// fan rungs and model constants, the stream and where to write the body it
+// launched and its threads an instance; solver/fused.py `_run_library`),
+// the preparation of its inputs
 // (`launch_prepare`), and the occupancy of the kernels it launches
 // (chip_smoke.py); and the LTV path's linearization of the models this
 // library holds and discretization of its Ltv shapes, float and double
@@ -493,9 +461,9 @@ inline int launch_prepare(long long B, int N, int nx, int nu,
   extern "C" int mpc_fused_launch_f32(                                       \
       long long B, int N, int model, int nx, int nu, void* const* ptrs,      \
       const float* scal, const int* ints, const float* fan,                  \
-      const double* consts, void* stream, int want, int* launched) {         \
+      const double* consts, void* stream, int* launched) {                   \
     return launch_fused<kFamilies>(B, N, model, nx, nu, ptrs, scal, ints,    \
-                                   fan, consts, stream, want, launched);     \
+                                   fan, consts, stream, launched);           \
   }                                                                          \
   extern "C" int mpc_fused_prepare_f32(                                      \
       long long B, int N, int nx, int nu, const void* const* in,             \
@@ -507,8 +475,8 @@ inline int launch_prepare(long long B, int N, int nx, int nu,
     return block_info<kFamilies>(model, nx, nu, integ, ltv, N, out);         \
   }                                                                          \
   extern "C" int mpc_fused_blocks_per_sm(int model, int nx, int nu,          \
-                                         int integ, int ltv, int want) {     \
-    return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv, want);        \
+                                         int integ, int ltv) {               \
+    return blocks_per_sm<kFamilies>(model, nx, nu, integ, ltv);              \
   }                                                                          \
   MPC_LTV_PATH_EXPORTS(kFamilies, float, f32)                                \
   MPC_LTV_PATH_EXPORTS(kFamilies, double, f64)

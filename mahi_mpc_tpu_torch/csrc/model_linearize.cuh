@@ -393,7 +393,7 @@ void ltv_discrete_host(long long B, int integ, S dt, const S* A,
 // (the library of the main path, fused_sqp.cu), the closed forms with
 // kModels, and a generated build's gen::Model (MPC_GENERATED_MODEL) where
 // its step policy is LTV: the LTV unit of a user's model
-// (solver/fused.py `ltv_unit`).
+// (solver/target.py `model_kernel`).
 template <typename S, int kFamilies, typename Fn>
 int model_dispatch(int model, const double* c, const Fn& fn) {
   if constexpr ((kFamilies & kGenerated) != 0) {

@@ -35,6 +35,7 @@ import torch
 from ..models.base import Dynamics, make_dynamics
 from ..params import ModelParameters, SolverOptions
 from ..solver.select import resolve_warm_solver
+from ..solver.target import kernel_target, model_kernel
 from ..transcribe.shooting import ShootingProblem, make_problem
 
 MANIFEST_SUFFIX = "_torch.json"
@@ -46,20 +47,18 @@ def kernel_libraries(prob: ShootingProblem, opts: SolverOptions,
     """The CUDA libraries that a ``ModelControl`` of this problem launches
     under ``opts`` on ``device``: the fused kernel's instantiation when warm
     solves resolve to it (one of ``_build.CUDA_LIBRARIES``, or the
-    problem's generated library, ``gen-<hash>``), in LTV the library of the
-    model's linearization kernel (``linearize.linearize_library``), the
-    Riccati kernel when ``kkt_backend="pallas"`` asks for it; none off the
-    card."""
+    problem's generated library, ``gen-<hash>``: ``kernel_target``), in
+    LTV the library of the model's linearization kernel
+    (``model_kernel``), the Riccati kernel when ``kkt_backend="pallas"``
+    asks for it; none off the card."""
     if torch.device(device).type != "cuda":
         return []
-    from ..solver.fused import _cuda_library
-    from ..solver.linearize import linearize_library
     libs = []
     if resolve_warm_solver(opts, prob, device) == "fused":
-        libs.append(_cuda_library(prob))
-    relin = linearize_library(prob.dynamics) if prob.is_linear else None
-    if relin is not None and relin not in libs:
-        libs.append(relin)
+        libs.append(kernel_target(prob).cuda)
+    relin = model_kernel(prob.dynamics) if prob.is_linear else None
+    if relin is not None and relin.library not in libs:
+        libs.append(relin.library)
     if opts.kkt_backend == "pallas":
         libs.append("riccati")
     return libs

@@ -17,7 +17,7 @@ parallel fan on the l1 merit.  Two iteration modes share it:
 
 and three step modes, as in the JAX kernel:
 
-- **fast** (Euler step of a second-order model, JAX's ``_fast2``): only the
+- **fast** (Euler step of a second-order model, JAX's nq-row rule): only the
   nq acceleration rows of the step Jacobian need AD;
 - **generic** (midpoint, rk4): all nx rows through the integrator step;
 - **ltv** (``prob.is_linear``, reference C8): the exact affine step
@@ -52,7 +52,8 @@ Two implementations of the same function live here:
   JAX rule fuses (any LTV shape, any lanes-polymorphic ``f`` that
   ``models/codegen.py`` lowers) gets a generated instantiation, its model
   emitted as C++ from the traced ``f`` and compiled at first use
-  (``generated_unit``);
+  (``target.kernel_target`` decides which instantiation serves a
+  problem);
 - ``_solve_batch_fused_plain``, the plain PyTorch version in batch-leading
   tensor form, used for CPU tensors and as the kernel's reference on the
   card.
@@ -82,23 +83,23 @@ import math
 import numbers
 from typing import NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 from torch.func import jvp, vmap
 
-from ..models.arm import arm_constants
-from ..models.codegen import lower, lowerable
+from .. import _build
 from ..models.integrators import make_increment
 from ..ops.linalg import chol_lanes
 from ..ops.precision import strict_fp32
 from ..params import SolverOptions
 from ..transcribe.shooting import MPCParams, ShootingProblem
 from ..utils.profiling import annotate
+from . import linearize
 from . import loop_common as lc
 from .batched import _fan_jacobian
 from .sqp import (CONVERGED, DIVERGED, INTERIOR_DELTA, MAX_ITER, SolveResult,
                   _start)
 from .stage_qp import barrier_terms
+from .target import INTEGRATORS, KernelTarget, kernel_target, step_mode
 
 Tensor = torch.Tensor
 
@@ -109,132 +110,32 @@ LS_FAN_FIXED = (1.0, 0.5, 0.25, 0.0625)
 LS_FAN_ADAPTIVE = (1.0, 0.5, 0.25, 0.0625, 0.015625, 0.00390625,
                    0.0009765625, 0.000244140625)
 MAX_FAN = 8               # csrc/fused_sqp.cuh kMaxFan
-# The kernel's instantiations (csrc/fused_sqp.cuh `dispatch`): model ids in
-# the order of its ModelId (serial arms by joint count), integrators in the
-# order of csrc/model_dynamics.cuh Integrator, and the LTV (nx, nu).
-ARM_IDS = {2: 0, 4: 1}
-CLOSED_FORM_IDS = {"pendulum": 2, "cartpole": 3, "double_pendulum": 4,
-                   "acrobot": 5}
-INTEGRATORS = ("euler", "midpoint", "rk4")
-LTV_SHAPES = ((8, 4), (4, 2), (4, 1), (2, 1))
-GENERATED_ID = -2         # csrc/fused_sqp.cuh kGeneratedModel
-
-
-def _fast2(prob: ShootingProblem) -> bool:
-    """The JAX kernel's nq-row rule: Euler step of a second-order model."""
-    nq = prob.dynamics.nq
-    return (not prob.is_linear and nq is not None
-            and 2 * nq == prob.nx and prob.integrator == "euler")
-
-
-def _mode(prob: ShootingProblem) -> str:
-    """The step mode: "ltv", "fast" (nq rows) or "generic" (nx rows)."""
-    if prob.is_linear:
-        return "ltv"
-    return "fast" if _fast2(prob) else "generic"
-
-
-def _kernel_model(dyn):
-    """(model id, constants) of the kernel's own dynamics for this model,
-    or None when the kernel has none.  The constants are the arms' chain
-    (``arm_constants``) or what the closed-form factory recorded
-    (``models.base.with_closed_form``)."""
-    if getattr(dyn, "chain", None) is not None:
-        return (ARM_IDS[dyn.nq], _arm_flat(dyn)) if dyn.nq in ARM_IDS \
-            else None
-    form = getattr(dyn, "closed_form", None)
-    if form is None or form[0] not in CLOSED_FORM_IDS:
-        return None
-    return CLOSED_FORM_IDS[form[0]], form[1]
 
 
 def fused_supported(prob: ShootingProblem) -> bool:
-    """Whether the kernel serves this problem: the JAX rule
-    (``fused.py:173-179``) under ``INTEGRATORS``.  Every LTV problem (any
-    (nx, nu)); every nonlinear problem whose dynamics are
-    lanes-polymorphic, when the kernel has them in CUDA (the serial arms
-    with nq 2 or 4 and the four closed-form models) or
+    """Whether the kernel serves this problem (``target.kernel_target``):
+    the JAX rule (``fused.py:173-179``) under ``target.INTEGRATORS``.
+    Every LTV problem (any (nx, nu)); every nonlinear problem whose
+    dynamics are lanes-polymorphic, when the kernel has them in CUDA (the
+    serial arms with nq 2 or 4 and the four closed-form models) or
     ``models/codegen.py`` lowers their ``f`` (decided by tracing, before
     anything is built)."""
-    if prob.integrator not in INTEGRATORS:
-        return False
-    if prob.is_linear:
-        return True
-    dyn = prob.dynamics
-    return dyn.supports_lanes and (_kernel_model(dyn) is not None
-                                   or lowerable(dyn))
+    return kernel_target(prob) is not None
 
 
-def generated_unit(prob: ShootingProblem) -> Optional[str]:
-    """The C++ of the instantiation a generated build holds for a problem
-    the kernel serves without a hand-written one, or None when one of those
-    serves it: the model ``mpc::gen::Model<S>`` emitted from the traced
-    ``f`` (``models/codegen.py``) and the step policy over it (the nq-row
-    ``FastNq`` under the ``_fast2`` rule, ``Generic`` otherwise), or the
-    ``Ltv<S, NX, NU>`` policy at an LTV shape outside ``LTV_SHAPES``, as
-    ``GeneratedStep<S>::make`` (``csrc/fused_sqp.cuh`` ``dispatch``).
-    ``_build`` wraps it into the CUDA library and the g++ build.  The LTV
-    unit of a user's model holds the model too (``ltv_unit``)."""
-    if prob.is_linear:
-        if (prob.nx, prob.nu) in LTV_SHAPES:
-            return None
-        return ltv_unit(prob.dynamics, prob.nx, prob.nu)
-    if _kernel_model(prob.dynamics) is not None:
-        return None
-    fast = _fast2(prob)
-    return _unit(lower(prob.dynamics).source,
-                 f"{'FastNq' if fast else 'Generic'}<S, gen::Model<S>>",
-                 "{{}}" if fast else "{{}, a.integ}")
-
-
-def _unit(model: str, policy: str, make: str) -> str:
-    """A generated unit: the model's C++ (or nothing) and
-    ``GeneratedStep<S>::make``, which returns ``policy`` as ``make``."""
-    return "\n".join([
-        model + "namespace mpc {",
-        "template <typename S>",
-        "struct GeneratedStep {",
-        f"  static {policy} make(const FusedArgs<S>& a) {{",
-        "    (void)a;",
-        f"    return {make};",
-        "  }",
-        "};",
-        "}  // namespace mpc", ""])
-
-
-def _user_model(dyn) -> str:
-    """The C++ of a user's model (``models/codegen.py``): a
-    lanes-polymorphic ``Dynamics`` without a hand-written CUDA form that the
-    generator lowers; "" for every other."""
-    if dyn is None or not dyn.supports_lanes or \
-            _kernel_model(dyn) is not None or not lowerable(dyn):
-        return ""
-    return lower(dyn).source
-
-
-def ltv_unit(dyn, nx: int, nu: int) -> str:
-    """The generated unit of the ``Ltv<S, nx, nu>`` policy.  For a user's
-    model ``dyn`` (``_user_model``) it also holds the model,
-    ``mpc::gen::Model<S>``, whose linearization the build then exports
-    (``csrc/model_linearize.cuh`` ``model_dispatch``): the library of such
-    a model's LTV path (``solver/linearize.py``)."""
-    return _unit(_user_model(dyn), f"Ltv<S, {nx}, {nu}>", "{}")
-
-
-def _model_id(prob: ShootingProblem) -> tuple:
-    """(model id, constants) that the kernel's C interface takes."""
-    if prob.is_linear:
-        return -1, [0.0]
-    hand = _kernel_model(prob.dynamics)
-    return hand if hand is not None else (GENERATED_ID, [0.0])
-
-
-def _cpu_library(prob: ShootingProblem, name: str):
-    """The g++ build that holds this problem's instantiation: the
-    hand-written library ``name`` or the problem's generated one."""
-    from .._build import cpu_library, register_generated
-    unit = generated_unit(prob)
-    return cpu_library(name if unit is None else register_generated(unit))
+def _check_kernel(prob: ShootingProblem,
+                  fan: Sequence[float] = ()) -> KernelTarget:
+    """The problem's instantiation; raises where no build of the kernel
+    serves the problem or the fan."""
+    target = kernel_target(prob)
+    if target is None:
+        raise ValueError(
+            f"no instantiation of the fused kernel serves {prob.dynamics.name!r}"
+            f" (is_linear={prob.is_linear}, integrator={prob.integrator!r}); "
+            f"see fused_supported()")
+    if len(fan) > MAX_FAN:
+        raise ValueError(f"at most {MAX_FAN} line-search rungs, got {len(fan)}")
+    return target
 
 
 # The kernel's bodies by the launcher's code (csrc/fused_sqp_block.cuh
@@ -263,15 +164,16 @@ def card_body(prob: ShootingProblem, B: Optional[int] = None) -> tuple:
     lanes for ``Generic`` where nu <= 2, one thread otherwise); a shape
     that does not split (the unicycle's nx = 3) runs one thread at every
     B."""
-    model = _model_id(prob)[0]
+    target = _check_kernel(prob)
     threads = ctypes.c_int(0)
-    kind = _cpu_library(prob, "flop_count").mpc_fused_card_body(
-        model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
+    kind = _build.cpu_library(
+        target.generated or "flop_count").mpc_fused_card_body(
+        target.model, prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
         int(prob.is_linear), 2 ** 62 if B is None else int(B), prob.N,
         ctypes.byref(threads))
     if kind < 0:
         raise ValueError(f"the kernel holds no instantiation for model "
-                         f"{model}, (nx, nu) = ({prob.nx}, {prob.nu})")
+                         f"{target.model}, (nx, nu) = ({prob.nx}, {prob.nu})")
     return BODIES[kind], threads.value
 
 
@@ -366,8 +268,7 @@ def _plain_step(prob: ShootingProblem, ltv):
     nz = nx + nu
     dt = float(prob.dt)
     lanes = lambda x, n: x.reshape(-1, n).T          # (..., n) -> (n, M)
-    mode = _mode(prob)
-    if mode == "ltv":
+    if prob.is_linear:
         AdI, Bd, cd = ltv              # (B, nx, nx), (B, nx, nu), (B, nx)
         A = torch.eye(nx, dtype=AdI.dtype, device=AdI.device) + AdI
 
@@ -389,7 +290,7 @@ def _plain_step(prob: ShootingProblem, ltv):
 
         def value(xt, ut):
             return rows_of(xt, ut) + cd.view(-1, *(1,) * (xt.dim() - 2), nx)
-    elif mode == "fast":
+    elif step_mode(prob) == "fast":
         def linearize(xs, us):
             Bsz, N = xs.shape[:2]
             kw = dict(dtype=xs.dtype, device=xs.device)
@@ -687,44 +588,6 @@ def _solve_batch_fused_plain(prob: ShootingProblem, opts: SolverOptions,
 # The kernel through its C interface.
 # ---------------------------------------------------------------------------
 
-def _arm_flat(dyn) -> list:
-    """Chain constants in the order of csrc/arm_dynamics.cuh load_arm."""
-    c = arm_constants(dyn)
-    out = []
-    for key in ("axes", "offsets", "coms", "masses", "inertias", "neg_g"):
-        out += np.asarray(c[key], dtype=np.float64).reshape(-1).tolist()
-    return out + [c["damping"]]
-
-
-def _cuda_library(prob: ShootingProblem, both_bodies: bool = False) -> str:
-    """The CUDA library that holds the kernel's instantiation for this
-    problem: one of ``_build.CUDA_LIBRARIES``, or the name of the
-    problem's generated library (``generated_unit``, registered with
-    ``_build.register_generated``).  ``both_bodies``: for a generated LTV
-    shape, its timing build, which also holds the body the rule does not
-    pick (``solve_batch_fused_body``)."""
-    unit = generated_unit(prob)
-    if unit is not None:
-        from .._build import register_generated
-        return register_generated(unit, both_bodies and prob.is_linear)
-    if prob.is_linear:
-        return "fused_sqp_ltv"
-    if getattr(prob.dynamics, "chain", None) is not None:
-        return "fused_sqp" if _fast2(prob) else "fused_sqp_generic"
-    return "fused_sqp_models"
-
-
-def _check_kernel(prob: ShootingProblem, fan: Sequence[float]) -> None:
-    """Raise where no build of the kernel serves the problem or the fan."""
-    if not fused_supported(prob):
-        raise ValueError(
-            f"no instantiation of the fused kernel serves {prob.dynamics.name!r}"
-            f" (is_linear={prob.is_linear}, integrator={prob.integrator!r}); "
-            f"see fused_supported()")
-    if len(fan) > MAX_FAN:
-        raise ValueError(f"at most {MAX_FAN} line-search rungs, got {len(fan)}")
-
-
 class _Workspace(NamedTuple):
     """The kernel's batch-innermost arrays (``csrc/fused_sqp.cuh``
     ``FusedArgs``)."""
@@ -741,7 +604,8 @@ def _workspace(prob: ShootingProblem, B: int, dtype, device) -> _Workspace:
     nz = nx + nu
     # Rows a stage of the Jacobian scratch: the nq acceleration rows (fast),
     # all nx (generic), none in LTV (one element keeps the pointer valid).
-    n_store = {"ltv": 0, "fast": prob.dynamics.nq, "generic": nx}[_mode(prob)]
+    n_store = {"ltv": 0, "fast": prob.dynamics.nq,
+               "generic": nx}[step_mode(prob)]
     shapes = [(N + 1, nx), (N, nu), (N, nx), (nx,), (nu,), (nu,), (nu,),
               (nu,), (nu,), (nx,), (nx,), (nx,), (nx,), (),
               (N + 1, nx), (N, nu), (8,),
@@ -806,29 +670,31 @@ def _with_ltv(ws: _Workspace, dtype, ltv) -> _Workspace:
                             for t in ltv])
 
 
-def _launched(fn, tail) -> dict:
+def _launched(fn, launched) -> dict:
     """The body a build of the kernel ran and its threads an instance: on
-    the card what the launcher wrote into ``tail``'s last (body -1 where it
-    launched nothing), in a g++ build (no ``tail``) the build's name and no
-    width."""
-    if not tail:
+    the card what the launcher wrote into ``launched`` (body -1 where it
+    launched nothing), in a g++ build (no ``launched``) the build's name
+    and no width."""
+    if launched is None:
         return dict(body=getattr(fn, "__name__", None), width=None)
-    body, width = tail[-1]
+    body, width = launched
     return dict(body=BODIES[body] if body >= 0 else None, width=width)
 
 
 def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                  ws: _Workspace, n_iter: int, fan: Sequence[float],
-                 adaptive: bool, tail=()):
+                 adaptive: bool, launched=None):
     """Call a build of the kernel body (``fn``: a CUDA launcher when
-    ``stream`` is given, followed by its own arguments ``tail``, the body to
-    launch and where it writes what it launched, else the CPU test build)
+    ``stream`` is given, followed by ``launched``, where it writes what it
+    launched, else the CPU test build)
     on the arrays of ``ws``; returns X, U, stats in batch-leading layout.
     Its span ``fused.launch`` records what ran: the step ``mode``, the
     ``integrator``, the ``body`` and its threads an instance, ``width``, as
     the launcher wrote them (a g++ build: its name, and no width)."""
     nx, nu, N = prob.nx, prob.nu, prob.N
     B, dtype = ws.outs[0].shape[-1], ws.outs[0].dtype
+    target = kernel_target(prob)
+    model, mode = target.model, target.mode
     with annotate("fused.launch") as span:
         ptrs = (ctypes.c_void_p * 27)(*[
             None if t is None else t.data_ptr()
@@ -842,25 +708,24 @@ def _run_library(fn, stream, prob: ShootingProblem, opts: SolverOptions,
                                   INTEGRATORS.index(prob.integrator),
                                   int(prob.is_linear))
         fan_c = (ctype * MAX_FAN)(*fan)
-        model, consts = _model_id(prob)
-        consts_c = (ctypes.c_double * len(consts))(*consts)
+        consts_c = (ctypes.c_double * len(target.consts))(*target.consts)
         args = [B, N, model, nx, nu, ptrs, scal, ints, fan_c, consts_c]
         if stream is not None:
-            args += [stream, *tail]
+            args += [stream, launched]
         rc = fn(*args)
         if span is not None:
-            span.attrs = dict(mode=_mode(prob), integrator=prob.integrator,
-                              **_launched(fn, tail))
+            span.attrs = dict(mode=mode, integrator=prob.integrator,
+                              **_launched(fn, launched))
     if rc == -1:
         raise ValueError(f"the kernel build holds no instantiation for "
                          f"model {model}, (nx, nu) = ({nx}, {nu}), "
-                         f"{_mode(prob)}")
+                         f"{mode}")
     if rc == -3:
         raise ValueError(f"no group body at (nx, nu) = ({nx}, {nu}): the "
                          f"shape does not split over the group's lanes")
     if rc == -4:
         raise ValueError(f"the step policy of model {model}, (nx, nu) = "
-                         f"({nx}, {nu}), {_mode(prob)} has no such body at "
+                         f"({nx}, {nu}), {mode} has no such body at "
                          f"N={N}")
     if rc != 0:
         raise RuntimeError(f"fused SQP kernel failed (error code {rc})")
@@ -873,9 +738,9 @@ def _prepare_cpu(prob, opts, p, X0, U0, mu0, fan):
     """The g++ builds' preparation (``_solve``'s ``prepare``): the
     preparation kernel's blocks run by g++ (``mpc_fused_prepare_cpu_*``)
     into a workspace; returns (the workspace, its mu)."""
-    _check_kernel(prob, fan)
+    target = _check_kernel(prob, fan)
     bits = "f32" if p.x0.dtype == torch.float32 else "f64"
-    fn = getattr(_cpu_library(prob, "fused_sqp"),
+    fn = getattr(_build.cpu_library(target.generated or "fused_sqp"),
                  f"mpc_fused_prepare_cpu_{bits}")
     ws = _prepare(prob, opts, p, X0, U0, mu0, fn, 0)
     return ws, ws.ins[13]
@@ -889,51 +754,41 @@ def _run_cpu(fn, prob, opts, p, ws, n_iter, fan, adaptive, ltv=None):
                         adaptive)
 
 
-def _prepare_cuda(prob, opts, p, X0, U0, mu0, fan, want: int = -1):
+def _prepare_cuda(prob, opts, p, X0, U0, mu0, fan):
     """The card's preparation (``_solve``'s ``prepare``): one launch of the
     preparation kernel of the solve's CUDA library on the current stream,
-    counted in ``solve_batch_fused.prepare_launches`` where ``want`` is -1
-    (``_launch_cuda``'s); returns ((the library's name, the workspace),
-    its mu)."""
-    _check_kernel(prob, fan)
+    counted in ``solve_batch_fused.prepare_launches``; returns ((the
+    library's name, the workspace), its mu)."""
+    name = _check_kernel(prob, fan).cuda
     if p.x0.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel is float32 only, got {p.x0.dtype}")
-    from .._build import cuda_build
-    name = _cuda_library(prob, both_bodies=want >= 0)
-    fn = cuda_build(name)[0].mpc_fused_prepare_f32
+    fn = _build.cuda_build(name)[0].mpc_fused_prepare_f32
     device = p.x0.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         ws = _prepare(prob, opts, p, X0, U0, mu0, fn, stream)
-    if want < 0:
-        solve_batch_fused.prepare_launches += 1
+    solve_batch_fused.prepare_launches += 1
     return (name, ws), ws.ins[13]
 
 
-def _launch_cuda(prob, opts, p, state, n_iter, fan, adaptive, ltv,
-                 want: int = -1):
+def _launch_cuda(prob, opts, p, state, n_iter, fan, adaptive, ltv):
     """The card's solve (``_solve``'s ``run``): the CUDA kernel of
     ``_prepare_cuda``'s library on its workspace (``state``), on the
     current stream of the workspace's device, on the body the launcher's
-    rule picks, counting the launch by mode, library and body; or, for
-    ``want`` >= 0, on that body (``BODIES``) uncounted."""
-    from .._build import cuda_build
+    rule picks, counting the launch by mode and body."""
     name, ws = state
-    fn = cuda_build(name)[0].mpc_fused_launch_f32
+    fn = _build.cuda_build(name)[0].mpc_fused_launch_f32
     ws = _with_ltv(ws, p.x0.dtype, ltv)
     launched = (ctypes.c_int * 2)(-1, 0)     # the body, its threads
     device = ws.outs[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         out = _run_library(fn, stream, prob, opts, ws, n_iter, fan, adaptive,
-                           (want, launched))
-    if want < 0:
-        solve_batch_fused.launches += 1
-        solve_batch_fused.mode_launches[_mode(prob)] += 1
-        solve_batch_fused.library_launches[name] = \
-            solve_batch_fused.library_launches.get(name, 0) + 1
-        if launched[0] >= 0:      # B = 0 launches nothing
-            solve_batch_fused.body_launches[BODIES[launched[0]]] += 1
+                           launched)
+    solve_batch_fused.launches += 1
+    solve_batch_fused.mode_launches[step_mode(prob)] += 1
+    if launched[0] >= 0:      # B = 0 launches nothing
+        solve_batch_fused.body_launches[BODIES[launched[0]]] += 1
     return out
 
 
@@ -993,7 +848,7 @@ def _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive, prepare,
         if prob.is_linear:
             # the kernel streams Ad - I: its increment forms no difference
             if discretize is None:
-                from .linearize import ltv_discrete_plain as discretize
+                discretize = linearize.ltv_discrete_plain
             with annotate("fused.discretize"):
                 ltv = discretize(prob, p)
         X, U, st = run(prob, opts, p, prepared, n_iter, fan, adaptive, ltv)
@@ -1045,14 +900,13 @@ def solve_batch_fused(prob: ShootingProblem, p: MPCParams,
     kernel (float32) on the body the launcher's rule picks (``card_body``),
     in LTV after the discretization kernel (``linearize.ltv_discrete``),
     and counts the launch in ``solve_batch_fused.launches`` (and by mode,
-    library and body) and the preparation in
+    body) and the preparation in
     ``solve_batch_fused.prepare_launches``; on CPU tensors it runs the
     plain PyTorch version.  Any other device raises.
     """
     kind = p.x0.device.type
     if kind == "cuda":
-        from .linearize import ltv_discrete
-        route = _prepare_cuda, _launch_cuda, ltv_discrete
+        route = _prepare_cuda, _launch_cuda, linearize.ltv_discrete
     elif kind == "cpu":
         route = _prepare_plain, _solve_batch_fused_plain, None
     else:
@@ -1065,8 +919,6 @@ solve_batch_fused.launches = 0
 # card preparations (``_prepare_cuda``): one a counted launch
 solve_batch_fused.prepare_launches = 0
 solve_batch_fused.mode_launches = {"fast": 0, "generic": 0, "ltv": 0}
-# launches by CUDA library (``_cuda_library``: generated ones by name)
-solve_batch_fused.library_launches = {}
 # launches by the body the launcher's rule picked (``card_body``)
 solve_batch_fused.body_launches = dict.fromkeys(BODIES, 0)
 
@@ -1102,7 +954,7 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     generated instantiation runs from the problem's own g++ build.  The
     group body needs a shape that splits over its lanes (NX a multiple of
     the width; a lane owns controls l, l + W, ..., so any NU)."""
-    lib = _cpu_library(prob, "fused_sqp")
+    lib = _build.cpu_library(_check_kernel(prob).generated or "fused_sqp")
     name = {"thread": "mpc_fused_solve_cpu", "group":
             "mpc_fused_solve_group_cpu", "block":
             "mpc_fused_solve_block_cpu"}[body]
@@ -1110,35 +962,6 @@ def solve_batch_fused_cpu_kernel(prob: ShootingProblem, p: MPCParams,
     fn = getattr(lib, f"{name}_{bits}")
     return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
                   _prepare_cpu, functools.partial(_run_cpu, fn))
-
-
-def solve_batch_fused_body(prob: ShootingProblem, p: MPCParams,
-                           X0: Optional[Tensor] = None,
-                           U0: Optional[Tensor] = None,
-                           opts: SolverOptions = SolverOptions(),
-                           mu0=None, n_iter: Optional[int] = None,
-                           ls_fan: Optional[Sequence[float]] = None,
-                           adaptive: bool = False,
-                           body: str = "group") -> SolveResult:
-    """The CUDA kernel on a given body (``BODIES``) whatever the launcher's
-    rule would pick, on CUDA float32 tensors: how the bodies are timed
-    against each other at one batch (``chip_smoke.py``,
-    ``tools/time_fused_modes.py``; a generated LTV shape runs from its
-    timing build, ``_cuda_library(prob, both_bodies=True)``, which holds
-    both the group and the one-thread body where the shape splits over a
-    group).  Not counted in ``solve_batch_fused.launches`` nor
-    ``prepare_launches`` (its LTV discretization is, in
-    ``ltv_discrete.launches``);
-    ``solve_batch_fused`` never calls it.  Raises where the library holds
-    no such body."""
-    from .linearize import ltv_discrete
-    if p.x0.device.type != "cuda":
-        raise ValueError("solve_batch_fused_body runs the CUDA kernel: "
-                         f"got tensors on {p.x0.device}")
-    want = BODIES.index(body)
-    return _solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
-                  functools.partial(_prepare_cuda, want=want),
-                  functools.partial(_launch_cuda, want=want), ltv_discrete)
 
 
 def count_fused_ops(prob: ShootingProblem, p: MPCParams,
@@ -1164,7 +987,8 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     body linearizes by another method (the folded Jacobian): there the
     one-thread body is the arithmetic it replaced, and its minimum is None
     (the function's is ``body="group"``'s)."""
-    lib = _cpu_library(prob, "flop_count")
+    target = _check_kernel(prob)
+    lib = _build.cpu_library(target.generated or "flop_count")
     counts = torch.zeros(8, dtype=torch.float64)
     group = {"thread": 0, "group": 1}[body]
     fn = lambda *args: lib.mpc_fused_count_ops(*args, group,
@@ -1178,7 +1002,7 @@ def count_fused_ops(prob: ShootingProblem, p: MPCParams,
     kinds = ("add", "mul", "div_sqrt", "transcendental")
     tally = dict(zip(kinds, counts[:4].tolist()))
     minimum = dict(zip(kinds, (counts[:4] - counts[4:]).tolist()))
-    folded = _mode(prob) == "fast" and _cuda_library(prob) == "fused_sqp"
+    folded = target.mode == "fast" and target.cuda == "fused_sqp"
     return dict(body=tally, minimum=None if folded and not group else minimum,
                 card_body=card_body(prob))
 
@@ -1201,7 +1025,7 @@ def count_block_path(prob: ShootingProblem, p: MPCParams,
     ``csrc/flop_count.cpp`` ``mpc_fused_count_path`` counts them on the
     body run by g++ in float64.  The numerator of the block body's
     dependency-chain bound (``chip_smoke.py``)."""
-    lib = _cpu_library(prob, "flop_count")
+    lib = _build.cpu_library(_check_kernel(prob).generated or "flop_count")
     path = torch.zeros(len(BLOCK_REGIONS), dtype=torch.float64)
     fn = lambda *args: lib.mpc_fused_count_path(*args, path.data_ptr())
     host = lambda t: None if t is None else t.detach().to("cpu",

@@ -16,7 +16,7 @@ version:
   the model: the serial arms in ``fused_sqp.cu`` (the folded columns of
   ``arm_dynamics.cuh``), the closed forms in ``fused_sqp_models.cu``, a
   user's model in the generated build of its LTV unit
-  (``fused.ltv_unit``).  Plain version ``linearize_batch_plain``: the
+  (``target.model_kernel``).  Plain version ``linearize_batch_plain``: the
   vmapped ``Dynamics.linearize``;
 - ``ltv_discrete(prob, p)``: the streamed increment form (Ad - I, Bd, cd)
   of the exact discrete step under ``prob.integrator``, (B, nx, nx),
@@ -24,14 +24,14 @@ version:
   batch-innermost, the layout the fused solve streams, and they are
   returned as batch-leading views of that storage, so the solve copies
   nothing.  Its kernel lives with the ``Ltv`` policy: ``fused_sqp_ltv.cu``
-  for ``fused.LTV_SHAPES``, the problem's generated LTV unit for any other
-  shape.  Plain version ``ltv_discrete_plain``: ``batched._ltv_discrete``
-  and ``Ad - I``.
+  for ``target.LTV_SHAPES``, the problem's generated LTV unit for any other
+  shape (``target.kernel_target``).  Plain version
+  ``ltv_discrete_plain``: ``batched._ltv_discrete`` and ``Ad - I``.
 
 The route is decided from the model before anything is built or launched
-(``linearize_route``): a model with a CUDA form, hand-written or generated
-(``fused.fused_supported``'s rule: lanes-polymorphic and lowered by
-``models/codegen.py``), takes the kernel on the card; any other model
+(``target.model_kernel``): a model with a CUDA form, hand-written or
+generated (``fused.fused_supported``'s rule: lanes-polymorphic and lowered
+by ``models/codegen.py``), takes the kernel on the card; any other model
 (non-lanes dynamics, an ``f`` the generator cannot lower) takes the eager
 route, the plain version, counted in ``linearize_batch.eager_calls``.
 On CPU tensors each function runs its plain version; on CUDA tensors a
@@ -47,61 +47,46 @@ a counting scalar (``csrc/flop_count.cpp``); ``linearize_tile`` and
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.func import vmap
 
+from .. import _build
 from ..ops.precision import strict_fp32
 from ..transcribe.shooting import MPCParams, ShootingProblem
 from .batched import _ltv_discrete, check_lin
-from .fused import (GENERATED_ID, INTEGRATORS, _cpu_library, _cuda_library,
-                    _kernel_model, _user_model, ltv_unit)
+from .target import (GENERATED_ID, INTEGRATORS, KernelTarget, ModelKernel,
+                     kernel_target, model_kernel)
 
 Tensor = torch.Tensor
 _REALS = {torch.float32: ("f32", ctypes.c_float),
           torch.float64: ("f64", ctypes.c_double)}
 
 
-@functools.lru_cache(maxsize=None)
-def linearize_route(dyn) -> str:
-    """"kernel" when the model has a CUDA form (a serial arm with nq 2 or
-    4, a closed form, or a lanes-polymorphic ``f`` the code generator
-    lowers), decided by tracing before anything is built; "eager"
-    otherwise."""
-    if _kernel_model(dyn) is not None or _user_model(dyn):
-        return "kernel"
-    return "eager"
+def _model(dyn) -> ModelKernel:
+    """``model_kernel(dyn)``; raises for a model on the eager route."""
+    kernel = model_kernel(dyn)
+    if kernel is None:
+        raise ValueError(f"the build holds no linearization of "
+                         f"{dyn.name!r} (model {GENERATED_ID})")
+    return kernel
 
 
-def linearize_library(dyn):
-    """The library that holds the model's linearization (a
-    ``_build.CUDA_LIBRARIES`` name or a generated one), or None on the
-    eager route."""
-    if linearize_route(dyn) == "eager":
-        return None
-    if _kernel_model(dyn) is not None:
-        return ("fused_sqp" if getattr(dyn, "chain", None) is not None
-                else "fused_sqp_models")
-    from .._build import register_generated
-    return register_generated(ltv_unit(dyn, dyn.nx, dyn.nu))
-
-
-def _cpu_build(dyn, name: str):
-    """The g++ build of the model's linearization: the hand-written library
+def _linearization_build(dyn, name: str):
+    """The g++ build of the model's linearization: the hand-written build
     ``name`` (it holds every hand-written model) or the model's generated
     one."""
-    from .._build import cpu_library
-    lib = linearize_library(dyn)
-    return cpu_library(name if lib in ("fused_sqp", "fused_sqp_models")
-                       else lib)
+    library = _model(dyn).library
+    return _build.cpu_library(library if library in _build.GENERATED
+                              else name)
 
 
-def _model_args(dyn):
-    """(model id, constants) of the kernels' C interface."""
-    hand = _kernel_model(dyn)
-    model, consts = hand if hand is not None else (GENERATED_ID, [0.0])
-    return model, (ctypes.c_double * len(consts))(*consts)
+def _discrete_target(prob: ShootingProblem) -> KernelTarget:
+    """The instantiation that holds ``prob``'s Ltv policy."""
+    if prob.integrator not in INTEGRATORS:
+        raise ValueError(f"no LTV discretization under "
+                         f"{prob.integrator!r}")
+    return kernel_target(prob)
 
 
 def _real(t: Tensor):
@@ -141,8 +126,9 @@ def _linearize_call(fn, dyn, x0, u0, stream):
     """One call of a linearization build (``fn``: a CUDA launcher when
     ``stream`` is given, else the g++ build)."""
     x0, u0, out = _linearize_args(dyn, x0, u0)
-    model, consts = _model_args(dyn)
-    args = [x0.shape[0], model, dyn.nx, dyn.nu, consts,
+    model, consts, _ = _model(dyn)
+    args = [x0.shape[0], model, dyn.nx, dyn.nu,
+            (ctypes.c_double * len(consts))(*consts),
             x0.data_ptr(), u0.data_ptr(), *[t.data_ptr() for t in out]]
     rc = fn(*args) if stream is None else fn(*args, stream)
     if rc == -1:
@@ -162,7 +148,7 @@ def linearize_batch(dyn, x0: Tensor, u0: Tensor):
 
     On CUDA tensors: the kernel (float32 or float64) on the current stream
     of their device, counted in ``linearize_batch.launches``, where
-    ``linearize_route`` names it; the eager route runs the plain version
+    ``target.model_kernel`` names it; the eager route runs the plain version
     (``linearize_batch.eager_calls``).  On CPU tensors: the plain
     version.  Any other device raises."""
     kind = x0.device.type
@@ -170,12 +156,12 @@ def linearize_batch(dyn, x0: Tensor, u0: Tensor):
         return linearize_batch_plain(dyn, x0, u0)
     if kind != "cuda":
         raise ValueError(f"no linearization for device type {kind!r}")
-    if linearize_route(dyn) == "eager":
+    kernel = model_kernel(dyn)
+    if kernel is None:
         linearize_batch.eager_calls += 1
         return linearize_batch_plain(dyn, x0, u0)
-    from .._build import cuda_build
     bits, _ = _real(x0)
-    fn = getattr(cuda_build(linearize_library(dyn))[0],
+    fn = getattr(_build.cuda_build(kernel.library)[0],
                  f"mpc_linearize_launch_{bits}")
     out = _on_stream(x0.device,
                      lambda s: _linearize_call(fn, dyn, x0, u0, s))
@@ -206,7 +192,8 @@ def linearize_batch_cpu_kernel(dyn, x0: Tensor, u0: Tensor,
     model with a CUDA form), each phase's threads one after another (last
     to first with ``reverse``): how the tests run it without a card."""
     bits, _ = _real(x0)
-    fn = getattr(_cpu_build(dyn, "fused_sqp"), f"mpc_linearize_cpu_{bits}")
+    fn = getattr(_linearization_build(dyn, "fused_sqp"),
+                 f"mpc_linearize_cpu_{bits}")
     return _linearize_call(lambda *a: fn(*a, int(reverse)), dyn, x0, u0,
                            None)
 
@@ -226,9 +213,6 @@ def _discrete_call(fn, prob: ShootingProblem, p: MPCParams, stream):
             raise ValueError(f"lin.{k} on {t.device}, x0 on {device}")
     new = lambda *s: torch.empty(s + (B,), dtype=dtype, device=device)
     out = (new(nx, nx), new(nx, nu), new(nx))
-    if prob.integrator not in INTEGRATORS:
-        raise ValueError(f"no LTV discretization under "
-                         f"{prob.integrator!r}")
     args = [B, nx, nu, INTEGRATORS.index(prob.integrator), real(prob.dt),
             *[t.data_ptr() for t in ins], *[t.data_ptr() for t in out]]
     rc = fn(*args) if stream is None else fn(*args, stream)
@@ -255,9 +239,8 @@ def ltv_discrete(prob: ShootingProblem, p: MPCParams):
         return ltv_discrete_plain(prob, p)
     if kind != "cuda":
         raise ValueError(f"no LTV discretization for device type {kind!r}")
-    from .._build import cuda_build
     bits, _ = _real(p.x0)
-    fn = getattr(cuda_build(_cuda_library(prob))[0],
+    fn = getattr(_build.cuda_build(_discrete_target(prob).cuda)[0],
                  f"mpc_ltv_discrete_launch_{bits}")
     out = _on_stream(p.x0.device,
                      lambda s: _discrete_call(fn, prob, p, s))
@@ -284,10 +267,11 @@ def ltv_discrete_cpu_kernel(prob: ShootingProblem, p: MPCParams,
                             reverse: bool = False):
     """The kernel's blocks built by g++ (float32 or float64 CPU tensors;
     ``reverse`` as ``linearize_batch_cpu_kernel``): the hand-written build
-    for ``fused.LTV_SHAPES``, the problem's generated one for any other
+    for ``target.LTV_SHAPES``, the problem's generated one for any other
     shape."""
     bits, _ = _real(p.x0)
-    fn = getattr(_cpu_library(prob, "fused_sqp"),
+    fn = getattr(_build.cpu_library(_discrete_target(prob).generated
+                                    or "fused_sqp"),
                  f"mpc_ltv_discrete_cpu_{bits}")
     return _discrete_call(lambda *a: fn(*a, int(reverse)), prob, p, None)
 
@@ -300,10 +284,9 @@ _DISCRETE_QUERY = -100
 
 
 def _tile(library: str, model: int, nx: int, nu: int, dtype) -> dict:
-    from .._build import cuda_build
     bits, _ = _REALS[dtype]
     out = (ctypes.c_int * 4)()
-    n = getattr(cuda_build(library)[0],
+    n = getattr(_build.cuda_build(library)[0],
                 f"mpc_ltv_path_blocks_per_sm_{bits}")(model, nx, nu, out)
     if n < 0:
         raise RuntimeError(f"no LTV kernel at ({nx}, {nu}) in {library} "
@@ -316,15 +299,15 @@ def linearize_tile(dyn, dtype=torch.float32) -> dict:
     """The linearization kernel of ``dyn`` in ``dtype`` (a model on the
     kernel route): instances a tile, threads an instance, threads and
     shared bytes a block, blocks an SM (needs the card)."""
-    return _tile(linearize_library(dyn), _model_args(dyn)[0], dyn.nx,
-                 dyn.nu, dtype)
+    kernel = _model(dyn)
+    return _tile(kernel.library, kernel.model, dyn.nx, dyn.nu, dtype)
 
 
 def ltv_discrete_tile(prob: ShootingProblem, dtype=torch.float32) -> dict:
     """The discretization kernel of ``prob``'s shape in ``dtype``, as
     ``linearize_tile`` reports it."""
-    return _tile(_cuda_library(prob), _DISCRETE_QUERY, prob.nx, prob.nu,
-                 dtype)
+    return _tile(_discrete_target(prob).cuda, _DISCRETE_QUERY, prob.nx,
+                 prob.nu, dtype)
 
 
 # ---- operation counts (the kernels' roofline bounds) -------------------------
@@ -351,12 +334,13 @@ def count_linearize_ops(dyn, x0: Tensor, u0: Tensor) -> dict:
     value part once (a serial arm's q tasks each form it, and its qd tasks
     run the chain's values again; every other model's one-tangent passes
     each form f), and is the numerator of the kernel's roofline bound."""
-    lib = _cpu_build(dyn, "flop_count")
+    lib = _linearization_build(dyn, "flop_count")
+    model, consts, _ = _model(dyn)
     x0, u0 = _host64(x0), _host64(u0)
     counts = torch.zeros(8, dtype=torch.float64)
-    model, consts = _model_args(dyn)
     rc = lib.mpc_linearize_count_ops(x0.shape[0], model, dyn.nx, dyn.nu,
-                                     consts, x0.data_ptr(), u0.data_ptr(),
+                                     (ctypes.c_double * len(consts))(*consts),
+                                     x0.data_ptr(), u0.data_ptr(),
                                      counts.data_ptr())
     if rc != 0:
         raise ValueError(f"no linearization of {dyn.name!r} to count "
@@ -370,7 +354,8 @@ def count_ltv_discrete_ops(prob: ShootingProblem, p: MPCParams) -> dict:
     the minimum counts it once)."""
     lin = [_host64(t) for t in check_lin(prob, p)]
     counts = torch.zeros(8, dtype=torch.float64)
-    rc = _cpu_library(prob, "flop_count").mpc_ltv_discrete_count_ops(
+    rc = _build.cpu_library(_discrete_target(prob).generated
+                            or "flop_count").mpc_ltv_discrete_count_ops(
         p.x0.shape[0], prob.nx, prob.nu, INTEGRATORS.index(prob.integrator),
         float(prob.dt), *[t.data_ptr() for t in lin], counts.data_ptr())
     if rc != 0:

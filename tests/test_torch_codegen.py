@@ -32,9 +32,9 @@ from mahi_mpc_tpu_torch._build import (BUILD_DIR, cpu_build_all,
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.models.codegen import Unsupported, lower, lowerable
-from mahi_mpc_tpu_torch.solver.fused import (GENERATED_ID, INTEGRATORS,
-                                             _cuda_library, fused_supported,
-                                             generated_unit)
+from mahi_mpc_tpu_torch.solver.fused import fused_supported
+from mahi_mpc_tpu_torch.solver.target import (GENERATED_ID, INTEGRATORS,
+                                              kernel_target)
 from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
 
 torch.set_num_threads(1)
@@ -100,7 +100,8 @@ def _problem(dyn, integrator="rk4", is_linear=False):
 @pytest.fixture(scope="module")
 def ops_libraries():
     """Every generated unit this file runs, built by one concurrent call."""
-    names = {k: _cuda_library(_problem(d)) for k, d in OPS_MODELS.items()}
+    names = {k: kernel_target(_problem(d)).cuda
+             for k, d in OPS_MODELS.items()}
     libs = cpu_build_all(names.values())
     return {k: libs[n] for k, n in names.items()}
 
@@ -278,7 +279,7 @@ def test_rule_matches_jax(kind, name, integrator):
         # a hand-written instantiation or a generated one serves it
         hand = kind == "model" or (kind == "ltv" and (dyn.nx, dyn.nu) in
                                    ((8, 4), (4, 2), (4, 1), (2, 1)))
-        assert (generated_unit(prob) is None) == hand
+        assert (kernel_target(prob).unit is None) == hand
 
 
 # ---- builds ----------------------------------------------------------------

@@ -40,10 +40,10 @@ from mahi_mpc_tpu_torch._build import cpu_library
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.integrators import make_increment, make_step
 from mahi_mpc_tpu_torch.ops.precision import strict_fp32
-from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _kernel_model,
-                                             count_fused_ops,
+from mahi_mpc_tpu_torch.solver.fused import (count_fused_ops,
                                              solve_batch_fused_cpu_kernel,
                                              solve_batch_fused_plain)
+from mahi_mpc_tpu_torch.solver.target import INTEGRATORS, model_kernel
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
                                                     make_problem)
@@ -162,7 +162,7 @@ def test_kernel_increment_rows_match_torch(name, integrator):
     rng = np.random.default_rng(11)
     x = torch.tensor(rng.standard_normal((nx, M)))
     u = torch.tensor(rng.standard_normal((nu, M)))
-    model, consts = _kernel_model(dyn)
+    model, consts, _ = model_kernel(dyn)
     consts_c = (ctypes.c_double * len(consts))(*consts)
     integ = INTEGRATORS.index(integrator)
 

@@ -1,5 +1,5 @@
-"""The fused kernel's generated instantiations (``solver/fused.py``
-``generated_unit``: a user's model emitted as C++ by
+"""The fused kernel's generated instantiations (``solver/target.py``
+``kernel_target``: a user's model emitted as C++ by
 ``models/codegen.py``, or an LTV shape outside the four hand-written
 ones), run through their g++ builds, the kernel bodies' own arithmetic.
 
@@ -20,7 +20,7 @@ ones), run through their g++ builds, the kernel bodies' own arithmetic.
   model at B=1, at its block body's threshold and past it.
 - LTV at (3, 2) and (12, 6) against the plain version; at (12, 6) and
   (6, 3) the group body bitwise the one-thread body; the body the rule
-  picks, and the timing build that holds both bodies for the card.
+  picks.
 - ``generate_model`` -> ``ModelControl`` with a user ``Dynamics`` on the
   CPU, and the library it names for the card.
 """
@@ -44,17 +44,16 @@ from mahi_mpc_tpu.transcribe.shooting import LinPoint as JaxLinPoint
 from mahi_mpc_tpu.transcribe.shooting import default_params as jax_default_params
 from mahi_mpc_tpu.transcribe.shooting import make_problem as jax_make_problem
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
-from mahi_mpc_tpu_torch._build import _generated_source, cpu_build_all
+from mahi_mpc_tpu_torch._build import cpu_build_all
 from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.runtime import ModelControl, generate_model
 from mahi_mpc_tpu_torch.runtime.generate import kernel_libraries
-from mahi_mpc_tpu_torch.solver.fused import (_cuda_library, card_body,
-                                             fused_supported,
-                                             generated_unit,
+from mahi_mpc_tpu_torch.solver.fused import (card_body, fused_supported,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
+from mahi_mpc_tpu_torch.solver.target import kernel_target
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
                                                     make_problem)
@@ -184,7 +183,7 @@ def builds():
          "euler"),
         (Dynamics("chain4", 8, 4, _chain_torch(4), supports_lanes=True,
                   nq=4), "euler"))]
-    cpu_build_all(["fused_sqp"] + [_cuda_library(p) for p in probs])
+    cpu_build_all(["fused_sqp"] + [kernel_target(p).cuda for p in probs])
 
 
 def _cold_then_warm(prob, p, solve):
@@ -210,8 +209,8 @@ def test_generated_matches_hand_written(builds, name, integrator, body):
     mp = _mp(user, integrator, ulim=60.0, dt=0.005)
     prob_gen, prob_hand = make_problem(mp, user), make_problem(
         mp, make_dynamics(name))
-    assert generated_unit(prob_gen) is not None
-    assert generated_unit(prob_hand) is None
+    assert kernel_target(prob_gen).unit is not None
+    assert kernel_target(prob_hand).unit is None
     assert card_body(prob_gen, 1) == ("block", 256)
     hand_body = body
     if body == "block" and card_body(prob_hand, 1)[0] != "block":
@@ -311,7 +310,7 @@ def test_generated_matches_jax(jax_pairs, key, n_iter):
     each body the card runs it on (the block body for Van der Pol and the
     chain at their batch)."""
     rj, runs, prob = jax_pairs[key, n_iter]
-    assert generated_unit(prob) is not None
+    assert kernel_target(prob).unit is not None
     assert ("block" in runs) == (key in ("vdp", "chain4"))
     for body, rt in runs.items():
         np.testing.assert_allclose(rt.X.numpy(), rj.X, rtol=0, atol=2e-5,
@@ -379,7 +378,7 @@ def test_generated_ltv_matches_plain(builds, shape, dtype):
     dyn = _ltv_torch(*shape)
     mp = _mp(dyn, "euler", True)
     prob = make_problem(mp, dyn)
-    assert fused_supported(prob) and generated_unit(prob) is not None
+    assert fused_supported(prob) and kernel_target(prob).unit is not None
     assert card_body(prob) == WIDE_BODY.get(shape, ("thread", 1))
     p = _params(mp, dyn, dtype)
     atol = 1e-8 if dtype == torch.float64 else 2e-5
@@ -432,25 +431,6 @@ def test_ltv_card_body_rule(builds, shape):
     assert card_body(prob) == LTV_RULE[shape] == card_body(prob, 1)
 
 
-@pytest.mark.parametrize("shape", LTV_WIDE, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_ltv_timing_build_is_a_library_apart(shape):
-    """The library a generated LTV shape runs (``_cuda_library``) holds the
-    rule's body alone; its timing build (``both_bodies``), which
-    ``solve_batch_fused_body`` loads to time the two bodies against each
-    other, is another library whose CUDA source differs only in the flag
-    ``kBothBodiesBuild``."""
-    dyn = _ltv_torch(*shape)
-    prob = make_problem(_mp(dyn, "euler", True), dyn)
-    lib, timing = _cuda_library(prob), _cuda_library(prob, both_bodies=True)
-    assert lib != timing and lib.startswith("gen-") and \
-        timing.startswith("gen-")
-    src = {n: _generated_source(n, "cuda").read_text() for n in (lib, timing)}
-    flag = "MPC_FUSED_LIBRARY(mpc::kGenerated | kBothBodiesBuild)"
-    assert "kBothBodiesBuild" not in src[lib] and flag in src[timing]
-    assert src[timing].replace(flag, "MPC_FUSED_LIBRARY(mpc::kGenerated)") \
-        == src[lib]
-
-
 # ---- the runtime with a user Dynamics ----------------------------------------
 
 def test_generate_model_then_model_control_with_user_dynamics(tmp_path):
@@ -469,7 +449,7 @@ def test_generate_model_then_model_control_with_user_dynamics(tmp_path):
                                     opts=opts, device="cpu").read_text())
     assert man["libraries"] == {} and man["warm_solver"] == "fixed"
     prob = make_problem(mp, dyn)
-    lib = _cuda_library(prob)
+    lib = kernel_target(prob).cuda
     assert lib.startswith("gen-")
     assert kernel_libraries(prob, opts, "cuda") == [lib]
     mc = ModelControl("user_vdp", directory=tmp_path, dynamics=dyn,

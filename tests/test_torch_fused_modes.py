@@ -38,11 +38,11 @@ from mahi_mpc_tpu_torch._build import cpu_library
 from mahi_mpc_tpu_torch.convert import params_from_numpy
 from mahi_mpc_tpu_torch.models import make_dynamics
 from mahi_mpc_tpu_torch.models.integrators import make_step
-from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _kernel_model,
-                                             _mode, card_body,
-                                             fused_supported,
+from mahi_mpc_tpu_torch.solver.fused import (card_body, fused_supported,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
+from mahi_mpc_tpu_torch.solver.target import (INTEGRATORS, kernel_target,
+                                              model_kernel)
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
                                                     make_problem)
@@ -74,7 +74,7 @@ def test_kernel_model_dynamics_match_torch(name, integrator):
     u = torch.tensor(rng.standard_normal((nu, M)))
     out = [torch.empty(s, dtype=torch.float64)
            for s in ((nx, M), (nx, nz, M), (nx, M), (nx, nz, M))]
-    model, consts = _kernel_model(dyn)
+    model, consts, _ = model_kernel(dyn)
     rc = cpu_library().mpc_model_eval_cpu_f64(
         M, model, INTEGRATORS.index(integrator), x.data_ptr(), u.data_ptr(),
         dt, (ctypes.c_double * len(consts))(*consts),
@@ -173,7 +173,7 @@ def test_kernel_body_matches_plain_f64(case, body):
     adaptive and warm fixed-3; every instance converges cold."""
     prob, p = _problem(*case, torch.float64)
     assert fused_supported(prob)
-    assert _mode(prob) == ("ltv" if case[2] else
+    assert kernel_target(prob).mode == ("ltv" if case[2] else
                            "fast" if case[1] == "euler" else "generic")
     assert card_body(prob) == CARD_BODY[case]
     kernel = _cold_then_warm(prob, p, _kernel(body))
@@ -342,7 +342,7 @@ def _check_generic_warm(prob, tp2, X0, U0, rw_U):
     """Fixed-3 warm solves through the generic nx-row path (plain version
     and both kernel bodies) from a lanes cold plan: U at atol 2e-5 of the
     lanes warm solve ``rw_U``, every instance converged."""
-    assert _mode(prob) == "generic"
+    assert kernel_target(prob).mode == "generic"
     opts = SolverOptions(tol=1e-4, max_iter=40)
     for solve in [solve_batch_fused] + [_kernel(b) for b in ("thread",
                                                              "group")]:

@@ -49,6 +49,7 @@ from mahi_mpc_tpu_torch.solver.fused import (card_body, solve_batch_fused,
                                              solve_batch_fused_plain)
 from mahi_mpc_tpu_torch.solver.linearize import ltv_discrete
 from mahi_mpc_tpu_torch.solver.sqp import _start
+from mahi_mpc_tpu_torch.solver.target import kernel_target
 from mahi_mpc_tpu_torch.utils.profiling import clear_spans, spans
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
@@ -398,7 +399,7 @@ def _old_route(prob, p, X0, U0, opts, mu0, n_iter):
     with strict_fp32():
         ltv = ltv_discrete(prob, p) if prob.is_linear else None
         X, U, st = fused._launch_cuda(prob, opts, p,
-                                      (fused._cuda_library(prob), ws),
+                                      (kernel_target(prob).cuda, ws),
                                       n_iter, fused.LS_FAN_FIXED, False, ltv)
     return fused._status(opts, X, U, st, mu, lc.mu_floor(opts), n_iter,
                          False)

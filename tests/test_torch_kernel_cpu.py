@@ -19,10 +19,10 @@ import torch
 from mahi_mpc_tpu_torch import ModelParameters, SolverOptions
 from mahi_mpc_tpu_torch._build import cpu_library
 from mahi_mpc_tpu_torch.models import make_dynamics
-from mahi_mpc_tpu_torch.solver.fused import (_acc_jacobian, _arm_flat,
-                                             count_fused_ops,
+from mahi_mpc_tpu_torch.solver.fused import (_acc_jacobian, count_fused_ops,
                                              solve_batch_fused,
                                              solve_batch_fused_cpu_kernel)
+from mahi_mpc_tpu_torch.solver.target import arm_flat
 from mahi_mpc_tpu_torch.transcribe.shooting import (LinPoint, MPCParams,
                                                     default_params,
                                                     make_problem)
@@ -128,7 +128,7 @@ def test_kernel_dynamics_and_jacobian_rows(lib, name, dtype):
     u = torch.tensor(rng.standard_normal((nu, M)), dtype=dtype)
     fval = torch.empty(nx, M, dtype=dtype)
     jrows = torch.empty(nq, nx + nu, M, dtype=dtype)
-    arm = _arm_flat(dyn)
+    arm = arm_flat(dyn)
     f64 = dtype == torch.float64
     fn = lib.mpc_arm_eval_cpu_f64 if f64 else lib.mpc_arm_eval_cpu_f32
     rc = fn(M, nq, x.data_ptr(), u.data_ptr(), dt,
@@ -163,7 +163,7 @@ def test_folded_jacobian_rows(lib, name, dtype):
     rng = np.random.default_rng(5)
     x = torch.tensor(rng.standard_normal((nx, M)), dtype=dtype)
     u = torch.tensor(rng.standard_normal((nu, M)), dtype=dtype)
-    arm = _arm_flat(dyn)
+    arm = arm_flat(dyn)
     arm_c = (ctypes.c_double * len(arm))(*arm)
     bits = "f64" if dtype == torch.float64 else "f32"
     out = {}

@@ -38,6 +38,7 @@ from mahi_mpc_tpu_torch.models.base import Dynamics
 from mahi_mpc_tpu_torch.runtime import BatchModelControl
 from mahi_mpc_tpu_torch.runtime import batch_service
 from mahi_mpc_tpu_torch.solver import fused, linearize as lz
+from mahi_mpc_tpu_torch.solver.target import kernel_target, model_kernel
 from mahi_mpc_tpu_torch.transcribe.shooting import LinPoint, MPCParams
 from mahi_mpc_tpu_torch.transcribe.shooting import default_params
 from mahi_mpc_tpu_torch.transcribe.shooting import make_problem
@@ -110,7 +111,7 @@ def test_linearize_matches_jax(name, dtype):
     seed 0's points: A, B and x_dot0, each within the dtype's band; both
     routes resolve to the kernel."""
     dyn, _ = _models(name)
-    assert lz.linearize_route(dyn) == "kernel"
+    assert model_kernel(dyn) is not None
     x0, u0 = [torch.tensor(a, dtype=getattr(torch, dtype))
               for a in _points(dyn)]
     ref = _jax_linearize(name, dtype)
@@ -156,7 +157,7 @@ def test_ltv_discrete_matches_jax(shape, integrator, dtype):
     within the dtype's band; the kernel's outputs are batch-leading views of
     batch-innermost storage (what the fused solve streams, uncopied)."""
     prob, p, ref = _ltv_case(shape, integrator, dtype)
-    assert (fused.generated_unit(prob) is None) == (shape != (6, 3))
+    assert (kernel_target(prob).unit is None) == (shape != (6, 3))
     got = lz.ltv_discrete_cpu_kernel(prob, p)
     assert all(g.movedim(0, -1).is_contiguous() for g in got)
     for fn_got in (got, lz.ltv_discrete(prob, p)):
@@ -319,8 +320,7 @@ def test_unlowerable_model_takes_the_eager_route(monkeypatch):
     pend = make_dynamics("pendulum")
     for dyn in (Dynamics("user_atan", 2, 1, arctan, supports_lanes=True),
                 Dynamics("per_instance", 2, 1, pend.f)):
-        assert lz.linearize_route(dyn) == "eager"
-        assert lz.linearize_library(dyn) is None
+        assert model_kernel(dyn) is None
         x0 = torch.tensor([[0.3, -0.1], [-0.2, 0.4]])
         u0 = torch.tensor([[0.5], [-0.5]])
         calls = lz.linearize_batch_plain.calls
@@ -346,7 +346,8 @@ def _gxx_fused(prob, p, X0=None, U0=None, opts=SolverOptions(), mu0=None,
     """``solve_batch_fused`` on the g++ bodies: the fused kernel's
     one-thread body fed by the discretization kernel's."""
     bits = "f32" if p.x0.dtype == torch.float32 else "f64"
-    fn = getattr(fused._cpu_library(prob, "fused_sqp"),
+    fn = getattr(_build.cpu_library(kernel_target(prob).generated
+                                    or "fused_sqp"),
                  f"mpc_fused_solve_cpu_{bits}")
     return fused._solve(prob, p, X0, U0, opts, mu0, n_iter, ls_fan, adaptive,
                         fused._prepare_cpu,

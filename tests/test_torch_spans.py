@@ -158,7 +158,7 @@ def test_launch_span_records_what_ran(monkeypatch, is_linear, integrator,
 def test_launch_records_the_body_the_launcher_wrote():
     """On the card the launcher writes the body it launched and its
     threads an instance; -1 where it launched nothing (B = 0)."""
-    launched = lambda body, width: (-1, (ctypes.c_int * 2)(body, width))
+    launched = lambda body, width: (ctypes.c_int * 2)(body, width)
     assert fused._launched(None, launched(1, 4)) == dict(body="group",
                                                          width=4)
     assert fused._launched(None, launched(2, 256)) == dict(body="block",

@@ -14,21 +14,12 @@ calls), wrapper included, as ``chip_smoke.py``'s ``timing_fused_modes``
 does, and the kernel's own device time a fixed-3 launch
 (``torch.profiler``, 5 launches); it holds the fixed-3 warm solve to the
 plain version on the same inputs (max |dX|, |dU|, the smoke's 1e-4).
-Where the checkout has the block body (``solve_batch_fused_body``), each
-case at a batch of ``BLOCK_LADDER`` whose policy has a block body is also
-timed on both bodies, the block body and the body the rule runs at full
-occupancy (group or one thread; device ms a fixed-3 launch by CUDA events
-around 20 launches of the kernel alone, ``chip_smoke.py``
-``kernel_event_ms``, in turns other, block, block, other), each held to
-the plain version: the registered policies (``CASES``) and a user's own
-model under each generated policy (``GENERATED``: ``chip_smoke.py``
-phase 23's ``user_vdp``, ``user_cartpole``, ``user_chain4``, data from
-its ``generated_batch``); and each generated LTV chain of ``GENERATED``
-on the one-thread body and the group body where the checkout has a
-timing build that holds both (``_cuda_library(prob, both_bodies=True)``;
-in turns thread, group, group, thread), with whether the two bodies'
-fixed-3 outputs are equal bit for bit; the case's line names the body
-the launcher's rule picks.
+Each case runs on the body the launcher's rule picks at its batch, which
+its line names: the registered policies (``CASES``), and the generated
+instantiations of ``GENERATED`` (``chip_smoke.py`` phase 23's LTV chains
+and a user's own model under each generated policy, ``user_vdp``,
+``user_cartpole``, ``user_chain4``, data from its ``generated_batch``),
+those with a block body over the batches of ``BLOCK_LADDER``.
 The LTV path's own two kernels, linearization and discretization
 (``ltv-kernel`` cases: ``chip_smoke.py``'s ``LTV_LINEARIZE_CASES`` and
 ``LTV_DISCRETE_CASES`` at B=16384 and B=1, its ``ltv_case`` data from
@@ -53,8 +44,11 @@ prints, for each case and run, whether they are equal (a case whose
 bodies differ between the two is listed and not compared) and, for an
 output that differs where both .npz files are there, its largest
 difference (absolute, and over max|.|), and builds nothing.  Prints one
-JSON line a case, the libraries' ``-Xptxas -v`` lines, and the card's
-``nvidia-smi`` name and power limit.  To compare two checkouts, run it for
+JSON line a case, the ``-Xptxas -v`` lines of the libraries it loaded,
+and the card's ``nvidia-smi`` name and power limit.  A checkout with
+``solver/target.py`` names its libraries there (they are built together
+first, and each case's line gives its kernel's blocks an SM); in one
+without it each solve builds its own library at first use.  To compare two checkouts, run it for
 each in turns on the same card (parent, change, change, parent, ...).
 Exits 1 without a CUDA device, or when a case is beyond the band of its
 plain version.
@@ -273,18 +267,20 @@ def main() -> int:
     import mahi_mpc_tpu_torch
     from mahi_mpc_tpu_torch import SolverOptions
     from mahi_mpc_tpu_torch._build import cuda_build
-    from mahi_mpc_tpu_torch.solver import fused as fused_mod
     from mahi_mpc_tpu_torch.solver import linearize as lz
-    from mahi_mpc_tpu_torch.solver.fused import (INTEGRATORS, _cuda_library,
-                                                 _model_id, card_body,
-                                                 solve_batch_fused,
+    from mahi_mpc_tpu_torch.solver.fused import (card_body, solve_batch_fused,
                                                  solve_batch_fused_plain)
+    try:
+        from mahi_mpc_tpu_torch.solver.target import (INTEGRATORS,
+                                                      kernel_target,
+                                                      model_kernel)
+    except ImportError:          # the checkout names no library up front
+        kernel_target = model_kernel = None
     # the checkout's body at a batch (a checkout before the block body has
     # one body a policy at every batch)
     takes_batch = "B" in inspect.signature(card_body).parameters
     body_at = lambda prob, batch: (card_body(prob, batch) if takes_batch
                                    else card_body(prob))[0]
-    on_body = getattr(fused_mod, "solve_batch_fused_body", None)
 
     # chip_smoke.py of this checkout: its bench-shaped data and helpers
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -315,24 +311,18 @@ def main() -> int:
     ltv_cases = [c for c in ltv_case_keys(smoke) if kept(c[0])]
     ltv_data = {c[0]: smoke.ltv_case(dev, np.random.default_rng(LTV_SEED),
                                      c[2], c[4], c[3]) for c in ltv_cases}
-    # the generated libraries, and their timing builds where the checkout
-    # has them (both bodies of an LTV shape); the LTV kernels' libraries
-    timing = "both_bodies" in inspect.signature(_cuda_library).parameters
-    names = list(dict.fromkeys(list(LIBRARIES) + [
-        lib for prob, _ in generated.values()
-        for lib in ([_cuda_library(prob)] + ([_cuda_library(
-            prob, both_bodies=True)] if timing else []))] + [
-        lz.linearize_library(dyn) if c[1] == "linearize"
-        else _cuda_library(prob)
-        for c in ltv_cases for dyn, prob, _ in [ltv_data[c[0]]]]))
+    # the generated libraries and the LTV kernels' libraries
+    names = list(LIBRARIES)
+    if kernel_target is not None:
+        names = list(dict.fromkeys(names + [
+            kernel_target(prob).cuda for prob, _ in generated.values()] + [
+            model_kernel(dyn).library if c[1] == "linearize"
+            else kernel_target(prob).cuda
+            for c in ltv_cases for dyn, prob, _ in [ltv_data[c[0]]]]))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        libs = dict(zip(names, ex.map(cuda_build, names)))
+        list(ex.map(cuda_build, names))
     build_s = time.perf_counter() - t0
-    for name, (_, report, _) in libs.items():
-        for k in smoke.ptxas_summary(report):
-            print(json.dumps(dict(label=label, library=name, **k)),
-                  flush=True)
 
     opts = SolverOptions(tol=1e-4, max_iter=12)
     opts_cold = SolverOptions(tol=1e-4, max_iter=30)
@@ -379,43 +369,15 @@ def main() -> int:
                                   "fused_sqp")
         kernels = [k for k in prof["top_kernels"] if "fused_sqp" in k[0]]
         body = body_at(prob, batch)
-        bodies, outs, turns = {}, {}, ()
-        if on_body is not None and batch in BLOCK_LADDER and \
-                body_at(prob, 1) == "block":
-            # the block body against the body at full occupancy
-            other = body_at(prob, None)
-            turns = (other, "block", "block", other)
-        elif on_body is not None and is_linear and (name, batch) in generated:
-            turns = ("thread", "group", "group", "thread")
-        for b in turns:
-            solve_b = lambda: on_body(prob, pw, ct.X, ct.U, opts,
-                                      mu0=mu_warm, n_iter=3, body=b)
-            try:
-                rb = solve_b()
-            except ValueError as e:      # the checkout has no such body
-                bodies[b] = dict(error=str(e))
-                continue
-            outs[b] = rb
-            err_b = held(rb, wp)
-            bad += not err_b <= PLAIN_BAND
-            bodies.setdefault(b, dict(device_ms=[], max_abs_dxu=err_b))
-            bodies[b]["device_ms"].append(smoke.kernel_event_ms(solve_b))
-        if len(outs) == 2:
-            a, b = outs.values()
-            bodies["bitwise_equal"] = bool(torch.equal(a.X, b.X)
-                                           and torch.equal(a.U, b.U))
-        # blocks an SM of the kernel that serves it (where the checkout's
-        # library reports it; a checkout before the body argument takes
-        # five)
-        per_sm = getattr(libs[_cuda_library(prob)][0],
-                         "mpc_fused_blocks_per_sm", None)
-        if per_sm is not None:
-            occupancy = per_sm
-            per_sm = lambda *a: occupancy(*a[:len(occupancy.argtypes)])
-        model = _model_id(prob)[0]
+        per_sm = None
+        if kernel_target is not None:
+            target = kernel_target(prob)
+            per_sm = cuda_build(target.cuda)[0].mpc_fused_blocks_per_sm(
+                target.model, prob.nx, prob.nu,
+                INTEGRATORS.index(integrator), int(is_linear))
         line = dict(
             label=label, model=name, integrator=integrator,
-            is_linear=is_linear, batch=batch, body=body, bodies=bodies,
+            is_linear=is_linear, batch=batch, body=body,
             fixed3_warm_ms=warm_ms, adaptive_cold_ms=cold_ms,
             fixed3_kernel_device_ms=prof["kernel_device_ms"]
             / max(prof["kernel_count"], 1),
@@ -425,10 +387,7 @@ def main() -> int:
             adaptive_cold_converged=(ct.status == 0).float().mean().item(),
             fixed3_converged=(wk.status == 0).float().mean().item(),
             fixed3_max_abs_dxu_vs_plain=err,
-            blocks_per_sm=None if per_sm is None else per_sm(
-                model, prob.nx, prob.nu, INTEGRATORS.index(integrator),
-                int(is_linear), -1),
-            build_s=build_s, nvidia_smi=smi)
+            blocks_per_sm=per_sm, build_s=build_s, nvidia_smi=smi)
         print(json.dumps(line), flush=True)
         saved[f"{key}/body"] = body
         for run, r in (("cold", ct), ("fixed3", wk)):
@@ -444,6 +403,10 @@ def main() -> int:
     if kept(f"ltv-service-mahi_arm-b{smoke.SERVICE_BATCH}"):
         print(json.dumps(dict(label=label, **ltv_service_case(smoke, dev),
                               nvidia_smi=smi)), flush=True)
+    for name in list(getattr(cuda_build, "seconds", {})):
+        for k in smoke.ptxas_summary(cuda_build(name)[1]):
+            print(json.dumps(dict(label=label, library=name, **k)),
+                  flush=True)
     if args.save:
         Path(args.save).write_text(json.dumps(saved, indent=0))
         if arrays:
